@@ -1,0 +1,29 @@
+"""Cross-entropy loss with optional z-loss, per lane."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+
+def cross_entropy(
+    logits: torch.Tensor,   # (K, B, S, V) fp32
+    targets: torch.Tensor,  # (K, B, S) int
+    mask: torch.Tensor,     # (K, B, S) float
+    z_loss: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-lane mean next-token loss (K,) and per-lane metrics."""
+    dims = tuple(range(1, targets.dim()))
+    lse = torch.logsumexp(logits, dim=-1)                                # (K, B, S)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - tgt
+    denom = torch.clamp(mask.sum(dim=dims), min=1.0)
+    loss = (nll * mask).sum(dim=dims) / denom
+    metrics = {"ce_loss": loss}
+    if z_loss > 0:
+        zl = z_loss * ((lse * lse) * mask).sum(dim=dims) / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    acc = ((logits.argmax(-1) == targets).float() * mask).sum(dim=dims) / denom
+    metrics["accuracy"] = acc
+    return loss, metrics
