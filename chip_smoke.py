@@ -9,19 +9,24 @@ Phases, each printing one JSON line:
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    for sm_90a and load them;
 3. kernels — each kernel against its plain PyTorch version on the card, at
-   the main path's shapes in bf16 and fp32 and on small window / softcap /
-   ragged cases (TF32 off);
-4. main_path — the HPO population trainer: the port's Experiment with the
-   random proposer and the vectorized resource manager, training K=4 trials
-   of starcoder2-3b at its published widths (depth cut to 4 layers) as one
-   lane-batched program; the kernels' launch counters must show every
-   population step went through both kernels;
-5. card_vs_cpu — the same population step on the starcoder2 smoke config in
-   fp32, once on the card (kernels) and once on the CPU (plain versions):
-   losses and parameters agree within 1e-4;
+   the main paths' shapes in bf16 and fp32 and on small cases (window /
+   softcap / ragged attention; ragged L, small N, an initial state and
+   per-lane A for the selective scan; TF32 off), and the scan's chunked
+   backward against autograd through its plain version;
+4. main_path — the HPO population trainer, twice: the port's Experiment
+   with the random proposer and the vectorized resource manager, training
+   K=4 trials as one lane-batched program, first of starcoder2-3b, then of
+   falcon-mamba-7b, each at its published widths with depth cut to 4
+   layers; the kernels' launch counters, set to 0 before each path and read
+   after it, must show that every population step went through each kernel
+   its architecture runs (and through no other);
+5. card_vs_cpu — the same population step on the starcoder2 and the
+   falcon-mamba smoke configs in fp32, once on the card (kernels) and once
+   on the CPU (plain versions): losses and parameters agree within 1e-4;
 6. timing — each kernel, its plain version and the PyTorch library call
-   that computes the same function, timed with CUDA events at the main
-   path's shapes, beside the least time the card could take.
+   that computes the same function (none for the selective scan), timed
+   with CUDA events at the main paths' shapes, beside the least time the
+   card could take.
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -46,12 +51,19 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
             "float32": 67e12}      # fp32 outside the tensor cores
 TOL = {"rmsnorm": {"float32": 1e-5, "bfloat16": 3e-2},
-       "flash_attention": {"float32": 3e-5, "bfloat16": 3e-2}}
+       "flash_attention": {"float32": 3e-5, "bfloat16": 3e-2},
+       "ssm_scan": {"float32": 1e-4, "bfloat16": 3e-2}}   # on y; h_last always 1e-4
+SSM_STATE_TOL = 1e-4
+SSM_BWD_TOL = 5e-4
 
-# the main path: starcoder2-3b at its published widths, depth cut 30 -> 4
+# the main paths, each at its published widths with depth cut to 4 layers:
+# starcoder2-3b (30 layers) and falcon-mamba-7b (64 layers)
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
+MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
 RMS_SHAPE = (4, 4096, 3072)                        # (K, B*S, d), gain (K, d)
+RMS_MAMBA_SHAPE = (4, 2048, 4096)
 FLASH_Q, FLASH_KV = (16, 1024, 24, 128), (16, 1024, 2, 128)   # (K*B, S, heads, D)
+SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (K, d_inner, N)
 
 
 def emit(obj) -> None:
@@ -71,9 +83,52 @@ def nvidia_smi() -> str:
 
 
 # ------------------------------------------------------------------- phase 3
+def ssm_inputs(torch, dev, gen, shape, n, k, dtype, h0=False):
+    """Scan inputs as the mixer makes them: x, dt (R, L, Dm) with dt a
+    softplus, B, C (R, L, N) in ``dtype``; per-lane A (K, Dm, N) < 0 and D
+    (K, Dm) in fp32; an optional fp32 h0 (R, Dm, N)."""
+    import torch.nn.functional as F
+
+    R, L, Dm = shape
+    x = (0.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    dt = F.softplus(torch.randn(shape, generator=gen, device=dev) - 1.0).to(dtype)
+    A = -torch.exp(0.3 * torch.randn((k, Dm, n), generator=gen, device=dev))
+    Bc = (0.5 * torch.randn((R, L, n), generator=gen, device=dev)).to(dtype)
+    Cc = (0.5 * torch.randn((R, L, n), generator=gen, device=dev)).to(dtype)
+    D = 0.2 * torch.randn((k, Dm), generator=gen, device=dev)
+    hh = 0.5 * torch.randn((R, Dm, n), generator=gen, device=dev) if h0 else None
+    return x, dt, A, Bc, Cc, D, hh
+
+
+def ssm_backward_case(torch, dev, gen):
+    """The autograd function's chunked backward, fed the kernel's chunk
+    states, against autograd through the plain version (fp32, ragged last
+    chunk, an initial state, two lanes)."""
+    from repro_torch.kernels import ssm_scan as ss
+
+    ins = ssm_inputs(torch, dev, gen, (4, 90, 64), 8, 2, torch.float32, h0=True)
+    w = torch.randn(ins[0].shape, generator=gen, device=dev)
+    a = [t.clone().requires_grad_(True) for t in ins]
+    b = [t.clone().requires_grad_(True) for t in ins]
+    before = ss.launches
+    y, h = ss.ssm_scan(*a, chunk=32)
+    ((y * w).sum() + h.square().sum()).backward()
+    through = ss.launches - before
+    y, h = ss.ssm_scan_plain(*b, chunk=32)
+    ((y * w).sum() + h.square().sum()).backward()
+    torch.cuda.synchronize()
+    err = max(float((g.grad - p.grad).abs().max()) for g, p in zip(a, b))
+    ok = through == 1 and all(
+        bool(torch.allclose(g.grad, p.grad, atol=SSM_BWD_TOL, rtol=SSM_BWD_TOL))
+        for g, p in zip(a, b))
+    return dict(kernel="ssm_scan", case="chunked-backward", dtype="float32",
+                max_abs_err=err, tol=SSM_BWD_TOL, kernel_launches=through, ok=ok)
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases, errs = [], {}
@@ -93,8 +148,18 @@ def check_kernels(torch, dev):
         return torch.cat([o.float().flatten(), l.flatten()]), \
             torch.cat([po.float().flatten(), pl.flatten()])
 
+    def ssm(shape, n, k, dtype, h0=False):
+        """y and h_last of the kernel and of the plain version, flattened:
+        the first x.numel() entries are y, the rest h_last."""
+        x, dt, A, Bc, Cc, D, hh = ssm_inputs(torch, dev, gen, shape, n, k, dtype, h0)
+        y, h = ss.ssm_scan_cuda(x, dt, A, Bc, Cc, D, hh)
+        yp, hp = ss.ssm_scan_plain(x, dt, A, Bc, Cc, D, hh)
+        return torch.cat([y.float().flatten(), h.flatten()]), \
+            torch.cat([yp.float().flatten(), hp.flatten()]), y.numel()
+
     runs = [
         ("rmsnorm", "main", "bfloat16", lambda: rms(RMS_SHAPE, torch.bfloat16)),
+        ("rmsnorm", "mamba-main", "bfloat16", lambda: rms(RMS_MAMBA_SHAPE, torch.bfloat16)),
         ("rmsnorm", "main", "float32", lambda: rms(RMS_SHAPE, torch.float32)),
         ("rmsnorm", "d=100", "float32", lambda: rms((2, 33, 100), torch.float32)),
         ("flash_attention", "main", "bfloat16",
@@ -110,18 +175,35 @@ def check_kernels(torch, dev):
                        softcap=50.0)),
         ("flash_attention", "ragged-200", "bfloat16",
          lambda: flash((2, 200, 4, 16), (2, 200, 2, 16), torch.bfloat16)),
+        ("ssm_scan", "main", "bfloat16",
+         lambda: ssm(SSM_X, SSM_N, SSM_K, torch.bfloat16)),
+        ("ssm_scan", "main", "float32",
+         lambda: ssm(SSM_X, SSM_N, SSM_K, torch.float32)),
+        ("ssm_scan", "ragged-100-N4-h0-2lanes", "float32",
+         lambda: ssm((4, 100, 200), 4, 2, torch.float32, h0=True)),
+        ("ssm_scan", "ragged-100-N4-h0-2lanes", "bfloat16",
+         lambda: ssm((4, 100, 200), 4, 2, torch.bfloat16, h0=True)),
     ]
     for name, case, dtype, run in runs:
-        got, want = run()
+        got, want, *split = run()
         torch.cuda.synchronize()
         tol = TOL[name][dtype]
-        err = float((got.float() - want.float()).abs().max())
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
         ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
-        cases.append(dict(kernel=name, case=case, dtype=dtype, max_abs_err=err, tol=tol,
-                          ok=ok))
+        row = dict(kernel=name, case=case, dtype=dtype, max_abs_err=err, tol=tol)
+        if split:  # the scan: y at the dtype's tolerance, h_last at 1e-4
+            n_y = split[0]
+            err = float(d[:n_y].max())
+            ok = bool(torch.allclose(got[:n_y], want[:n_y], atol=tol, rtol=tol)) and bool(
+                torch.allclose(got[n_y:], want[n_y:], atol=SSM_STATE_TOL, rtol=SSM_STATE_TOL))
+            row.update(max_abs_err=err, h_last_max_abs_err=float(d[n_y:].max()),
+                       h_last_tol=SSM_STATE_TOL)
+        cases.append(dict(row, ok=ok))
         if case == "main" and dtype == "bfloat16":
             errs[name] = err
-        del got, want
+        del got, want, d
+    cases.append(ssm_backward_case(torch, dev, gen))
     emit({"phase": "kernels", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -130,12 +212,31 @@ def check_kernels(torch, dev):
 
 
 # ------------------------------------------------------------------- phase 4
+def counters():
+    """The kernels' launch counters, by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+
+    return {"rmsnorm": rn, "flash_attention": fa, "ssm_scan": ss}
+
+
+def launches_per_step(cfg) -> dict:
+    """Kernel launches one forward pass of ``cfg`` makes: RMSNorm before the
+    mixer, before the FFN (if the layer has one), after each with
+    ``post_norm``, and once at the end; one flash launch per attention layer;
+    one scan per Mamba layer."""
+    layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
+    rms = 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm)) for _, ffn in layers)
+    return {"rmsnorm": rms,
+            "flash_attention": sum(m.startswith("attn") for m, _ in layers),
+            "ssm_scan": sum(m == "mamba" for m, _ in layers)}
+
+
 def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0):
     from repro_torch.configs import get_config
     from repro_torch.core.experiment import Experiment
     from repro_torch.core.job import JobStatus
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch.hpo import SPACE, PopulationTrial
 
     full = get_config(arch)
@@ -151,22 +252,27 @@ def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0)
     jobs = []
     exp.add_result_callback(jobs.append)
     torch.cuda.synchronize()
-    rn.reset_launches()
-    fa.reset_launches()
+    for mod in counters().values():
+        mod.reset_launches()
     t0 = time.perf_counter()
     best = exp.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rmsnorm": rn.launches, "flash_attention": fa.launches}
+    launches = {name: mod.launches for name, mod in counters().items()}
 
     tc, _ = trial._setup()
     cfg = tc.model
-    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    per_step = launches_per_step(cfg)
     scores = [None if j.result is None else j.result.score for j in jobs]
+    widths = ({"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state, "dt_rank": cfg.dt_rank,
+               "ssm_conv": cfg.ssm_conv} if cfg.has_mamba else
+              {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+               "head_dim": cfg.head_dim, "d_ff": cfg.d_ff})
     out = {
-        "phase": "main_path", "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
-        "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+        "phase": "main_path", "arch": arch, "n_layers": cfg.n_layers,
+        "published_n_layers": full.n_layers, "d_model": cfg.d_model, **widths,
+        "vocab_size": cfg.vocab_size, "tie_embeddings": cfg.tie_embeddings,
+        "param_dtype": cfg.param_dtype,
         "population": population, "batch": batch, "seq": seq, "steps_per_trial": steps,
         "population_steps": trial.n_train_steps, "flight_steps": trial.last_flight_steps,
         "jobs": len(jobs), "statuses": [j.status.name for j in jobs], "scores": scores,
@@ -179,6 +285,7 @@ def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0)
     gc.collect()
     torch.cuda.empty_cache()
     out.update(steady_state_step(torch, dev, tc, batch, seq, population))
+    out["steady_launches"] = out["profile"].pop("launches")
     emit(out)
     problems = []
     if len(jobs) != population or any(j.status != JobStatus.FINISHED for j in jobs):
@@ -190,8 +297,11 @@ def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0)
     for name, n in per_step.items():
         if launches[name] != n * steps:
             problems.append(f"{name}: {launches[name]} launches, want {n} x {steps}")
+        if out["steady_launches"][name] != n:
+            problems.append(f"{name}: {out['steady_launches'][name]} launches in the "
+                            f"profiled step, want {n}")
     if problems:
-        die("main path: " + "; ".join(problems))
+        die(f"main path {arch}: " + "; ".join(problems))
     return launches, out
 
 
@@ -234,6 +344,7 @@ def steady_state_step(torch, dev, tc, batch, seq, population, warmup=1, timed=3)
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("flash_attention_fwd (ours)", ("flash_fwd_kernel",)),
     ("rmsnorm (ours)", ("rmsnorm_kernel",)),
+    ("ssm_scan (ours)", ("ssm_scan_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -249,11 +360,14 @@ def profile_step(torch, fn, top=12):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    for mod in counters().values():
+        mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: mod.launches for name, mod in counters().items()}
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -264,7 +378,8 @@ def profile_step(torch, fn, top=12):
         kernels.append((e.key, us / 1e3, e.count))
     busy = sum(ms for _, ms, _ in kernels)
     if busy <= 0:
-        return {"wall_ms": wall_ms, "device_ms": None, "note": "no device time in the trace"}
+        return {"wall_ms": wall_ms, "device_ms": None, "launches": launches,
+                "note": "no device time in the trace"}
     groups = {}
     for name, ms, _ in kernels:
         low = name.lower()
@@ -272,25 +387,23 @@ def profile_step(torch, fn, top=12):
         groups[g] = groups.get(g, 0.0) + ms
     kernels.sort(key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall_ms),
+            "launches": launches,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
                             for n, ms, c in kernels[:top]]}
 
 
 # ------------------------------------------------------------------- phase 5
-def card_vs_cpu(torch, dev, steps=3, population=2, batch=2, seq=128):
+def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.interop import tree_leaves, tree_map
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
     from repro_torch.train.population import (init_population_state_from_keys,
                                               make_population_train_step)
 
-    tc = TrainConfig(model=get_smoke_config("starcoder2-3b"),
-                     parallel=ParallelConfig(remat="none"))
+    tc = TrainConfig(model=get_smoke_config(arch), parallel=ParallelConfig(remat="none"))
     data = SyntheticLM(tc.model.vocab_size, seq, batch, seed=0)
     cpu = init_population_state_from_keys(
         [torch.Generator().manual_seed(i) for i in range(population)], tc, "cpu")
@@ -300,7 +413,8 @@ def card_vs_cpu(torch, dev, steps=3, population=2, batch=2, seq=128):
             for i in range(population)]
     hps = [hparams_from_dict(c, tc) for c in cfgs]
     step = make_population_train_step(tc)
-    before = (rn.launches, fa.launches)
+    mods = counters()
+    before = {name: mod.launches for name, mod in mods.items()}
     loss_err = 0.0
     for t in range(steps):
         b = data.make_population_batch(t, list(range(population)))
@@ -313,15 +427,15 @@ def card_vs_cpu(torch, dev, steps=3, population=2, batch=2, seq=128):
         a = a.cpu()
         param_err = max(param_err, float((a - b).abs().max()))
         ok = ok and bool(torch.allclose(a, b, atol=1e-4, rtol=1e-4))
-    through = (rn.launches - before[0], fa.launches - before[1])
+    through = {name: mod.launches - before[name] for name, mod in mods.items()}
+    want = {name: n * steps for name, n in launches_per_step(tc.model).items()}
     emit({"phase": "card_vs_cpu", "config": tc.model.name, "dtype": tc.model.param_dtype,
           "population": population, "seq": seq, "steps": steps, "loss_max_abs_err": loss_err,
-          "param_max_abs_err": param_err, "tol": 1e-4,
-          "card_launches": {"rmsnorm": through[0], "flash_attention": through[1]}})
+          "param_max_abs_err": param_err, "tol": 1e-4, "card_launches": through})
     if not ok:
-        die(f"card and CPU disagree: loss {loss_err}, params {param_err}")
-    if min(through) <= 0:
-        die("the card's population step did not go through both kernels")
+        die(f"card and CPU disagree on {arch}: loss {loss_err}, params {param_err}")
+    if through != want:
+        die(f"the card's population steps on {arch} made launches {through}, want {want}")
 
 
 # ------------------------------------------------------------------- phase 6
@@ -343,15 +457,30 @@ def bound_ms(n_bytes: float, n_ops: float, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(torch, dev, errs, launches):
+def ssm_fwd_bwd(torch, ss, *inputs):
+    """The autograd function at work in training: the kernel forward, then
+    the plain chunked backward, with gradients to every input."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    y, h = ss.ssm_scan(*leaves)
+    return torch.autograd.grad((y, h), leaves, (torch.ones_like(y), torch.zeros_like(h)))
+
+
+def time_kernels(torch, dev, errs, by_path):
+    """One row per kernel for the ``kernels`` line.  ``by_path`` holds each
+    main path's launch counts; a row's ``launches`` is their sum."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
 
     gen = torch.Generator(device=dev).manual_seed(1)
     dt, dts = torch.bfloat16, "bfloat16"
     rows = []
+
+    def counts(name):
+        return {"launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {path: p[name] for path, p in by_path.items()}}
 
     K, R, d = RMS_SHAPE
     x = torch.randn(RMS_SHAPE, generator=gen, device=dev).to(dt)
@@ -361,7 +490,7 @@ def time_kernels(torch, dev, errs, launches):
     b_ms, b_by = bound_ms(nb, 4 * x.numel(), "float32")
     rows.append({
         "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-        "replaces": "src/repro/kernels/rmsnorm.py:19", "launches": launches["rmsnorm"],
+        "replaces": "src/repro/kernels/rmsnorm.py:19", **counts("rmsnorm"),
         "max_abs_err": errs["rmsnorm"],
         "ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
         "plain_ms": event_ms(torch, lambda: rn.rmsnorm_plain(x, g, EPS)),
@@ -387,13 +516,40 @@ def time_kernels(torch, dev, errs, launches):
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",
-        "launches": launches["flash_attention"], "max_abs_err": errs["flash_attention"],
+        **counts("flash_attention"), "max_abs_err": errs["flash_attention"],
         "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw), n=10),
         "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), n=5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), n=10),
         "shape": {"q": list(FLASH_Q), "kv": list(FLASH_KV), "causal": True, "dtype": dts},
+    })
+    del q, k, v, qt, kt, vt
+
+    x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
+    R, L, Dm = SSM_X
+    h_bytes = R * Dm * SSM_N * 4
+    nb = (3 * x.numel() * x.element_size() + 2 * Bc.numel() * Bc.element_size()
+          + A.numel() * 4 + Dk.numel() * 4 + h_bytes)   # x, dt, y; B, C; A, D; h_last
+    n_ops = 6 * R * L * Dm * SSM_N   # exp argument, exp, two FMAs per (row, t, channel, state)
+    b_ms, b_by = bound_ms(nb, n_ops, "float32")
+    rows.append({
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:30",
+        **counts("ssm_scan"), "max_abs_err": errs["ssm_scan"],
+        "ms": event_ms(torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk)),
+        "ms_with_chunk_states": event_ms(
+            torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk, chunk_states=True)),
+        "plain_ms": event_ms(torch, lambda: ss.ssm_scan_plain(x, dtt, A, Bc, Cc, Dk),
+                             n=3, warmup=1),
+        "fwd_bwd_ms": event_ms(torch, lambda: ssm_fwd_bwd(torch, ss, x, dtt, A, Bc, Cc, Dk),
+                               n=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bytes_ms": nb / HBM_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_OPS["float32"] * 1e3,
+        "library_ms": None,   # no single PyTorch call computes a selective scan
+        "shape": {"x": list(SSM_X), "A": [SSM_K, Dm, SSM_N], "D": [SSM_K, Dm],
+                  "dtype": dts, "A_D_dtype": "float32"},
     })
     return rows
 
@@ -426,9 +582,14 @@ def main() -> int:
     errs = check_kernels(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    launches, _ = main_path(torch, dev, **MAIN)
-    card_vs_cpu(torch, dev)
-    emit({"kernels": time_kernels(torch, dev, errs, launches)})
+    by_path = {}
+    for path in (MAIN, MAMBA):
+        by_path[path["arch"]], _ = main_path(torch, dev, **path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path in (MAIN, MAMBA):
+        card_vs_cpu(torch, dev, path["arch"])
+    emit({"kernels": time_kernels(torch, dev, errs, by_path)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

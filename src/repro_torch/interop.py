@@ -46,11 +46,10 @@ def tree_unflatten(tree: Any, leaves: List[Any]) -> Any:
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, copy=True)  # the port updates its state in place
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).view(np.int16))
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _leaf_to_numpy(t) -> np.ndarray:

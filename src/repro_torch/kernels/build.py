@@ -40,6 +40,8 @@ SIGNATURES = {
     # softcap, is_bf16, stream
     "flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _I, _F, _I, _P],
+    # x, dt, A, B, C, D, h0, y, h_last, hs, R, L, Dm, N, K, chunk, is_bf16, stream
+    "ssm_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 

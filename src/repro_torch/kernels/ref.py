@@ -225,3 +225,80 @@ def _blocked_bwd(
     dk = dkb.reshape(B, nk * block_kv, Hkv, Dq)[:, :Sk]
     dv = dvb.reshape(B, nk * block_kv, Hkv, Dv)[:, :Sk]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- selective scan -------------------------------------------------------------------
+def _lanes(t: torch.Tensor, k: int) -> torch.Tensor:
+    """(R, ...) rows as (K, R // K, ...): row ``r`` belongs to lane ``r // (R // K)``."""
+    return t.reshape((k, t.shape[0] // k) + tuple(t.shape[1:]))
+
+
+def ssm_scan_chunk(x, dt, Bc, Cc, A, h):
+    """One chunk of the Mamba-1 recurrence in fp32, without the ``D * x``
+    skip: x, dt (K, b, Q, Dm); Bc, Cc (K, b, Q, N); A (K, Dm, N); h, the
+    state entering the chunk, (K, b, Dm, N).  Returns (y (K, b, Q, Dm),
+    h_out).  The chunk's gates are built at once and the recurrence runs as a
+    loop over t; ``unbind`` keeps the backward of the per-step slices one
+    stack, so the chunked backward can rebuild this graph cheaply."""
+    dA = torch.exp(dt[..., None] * A[:, None, None])            # (K, b, Q, Dm, N)
+    dBx = (dt * x)[..., None] * Bc[..., None, :]                # (K, b, Q, Dm, N)
+    hs = []
+    for dA_t, dBx_t in zip(dA.unbind(2), dBx.unbind(2)):
+        h = torch.addcmul(dBx_t, dA_t, h)
+        hs.append(h)
+    y = (torch.stack(hs, dim=2) * Cc[..., None, :]).sum(-1)
+    return y, h
+
+
+def ssm_scan(
+    x: torch.Tensor,                 # (R, L, Dm) post-conv/silu inputs
+    dt: torch.Tensor,                # (R, L, Dm) softplus'd timestep
+    A: torch.Tensor,                 # (K, Dm, N) negative state matrix, per lane
+    Bc: torch.Tensor,                # (R, L, N)  input gate
+    Cc: torch.Tensor,                # (R, L, N)  output gate
+    D: torch.Tensor,                 # (K, Dm)    skip, per lane
+    h0: Optional[torch.Tensor] = None,   # (R, Dm, N) initial state
+    chunk: int = 128,
+    chunk_states: bool = False,
+):
+    """Mamba-1 selective scan oracle (fp32 state), lane-aware.
+
+    ``h[t] = exp(dt[t] * A) * h[t-1] + (dt[t] * x[t]) (x) B[t]``,
+    ``y[t] = h[t] . C[t] + D * x[t]``; row ``r`` reads lane ``r // (R // K)``
+    of ``A`` and ``D``.  L is padded to a multiple of ``chunk`` (zero ``dt``
+    leaves the state unchanged), and ``D * x`` is added after the scan.
+
+    Returns (y (R, L, Dm) in x's dtype, h_last (R, Dm, N) fp32) and, with
+    ``chunk_states``, also the state entering each chunk, (R, nc, Dm, N).
+    """
+    R, L, Dm = x.shape
+    K, N = A.shape[0], A.shape[-1]
+    pad = (-L) % chunk
+    xf, dtf, Bf, Cf = (_lanes(_pad_seq(t.float(), pad), K) for t in (x, dt, Bc, Cc))
+    Af = A.float()
+    h = (x.new_zeros((R, Dm, N), dtype=torch.float32) if h0 is None else h0.float())
+    h = _lanes(h, K)
+    ys, starts = [], []
+    for s in range(0, L + pad, chunk):
+        starts.append(h)
+        yc, h = ssm_scan_chunk(xf[:, :, s:s + chunk], dtf[:, :, s:s + chunk],
+                               Bf[:, :, s:s + chunk], Cf[:, :, s:s + chunk], Af, h)
+        ys.append(yc)
+    y = torch.cat(ys, dim=2)[:, :, :L] + xf[:, :, :L] * D.float()[:, None, None]
+    out = (y.reshape(R, L, Dm).to(x.dtype), h.reshape(R, Dm, N))
+    if chunk_states:
+        out += (torch.stack(starts, dim=2).reshape(R, len(starts), Dm, N),)
+    return out
+
+
+def ssm_decode_step(x, dt, A, Bc, Cc, D, h):
+    """Single-token SSM state update, lane-aware: x, dt (R, Dm); Bc, Cc
+    (R, N); A (K, Dm, N); D (K, Dm); h (R, Dm, N) fp32.  Returns (y (R, Dm)
+    in x's dtype, h)."""
+    K = A.shape[0]
+    xf, dtf = _lanes(x.float(), K), _lanes(dt.float(), K)
+    dA = torch.exp(dtf[..., None] * A.float()[:, None])              # (K, b, Dm, N)
+    dBx = (dtf * xf)[..., None] * _lanes(Bc.float(), K)[:, :, None, :]
+    h = _lanes(h.float(), K) * dA + dBx
+    y = (h * _lanes(Cc.float(), K)[:, :, None, :]).sum(-1) + xf * D.float()[:, None]
+    return y.reshape(x.shape).to(x.dtype), h.reshape((-1,) + tuple(h.shape[2:]))

@@ -30,9 +30,9 @@ the synthetic stream) in every engine, so the engines stay score-equivalent
 trial for trial; ``--shared-stream`` gives every trial the same stream.
 
 **Device.**  Trials run on ``cuda`` unless ``--device cpu`` is given; without
-a GPU the driver raises rather than fall back.  On the card every RMSNorm and
-every attention forward runs the hand-written Hopper kernels; on the CPU
-their plain PyTorch versions.
+a GPU the driver raises rather than fall back.  On the card every RMSNorm,
+every attention forward and every Mamba selective scan runs the hand-written
+Hopper kernels; on the CPU their plain PyTorch versions.
 
 Engines of later slices (fused chunked scans, streaming refill and PBT,
 device-side rules, crash safety, the prefetch ring, multi-device meshes) are
@@ -312,8 +312,6 @@ _LATER_FLAGS = (
     ("data_ring", "--data-ring", _ITEM.format("10 (prefetch ring)")),
     ("snapshot_every", "--snapshot-every", _ITEM.format("9 (crash safety)")),
     ("resume", "--resume", _ITEM.format("9 (crash safety)")),
-    ("fused_ssm", "--fused-ssm",
-     _ITEM.format("11 (other model families) and section 2, the SSM scan kernel")),
     ("legacy_recompile", "--legacy-recompile",
      _ITEM.format("13 (tooling: the throughput benchmark's baselines)")),
 )
@@ -366,6 +364,10 @@ def main(argv=None) -> int:
                    help="accepted for the JAX CLI's sake: the port always runs "
                         "its Hopper flash-attention kernel on the card (and the "
                         "plain version on the CPU)")
+    p.add_argument("--fused-ssm", action="store_true",
+                   help="accepted for the JAX CLI's sake: the port always runs "
+                        "its Hopper selective-scan kernel on the card (and the "
+                        "plain version on the CPU)")
     p.add_argument("--max-flight-restarts", type=int, default=2,
                    help="supervised flight restarts before the survivors fail")
     p.add_argument("--fault-spec", default="",
@@ -387,7 +389,6 @@ def main(argv=None) -> int:
         ("--device-rules", dict(action="store_true")),
         ("--elastic-regrid", dict(action="store_true")),
         ("--data-ring", dict(action="store_true")),
-        ("--fused-ssm", dict(action="store_true")),
         ("--model-parallel", dict(type=int, default=1, metavar="W")),
         ("--legacy-recompile", dict(action="store_true")),
         ("--snapshot-every", dict(type=int, default=0, metavar="N")),
@@ -406,11 +407,14 @@ def main(argv=None) -> int:
     if args.vectorize <= 0 and args.inflight_stop:
         p.error("--inflight-stop requires --vectorize K (it acts on the "
                 "population engine)")
-    if args.fused_attention:
+    if args.fused_attention or args.fused_ssm:
         from ..configs import get_smoke_config
 
-        if not get_smoke_config(args.arch).has_attention:
+        cfg = get_smoke_config(args.arch)
+        if args.fused_attention and not cfg.has_attention:
             p.error(f"--fused-attention: arch {args.arch!r} has no attention mixer")
+        if args.fused_ssm and not cfg.has_mamba:
+            p.error(f"--fused-ssm: arch {args.arch!r} has no SSM mixer")
 
     from ..core import faultinject
     from ..core.experiment import Experiment
@@ -446,7 +450,7 @@ def main(argv=None) -> int:
     exp_cfg["cli"] = {k: getattr(args, k) for k in (
         "arch", "steps", "batch", "seq", "seed", "vectorize", "per_trial_init",
         "shared_stream", "inflight_stop", "fused_rmsnorm", "fused_attention",
-        "device", "max_flight_restarts")}
+        "fused_ssm", "device", "max_flight_restarts")}
     t0 = time.time()
     exp = Experiment(exp_cfg, trial)
     result_times: list = []
@@ -477,6 +481,8 @@ def main(argv=None) -> int:
         out["fused_rmsnorm"] = True
     if args.fused_attention:
         out["fused_attention"] = True
+    if args.fused_ssm:
+        out["fused_ssm"] = True
     if trial.per_rung_step_time_s:
         out["per_rung_step_time_s"] = trial.per_rung_step_time_s
     if trial.early_stop is not None:

@@ -8,9 +8,9 @@ axis, the lane axis K, in front of it, so ``blocks`` leaves are
 projections are batched matmuls over K and the kernels take K as part of
 their batch dimension.
 
-This slice covers the dense decoder families: mixers ``attn`` and
-``attn_local``, FFN ``dense``, with ``post_norm``, softcaps and
-``scale_embed``.
+Ported so far: mixers ``attn``, ``attn_local`` and ``mamba``; FFN ``dense``
+or ``none`` (a layer without FFN has no ``norm2`` and no second residual,
+as falcon-mamba's); ``post_norm``, softcaps and ``scale_embed``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..interop import tree_map
 from . import attention as attn
+from . import mamba as mam
 from . import mlp as mlpm
 from .layers import (
     Params,
@@ -32,15 +33,15 @@ from .layers import (
     unembed,
 )
 
-_MIXERS = ("attn", "attn_local")
-_FFNS = ("dense",)
-_LATER = ("the other model families (ROADMAP.md section 1, item 11: MLA, MoE, "
-          "Mamba and the frontends)")
+_MIXER_INIT = {"attn": attn.gqa_init, "attn_local": attn.gqa_init, "mamba": mam.mamba_init}
+_FFNS = ("dense", "none")
+_LATER = ("the other model families (ROADMAP.md section 1, item 11: MLA, MoE "
+          "and the frontends)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     for mixer, ffn in cfg.prefix_pattern + cfg.pattern:
-        if mixer not in _MIXERS:
+        if mixer not in _MIXER_INIT:
             raise NotImplementedError(
                 f"{cfg.name}: mixer {mixer!r} is not ported yet; it comes with {_LATER}")
         if ffn not in _FFNS:
@@ -52,18 +53,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ------------------------------ init --------------------------------------------------
-def _layer_init(gen, cfg: ModelConfig, device) -> Params:
+def _layer_init(gen, mixer: str, ffn: str, cfg: ModelConfig, device) -> Params:
     pdt = dtype_of(cfg.param_dtype)
     p: Params = {
         "norm1": rmsnorm_init(cfg.d_model, pdt, device),
-        "mixer": attn.gqa_init(gen, cfg, device),
+        "mixer": _MIXER_INIT[mixer](gen, cfg, device),
     }
     if cfg.post_norm:
         p["norm1_post"] = rmsnorm_init(cfg.d_model, pdt, device)
-    p["norm2"] = rmsnorm_init(cfg.d_model, pdt, device)
-    p["ffn"] = mlpm.mlp_init(gen, cfg, device)
-    if cfg.post_norm:
-        p["norm2_post"] = rmsnorm_init(cfg.d_model, pdt, device)
+    if ffn != "none":
+        p["norm2"] = rmsnorm_init(cfg.d_model, pdt, device)
+        p["ffn"] = mlpm.mlp_init(gen, cfg, device)
+        if cfg.post_norm:
+            p["norm2_post"] = rmsnorm_init(cfg.d_model, pdt, device)
     return p
 
 
@@ -72,8 +74,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     check_supported(cfg)
     params: Params = {"embedding": embedding_init(gen, cfg, device)}
     if cfg.prefix_pattern:
-        params["prefix"] = [_layer_init(gen, cfg, device) for _ in cfg.prefix_pattern]
-    blocks = [{f"l{i}": _layer_init(gen, cfg, device) for i in range(len(cfg.pattern))}
+        params["prefix"] = [_layer_init(gen, m, f, cfg, device)
+                            for m, f in cfg.prefix_pattern]
+    blocks = [{f"l{i}": _layer_init(gen, m, f, cfg, device)
+               for i, (m, f) in enumerate(cfg.pattern)}
               for _ in range(cfg.n_superblocks)]
     params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype_of(cfg.param_dtype), device)
@@ -81,13 +85,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 # ------------------------------ forward (train / prefill) ------------------------------
-def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, cfg: ModelConfig,
+def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelConfig,
                  positions: torch.Tensor) -> torch.Tensor:
     h = apply_rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    h = attn.gqa_apply(lp["mixer"], h, cfg, positions, local=(mixer == "attn_local"))
+    if mixer == "mamba":
+        h = mam.mamba_apply(lp["mixer"], h, cfg)
+    else:
+        h = attn.gqa_apply(lp["mixer"], h, cfg, positions, local=(mixer == "attn_local"))
     if cfg.post_norm:
         h = apply_rmsnorm(h, lp["norm1_post"], cfg.norm_eps)
     x = x + h
+    if ffn == "none":
+        return x
     h = apply_rmsnorm(x, lp["norm2"], cfg.norm_eps)
     h = mlpm.mlp_apply(lp["ffn"], h, cfg)
     if cfg.post_norm:
@@ -103,12 +112,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
     check_supported(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
     positions = torch.arange(x.shape[2], device=x.device)
-    for i, (m, _) in enumerate(cfg.prefix_pattern):
-        x = _layer_apply(params["prefix"][i], x, m, cfg, positions)
+    for i, (m, f) in enumerate(cfg.prefix_pattern):
+        x = _layer_apply(params["prefix"][i], x, m, f, cfg, positions)
     for j in range(cfg.n_superblocks):
         sp = tree_map(lambda a: a[:, j], params["blocks"])
-        for i, (m, _) in enumerate(cfg.pattern):
-            x = _layer_apply(sp[f"l{i}"], x, m, cfg, positions)
+        for i, (m, f) in enumerate(cfg.pattern):
+            x = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions)
     x = apply_rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embedding"], x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)

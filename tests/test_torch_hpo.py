@@ -30,17 +30,22 @@ ROOT = Path(__file__).resolve().parents[1]
 BASE = ["--n-samples", "4", "--steps", "3", "--batch", "2", "--seq", "16"]
 
 
-@pytest.fixture
-def jax_init(monkeypatch):
-    """Start the port's trials from the JAX package's init weights (the CLI's
-    default arch and seed)."""
-    jtc = JaxTrainConfig(model=jax_smoke_config("starcoder2-3b"))
+def _use_jax_init(monkeypatch, arch):
+    """Start the port's trials from the JAX package's init weights of
+    ``arch`` (the CLI's default seed)."""
+    jtc = JaxTrainConfig(model=jax_smoke_config(arch))
     state = jax.device_get(jax_init_train_state(jax.random.PRNGKey(0), jtc))
 
     def init_train_state(gen, tc, device):
         return interop.to_torch(state, device)  # a fresh copy per trial
 
     monkeypatch.setattr(ts, "init_train_state", init_train_state)
+
+
+@pytest.fixture
+def jax_init(monkeypatch):
+    """The CLI's default arch, starcoder2-3b, from the JAX init weights."""
+    _use_jax_init(monkeypatch, "starcoder2-3b")
 
 
 def _run(main, argv, capsys):
@@ -62,6 +67,22 @@ def test_cli_matches_jax_cli(jax_init, capsys, extra):
     if "--inflight-stop" in extra:
         assert got["inflight_truncated_lanes"] == want["inflight_truncated_lanes"]
         assert got["trained_steps"] == want["trained_steps"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--fused-ssm"]], ids=["plain", "fused-ssm"])
+def test_falcon_mamba_cli_matches_jax_cli(monkeypatch, capsys, extra):
+    """``--arch falcon-mamba-7b --vectorize 2``: the same best config and a
+    best score within 1e-4 of the JAX CLI (whose ``--fused-ssm`` runs the
+    Pallas scan in interpret mode); the port accepts ``--fused-ssm`` and
+    reports it."""
+    _use_jax_init(monkeypatch, "falcon-mamba-7b")
+    argv = BASE + ["--arch", "falcon-mamba-7b", "--vectorize", "2"] + extra
+    want = _run(jax_hpo.main, argv, capsys)
+    got = _run(hpo.main, argv + ["--device", "cpu"], capsys)
+    assert got["arch"] == want["arch"] == "falcon-mamba-7b"
+    assert got["best_config"] == want["best_config"]
+    np.testing.assert_allclose(got["best_score"], want["best_score"], atol=1e-4, rtol=1e-4)
+    assert got.get("fused_ssm") == want.get("fused_ssm") == (True if extra else None)
 
 
 def _imports(path: Path):
@@ -105,13 +126,18 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--lane-refill"], "item 8"),
     (["--snapshot-every", "2"], "item 9"),
     (["--data-ring"], "item 10"),
-    (["--fused-ssm"], "item 11"),
+    (["--fused-ssm"], "no SSM mixer"),   # ported: refused only on an arch without one
     (["--shard-population"], "item 12"),
     (["--model-parallel", "2"], "item 12"),
     (["--legacy-recompile"], "item 13"),
 ])
 def test_later_slice_flags_are_refused_with_their_roadmap_item(capsys, argv, item):
+    """Flags of later slices exit naming their ROADMAP.md item; ``--fused-ssm``
+    on the default arch (starcoder2-3b) exits naming the missing SSM mixer,
+    as the JAX CLI does."""
     with pytest.raises(SystemExit):
         hpo.main(BASE + ["--vectorize", "2", "--device", "cpu"] + argv)
     err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    assert item in err
+    if item.startswith("item"):
+        assert "ROADMAP.md" in err
