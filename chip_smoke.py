@@ -7,22 +7,29 @@ Phases, each printing one JSON line:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   for sm_90a and load them;
+   for sm_90a and load them; the compiler's registers and spills of each
+   instance of the tensor-core flash kernel;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes in bf16 and fp32 and on small cases (window /
-   softcap / ragged attention; ragged L, small N, an initial state and
-   per-lane A for the selective scan; TF32 off), and the scan's chunked
-   backward against autograd through its plain version;
+   softcap / ragged attention at head dims 16 to 256, fully masked rows;
+   ragged L, small N, an initial state and per-lane A for the selective
+   scan; TF32 off), with the flash kernel each case went through (bf16: the
+   tensor-core kernel, fp32: the CUDA-core kernel); the plain flash backward
+   fed the tensor-core kernel's (out, lse) against the same backward fed the
+   plain forward's, at the main shape; and the scan's chunked backward
+   against autograd through its plain version;
 4. main_path — the HPO population trainer, twice: the port's Experiment
    with the random proposer and the vectorized resource manager, training
    K=4 trials as one lane-batched program, first of starcoder2-3b, then of
    falcon-mamba-7b, each at its published widths with depth cut to 4
    layers; the kernels' launch counters, set to 0 before each path and read
    after it, must show that every population step went through each kernel
-   its architecture runs (and through no other);
+   its architecture runs (and through no other: the bf16 starcoder2 step
+   through the tensor-core flash kernel, never the CUDA-core one);
 5. card_vs_cpu — the same population step on the starcoder2 and the
    falcon-mamba smoke configs in fp32, once on the card (kernels) and once
-   on the CPU (plain versions): losses and parameters agree within 1e-4;
+   on the CPU (plain versions): losses and parameters agree within 1e-4, and
+   the card's fp32 attention went through the CUDA-core flash kernel only;
 6. timing — each kernel, its plain version and the PyTorch library call
    that computes the same function (none for the selective scan), timed
    with CUDA events at the main paths' shapes, beside the least time the
@@ -38,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -55,6 +63,7 @@ TOL = {"rmsnorm": {"float32": 1e-5, "bfloat16": 3e-2},
        "ssm_scan": {"float32": 1e-4, "bfloat16": 3e-2}}   # on y; h_last always 1e-4
 SSM_STATE_TOL = 1e-4
 SSM_BWD_TOL = 5e-4
+FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 
 # the main paths, each at its published widths with depth cut to 4 layers:
 # starcoder2-3b (30 layers) and falcon-mamba-7b (64 layers)
@@ -80,6 +89,37 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------- phase 2
+def ptxas_summary(report: str) -> dict:
+    """Registers, spills and stack of each instance (head-dim width) of the
+    tensor-core flash kernel, from nvcc's ``-Xptxas=-v`` report; empty when the
+    library was reused.  The registers are those the block launches with:
+    ``setmaxnreg`` then moves them from the producer to the consumers."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        inst = re.search(r"flash_fwd_sm90_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            cur = f"width_{inst.group(1)}" if inst else None
+            if cur:
+                out.setdefault(cur, {})
+            continue
+        if inst and "Performance Loss" in line:
+            msg = line.split("Performance Loss:", 1)[1].split(" for the function")[0]
+            out.setdefault(f"width_{inst.group(1)}", {})["warning"] = msg.strip()
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                            spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m[1])
+    return out
 
 
 # ------------------------------------------------------------------- phase 3
@@ -125,6 +165,66 @@ def ssm_backward_case(torch, dev, gen):
                 max_abs_err=err, tol=SSM_BWD_TOL, kernel_launches=through, ok=ok)
 
 
+def flash_masked_rows_case(torch, dev, gen):
+    """Rows whose causal window ends before the last key (ragged Sk: window
+    32 < Sq - Sk) see no key: the tensor-core kernel must write lse =
+    NEG_INF and out = 0 there, and match the plain version everywhere."""
+    from repro_torch.kernels import flash_attention as fa
+
+    Sq, Sk, window = 200, 130, 32
+    q = torch.randn((2, Sq, 4, 64), generator=gen, device=dev).bfloat16()
+    k = torch.randn((2, Sk, 2, 64), generator=gen, device=dev).bfloat16()
+    v = torch.randn((2, Sk, 2, 64), generator=gen, device=dev).bfloat16()
+    kw = dict(causal=True, window=window, softcap=None, scale=0.125)
+    before = fa.launches_sm90
+    o, l = fa.flash_fwd_cuda(q, k, v, **kw)
+    through = fa.launches_sm90 - before
+    po, pl = fa.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    dead = Sk - 1 + window       # first row that no key reaches
+    err = max(float((o.float() - po.float()).abs().max()), float((l - pl).abs().max()))
+    ok = (through == 1 and bool((l[:, :, dead:] == fa.NEG_INF).all())
+          and bool((o[:, dead:] == 0).all()) and bool((l[:, :, :dead] > fa.NEG_INF / 2).all())
+          and err <= TOL["flash_attention"]["bfloat16"])
+    return dict(kernel="flash_attention", case="fully-masked-rows", dtype="bfloat16",
+                masked_rows=Sq - dead, max_abs_err=err, tol=TOL["flash_attention"]["bfloat16"],
+                kernel_launches={"sm90": through}, ok=ok)
+
+
+def flash_backward_case(torch, dev, gen):
+    """The plain blocked backward (the one training runs) fed the tensor-core
+    kernel's (out, lse) against the same backward fed the plain forward's, at
+    the main shape; dq, dk, dv compared in bf16."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, H, D = FLASH_Q
+    Hkv = FLASH_KV[2]
+    q = torch.randn(FLASH_Q, generator=gen, device=dev).bfloat16()
+    k = torch.randn(FLASH_KV, generator=gen, device=dev).bfloat16()
+    v = torch.randn(FLASH_KV, generator=gen, device=dev).bfloat16()
+    dout = torch.randn(FLASH_Q, generator=gen, device=dev).bfloat16()
+    kw = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
+    before = fa.launches_sm90
+    grads = []
+    for fwd in (fa.flash_fwd_cuda, fa.flash_fwd_plain):
+        out, lse = fwd(q, k, v, **kw)
+        grads.append(ref._blocked_bwd(q, k, v, out, lse.reshape(B, Hkv, H // Hkv, S), dout,
+                                      q_offset=0, block_q=fa.BWD_BLOCK, block_kv=fa.BWD_BLOCK,
+                                      causal_skip=True, **kw))
+        del out, lse
+    torch.cuda.synchronize()
+    through = fa.launches_sm90 - before
+    errs = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(("dq", "dk", "dv"), *grads)}
+    ok = through == 1 and all(
+        bool(torch.allclose(a.float(), b.float(), atol=FLASH_BWD_TOL, rtol=FLASH_BWD_TOL))
+        for a, b in zip(*grads))
+    return dict(kernel="flash_attention", case="main-backward-from-kernel-lse", dtype="bfloat16",
+                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, tol=FLASH_BWD_TOL,
+                kernel_launches={"sm90": through}, ok=ok)
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -139,14 +239,19 @@ def check_kernels(torch, dev):
         g = (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(dtype)
         return rn.rmsnorm_cuda(x, g, EPS), rn.rmsnorm_plain(x, g, EPS)
 
-    def flash(qs, kvs, dtype, **kw):
+    def flash(qs, kvs, dtype, dv=None, **kw):
+        """Kernel and plain (out, lse) flattened, and the launches each flash
+        kernel made."""
         q = torch.randn(qs, generator=gen, device=dev).to(dtype)
         k = torch.randn(kvs, generator=gen, device=dev).to(dtype)
-        v = torch.randn(kvs, generator=gen, device=dev).to(dtype)
+        v = torch.randn(kvs[:3] + (dv or kvs[3],), generator=gen, device=dev).to(dtype)
         kw = dict(dict(causal=True, window=None, softcap=None), **kw, scale=qs[-1] ** -0.5)
-        (o, l), (po, pl) = fa.flash_fwd_cuda(q, k, v, **kw), fa.flash_fwd_plain(q, k, v, **kw)
+        before = (fa.launches_sm90, fa.launches_fp32)
+        o, l = fa.flash_fwd_cuda(q, k, v, **kw)
+        through = {"sm90": fa.launches_sm90 - before[0], "fp32": fa.launches_fp32 - before[1]}
+        po, pl = fa.flash_fwd_plain(q, k, v, **kw)
         return torch.cat([o.float().flatten(), l.flatten()]), \
-            torch.cat([po.float().flatten(), pl.flatten()])
+            torch.cat([po.float().flatten(), pl.flatten()]), through
 
     def ssm(shape, n, k, dtype, h0=False):
         """y and h_last of the kernel and of the plain version, flattened:
@@ -175,6 +280,14 @@ def check_kernels(torch, dev):
                        softcap=50.0)),
         ("flash_attention", "ragged-200", "bfloat16",
          lambda: flash((2, 200, 4, 16), (2, 200, 2, 16), torch.bfloat16)),
+        ("flash_attention", "d96-ragged-200", "bfloat16",
+         lambda: flash((2, 200, 32, 96), (2, 200, 32, 96), torch.bfloat16)),
+        ("flash_attention", "d256-window-softcap", "bfloat16",
+         lambda: flash((2, 300, 8, 256), (2, 300, 4, 256), torch.bfloat16, window=96,
+                       softcap=50.0)),
+        ("flash_attention", "dv64-d128-sq200-sk130", "bfloat16",
+         lambda: flash((1, 200, 4, 128), (1, 130, 2, 128), torch.bfloat16, dv=64,
+                       causal=False)),
         ("ssm_scan", "main", "bfloat16",
          lambda: ssm(SSM_X, SSM_N, SSM_K, torch.bfloat16)),
         ("ssm_scan", "main", "float32",
@@ -192,6 +305,12 @@ def check_kernels(torch, dev):
         err = float(d.max())
         ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
         row = dict(kernel=name, case=case, dtype=dtype, max_abs_err=err, tol=tol)
+        if name == "flash_attention":  # one launch, of the dtype's kernel
+            through = split.pop()
+            want_through = ({"sm90": 1, "fp32": 0} if dtype == "bfloat16"
+                            else {"sm90": 0, "fp32": 1})
+            ok = ok and through == want_through
+            row["kernel_launches"] = through
         if split:  # the scan: y at the dtype's tolerance, h_last at 1e-4
             n_y = split[0]
             err = float(d[:n_y].max())
@@ -203,6 +322,8 @@ def check_kernels(torch, dev):
         if case == "main" and dtype == "bfloat16":
             errs[name] = err
         del got, want, d
+    cases.append(flash_masked_rows_case(torch, dev, gen))
+    cases.append(flash_backward_case(torch, dev, gen))
     cases.append(ssm_backward_case(torch, dev, gen))
     emit({"phase": "kernels", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
@@ -212,24 +333,39 @@ def check_kernels(torch, dev):
 
 
 # ------------------------------------------------------------------- phase 4
-def counters():
-    """The kernels' launch counters, by kernel name."""
+def reset_counters() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssm_scan as ss
 
-    return {"rmsnorm": rn, "flash_attention": fa, "ssm_scan": ss}
+    for mod in (fa, rn, ss):
+        mod.reset_launches()
+
+
+def counters() -> dict:
+    """The kernels' launch counters, by kernel; the two flash kernels apart
+    (bf16 on the tensor cores, fp32 on the CUDA cores)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+
+    return {"rmsnorm": rn.launches, "flash_attention_sm90": fa.launches_sm90,
+            "flash_attention_fp32": fa.launches_fp32, "ssm_scan": ss.launches}
 
 
 def launches_per_step(cfg) -> dict:
     """Kernel launches one forward pass of ``cfg`` makes: RMSNorm before the
     mixer, before the FFN (if the layer has one), after each with
-    ``post_norm``, and once at the end; one flash launch per attention layer;
+    ``post_norm``, and once at the end; one flash launch per attention layer,
+    of the tensor-core kernel in bf16 and of the CUDA-core kernel in fp32;
     one scan per Mamba layer."""
     layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
     rms = 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm)) for _, ffn in layers)
+    attn = sum(m.startswith("attn") for m, _ in layers)
+    bf16 = cfg.compute_dtype == "bfloat16"
     return {"rmsnorm": rms,
-            "flash_attention": sum(m.startswith("attn") for m, _ in layers),
+            "flash_attention_sm90": attn if bf16 else 0,
+            "flash_attention_fp32": 0 if bf16 else attn,
             "ssm_scan": sum(m == "mamba" for m, _ in layers)}
 
 
@@ -252,13 +388,12 @@ def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0)
     jobs = []
     exp.add_result_callback(jobs.append)
     torch.cuda.synchronize()
-    for mod in counters().values():
-        mod.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     best = exp.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in counters().items()}
+    launches = counters()
 
     tc, _ = trial._setup()
     cfg = tc.model
@@ -342,7 +477,7 @@ def steady_state_step(torch, dev, tc, batch, seq, population, warmup=1, timed=3)
 
 
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
-    ("flash_attention_fwd (ours)", ("flash_fwd_kernel",)),
+    ("flash_attention_fwd (ours)", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("rmsnorm (ours)", ("rmsnorm_kernel",)),
     ("ssm_scan (ours)", ("ssm_scan_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -360,14 +495,13 @@ def profile_step(torch, fn, top=12):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    for mod in counters().values():
-        mod.reset_launches()
+    reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: mod.launches for name, mod in counters().items()}
+    launches = counters()
     kernels = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -413,8 +547,7 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
             for i in range(population)]
     hps = [hparams_from_dict(c, tc) for c in cfgs]
     step = make_population_train_step(tc)
-    mods = counters()
-    before = {name: mod.launches for name, mod in mods.items()}
+    before = counters()
     loss_err = 0.0
     for t in range(steps):
         b = data.make_population_batch(t, list(range(population)))
@@ -427,7 +560,7 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
         a = a.cpu()
         param_err = max(param_err, float((a - b).abs().max()))
         ok = ok and bool(torch.allclose(a, b, atol=1e-4, rtol=1e-4))
-    through = {name: mod.launches - before[name] for name, mod in mods.items()}
+    through = {name: n - before[name] for name, n in counters().items()}
     want = {name: n * steps for name, n in launches_per_step(tc.model).items()}
     emit({"phase": "card_vs_cpu", "config": tc.model.name, "dtype": tc.model.param_dtype,
           "population": population, "seq": seq, "steps": steps, "loss_max_abs_err": loss_err,
@@ -436,6 +569,7 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
         die(f"card and CPU disagree on {arch}: loss {loss_err}, params {param_err}")
     if through != want:
         die(f"the card's population steps on {arch} made launches {through}, want {want}")
+    return through
 
 
 # ------------------------------------------------------------------- phase 6
@@ -465,9 +599,12 @@ def ssm_fwd_bwd(torch, ss, *inputs):
     return torch.autograd.grad((y, h), leaves, (torch.ones_like(y), torch.zeros_like(h)))
 
 
-def time_kernels(torch, dev, errs, by_path):
+def time_kernels(torch, dev, errs, by_path, fp32_launches):
     """One row per kernel for the ``kernels`` line.  ``by_path`` holds each
-    main path's launch counts; a row's ``launches`` is their sum."""
+    main path's launch counts; a row's ``launches`` is their sum (the flash
+    row's: the tensor-core kernel's, with both kernels' counts beside it).
+    ``fp32_launches``: the CUDA-core flash kernel's launches in the
+    card-against-CPU phase."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -512,18 +649,30 @@ def time_kernels(torch, dev, errs, by_path):
     nb = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + B * H * S * 4
     b_ms, b_by = bound_ms(nb, n_ops, dts)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    by_kernel = {kern: sum(p[f"flash_attention_{kern}"] for p in by_path.values())
+                 for kern in ("sm90", "fp32")}
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    b32_ms, b32_by = bound_ms(2 * nb, n_ops, "float32")
     rows.append({
         "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",
-        **counts("flash_attention"), "max_abs_err": errs["flash_attention"],
-        "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw), n=10),
+        **counts("flash_attention_sm90"), "launches_by_kernel": by_kernel,
+        "max_abs_err": errs["flash_attention"],
+        "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw)),
         "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), n=5, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), n=10),
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
         "shape": {"q": list(FLASH_Q), "kv": list(FLASH_KV), "causal": True, "dtype": dts},
+        # the fp32 path's CUDA-core kernel (card-against-CPU phase), same shape in fp32
+        "fp32_kernel": {
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "launches_card_vs_cpu": fp32_launches,
+            "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q32, k32, v32, **kw), n=3, warmup=1),
+            "bound_ms": b32_ms, "bound_by": b32_by},
     })
+    del q32, k32, v32
     del q, k, v, qt, kt, vt
 
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
@@ -574,10 +723,11 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    lib = build.build()
+    lib = build.build(verbose=True)
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
-          "sources": [s.name for s in build.sources()], "flags": build.NVCC_FLAGS})
+          "sources": [s.name for s in build.sources()], "flags": build.NVCC_FLAGS,
+          "flash_sm90_ptxas": ptxas_summary(build.ptxas_report.get("flash_attention_sm90.cu", ""))})
 
     errs = check_kernels(torch, dev)
     gc.collect()
@@ -587,9 +737,9 @@ def main() -> int:
         by_path[path["arch"]], _ = main_path(torch, dev, **path)
         gc.collect()
         torch.cuda.empty_cache()
-    for path in (MAIN, MAMBA):
-        card_vs_cpu(torch, dev, path["arch"])
-    emit({"kernels": time_kernels(torch, dev, errs, by_path)})
+    fp32_launches = sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
+                        for path in (MAIN, MAMBA))
+    emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

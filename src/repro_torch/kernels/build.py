@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,6 +26,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"] + ARCH_FL
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# source name -> the compiler's report (-Xptxas=-v: registers, spills, shared
+# memory per kernel instance) from the last verbose build in this process
+ptxas_report: Dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,9 +40,9 @@ SIGNATURES = {
     # x, gamma, out, K, rows, d, eps, x_is_bf16, g_is_bf16, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _L, _I, _F, _I, _I, _P],
     # q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, Dv, scale, causal, window,
-    # softcap, is_bf16, stream
-    "flash_attn_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                       _I, _I, _F, _I, _P],
+    # softcap, stream: fp32 on the CUDA cores, bf16 on the tensor cores
+    "flash_attn_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _F, _P],
+    "flash_attn_fwd_sm90": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _F, _P],
     # x, dt, A, B, C, D, h0, y, h_last, hs, R, L, Dm, N, K, chunk, is_bf16, stream
     "ssm_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
 }
@@ -68,7 +71,8 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile every source in parallel and link ``libkernels_<hash>.so``;
-    returns its path (reused when it already exists)."""
+    returns its path (reused when it already exists).  ``verbose`` keeps
+    each source's ``-Xptxas=-v`` report in ``ptxas_report``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"libkernels_{_digest()}.so"
     if lib.exists():
@@ -87,8 +91,8 @@ def build(verbose: bool = False) -> Path:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src.name}:\n{out}")
-        elif verbose and out:
-            print(out)
+        elif verbose:
+            ptxas_report[src.name] = out
         objs.append(obj)
     if errors:
         raise RuntimeError("\n".join(errors))

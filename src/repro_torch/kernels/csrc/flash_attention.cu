@@ -1,19 +1,19 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention forward for fp32 on the CUDA cores (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_fwd_pallas
-// (body _flash_kernel): an online-softmax attention forward with grouped-query
-// heads (q head h reads kv head h / g), causal and sliding-window masks and a
-// logit softcap, ragged Sq / Sk masked as q_pos < Sq && k_pos < Sk.  It
-// returns out (B, Sq, H, Dv) in q's dtype and lse (B, H, Sq) in fp32, with
-// lse = NEG_INF and out = 0 on fully masked rows.  q/k/v are fp32 or bf16;
-// every head dim that is a multiple of 16 up to 256 is taken.
+// (body _flash_kernel) for fp32 inputs; bf16 inputs go to the tensor-core
+// kernel in flash_attention_sm90.cu.  An online-softmax attention forward with
+// grouped-query heads (q head h reads kv head h / g), causal and sliding-window
+// masks and a logit softcap, ragged Sq / Sk masked as q_pos < Sq && k_pos < Sk.
+// It returns out (B, Sq, H, Dv) and lse (B, H, Sq) in fp32, with lse = NEG_INF
+// and out = 0 on fully masked rows; every head dim that is a multiple of 16 up
+// to 256 is taken.
 //
 // Bound on this card: operations.  The two products take
 // 2 * B * H * Sq * Sk * (D + Dv) flops, half of that under the causal mask,
-// against 989 TFLOP/s in bf16 on the tensor cores.  This first kernel does
-// not reach them: it computes in fp32 on the CUDA cores, which keeps fp32
-// inputs exact and one code path for both dtypes; wgmma, TMA and warp
-// specialisation are later work.
+// against 67 TFLOP/s of fp32 outside the tensor cores.  The kernel computes in
+// exact fp32 FMAs (no TF32), which is what the card-against-CPU parity of the
+// fp32 configs needs; it does not aim at that bound.
 //
 // Design: one block per (64-row q tile, q head, batch); 256 threads.  The
 // q tile (pre-scaled) stays in shared memory while the block walks the kv
@@ -30,9 +30,7 @@
 
 namespace {
 
-using kernels::from_float;
 using kernels::NEG_INF;
-using kernels::to_float;
 
 constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 32;        // kv rows per tile
@@ -46,10 +44,9 @@ size_t smem_bytes(int D, int Dv) {
                           static_cast<size_t>(BK) * Dv + static_cast<size_t>(BQ) * (BK + 1));
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int D,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int D,
     int Dv, float scale, int causal, int window, float softcap) {
   extern __shared__ float smem[];
   const int ldq = D + 1, ldk = D + 1, ldp = BK + 1;  // odd strides: no bank conflicts
@@ -68,7 +65,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, c = idx - r * D, qp = q0 + r;
     float val = 0.f;
-    if (qp < Sq) val = to_float(q[((static_cast<long long>(b) * Sq + qp) * H + h) * D + c]) * scale;
+    if (qp < Sq) val = q[((static_cast<long long>(b) * Sq + qp) * H + h) * D + c] * scale;
     Qs[r * ldq + c] = val;
   }
 
@@ -93,12 +90,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int r = idx / D, c = idx - r * D, kp = k0 + r;
       Ks[r * ldk + c] =
-          kp < Sk ? to_float(k[((static_cast<long long>(b) * Sk + kp) * Hkv + hk) * D + c]) : 0.f;
+          kp < Sk ? k[((static_cast<long long>(b) * Sk + kp) * Hkv + hk) * D + c] : 0.f;
     }
     for (int idx = tid; idx < BK * Dv; idx += NT) {
       const int r = idx / Dv, c = idx - r * Dv, kp = k0 + r;
       Vs[r * Dv + c] =
-          kp < Sk ? to_float(v[((static_cast<long long>(b) * Sk + kp) * Hkv + hk) * Dv + c]) : 0.f;
+          kp < Sk ? v[((static_cast<long long>(b) * Sk + kp) * Hkv + hk) * Dv + c] : 0.f;
     }
     __syncthreads();
 
@@ -176,18 +173,17 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const int qp = q0 + ty * RPT + i;
     if (qp >= Sq) continue;
     const float l = fmaxf(l_i[i], 1e-30f);
-    T* orow = out + ((static_cast<long long>(b) * Sq + qp) * H + h) * Dv;
+    float* orow = out + ((static_cast<long long>(b) * Sq + qp) * H + h) * Dv;
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
-      if (c < ncv) orow[tx + 16 * c] = from_float<T>(acc[i][c] / l);
+      if (c < ncv) orow[tx + 16 * c] = acc[i][c] / l;
     if (tx == 0)
       lse[(static_cast<long long>(b) * H + h) * Sq + qp] =
           m_i[i] > NEG_INF / 2 ? m_i[i] + logf(l) : NEG_INF;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* lse, int B,
                    int Sq, int Sk, int H, int Hkv, int D, int Dv, float scale, int causal,
                    int window, float softcap, cudaStream_t stream) {
   if (D % 16 || Dv % 16 || D <= 0 || Dv <= 0 || D > 256 || Dv > 256 || Hkv <= 0 || H % Hkv)
@@ -195,13 +191,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
   if (H > 65535 || B > 65535) return cudaErrorInvalidConfiguration;
   const size_t smem = smem_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H, Hkv, D, Dv, scale, causal,
-      window, softcap);
+  flash_fwd_kernel<<<grid, NT, smem, stream>>>(q, k, v, out, lse, Sq, Sk, H, Hkv, D, Dv, scale,
+                                               causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -209,12 +203,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int B, int Sq, int Sk, int H, int Hkv, int D, int Dv, float scale,
-                              int causal, int window, float softcap, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, Dv, scale, causal,
-                                      window, softcap, st)
-              : launch<float>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, Dv, scale, causal, window,
-                              softcap, st);
-  return static_cast<int>(err);
+                              int causal, int window, float softcap, void* stream) {
+  return static_cast<int>(launch(static_cast<const float*>(q), static_cast<const float*>(k),
+                                 static_cast<const float*>(v), static_cast<float*>(out),
+                                 static_cast<float*>(lse), B, Sq, Sk, H, Hkv, D, Dv, scale,
+                                 causal, window, softcap, static_cast<cudaStream_t>(stream)));
 }

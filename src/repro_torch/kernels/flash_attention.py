@@ -1,4 +1,4 @@
-"""Flash attention forward: the CUDA kernel, its plain version and its
+"""Flash attention forward: the CUDA kernels, their plain version and the
 autograd function.
 
 Replaces ``repro/kernels/flash_attention.py::_flash_fwd_pallas`` (body
@@ -8,10 +8,13 @@ logit softcap, ragged ``Sq``/``Sk`` masked with ``q_pos < sq & k_pos < sk``,
 an fp32 online softmax, and an fp32 ``lse (B, H, Sq)`` that is ``NEG_INF`` on
 fully masked rows.  The output has q's dtype.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(``csrc/flash_attention.cu``) or raises.  The backward pass is the plain
-blocked flash backward ``ref._blocked_bwd`` fed the kernel's ``lse``, as in
-the JAX package's ``_make_flash``.
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
+raises.  The kernel goes by dtype: bf16 runs the tensor-core kernel
+(``csrc/flash_attention_sm90.cu``: wgmma, TMA-fed K/V ring), fp32 the exact
+CUDA-core kernel (``csrc/flash_attention.cu``).  ``launches_sm90`` and
+``launches_fp32`` count each; ``launches`` is their sum.  The backward
+pass is the plain blocked flash backward ``ref._blocked_bwd`` fed the
+kernel's ``lse``, as in the JAX package's ``_make_flash``.
 """
 from __future__ import annotations
 
@@ -26,13 +29,16 @@ NEG_INF = ref.NEG_INF
 BWD_BLOCK = 512  # block_q = block_kv of the plain backward (JAX default)
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
-launches = 0  # kernel launches in this process (plain-version calls excluded)
+# kernel launches in this process (plain-version calls excluded)
+launches_sm90 = 0   # bf16, tensor-core kernel
+launches_fp32 = 0   # fp32, CUDA-core kernel
+launches = 0        # launches_sm90 + launches_fp32
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, launches_sm90, launches_fp32
     with _count_lock:
-        launches = 0
+        launches = launches_sm90 = launches_fp32 = 0
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool, window: Optional[int],
@@ -92,8 +98,9 @@ def _check(q, k, v, window, softcap):
 def flash_fwd_cuda(q, k, v, *, causal: bool, window: Optional[int],
                    softcap: Optional[float], scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on the current stream; raises on what it does not take."""
-    global launches
+    """Launch the dtype's kernel on the current stream (bf16: tensor cores,
+    fp32: CUDA cores); raises on what it does not take."""
+    global launches, launches_sm90, launches_fp32
     _check(q, k, v, window, softcap)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must lie on one CUDA device")
@@ -105,16 +112,20 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, window: Optional[int],
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attn_fwd(
+    sm90 = q.dtype == torch.bfloat16
+    name = "flash_attn_fwd_sm90" if sm90 else "flash_attn_fwd"
+    err = getattr(build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, Sq, Sk, H, Hkv, D, Dv, float(scale), int(bool(causal)),
-        int(window or 0), float(softcap or 0.0), int(q.dtype == torch.bfloat16),
-        stream)
-    build.check(err, "flash_attn_fwd")
+        int(window or 0), float(softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
     with _count_lock:
         launches += 1
+        if sm90:
+            launches_sm90 += 1
+        else:
+            launches_fp32 += 1
     return out, lse
 
 

@@ -2,13 +2,17 @@
 
 On the CPU: the port's plain RMSNorm and flash attention (the versions a CPU
 tensor takes) against the JAX package's Pallas kernels in interpret mode, on
-the same numpy inputs, fp32.  On an NVIDIA GPU (marker ``cuda``): each CUDA
-kernel against its plain version on the card.
+the same numpy inputs, fp32; and a PyTorch model of the bf16 tensor-core
+flash kernel's rounding against the Pallas kernel on bf16 inputs.  On an
+NVIDIA GPU (marker ``cuda``): each CUDA kernel against its plain version on
+the card.
 
 JAX is imported inside the parity tests so that the card-only cases also run
 where JAX is not installed:
 ``python -m pytest tests/test_torch_kernels.py -m cuda``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -121,16 +125,96 @@ def test_flash_plain_matches_pallas(B, Sq, H, Hkv, D, causal, window, softcap, S
         np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=5e-5, rtol=5e-5)
 
 
+def _sm90_model(q, k, v, *, causal, window, softcap, scale):
+    """The bf16 tensor-core kernel's arithmetic (``csrc/flash_attention_sm90.cu``)
+    in PyTorch: fp32 scores from bf16 q and k, the scale on the fp32 scores
+    (log2 e folded in, after the tanh under a softcap), an online softmax over
+    kv tiles of the kernel's BK rows in log2 units, P rounded to bf16 before
+    P V, fp32 l and O; out in bf16, lse in natural-log units."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    g = H // Hkv
+    bk = 64 if max(D, Dv) > 128 else 128
+    log2e = 1.0 / math.log(2.0)
+    qf = q.float().reshape(B, Sq, Hkv, g, D)
+    m = torch.full((B, Hkv, g, Sq), -math.inf)
+    l = torch.zeros((B, Hkv, g, Sq))
+    o = torch.zeros((B, Hkv, g, Sq, Dv))
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = torch.einsum("bqngd,bknd->bngqk", qf, kt)
+        s = (softcap * log2e) * torch.tanh(s * scale / softcap) if softcap else s * (scale * log2e)
+        k_pos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        mask = torch.ones((Sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        mu = torch.where(m_new == -math.inf, 0.0, m_new)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(s - mu[..., None])
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.einsum("bngqk,bknd->bngqd",
+                                               p.bfloat16().float(), vt)
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(m == -math.inf, fa.NEG_INF, (m + torch.log2(l)) * math.log(2.0))
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).bfloat16(),
+            lse.reshape(B, H, Sq))
+
+
+SM90_CASES = [
+    # B, Sq, H, Hkv, D, causal, window, softcap, Sk
+    pytest.param(2, 64, 4, 2, 16, True, None, None, None, id="gqa-causal-d16"),
+    pytest.param(1, 160, 4, 2, 96, True, 40, None, None, id="window-d96"),
+    pytest.param(1, 128, 2, 1, 128, True, None, 20.0, None, id="softcap-d128"),
+    pytest.param(1, 200, 4, 2, 128, True, 64, 30.0, 130, id="ragged-200-130-d128"),
+    pytest.param(1, 130, 6, 1, 16, False, None, None, 200, id="non-causal-130-200-gqa6"),
+]
+
+
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk", SM90_CASES)
+def test_sm90_rounding_model_matches_pallas_bf16(B, Sq, H, Hkv, D, causal, window, softcap,
+                                                 Sk, record_property):
+    """Rounding P to bf16 before P V (the tensor-core kernel's one change of
+    arithmetic against the Pallas kernel, which multiplies P in fp32) stays
+    inside the bf16 gate: the kernel's model against
+    ``_flash_fwd_pallas(interpret=True)`` on the same bf16 inputs, 3e-2 on out
+    and lse.  The observed maxima are recorded as test properties."""
+    jax, jnp = _jax()
+    from repro.kernels.flash_attention import _flash_fwd_pallas
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(rng, B, Sq, H, Hkv, D, Sk=Sk))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    scale = D ** -0.5
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
+    want_out, want_lse = _flash_fwd_pallas(jq, jk, jv, scale=scale, block_q=64,
+                                           block_kv=64, interpret=True, **kw)
+    want_out = torch.from_numpy(np.array(want_out.astype(jnp.float32)))
+    want_lse = torch.from_numpy(np.array(want_lse))
+    out, lse = _sm90_model(q, k, v, scale=scale, **kw)
+    record_property("max_abs_err_out", float((out.float() - want_out).abs().max()))
+    record_property("max_abs_err_lse", float((lse - want_lse).abs().max()))
+    torch.testing.assert_close(out.float(), want_out, atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(lse, want_lse, atol=3e-2, rtol=3e-2)
+
+
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers take the plain versions: no launch counted
-    and no library built."""
+    (neither flash kernel's, in either dtype) and no library built."""
     rn.reset_launches()
     fa.reset_launches()
     x = torch.ones(1, 4, 32)
     ops.rmsnorm(x, torch.zeros(1, 32))
     q = torch.ones(1, 8, 2, 16)
     ops.attention(q, q, q)
+    ops.attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
     assert rn.launches == 0 and fa.launches == 0
+    assert fa.launches_sm90 == 0 and fa.launches_fp32 == 0
 
 
 def test_flash_rejects_unsupported_head_dim():
@@ -141,7 +225,8 @@ def test_flash_rejects_unsupported_head_dim():
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
     for src, tpu in (("rmsnorm.cu", "rmsnorm_pallas"),
-                     ("flash_attention.cu", "_flash_fwd_pallas")):
+                     ("flash_attention.cu", "_flash_fwd_pallas"),
+                     ("flash_attention_sm90.cu", "_flash_fwd_pallas")):
         text = (build.CSRC / src).read_text()
         assert tpu in text and "Bound on this card" in text
 
@@ -178,27 +263,62 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, xdt, gdt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk,dtype", [
-    (2, 64, 4, 2, 16, True, None, None, None, torch.float32),
-    (1, 200, 4, 2, 16, True, 64, 30.0, None, torch.float32),
-    (1, 80, 2, 1, 32, False, None, None, 112, torch.float32),
-    (2, 256, 6, 2, 128, True, None, None, None, torch.float32),
-    (1, 130, 2, 1, 256, True, 50, None, None, torch.float32),
-    (2, 256, 6, 2, 128, True, None, None, None, torch.bfloat16),
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk,dtype,Dv", [
+    (2, 64, 4, 2, 16, True, None, None, None, torch.float32, None),
+    (1, 200, 4, 2, 16, True, 64, 30.0, None, torch.float32, None),
+    (1, 80, 2, 1, 32, False, None, None, 112, torch.float32, None),
+    (2, 256, 6, 2, 128, True, None, None, None, torch.float32, None),
+    (1, 130, 2, 1, 256, True, 50, None, None, torch.float32, None),
+    (2, 256, 6, 2, 128, True, None, None, None, torch.bfloat16, None),
+    # bf16: the tensor-core kernel at every head-dim instance and feature
+    (2, 64, 4, 2, 16, True, None, None, None, torch.bfloat16, None),
+    (1, 192, 4, 2, 64, True, None, None, None, torch.bfloat16, None),
+    (1, 200, 4, 2, 96, True, None, None, None, torch.bfloat16, None),
+    (1, 300, 4, 2, 256, True, 96, 50.0, None, torch.bfloat16, None),
+    (1, 130, 2, 1, 64, True, None, None, None, torch.bfloat16, 128),
+    (1, 130, 2, 1, 256, False, None, None, None, torch.bfloat16, 64),
+    (1, 200, 4, 2, 16, True, 64, 30.0, None, torch.bfloat16, None),
+    (1, 200, 4, 2, 128, False, None, None, 130, torch.bfloat16, None),
+    (1, 130, 4, 2, 128, True, 48, None, 200, torch.bfloat16, None),
+    (2, 384, 24, 2, 128, True, None, None, None, torch.bfloat16, None),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, H, Hkv, D, causal, window, softcap,
-                                    Sk, dtype):
+                                    Sk, dtype, Dv):
+    """Each dtype's kernel against the plain version: bf16 goes to the
+    tensor-core kernel (``launches_sm90``), fp32 to the CUDA-core kernel
+    (``launches_fp32``), and nothing else launches."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     Sk = Sk or Sq
+    Dv = Dv or D
     q = torch.randn((B, Sq, H, D), generator=gen, device=cuda).to(dtype)
     k = torch.randn((B, Sk, Hkv, D), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((B, Sk, Hkv, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, Hkv, Dv), generator=gen, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window, softcap=softcap, scale=D ** -0.5)
-    before = fa.launches
+    before = (fa.launches, fa.launches_sm90, fa.launches_fp32)
     out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    sm90 = dtype == torch.bfloat16
+    assert (fa.launches, fa.launches_sm90, fa.launches_fp32) == (
+        before[0] + 1, before[1] + sm90, before[2] + (not sm90))
     want_out, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
     tol = 3e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_sm90_fully_masked_rows(cuda):
+    """Rows whose window ends before the last key (ragged Sk) see no key: the
+    tensor-core kernel writes lse = NEG_INF and out = 0 there, exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    Sq, Sk, window = 200, 130, 32
+    q = torch.randn((1, Sq, 4, 64), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((1, Sk, 2, 64), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((1, Sk, 2, 64), generator=gen, device=cuda).bfloat16()
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal=True, window=window, softcap=None,
+                                 scale=0.125)
+    torch.cuda.synchronize()
+    dead = Sk - 1 + window          # first row with k > q - window for no k < Sk
+    assert bool((lse[:, :, dead:] == fa.NEG_INF).all())
+    assert bool((out[:, dead:] == 0).all())
+    assert bool((lse[:, :, :dead] > fa.NEG_INF / 2).all())
