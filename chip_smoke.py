@@ -8,12 +8,14 @@ Phases, each printing one JSON line:
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    for sm_90a and load them; the compiler's registers and spills of each
-   instance of the tensor-core flash kernel;
+   instance of the tensor-core flash kernel and of the selective scan;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the main paths' shapes in bf16 and fp32 and on small cases (window /
    softcap / ragged attention at head dims 16 to 256, fully masked rows;
-   ragged L, small N, an initial state and per-lane A for the selective
-   scan; TF32 off), with the flash kernel each case went through (bf16: the
+   for the selective scan the main shape with the chunk states, falcon-mamba's
+   initial A and dt over 1,024 steps, N of 4, 12, 16 and 64, ragged L, Dm and
+   chunk, unaligned rows, an initial state, per-lane A with 2 and 3 rows a
+   lane; TF32 off), with the flash kernel each case went through (bf16: the
    tensor-core kernel, fp32: the CUDA-core kernel); the plain flash backward
    fed the tensor-core kernel's (out, lse) against the same backward fed the
    plain forward's, at the main shape; and the scan's chunked backward
@@ -32,8 +34,10 @@ Phases, each printing one JSON line:
    the card's fp32 attention went through the CUDA-core flash kernel only;
 6. timing — each kernel, its plain version and the PyTorch library call
    that computes the same function (none for the selective scan), timed
-   with CUDA events at the main paths' shapes, beside the least time the
-   card could take.
+   with CUDA events at the main paths' shapes (the scan as the main path
+   calls it, with the chunk states), beside the least time the card could
+   take: bytes or operations, and for the scan also its exponentials on the
+   special-function units (``sfu_ms``), the bound that binds it.
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -73,6 +77,8 @@ RMS_SHAPE = (4, 4096, 3072)                        # (K, B*S, d), gain (K, d)
 RMS_MAMBA_SHAPE = (4, 2048, 4096)
 FLASH_Q, FLASH_KV = (16, 1024, 24, 128), (16, 1024, 2, 128)   # (K*B, S, heads, D)
 SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (K, d_inner, N)
+SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
+SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
 
 
 def emit(obj) -> None:
@@ -92,22 +98,34 @@ def nvidia_smi() -> str:
 
 
 # ------------------------------------------------------------------- phase 2
-def ptxas_summary(report: str) -> dict:
-    """Registers, spills and stack of each instance (head-dim width) of the
-    tensor-core flash kernel, from nvcc's ``-Xptxas=-v`` report; empty when the
-    library was reused.  The registers are those the block launches with:
-    ``setmaxnreg`` then moves them from the producer to the consumers."""
+PTXAS_INSTANCES = {  # source: (its kernel's instances in the mangled names, label)
+    "flash_attention_sm90.cu": (r"flash_fwd_sm90_kernelILi(\d+)E", lambda m: f"width_{m[1]}"),
+    # <G, S>: G states a thread, S threads a channel
+    "ssm_scan.cu": (r"ssm_scan_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)",
+                    lambda m: "{}<{}>".format("bf16" if m[1] != "f" else "fp32",
+                                              ",".join(re.findall(r"\d+", m[2])))),
+}
+
+
+def ptxas_summary(report: str, source: str) -> dict:
+    """Registers, spills and stack of each instance of ``source``'s kernel
+    (the tensor-core flash kernel by head-dim width, the selective scan by
+    dtype and state split), from nvcc's ``-Xptxas=-v`` report; empty when the
+    library was reused.  The flash kernel's registers are those the block
+    launches with: ``setmaxnreg`` then moves them from the producer to the
+    consumers."""
+    pattern, label = PTXAS_INSTANCES[source]
     out, cur = {}, None
     for line in report.splitlines():
-        inst = re.search(r"flash_fwd_sm90_kernelILi(\d+)E", line)
+        inst = re.search(pattern, line)
         if "Compiling entry function" in line:
-            cur = f"width_{inst.group(1)}" if inst else None
+            cur = label(inst) if inst else None
             if cur:
                 out.setdefault(cur, {})
             continue
         if inst and "Performance Loss" in line:
             msg = line.split("Performance Loss:", 1)[1].split(" for the function")[0]
-            out.setdefault(f"width_{inst.group(1)}", {})["warning"] = msg.strip()
+            out.setdefault(label(inst), {})["warning"] = msg.strip()
             continue
         if cur is None:
             continue
@@ -123,16 +141,25 @@ def ptxas_summary(report: str) -> dict:
 
 
 # ------------------------------------------------------------------- phase 3
-def ssm_inputs(torch, dev, gen, shape, n, k, dtype, h0=False):
+def ssm_inputs(torch, dev, gen, shape, n, k, dtype, h0=False, init=False):
     """Scan inputs as the mixer makes them: x, dt (R, L, Dm) with dt a
     softplus, B, C (R, L, N) in ``dtype``; per-lane A (K, Dm, N) < 0 and D
-    (K, Dm) in fp32; an optional fp32 h0 (R, Dm, N)."""
+    (K, Dm) in fp32; an optional fp32 h0 (R, Dm, N).  ``init``: A and dt as
+    falcon-mamba starts training, A_n = -(n + 1) and dt log-uniform in
+    [1e-3, 1e-1], decays up to 0.999 carried over the whole sequence."""
+    import math
+
     import torch.nn.functional as F
 
     R, L, Dm = shape
     x = (0.5 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
     dt = F.softplus(torch.randn(shape, generator=gen, device=dev) - 1.0).to(dtype)
     A = -torch.exp(0.3 * torch.randn((k, Dm, n), generator=gen, device=dev))
+    if init:
+        u = torch.rand(shape, generator=gen, device=dev)
+        dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))).to(dtype)
+        A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(k, Dm, n)
+        A = A.contiguous()
     Bc = (0.5 * torch.randn((R, L, n), generator=gen, device=dev)).to(dtype)
     Cc = (0.5 * torch.randn((R, L, n), generator=gen, device=dev)).to(dtype)
     D = 0.2 * torch.randn((k, Dm), generator=gen, device=dev)
@@ -253,14 +280,17 @@ def check_kernels(torch, dev):
         return torch.cat([o.float().flatten(), l.flatten()]), \
             torch.cat([po.float().flatten(), pl.flatten()]), through
 
-    def ssm(shape, n, k, dtype, h0=False):
-        """y and h_last of the kernel and of the plain version, flattened:
-        the first x.numel() entries are y, the rest h_last."""
-        x, dt, A, Bc, Cc, D, hh = ssm_inputs(torch, dev, gen, shape, n, k, dtype, h0)
-        y, h = ss.ssm_scan_cuda(x, dt, A, Bc, Cc, D, hh)
-        yp, hp = ss.ssm_scan_plain(x, dt, A, Bc, Cc, D, hh)
-        return torch.cat([y.float().flatten(), h.flatten()]), \
-            torch.cat([yp.float().flatten(), hp.flatten()]), y.numel()
+    def ssm(shape, n, k, dtype, h0=False, chunk=None, init=False):
+        """y, h_last and (with ``chunk``) the chunk states of the kernel and of
+        the plain version, flattened (the first x.numel() entries are y, the
+        rest the states), x.numel() and the chunk."""
+        x, dt, A, Bc, Cc, D, hh = ssm_inputs(torch, dev, gen, shape, n, k, dtype, h0, init)
+        kw = dict(chunk=chunk, chunk_states=True) if chunk else {}
+        got = ss.ssm_scan_cuda(x, dt, A, Bc, Cc, D, hh, **kw)
+        want = ss.ssm_scan_plain(x, dt, A, Bc, Cc, D, hh, **kw)
+        return (torch.cat([got[0].float().flatten()] + [t.flatten() for t in got[1:]]),
+                torch.cat([want[0].float().flatten()] + [t.flatten() for t in want[1:]]),
+                x.numel(), chunk)
 
     runs = [
         ("rmsnorm", "main", "bfloat16", lambda: rms(RMS_SHAPE, torch.bfloat16)),
@@ -296,6 +326,25 @@ def check_kernels(torch, dev):
          lambda: ssm((4, 100, 200), 4, 2, torch.float32, h0=True)),
         ("ssm_scan", "ragged-100-N4-h0-2lanes", "bfloat16",
          lambda: ssm((4, 100, 200), 4, 2, torch.bfloat16, h0=True)),
+        # the redesigned kernel's edges: chunk states, splits of N, ragged tiles
+        ("ssm_scan", "main-chunk-states-128", "bfloat16",
+         lambda: ssm(SSM_X, SSM_N, SSM_K, torch.bfloat16, chunk=128)),
+        ("ssm_scan", "long-horizon-init-L1024-N16", "float32",
+         lambda: ssm((4, 1024, 256), 16, 2, torch.float32, chunk=128, init=True)),
+        ("ssm_scan", "N64-h0", "float32",
+         lambda: ssm((2, 200, 128), 64, 1, torch.float32, h0=True, chunk=64)),
+        ("ssm_scan", "N12-split-pads", "float32",
+         lambda: ssm((4, 300, 192), 12, 2, torch.float32, chunk=128)),
+        ("ssm_scan", "N12-split-pads", "bfloat16",
+         lambda: ssm((4, 300, 192), 12, 2, torch.bfloat16, h0=True, chunk=128)),
+        ("ssm_scan", "Dm100-unaligned-rows", "bfloat16",
+         lambda: ssm((4, 77, 100), 16, 2, torch.bfloat16, chunk=32)),
+        ("ssm_scan", "L1000-chunk50", "bfloat16",
+         lambda: ssm((2, 1000, 256), 16, 1, torch.bfloat16, chunk=50)),
+        ("ssm_scan", "L1000-chunk128", "float32",
+         lambda: ssm((2, 1000, 256), 16, 2, torch.float32, chunk=128)),
+        ("ssm_scan", "3-rows-a-lane", "float32",
+         lambda: ssm((6, 130, 320), 16, 2, torch.float32, h0=True, chunk=64)),
     ]
     for name, case, dtype, run in runs:
         got, want, *split = run()
@@ -311,16 +360,19 @@ def check_kernels(torch, dev):
                             else {"sm90": 0, "fp32": 1})
             ok = ok and through == want_through
             row["kernel_launches"] = through
-        if split:  # the scan: y at the dtype's tolerance, h_last at 1e-4
+        if split:  # the scan: y at the dtype's tolerance, h_last (and hs) at 1e-4
             n_y = split[0]
             err = float(d[:n_y].max())
             ok = bool(torch.allclose(got[:n_y], want[:n_y], atol=tol, rtol=tol)) and bool(
                 torch.allclose(got[n_y:], want[n_y:], atol=SSM_STATE_TOL, rtol=SSM_STATE_TOL))
             row.update(max_abs_err=err, h_last_max_abs_err=float(d[n_y:].max()),
                        h_last_tol=SSM_STATE_TOL)
+            if split[1]:  # the states compared include those entering each chunk
+                row["chunk"] = split[1]
         cases.append(dict(row, ok=ok))
-        if case == "main" and dtype == "bfloat16":
-            errs[name] = err
+        if dtype == "bfloat16" and (case == "main" and name != "ssm_scan"
+                                    or case == "main-chunk-states-128"):
+            errs[name] = err   # at the main path's call (the scan's keeps chunk states)
         del got, want, d
     cases.append(flash_masked_rows_case(torch, dev, gen))
     cases.append(flash_backward_case(torch, dev, gen))
@@ -677,28 +729,37 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches):
 
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_X
-    h_bytes = R * Dm * SSM_N * 4
+    updates = R * L * Dm * SSM_N                      # state updates, one exponential each
+    hs_bytes = R * -(-L // SSM_CHUNK) * Dm * SSM_N * 4
     nb = (3 * x.numel() * x.element_size() + 2 * Bc.numel() * Bc.element_size()
-          + A.numel() * 4 + Dk.numel() * 4 + h_bytes)   # x, dt, y; B, C; A, D; h_last
-    n_ops = 6 * R * L * Dm * SSM_N   # exp argument, exp, two FMAs per (row, t, channel, state)
-    b_ms, b_by = bound_ms(nb, n_ops, "float32")
+          + A.numel() * 4 + Dk.numel() * 4 + R * Dm * SSM_N * 4 + hs_bytes)
+    # x, dt, y; B, C; A, D; h_last; the chunk states the main path's call writes
+    n_ops = 6 * updates   # exp argument, exp, two FMAs, the skip per (row, t, channel, state)
+    bounds = {"bytes": nb / HBM_BYTES_PER_S * 1e3, "fp32": n_ops / PEAK_OPS["float32"] * 1e3,
+              "sfu": updates / (PEAK_OPS["float32"] / SFU_PER_FP32_FLOPS) * 1e3}
+    binding = max(bounds, key=bounds.get)
+    main_call = dict(chunk=SSM_CHUNK, chunk_states=True)   # as SSMScan.forward calls it
     rows.append({
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:30",
         **counts("ssm_scan"), "max_abs_err": errs["ssm_scan"],
-        "ms": event_ms(torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk)),
-        "ms_with_chunk_states": event_ms(
-            torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk, chunk_states=True)),
-        "plain_ms": event_ms(torch, lambda: ss.ssm_scan_plain(x, dtt, A, Bc, Cc, Dk),
+        "ms": event_ms(torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk, **main_call)),
+        "ms_without_chunk_states": event_ms(
+            torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk, chunk=SSM_CHUNK)),
+        "plain_ms": event_ms(torch, lambda: ss.ssm_scan_plain(x, dtt, A, Bc, Cc, Dk, **main_call),
                              n=3, warmup=1),
         "fwd_bwd_ms": event_ms(torch, lambda: ssm_fwd_bwd(torch, ss, x, dtt, A, Bc, Cc, Dk),
                                n=3, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "bytes_ms": nb / HBM_BYTES_PER_S * 1e3, "ops_ms": n_ops / PEAK_OPS["float32"] * 1e3,
+        # the SFU's exponentials are operations: bound_by says "operations" for
+        # them and for the FP32 count, and ops_bound_by which of the two
+        "bound_ms": bounds[binding], "bound_by": "bytes" if binding == "bytes" else "operations",
+        "ops_bound_by": "sfu" if bounds["sfu"] >= bounds["fp32"] else "fp32",
+        "bytes_ms": bounds["bytes"], "ops_ms": bounds["fp32"], "sfu_ms": bounds["sfu"],
         "library_ms": None,   # no single PyTorch call computes a selective scan
+        "occupancy": ss.kernel_occupancy(SSM_N, dt),
         "shape": {"x": list(SSM_X), "A": [SSM_K, Dm, SSM_N], "D": [SSM_K, Dm],
-                  "dtype": dts, "A_D_dtype": "float32"},
+                  "dtype": dts, "A_D_dtype": "float32", "chunk_states_chunk": SSM_CHUNK},
     })
     return rows
 
@@ -727,7 +788,9 @@ def main() -> int:
     build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
           "sources": [s.name for s in build.sources()], "flags": build.NVCC_FLAGS,
-          "flash_sm90_ptxas": ptxas_summary(build.ptxas_report.get("flash_attention_sm90.cu", ""))})
+          **{key: ptxas_summary(build.ptxas_report.get(src, ""), src)
+             for key, src in (("flash_sm90_ptxas", "flash_attention_sm90.cu"),
+                              ("ssm_scan_ptxas", "ssm_scan.cu"))}})
 
     errs = check_kernels(torch, dev)
     gc.collect()

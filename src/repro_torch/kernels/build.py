@@ -45,6 +45,8 @@ SIGNATURES = {
     "flash_attn_fwd_sm90": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _F, _P],
     # x, dt, A, B, C, D, h0, y, h_last, hs, R, L, Dm, N, K, chunk, is_bf16, stream
     "ssm_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # N, is_bf16, out: resident blocks an SM, threads a block (the instance N picks)
+    "ssm_scan_occupancy": [_I, _I, _P, _P],
 }
 
 

@@ -18,6 +18,7 @@ sequence would hold every chunk's ``(R, chunk, Dm, N)`` fp32 tensors at once.
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Optional
 
@@ -98,6 +99,20 @@ def ssm_scan_cuda(x, dt, A, Bc, Cc, D, h0=None, chunk: int = 128,
     with _count_lock:
         launches += 1
     return (y, h_last) + ((hs,) if chunk_states else ())
+
+
+def kernel_occupancy(n_state: int, dtype: torch.dtype, lib=None) -> dict:
+    """Resident blocks an SM and threads a block of the kernel instance that
+    a state size ``n_state`` in ``dtype`` launches, and the resident warps a
+    scheduler (an SM has four).  Needs the card: ``lib`` is a loaded kernel
+    library with ``ssm_scan_occupancy`` declared, by default the tree's."""
+    lib = lib or build.library()
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    build.check(lib.ssm_scan_occupancy(int(n_state), int(dtype == torch.bfloat16),
+                                       ctypes.byref(blocks), ctypes.byref(threads)),
+                "ssm_scan_occupancy")
+    return {"blocks_per_sm": blocks.value, "threads_per_block": threads.value,
+            "warps_per_scheduler": blocks.value * threads.value / 32 / 4}
 
 
 def ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0=None, chunk: int = 128,

@@ -1,7 +1,8 @@
 """The selective-scan kernel module of the PyTorch port.
 
 On the CPU: the port's plain scan (the version a CPU tensor takes) against
-the JAX package's reference scan and its Pallas kernel in interpret mode, and
+the JAX package's reference scan and its Pallas kernel in interpret mode (also
+at falcon-mamba's initial A and dt, where decays near 1 carry far), and
 the autograd function's chunked backward against ``jax.grad``, on the same
 numpy inputs, fp32.  On an NVIDIA GPU (marker ``cuda``): the CUDA kernel
 against its plain version on the card, and the chunked backward fed the
@@ -28,9 +29,12 @@ def _jax():
     return jax, jnp
 
 
-def _inputs(rng, R, L, Dm, N, K=1, h0=False):
+def _inputs(rng, R, L, Dm, N, K=1, h0=False, init=False):
     """numpy inputs of one scan: rows (R, ...) and per-lane A (K, Dm, N),
-    D (K, Dm); dt is a softplus, A negative, as in the mixer."""
+    D (K, Dm); dt is a softplus, A negative, as in the mixer.  ``init``: A
+    and dt as falcon-mamba starts training, A_n = -(n + 1) and dt
+    log-uniform in [1e-3, 1e-1], so decays up to 0.999 carry over the whole
+    sequence."""
     x = (0.5 * rng.standard_normal((R, L, Dm))).astype(np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((R, L, Dm)) - 1.0)).astype(np.float32)
     A = (-np.exp(0.3 * rng.standard_normal((K, Dm, N)))).astype(np.float32)
@@ -38,6 +42,9 @@ def _inputs(rng, R, L, Dm, N, K=1, h0=False):
     Cc = (0.5 * rng.standard_normal((R, L, N))).astype(np.float32)
     D = (0.2 * rng.standard_normal((K, Dm))).astype(np.float32)
     hh = (0.5 * rng.standard_normal((R, Dm, N))).astype(np.float32) if h0 else None
+    if init:
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (R, L, Dm))).astype(np.float32)
+        A = np.broadcast_to(-np.arange(1, N + 1, dtype=np.float32), (K, Dm, N)).copy()
     return x, dt, A, Bc, Cc, D, hh
 
 
@@ -69,6 +76,34 @@ def test_ssm_plain_matches_jax_ref_and_pallas(B, L, D, N, chunk, block_d, h0):
     for y_want, h_want in wants:
         np.testing.assert_allclose(y.numpy(), np.asarray(y_want), atol=1e-4, rtol=1e-4)
         np.testing.assert_allclose(h.numpy(), np.asarray(h_want), atol=1e-4, rtol=1e-4)
+
+
+def test_ssm_plain_matches_jax_in_the_long_horizon_regime():
+    """falcon-mamba's initial A and dt (decays up to 0.999 carried over 512
+    steps, chunk states at 128): the plain scan against ``ref.ssm_scan`` and
+    ``ssm_scan_pallas(interpret=True)``, y, h_last and the chunk states
+    within 1e-4.  The card holds its kernel against this plain version in
+    the same regime."""
+    jax, jnp = _jax()
+    from repro.kernels import ref as jref
+    from repro.kernels.ssm_scan import ssm_scan_pallas
+
+    B, L, Dm, N, chunk = 2, 512, 64, 16, 128
+    x, dt, A, Bc, Cc, Dk, _ = _inputs(np.random.default_rng(7), B, L, Dm, N, init=True)
+    assert np.exp(dt.min() * A[0].max()) > 0.998 and np.exp(dt.max() * A[0].min()) < 0.21
+    jargs = [jnp.asarray(a) for a in (x, dt, A[0], Bc, Cc, Dk[0])]
+    y, h, hs = ss.ssm_scan_fwd(*_t((x, dt, A, Bc, Cc, Dk)), chunk=chunk, chunk_states=True)
+    wants = [jref.ssm_scan(*jargs, chunk=chunk),
+             ssm_scan_pallas(*jargs, chunk=chunk, block_d=Dm, interpret=True)]
+    for y_want, h_want in wants:
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_want), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_want), atol=1e-4, rtol=1e-4)
+    # the state entering chunk c is h_last of the JAX scan over the first c chunks
+    for c in range(1, hs.shape[1]):
+        _, h_c = jref.ssm_scan(*(a[:, :c * chunk] if a.ndim == 3 and a.shape[1] == L else a
+                                 for a in jargs), chunk=chunk)
+        np.testing.assert_allclose(hs[:, c].numpy(), np.asarray(h_c), atol=1e-4, rtol=1e-4)
+    assert not hs[:, 0].any()
 
 
 def test_ssm_per_lane_A_and_D_equal_separate_calls():
@@ -231,6 +266,52 @@ def test_ssm_kernel_matches_plain(cuda, R, L, Dm, N, K, h0, dtype):
     torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(hs, hs_want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,L,Dm,N,K,h0,dtype,chunk,init", [
+    (8, 1024, 8192, 16, 4, False, torch.bfloat16, 128, False),
+    (4, 1024, 256, 16, 2, False, torch.float32, 128, True),
+    (2, 200, 128, 64, 1, True, torch.float32, 64, False),
+    (4, 300, 192, 12, 2, False, torch.float32, 128, False),
+    (4, 300, 192, 12, 2, True, torch.bfloat16, 128, False),
+    (4, 77, 100, 16, 2, False, torch.bfloat16, 32, False),
+    (2, 1000, 256, 16, 1, False, torch.bfloat16, 50, False),
+    (2, 1000, 256, 16, 2, False, torch.float32, 128, False),
+    (6, 130, 320, 16, 2, True, torch.float32, 64, False),
+    (65538, 3, 8, 4, 2, False, torch.float32, 2, False),
+], ids=["main-bf16-chunk-states", "long-horizon-init-fp32", "N64", "N12-fp32", "N12-bf16-h0",
+        "Dm100-unaligned-bf16", "L1000-chunk50", "L1000-chunk128", "3-rows-a-lane",
+        "rows-past-65535"])
+def test_ssm_kernel_edges_match_plain(cuda, R, L, Dm, N, K, h0, dtype, chunk, init):
+    """The kernel's splits of N (padded where N = 12), its ragged channel
+    tiles and unaligned bf16 rows (Dm = 100), L and chunk that are not
+    multiples of its step tile, 3 rows a lane, more rows than one grid
+    dimension holds, and falcon-mamba's initial A and dt over 1,024 steps: y
+    at the dtype's tolerance, h_last and the chunk states at 1e-4, against
+    the plain version."""
+    rng = np.random.default_rng(8)
+    x, dt, A, Bc, Cc, Dk, hh = [None if a is None else torch.from_numpy(a).to(cuda)
+                                for a in _inputs(rng, R, L, Dm, N, K=K, h0=h0, init=init)]
+    x, dt, Bc, Cc = (t.to(dtype) for t in (x, dt, Bc, Cc))
+    before = ss.launches
+    got = ss.ssm_scan_cuda(x, dt, A, Bc, Cc, Dk, hh, chunk=chunk, chunk_states=True)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    want = ss.ssm_scan_plain(x, dt, A, Bc, Cc, Dk, hh, chunk=chunk, chunk_states=True)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_kernel_keeps_eight_warps_a_scheduler_at_N16(cuda):
+    """falcon-mamba's N = 16 in bf16 runs 8 resident warps a scheduler: the
+    instance fits 64 registers a thread, and eight blocks' shared memory
+    fits an SM."""
+    occ = ss.kernel_occupancy(16, torch.bfloat16)
+    assert occ["warps_per_scheduler"] >= 8, occ
 
 
 @pytest.mark.cuda
