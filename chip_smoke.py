@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    for sm_90a and load them; the compiler's registers and spills of each
    instance of the tensor-core flash kernel and of the selective scan;
-3. kernels — each kernel against its plain PyTorch version on the card, at
+3. kernels — each kernel against its plain PyTorch version on the card (the
+   token synthesis kernel bit for bit, and against the numpy host path), at
    the main paths' shapes in bf16 and fp32 and on small cases (window /
    softcap / ragged attention at head dims 16 to 256, fully masked rows;
    for the selective scan the main shape with the chunk states, falcon-mamba's
@@ -28,6 +29,15 @@ Phases, each printing one JSON line:
    after it, must show that every population step went through each kernel
    its architecture runs (and through no other: the bf16 starcoder2 step
    through the tensor-core flash kernel, never the CUDA-core one);
+   chunked_path — the same two trainers through the fused chunked engine
+   (``--chunk-steps 4``, 8 steps a trial: two chunks, each one replay of a
+   captured CUDA graph whose batches the synthesis kernel makes on the
+   card), beside a per-step flight of the same trials: per-step losses and
+   per-leaf checksums of the final state's raw bits equal, one host
+   dispatch a chunk, the launch counters at capture and the kernels the
+   profiler sees in one replayed chunk equal to the launches a step makes
+   times the chunk; capture seconds, the graph pool, peak memory, the
+   replayed chunk's step time, idle share and device time by group;
 5. card_vs_cpu — the same population step on the starcoder2 and the
    falcon-mamba smoke configs in fp32, once on the card (kernels) and once
    on the CPU (plain versions): losses and parameters agree within 1e-4, and
@@ -79,6 +89,13 @@ FLASH_Q, FLASH_KV = (16, 1024, 24, 128), (16, 1024, 2, 128)   # (K*B, S, heads, 
 SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (K, d_inner, N)
 SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
+CHUNK, CHUNK_FLIGHT_STEPS = 4, 8                   # the chunked paths: two chunks of 4 a flight
+# our kernels by the substring of their device name (the fp32 flash kernel's
+# name is not a substring of the tensor-core one's)
+KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "flash_attention_sm90": "flash_fwd_sm90_kernel",
+                "flash_attention_fp32": "flash_fwd_kernel", "ssm_scan": "ssm_scan_kernel",
+                "synth_tokens": "synth_tokens_kernel"}
+INT_OF_SIZE = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
 
 
 def emit(obj) -> None:
@@ -252,6 +269,42 @@ def flash_backward_case(torch, dev, gen):
                 kernel_launches={"sm90": through}, ok=ok)
 
 
+def synth_cases(torch, dev):
+    """The token synthesis kernel against its plain version on the card and
+    against the numpy host path, bit for bit: both main paths' shapes with
+    real and sentinel streams and per-lane cursors, one shared stream, and a
+    row longer than one tile of the kernel."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticLM, split_streams
+    from repro_torch.kernels import synth as sk
+
+    cases = []
+    for case, (k, rows, seq, vocab), streams, steps in (
+            ("starcoder2-main", (4, MAIN["batch"], MAIN["seq"], 49152), [0, 1, -1, -3], [0, 3, 1, 7]),
+            ("falcon-mamba-main", (4, MAMBA["batch"], MAMBA["seq"], 65024), [5, 12345, -2, -4],
+             [8, 8, 8, 8]),
+            ("shared-stream", (1, 4, 1024, 49152), [0], [6]),
+            ("seq-5000-three-tiles", (2, 3, 5000, 1000), [2, -1], [1 << 33, 4])):
+        data = SyntheticLM(vocab, seq, rows, seed=0)
+        lo, hi = (torch.from_numpy(w.astype(np.int64)).to(dev) for w in split_streams(streams))
+        st = torch.tensor(steps, dtype=torch.int64, device=dev)
+        before = sk.launches
+        got = sk.synth_tokens_cuda(data, st, lo, hi, offset=3)
+        through = sk.launches - before
+        want = sk.synth_tokens_plain(data, st, lo, hi, offset=3)
+        host = data.make_population_batch([t + 3 for t in steps], streams)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        ok = (through == 1 and bool(torch.equal(got, want))
+              and bool(np.array_equal(got[..., :-1].cpu().numpy(), host["tokens"]))
+              and bool(np.array_equal(got[..., 1:].cpu().numpy(), host["targets"])))
+        cases.append(dict(kernel="synth_tokens", case=case, dtype="int32",
+                          shape=[k, rows, seq + 1], max_abs_err=err, tol=0,
+                          kernel_launches=through, ok=ok))
+    return cases
+
+
 def check_kernels(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -374,6 +427,8 @@ def check_kernels(torch, dev):
                                     or case == "main-chunk-states-128"):
             errs[name] = err   # at the main path's call (the scan's keeps chunk states)
         del got, want, d
+    cases.extend(synth_cases(torch, dev))
+    errs["synth_tokens"] = max(c["max_abs_err"] for c in cases if c["kernel"] == "synth_tokens")
     cases.append(flash_masked_rows_case(torch, dev, gen))
     cases.append(flash_backward_case(torch, dev, gen))
     cases.append(ssm_backward_case(torch, dev, gen))
@@ -389,8 +444,9 @@ def reset_counters() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import synth as sk
 
-    for mod in (fa, rn, ss):
+    for mod in (fa, rn, ss, sk):
         mod.reset_launches()
 
 
@@ -400,17 +456,20 @@ def counters() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import synth as sk
 
     return {"rmsnorm": rn.launches, "flash_attention_sm90": fa.launches_sm90,
-            "flash_attention_fp32": fa.launches_fp32, "ssm_scan": ss.launches}
+            "flash_attention_fp32": fa.launches_fp32, "ssm_scan": ss.launches,
+            "synth_tokens": sk.launches}
 
 
-def launches_per_step(cfg) -> dict:
-    """Kernel launches one forward pass of ``cfg`` makes: RMSNorm before the
-    mixer, before the FFN (if the layer has one), after each with
+def launches_per_step(cfg, chunked: bool = False) -> dict:
+    """Kernel launches one population step of ``cfg`` makes: RMSNorm before
+    the mixer, before the FFN (if the layer has one), after each with
     ``post_norm``, and once at the end; one flash launch per attention layer,
     of the tensor-core kernel in bf16 and of the CUDA-core kernel in fp32;
-    one scan per Mamba layer."""
+    one scan per Mamba layer; one token synthesis in a chunk (the per-step
+    path feeds host batches)."""
     layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
     rms = 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm)) for _, ffn in layers)
     attn = sum(m.startswith("attn") for m, _ in layers)
@@ -418,7 +477,8 @@ def launches_per_step(cfg) -> dict:
     return {"rmsnorm": rms,
             "flash_attention_sm90": attn if bf16 else 0,
             "flash_attention_fp32": 0 if bf16 else attn,
-            "ssm_scan": sum(m == "mamba" for m, _ in layers)}
+            "ssm_scan": sum(m == "mamba" for m, _ in layers),
+            "synth_tokens": int(chunked)}
 
 
 def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0):
@@ -507,7 +567,7 @@ def steady_state_step(torch, dev, tc, batch, seq, population, warmup=1, timed=3)
     n = warmup + timed
     hp = stack_hparams([hparams_from_dict(dict(learning_rate=1e-3, total_steps=n), tc)]
                        * population, dev)
-    step = make_population_train_step(tc)
+    step = make_population_train_step(tc, per_trial_batch=True)
     streams = list(range(population))
     batches = [to_device(data.make_population_batch(t, streams), dev) for t in range(n)]
     for t in range(warmup):
@@ -532,6 +592,7 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("flash_attention_fwd (ours)", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("rmsnorm (ours)", ("rmsnorm_kernel",)),
     ("ssm_scan (ours)", ("ssm_scan_kernel",)),
+    ("synth_tokens (ours)", ("synth_tokens_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -540,28 +601,41 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
 
 
 def profile_step(torch, fn, top=12):
-    """Device time of one steady population step by kernel, from
-    ``torch.profiler``; the device's busy and idle share of the step's wall
-    time.  Reports no split where the trace holds no device time."""
+    """Device time of one call of ``fn`` (a steady population step, or one
+    replayed chunk) by kernel, from ``torch.profiler``; the device's busy and
+    idle share of its wall time.  The profiler's schedule runs ``fn`` once
+    as a warm-up and records only the second call: the device trace can
+    miss the kernels of the first milliseconds after it starts.  Reports no
+    split where the trace holds no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kernels = []
+
+    def ready(prof):
+        for e in prof.key_averages():
+            # the schedule's step annotation spans the whole step on the device too
+            if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            kernels.append((e.key, us / 1e3, e.count))
 
     torch.cuda.synchronize()
-    reset_counters()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        reset_counters()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = counters()
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        kernels.append((e.key, us / 1e3, e.count))
+        launches = counters()
+        prof.step()
     busy = sum(ms for _, ms, _ in kernels)
     if busy <= 0:
         return {"wall_ms": wall_ms, "device_ms": None, "launches": launches,
@@ -572,11 +646,198 @@ def profile_step(torch, fn, top=12):
         g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + ms
     kernels.sort(key=lambda r: -r[1])
+    seen = {name: sum(c for key, _, c in kernels if sub in key)
+            for name, sub in KERNEL_NAMES.items()}
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall_ms),
-            "launches": launches,
+            "launches": launches, "kernel_launches_seen": seen,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
                             for n, ms, c in kernels[:top]]}
+
+
+# ---------------------------------------------------------- phase 4, chunked
+def state_checksums(torch, pstate) -> list:
+    """Per leaf of a population state, the sum of its raw bits read as
+    integers (int64), in 16M-element pieces: equal sums leaf by leaf stand
+    for equal states bit for bit."""
+    from repro_torch.interop import tree_leaves
+
+    out = []
+    for t in tree_leaves(pstate):
+        raw = t.detach().reshape(-1)
+        raw = (raw.to(torch.uint8) if raw.dtype == torch.bool
+               else raw.view(getattr(torch, INT_OF_SIZE[raw.element_size()])))
+        acc = torch.zeros((), dtype=torch.int64, device=raw.device)
+        for part in raw.split(1 << 24):
+            acc += part.sum(dtype=torch.int64)
+        out.append(int(acc))
+    return out
+
+
+def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed=0):
+    """One flight of the Experiment (random proposer, vectorized resource
+    manager) at ``chunk_steps``, recording its per-step losses and the
+    checksums of its final state; the launch counters are set to 0 just
+    before it and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.experiment import Experiment
+    from repro_torch.core.job import JobStatus
+    from repro_torch.launch.hpo import SPACE, PopulationTrial
+
+    full = get_config(arch)
+    overrides = {f.name: getattr(full, f.name) for f in dataclasses.fields(full)
+                 if f.name != "name"}
+    overrides["n_layers"] = n_layers
+    trial = PopulationTrial(arch, steps, batch, seq, seed, population=population,
+                            model_overrides=overrides, device=dev, chunk_steps=chunk_steps)
+    sums = []
+    trial.on_flight_end = lambda ps: sums.append(state_checksums(torch, ps))
+    exp = Experiment({"proposer": "random", "parameter_config": SPACE,
+                      "n_samples": population, "n_parallel": population,
+                      "target": "max", "random_seed": seed, "resource": "vectorized"},
+                     trial)
+    jobs = []
+    exp.add_result_callback(jobs.append)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    exp.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"chunk_steps": chunk_steps, "wall_s": wall, "launches": counters(),
+           "dispatches": trial.n_dispatches, "train_steps": trial.n_train_steps,
+           "dispatches_per_step": trial.n_dispatches / max(1, trial.n_train_steps),
+           "flight_s_per_step": trial.per_rung_step_time_s[-1][2]
+           if trial.per_rung_step_time_s else None,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "finished": len(jobs) == population and all(
+               j.status == JobStatus.FINISHED for j in jobs),
+           "scores": [None if j.result is None else j.result.score for j in jobs],
+           "errors": [j.result.error for j in jobs
+                      if j.status != JobStatus.FINISHED and j.result is not None]}
+    tc, data = trial._setup()
+    losses = trial.flight_losses
+    del exp, trial
+    return out, losses, sums[0] if sums else None, tc, data
+
+
+def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK_FLIGHT_STEPS,
+                 chunk=CHUNK, seed=0, per_step_steady=None):
+    """The population trainer through the fused chunked engine beside
+    per-step flights of the same trials: two flights of each (the second
+    per-step flight without the process's first-call set-up, the second
+    chunked flight initialised into the captured state and replaying the
+    graph captured by the first), then one captured chunk replayed for its
+    step time and its profile."""
+    from repro_torch.train import population as P
+
+    P.clear_population_cache()
+    flights, losses, sums = {}, {}, {}
+    for name, chunk_steps in (("per_step", 1), ("per_step_again", 1),
+                              ("chunked", chunk), ("chunked_again", chunk)):
+        flights[name], losses[name], sums[name], tc, data = run_flight(
+            torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed)
+        if name == "chunked":
+            graphs = P.graph_stats()
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_step = launches_per_step(tc.model, chunked=True)
+    streams = list(range(population))
+    t0 = time.perf_counter()
+    for t in range(3):
+        data.make_population_batch(t, streams)
+    host_batch_s = (time.perf_counter() - t0) / 3
+    prog = P.get_compiled_population_scan_step(tc, population, data, chunk, per_trial_batch=True)
+    prog.replay(dev)   # warm
+    torch.cuda.synchronize()
+    n_timed = 3
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        prog.replay(dev)
+    torch.cuda.synchronize()
+    replay_s = (time.perf_counter() - t0) / n_timed
+    prof = profile_step(torch, lambda: prog.replay(dev))
+    seen = prof.pop("kernel_launches_seen")
+    prof.pop("launches")
+    raw = lambda t: t.view(torch.int32)  # noqa: E731  (fp32 losses as raw bits)
+    ref_losses = losses["per_step"]
+    losses_equal = {n: bool(ls is not None and ref_losses is not None
+                            and ls.shape == ref_losses.shape
+                            and torch.equal(raw(ls), raw(ref_losses)))
+                    for n, ls in losses.items() if n != "per_step"}
+    sums_equal = {n: sm is not None and sm == sums["per_step"]
+                  for n, sm in sums.items() if n != "per_step"}
+    chunked, again, base = flights["chunked"], flights["chunked_again"], flights["per_step"]
+    n_chunks = steps // chunk
+    out = {
+        "phase": "chunked_path", "arch": arch, "n_layers": tc.model.n_layers,
+        "population": population, "batch": batch, "seq": seq, "steps_per_trial": steps,
+        "chunk": chunk,
+        "dispatches": chunked["dispatches"], "train_steps": chunked["train_steps"],
+        "dispatches_per_step": chunked["dispatches_per_step"],
+        "per_step_dispatches": base["dispatches"],
+        "flight_s_per_step": {n: f["flight_s_per_step"] for n, f in flights.items()},
+        "flight_wall_s": {n: f["wall_s"] for n, f in flights.items()},
+        "host_batch_s": host_batch_s,
+        "replayed_chunk_s": replay_s, "replayed_s_per_step": replay_s / chunk,
+        "per_step_steady_s_per_step": per_step_steady,
+        "graphs": graphs, "capture_s": sum(g["capture_s"] for g in graphs),
+        "graph_pool_gib": sum(g["pool_bytes"] for g in graphs) / 2 ** 30,
+        # a replay allocates nothing, so the pool's use shows in reserved memory
+        "peak_memory_gib": {n: f["peak_memory_gib"] for n, f in flights.items()},
+        "peak_reserved_gib": {n: f["peak_reserved_gib"] for n, f in flights.items()},
+        "launches_at_capture": chunked["launches"],
+        "launches_second_chunked_flight": again["launches"],
+        "launches_per_step": per_step,
+        "kernel_launches_per_step_seen": {n: c / chunk for n, c in seen.items()},
+        "profile": prof,
+        "losses_bit_equal_to_per_step": losses_equal,
+        "state_checksums_equal_to_per_step": sums_equal,
+        "state_leaves": None if sums["chunked"] is None else len(sums["chunked"]),
+        "scores": chunked["scores"], "per_step_scores": base["scores"],
+    }
+    emit(out)
+    problems = []
+    if not all(f["finished"] for f in flights.values()):
+        problems.append("not every trial finished: " + "; ".join(
+            f"{n}: {f['errors']}" for n, f in flights.items() if not f["finished"]))
+    for name in ("chunked", "chunked_again"):
+        f = flights[name]
+        if f["train_steps"] != steps or f["dispatches"] != n_chunks:
+            problems.append(f"{name}: {f['dispatches']} dispatches for {f['train_steps']} "
+                            f"steps, want {n_chunks} for {steps}")
+    if base["dispatches"] != steps:
+        problems.append(f"the per-step flight made {base['dispatches']} dispatches")
+    if not all(losses_equal.values()):
+        problems.append(f"per-step losses differ from the per-step flight's: {losses_equal}")
+    if not all(sums_equal.values()):
+        problems.append(f"final states differ from the per-step flight's: {sums_equal}")
+    if [g["chunk"] for g in graphs] != [chunk] or P.graph_stats() != graphs:
+        problems.append(f"captured graphs {P.graph_stats()}, want one of chunk {chunk}, "
+                        f"captured once")
+    if prof.get("device_ms") is None:
+        problems.append("the profiled chunk shows no device time")
+    for name, n in per_step.items():
+        # the warm-up step and the captured chunk; a replay calls no wrapper
+        if chunked["launches"][name] != n * (chunk + 1):
+            problems.append(f"{name}: {chunked['launches'][name]} launches at capture, want "
+                            f"{n} x ({chunk} + 1)")
+        if again["launches"][name] != 0:
+            problems.append(f"{name}: {again['launches'][name]} wrapper calls in the second "
+                            f"chunked flight, want 0 (replays only)")
+        if seen[name] != n * chunk:
+            problems.append(f"{name}: the profiler saw {seen[name]} launches in one replayed "
+                            f"chunk, want {n} x {chunk}")
+    P.clear_population_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        die(f"chunked path {arch}: " + "; ".join(problems))
+    return chunked["launches"], out
 
 
 # ------------------------------------------------------------------- phase 5
@@ -598,7 +859,7 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
                  b2=0.95, grad_clip=1.0 - 0.5 * i, total_steps=steps)
             for i in range(population)]
     hps = [hparams_from_dict(c, tc) for c in cfgs]
-    step = make_population_train_step(tc)
+    step = make_population_train_step(tc, per_trial_batch=True)
     before = counters()
     loss_err = 0.0
     for t in range(steps):
@@ -651,12 +912,13 @@ def ssm_fwd_bwd(torch, ss, *inputs):
     return torch.autograd.grad((y, h), leaves, (torch.ones_like(y), torch.zeros_like(h)))
 
 
-def time_kernels(torch, dev, errs, by_path, fp32_launches):
+def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     """One row per kernel for the ``kernels`` line.  ``by_path`` holds each
     main path's launch counts; a row's ``launches`` is their sum (the flash
     row's: the tensor-core kernel's, with both kernels' counts beside it).
     ``fp32_launches``: the CUDA-core flash kernel's launches in the
-    card-against-CPU phase."""
+    card-against-CPU phase; ``chunk_launches``: the synthesis kernel's
+    launches the profiler saw in one replayed chunk, by chunked path."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -761,6 +1023,32 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches):
         "shape": {"x": list(SSM_X), "A": [SSM_K, Dm, SSM_N], "D": [SSM_K, Dm],
                   "dtype": dts, "A_D_dtype": "float32", "chunk_states_chunk": SSM_CHUNK},
     })
+    del x, dtt, A, Bc, Cc, Dk
+
+    from repro_torch.data.pipeline import SyntheticLM, split_streams
+    from repro_torch.kernels import synth as sk
+
+    K, rows_, seq = MAIN["population"], MAIN["batch"], MAIN["seq"]
+    data = SyntheticLM(49152, seq, rows_, seed=0)
+    lo, hi = (torch.tensor(w.astype("int64"), device=dev)
+              for w in split_streams(list(range(K))))
+    st = torch.zeros(K, dtype=torch.int64, device=dev)
+    nb = K * rows_ * (seq + 1) * 4 + 3 * K * 8      # the tokens written, cursors and words read
+    rows.append({
+        "name": "synth_tokens", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/synth_tokens.cu",
+        # not a TPU kernel: the device branch (lax.scan over positions) of
+        # the JAX package's synthesis, inside its compiled chunk program
+        "replaces": "src/repro/data/pipeline.py:147", "tpu_kernel": False,
+        **counts("synth_tokens"), "launches_per_chunk": chunk_launches,
+        "max_abs_err": errs["synth_tokens"],
+        "ms": event_ms(torch, lambda: sk.synth_tokens_cuda(data, st, lo, hi)),
+        "plain_ms": event_ms(torch, lambda: sk.synth_tokens_plain(data, st, lo, hi),
+                             n=3, warmup=1),
+        "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,   # no PyTorch call computes this generator
+        "shape": {"tokens": [K, rows_, seq + 1], "dtype": "int32"},
+    })
     return rows
 
 
@@ -795,14 +1083,21 @@ def main() -> int:
     errs = check_kernels(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    by_path = {}
+    by_path, chunk_launches = {}, {}
     for path in (MAIN, MAMBA):
-        by_path[path["arch"]], _ = main_path(torch, dev, **path)
+        by_path[path["arch"]], out = main_path(torch, dev, **path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        kw = {k: v for k, v in path.items() if k != "steps"}
+        launches, out = chunked_path(torch, dev, per_step_steady=out["steady_s_per_step"], **kw)
+        by_path[path["arch"] + "+chunked"] = launches
+        chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
+            "synth_tokens"] * out["chunk"]
         gc.collect()
         torch.cuda.empty_cache()
     fp32_launches = sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
                         for path in (MAIN, MAMBA))
-    emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches)})
+    emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -19,6 +19,16 @@ every trial of a population consumes an *independent* data sequence;
 axis.  Negative streams are reserved sentinels (padding population lanes):
 they wrap to the top of the u64 range, far from any real trial stream.
 
+**Device synthesis.** The same generator also runs in PyTorch on the
+tensors' own device (``synth_tokens_device``, ``synth_population_batch_device``):
+the fused chunked engine (``repro_torch.train.population.
+make_population_scan_step``) makes each step's batch from ``(seed, stream
+words, step cursor)`` without a host round trip, bit-identical to the numpy
+path.  The plain PyTorch version does the uint32 arithmetic in int64 with a
+32-bit mask after every multiply, add and left shift (products by 16-bit
+halves of the constant, so no intermediate leaves int64); on the card the
+token recurrence runs as one kernel, ``repro_torch.kernels.synth``.
+
 ``HostPrefetcher`` moves host batches onto the device: pinned host tensors
 copied with ``non_blocking=True`` so the copy of batch ``s+1`` overlaps the
 device work of step ``s``.
@@ -126,6 +136,87 @@ def synth_tokens(spec: "SyntheticLM", rows_shape, step, stream_lo,
     return toks
 
 
+# -- the same generator in PyTorch ------------------------------------------------
+#
+# uint32 values live in int64 tensors; every multiply, add and left shift is
+# masked back to 32 bits.  ``_mul32`` multiplies by the 16-bit halves of the
+# constant, so no product exceeds 2^48 and nothing relies on signed wrap.
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``(h * c) mod 2^32`` for ``h`` in [0, 2^32) and a constant ``c``."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _words_t(w, shape, device) -> torch.Tensor:
+    """A hash word (int or integer tensor, broadcastable against ``shape``)
+    as its low 32 bits in an int64 tensor of ``shape``."""
+    if isinstance(w, (int, np.integer)):
+        return torch.full(shape, int(w) & _U32, dtype=torch.int64, device=device)
+    return torch.broadcast_to(w.to(torch.int64) & _U32, shape)
+
+
+def _hash_u32_t(shape, words, device) -> torch.Tensor:
+    """``_hash_u32`` on tensors: the same murmur3-style combine and finalizer,
+    bit for bit, in masked int64."""
+    h = torch.full(shape, 0x9E3779B9, dtype=torch.int64, device=device)
+    for w in words:
+        h = h ^ _mul32(_words_t(w, shape, device), 0xCC9E2D51)
+        h = ((h << 13) & _U32) | (h >> 19)
+        h = (h * 5 + 0xE6546B64) & _U32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _u01_t(h: torch.Tensor) -> torch.Tensor:
+    """``_u01`` on tensors: the top 24 bits as float32, times 2^-24."""
+    return (h >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def _rule32_t(a: torch.Tensor, b: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``_rule32`` on tensors (int32 tokens in, int32 tokens out)."""
+    return (_hash_u32_t(a.shape, [a, b], a.device) % vocab).to(torch.int32)
+
+
+def synth_tokens_device(spec: "SyntheticLM", rows_shape, step, stream_lo,
+                        stream_hi, shard=0, device="cpu") -> torch.Tensor:
+    """``synth_tokens`` in plain PyTorch on ``device``: int32 tokens of shape
+    ``rows_shape + (seq_len+1,)``, bit-identical to the numpy path.
+
+    ``step`` / ``stream_lo`` / ``stream_hi`` / ``shard`` are ints or integer
+    tensors broadcastable against ``rows_shape`` (per-lane values shaped
+    ``(K, 1)``); a tensor carries its values' low 32 bits.  The draws of every
+    position depend only on their coordinates, so they are made for all
+    positions at once; only the bigram rule runs position by position.
+    """
+    vocab = int(spec.vocab_size)
+    rows_shape = tuple(rows_shape)
+    n_pos = int(spec.seq_len) + 1
+    expand = lambda w: w if isinstance(w, (int, np.integer)) else w[..., None]  # noqa: E731
+    row = torch.arange(rows_shape[-1], dtype=torch.int64, device=device)[:, None]
+    coords = [int(spec.seed), expand(stream_lo), expand(stream_hi), expand(step),
+              expand(shard), row]
+
+    def draw(kind, lo, hi):
+        pos = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        return _hash_u32_t(rows_shape + (hi - lo,), [kind] + coords + [pos], device)
+
+    toks = torch.empty(rows_shape + (n_pos,), dtype=torch.int32, device=device)
+    toks[..., :2] = (draw(_KIND_INIT, 0, 2) % vocab).to(torch.int32)
+    follow = _u01_t(draw(_KIND_FOLLOW, 2, n_pos)) < float(np.float32(spec.order_mix))
+    noise = (draw(_KIND_NOISE, 2, n_pos) % vocab).to(torch.int32)
+    for t in range(2, n_pos):
+        toks[..., t] = torch.where(
+            follow[..., t - 2], _rule32_t(toks[..., t - 2], toks[..., t - 1], vocab),
+            noise[..., t - 2])
+    return toks
+
+
 def tokens_to_batch(spec: "SyntheticLM", toks) -> Dict[str, np.ndarray]:
     """``synth_tokens`` output -> the training-batch dict contract
     (``tokens`` int32, ``targets`` int32, ``mask`` float32 ones)."""
@@ -136,6 +227,48 @@ def tokens_to_batch(spec: "SyntheticLM", toks) -> Dict[str, np.ndarray]:
     }
 
 
+def tokens_to_batch_device(spec: "SyntheticLM", toks: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``tokens_to_batch`` for a token tensor on its device; ``tokens`` and
+    ``targets`` are contiguous, like the host path's copies."""
+    return {
+        "tokens": toks[..., :-1].contiguous(),
+        "targets": toks[..., 1:].contiguous(),
+        "mask": torch.ones(toks.shape[:-1] + (spec.seq_len,), dtype=torch.float32,
+                           device=toks.device),
+    }
+
+
+def synth_batch_device(spec: "SyntheticLM", stream_lo: torch.Tensor,
+                       stream_hi: torch.Tensor, step: torch.Tensor,
+                       offset: int = 0) -> Dict[str, torch.Tensor]:
+    """One training batch ``(global_batch, seq_len)`` on the tensors' device
+    for one stream: ``stream_lo``/``stream_hi`` are its two hash words (see
+    ``split_stream``) and ``step + offset`` the cursor, each a 0-d or (1,)
+    integer tensor.  Bit-identical to ``make_batch(step + offset,
+    stream=stream)``; the shared-stream twin of
+    ``synth_population_batch_device``."""
+    from ..kernels.synth import synth_tokens
+
+    toks = synth_tokens(spec, step.reshape(1), stream_lo.reshape(1),
+                        stream_hi.reshape(1), offset=offset)
+    return tokens_to_batch_device(spec, toks[0])
+
+
+def synth_population_batch_device(spec: "SyntheticLM", stream_lo: torch.Tensor,
+                                  stream_hi: torch.Tensor, steps: torch.Tensor,
+                                  offset: int = 0) -> Dict[str, torch.Tensor]:
+    """K per-lane batches ``(K, global_batch, seq_len)`` on the tensors'
+    device, from per-lane stream words (integer (K,), see ``split_streams``)
+    and per-lane step cursors (integer (K,)) advanced by ``offset``.  Lane
+    ``i``'s slab is bit-identical to ``make_batch(steps[i] + offset,
+    stream=streams[i])``.  On the card the tokens come from the
+    ``synth_tokens`` kernel, on the CPU from ``synth_tokens_device``."""
+    from ..kernels.synth import synth_tokens
+
+    return tokens_to_batch_device(spec, synth_tokens(spec, steps, stream_lo, stream_hi,
+                                                     offset=offset))
+
+
 @dataclasses.dataclass
 class SyntheticLM:
     vocab_size: int
@@ -143,6 +276,14 @@ class SyntheticLM:
     global_batch: int
     seed: int = 0
     order_mix: float = 0.85  # P(follow the markov rule) vs uniform noise
+
+    @property
+    def spec_key(self) -> Tuple:
+        """Hashable identity of the generator — keys the chunk-program cache
+        (a chunk program bakes the batch synthesis in, so it is specific to
+        this exact stream definition)."""
+        return (int(self.vocab_size), int(self.seq_len),
+                int(self.global_batch), int(self.seed), float(self.order_mix))
 
     def make_batch(self, step: int, shard: int = 0, n_shards: int = 1,
                    stream: int = 0) -> Dict[str, np.ndarray]:

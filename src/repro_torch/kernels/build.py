@@ -47,6 +47,8 @@ SIGNATURES = {
     "ssm_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
     # N, is_bf16, out: resident blocks an SM, threads a block (the instance N picks)
     "ssm_scan_occupancy": [_I, _I, _P, _P],
+    # steps, lo, hi, out, K, rows, n_pos, seed, shard, vocab, order_mix, offset, stream
+    "synth_tokens_fwd": [_P] * 4 + [_I] * 3 + [_L, _L, _I, _F, _L, _P],
 }
 
 

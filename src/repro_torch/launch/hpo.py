@@ -29,14 +29,23 @@ Trials read independent per-trial data streams (their ``job_id`` folded into
 the synthetic stream) in every engine, so the engines stay score-equivalent
 trial for trial; ``--shared-stream`` gives every trial the same stream.
 
+With ``--chunk-steps T`` (and ``--vectorize K``) a flight advances in fused
+chunks of up to T steps between host events (rung boundaries, the flight's
+end), sized in powers of two (``launch/chunkplan.py``); each step of a chunk
+makes its batch on the device from the lanes' stream words and step cursors,
+bit-identical to the host batches, so a chunked flight gives the per-step
+flight's scores.  A chunk of one step is the per-step path.  On the card a
+chunk is one replay of a captured CUDA graph, and its batches are made by
+the ``csrc/synth_tokens.cu`` kernel.
+
 **Device.**  Trials run on ``cuda`` unless ``--device cpu`` is given; without
 a GPU the driver raises rather than fall back.  On the card every RMSNorm,
 every attention forward and every Mamba selective scan runs the hand-written
 Hopper kernels; on the CPU their plain PyTorch versions.
 
-Engines of later slices (fused chunked scans, streaming refill and PBT,
-device-side rules, crash safety, the prefetch ring, multi-device meshes) are
-refused with the ROADMAP.md item that brings them.
+Engines of later slices (streaming refill and PBT, device-side rules, crash
+safety, the prefetch ring, multi-device meshes) are refused with the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -91,6 +100,12 @@ class PopulationTrial:
     ``device`` is ``cuda`` unless ``cpu`` is asked for (see
     ``resolve_device``).  On the card the kernels always run: there is no
     ``fused_*`` switch.
+
+    ``chunk_steps`` > 1 runs the population flights in fused chunks (see the
+    module docstring); ``n_dispatches`` then counts chunks.  Each flight
+    keeps its per-step losses, ``flight_losses`` (``(steps, K)`` on the
+    device); ``on_flight_end``, if set, is called with each flight's final
+    population state.
     """
 
     DIVERGED_SCORE = -1e9
@@ -98,7 +113,7 @@ class PopulationTrial:
     def __init__(self, arch: str, steps: int, batch: int, seq: int, seed: int,
                  population: int = 0, per_trial_streams: bool = True,
                  early_stop=None, per_trial_init: bool = False,
-                 model_overrides=None, device=None):
+                 model_overrides=None, device=None, chunk_steps: int = 1):
         self.device = resolve_device(device)
         self.arch = arch
         self.steps = int(steps)
@@ -110,6 +125,9 @@ class PopulationTrial:
         self.per_trial_init = bool(per_trial_init)
         self.early_stop = early_stop
         self.model_overrides = dict(model_overrides or {})
+        self.chunk_steps = max(1, int(chunk_steps))
+        self.flight_losses = None   # (steps, K) losses of the last flight
+        self.on_flight_end = None   # callable(pstate) at each flight's end
         # [[boundary_step, steps, s_per_step], ...] between rung boundaries
         self.per_rung_step_time_s: list = []
         self.n_dispatches = 0       # population steps issued
@@ -220,10 +238,15 @@ class PopulationTrial:
     def run_population(self, configs) -> list:
         """Batch protocol: K trials in one lane-batched program.  Partial
         batches are padded to the fixed population size with 0-budget lanes
-        (they freeze at once) reading distinct negative sentinel streams."""
-        from ..data.pipeline import HostPrefetcher
+        (they freeze at once) reading distinct negative sentinel streams.
+        With ``chunk_steps`` > 1 the flight advances in fused chunks whose
+        boundaries land on the rung boundaries, so the rung rule sees exactly
+        the state the per-step loop would at the same step."""
+        from ..data.pipeline import HostPrefetcher, split_stream, split_streams
         from ..optim.hparams import stack_hparams
         from ..train.population import (
+            flight_state,
+            get_compiled_population_scan_step,
             init_population_state,
             init_population_state_from_keys,
             make_population_train_step,
@@ -242,24 +265,42 @@ class PopulationTrial:
         streams += [-(i + 1) for i in range(len(streams), k)]
         budgets = np.concatenate([budgets, np.zeros(k - len(budgets))])
         php = stack_hparams(hps, dev)
+        chunk = self.chunk_steps
+        ptb = self.per_trial_streams
+        # the state a chunk graph captured is reused in place, not held twice
+        out = flight_state(tc, k, data, ptb, dev) if chunk > 1 and dev.type == "cuda" else None
         if self.per_trial_init:
             pstate = init_population_state_from_keys(
-                [self._generator(s) for s in streams], tc, dev)
+                [self._generator(s) for s in streams], tc, dev, out=out)
         else:
-            pstate = init_population_state(self._generator(0), tc, k, dev)
-        pstep = make_population_train_step(tc, per_trial_batch=self.per_trial_streams)
+            pstate = init_population_state(self._generator(0), tc, k, dev, out=out)
+        pstep = make_population_train_step(tc, per_trial_batch=ptb)
+        if chunk > 1:
+            words = split_streams(streams) if ptb else split_stream(0)
+            s_lo, s_hi = (torch.as_tensor(np.asarray(w, np.int64), device=dev) for w in words)
+
+            def scan_of(t):
+                return get_compiled_population_scan_step(tc, k, data, t, per_trial_batch=ptb)
+
         hook = self.early_stop
-        planner = ChunkPlanner(chunk_steps=1,
+        planner = ChunkPlanner(chunk_steps=chunk,
                                boundaries=hook.boundaries if hook is not None else ())
         feed = HostPrefetcher(lambda t: self._batch(data, t, streams), dev)
+        losses = []
         s = 0
         seg_t0, seg_s0 = time.perf_counter(), 0
         while s < int(budgets.max()):
             max_b = int(budgets.max())
             t = planner.chunk_to(s, planner.next_cohort_event(s, max_b))
-            pstate, _ = pstep(pstate, feed.pop(s), php)
-            if s + t < max_b:
-                feed.prefetch(s + t)  # host synthesis overlaps the device step
+            if t > 1:
+                steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
+                pstate, metrics = scan_of(t)(pstate, php, steps0, s_lo, s_hi)
+            else:
+                pstate, metrics = pstep(pstate, feed.pop(s), php)
+                if chunk == 1 and s + 1 < max_b:
+                    feed.prefetch(s + 1)  # host synthesis overlaps the device step
+            # cloned: a graph's metrics are overwritten by its next replay
+            losses.append(metrics["loss"].detach().reshape(-1, k).clone())
             self.n_dispatches += 1
             self.n_train_steps += t
             s += t
@@ -277,17 +318,19 @@ class PopulationTrial:
                      round((time.perf_counter() - seg_t0) / max(1, s - seg_s0), 6)])
                 seg_t0, seg_s0 = time.perf_counter(), s
                 if (new_budgets != budgets).any():
-                    # truncating a lane's budget freezes it on the next step
+                    # truncating a lane's budget freezes it on the next step;
+                    # written in place, as a captured graph reads it
                     budgets = new_budgets
-                    php = dataclasses.replace(
-                        php, total_steps=torch.tensor(budgets, dtype=torch.float32,
-                                                      device=dev))
+                    php.total_steps.copy_(torch.as_tensor(budgets, dtype=torch.float32))
         self.last_flight_steps = s
         scores = population_scores(pstate, self.DIVERGED_SCORE).cpu().numpy()
         if s > seg_s0:  # the tail past the last rung boundary (scores synced)
             self.per_rung_step_time_s.append(
                 [int(s), int(s - seg_s0),
                  round((time.perf_counter() - seg_t0) / (s - seg_s0), 6)])
+        self.flight_losses = torch.cat(losses) if losses else None
+        if self.on_flight_end is not None:
+            self.on_flight_end(pstate)
         return [float(x) for x in scores[: len(configs)]]
 
 
@@ -305,7 +348,6 @@ _LATER_FLAGS = (
     ("shard_population", "--shard-population", _ITEM.format("12 (multi-device engines)")),
     ("model_parallel", "--model-parallel", _ITEM.format("12 (multi-device engines)")),
     ("elastic_regrid", "--elastic-regrid", _ITEM.format("12 (multi-device engines)")),
-    ("chunk_steps", "--chunk-steps > 1", _ITEM.format("7 (fused chunked scan)")),
     ("lane_refill", "--lane-refill", _ITEM.format("8 (streaming engines)")),
     ("pbt_streaming", "--pbt-streaming", _ITEM.format("8 (streaming engines)")),
     ("device_rules", "--device-rules", _ITEM.format("8 (device-side rules)")),
@@ -319,8 +361,6 @@ _LATER_FLAGS = (
 
 def _later(args, name: str) -> bool:
     val = getattr(args, name)
-    if name == "chunk_steps":
-        return val > 1
     if name == "model_parallel":
         return val > 1
     if name == "resume":
@@ -381,11 +421,15 @@ def main(argv=None) -> int:
     p.add_argument("--pbt-window", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--pbt-rounds", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--ring-windows", type=int, default=2, help=argparse.SUPPRESS)
+    p.add_argument("--chunk-steps", type=int, default=1, metavar="T",
+                   help="with --vectorize K: advance each flight in fused chunks "
+                        "of up to T steps between host events, batches made on "
+                        "the device (on the card one CUDA-graph replay a chunk); "
+                        "1 = the per-step loop")
     for flag, kw in (
         ("--shard-population", dict(action="store_true")),
         ("--lane-refill", dict(action="store_true")),
         ("--pbt-streaming", dict(action="store_true")),
-        ("--chunk-steps", dict(type=int, default=1, metavar="T")),
         ("--device-rules", dict(action="store_true")),
         ("--elastic-regrid", dict(action="store_true")),
         ("--data-ring", dict(action="store_true")),
@@ -407,6 +451,9 @@ def main(argv=None) -> int:
     if args.vectorize <= 0 and args.inflight_stop:
         p.error("--inflight-stop requires --vectorize K (it acts on the "
                 "population engine)")
+    if args.chunk_steps > 1 and args.vectorize <= 0:
+        p.error("--chunk-steps acts on the population engines; it requires "
+                "--vectorize K")
     if args.fused_attention or args.fused_ssm:
         from ..configs import get_smoke_config
 
@@ -443,12 +490,14 @@ def main(argv=None) -> int:
         exp_cfg["resource"] = "vectorized"
         exp_cfg["n_parallel"] = args.vectorize
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
-                                population=args.vectorize, **trial_kw)
+                                population=args.vectorize, chunk_steps=args.chunk_steps,
+                                **trial_kw)
     else:
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 **trial_kw)
     exp_cfg["cli"] = {k: getattr(args, k) for k in (
-        "arch", "steps", "batch", "seq", "seed", "vectorize", "per_trial_init",
+        "arch", "steps", "batch", "seq", "seed", "vectorize", "chunk_steps",
+        "per_trial_init",
         "shared_stream", "inflight_stop", "fused_rmsnorm", "fused_attention",
         "fused_ssm", "device", "max_flight_restarts")}
     t0 = time.time()
@@ -466,13 +515,14 @@ def main(argv=None) -> int:
     out = {
         "proposer": args.proposer,
         "arch": args.arch,
-        "engine": "serial" if args.vectorize == 0 else "vmapped",
+        "engine": ("serial" if args.vectorize == 0 else "vmapped")
+                  + ("+chunked" if args.chunk_steps > 1 else ""),
         "vectorize": args.vectorize,
         "device": str(trial.device),
     }
     if args.vectorize > 0:
         trained = int(trial.n_train_steps)
-        out["chunk_steps"] = 1
+        out["chunk_steps"] = args.chunk_steps
         out["device_dispatches"] = trial.n_dispatches
         out["trained_steps"] = trained
         out["dispatches_per_step"] = (

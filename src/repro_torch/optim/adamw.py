@@ -94,5 +94,6 @@ def adamw_update(grads, params, state: OptState, lr: torch.Tensor, tc: TrainConf
             v.copy_(torch.where(keep, v, v_new.to(v.dtype)))
 
     tree_map(upd, grads, params, state["mu"], state["nu"])
-    state["step"] = step if applied is None else torch.where(applied, step, state["step"])
+    # in place, like every other leaf: a captured CUDA graph replays fixed addresses
+    state["step"].copy_(step if applied is None else torch.where(applied, step, state["step"]))
     return {"grad_norm": gnorm}

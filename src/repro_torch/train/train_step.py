@@ -17,7 +17,7 @@ gradients are summed in fp32 and averaged.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,10 +31,21 @@ from ..optim.schedule import warmup_cosine
 from .loss import cross_entropy
 
 
+def init_params(gen: torch.Generator, tc: TrainConfig, device) -> Dict[str, Any]:
+    """One trial's parameters (no lane axis), initialised from ``gen``."""
+    return T.init_params(gen, tc.model, device)
+
+
 def init_train_state(gen: torch.Generator, tc: TrainConfig, device) -> Dict[str, Any]:
-    """One trial's train state (no lane axis), initialised from ``gen``."""
-    params = T.init_params(gen, tc.model, device)
+    """One trial's train state (no lane axis), initialised from ``gen``: its
+    parameters and a zero optimizer state."""
+    params = init_params(gen, tc, device)
     return {"params": params, "opt": init_opt_state(params, tc)}
+
+
+def static_step_key(tc: TrainConfig) -> Tuple:
+    """The program-cache key: everything a trial may NOT vary per proposal."""
+    return (tc.model, tc.parallel, tc.b1, tc.eps, tc.z_loss)
 
 
 def _loss_fn(params, batch, tc: TrainConfig):

@@ -57,7 +57,8 @@ def _run(main, argv, capsys):
     ["--proposer", "random", "--vectorize", "4"],
     ["--proposer", "asha", "--vectorize", "4", "--inflight-stop"],
     ["--proposer", "random"],
-], ids=["random-vectorized", "asha-inflight-stop", "random-serial"])
+    ["--proposer", "random", "--vectorize", "4", "--shared-stream"],
+], ids=["random-vectorized", "asha-inflight-stop", "random-serial", "shared-stream"])
 def test_cli_matches_jax_cli(jax_init, capsys, extra):
     want = _run(jax_hpo.main, BASE + extra, capsys)
     got = _run(hpo.main, BASE + extra + ["--device", "cpu"], capsys)
@@ -122,7 +123,7 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--chunk-steps", "4"], "item 7"),
+    (["--chunk-steps", "4", "--data-ring"], "item 10"),
     (["--lane-refill"], "item 8"),
     (["--snapshot-every", "2"], "item 9"),
     (["--data-ring"], "item 10"),

@@ -128,6 +128,33 @@ def test_population_step_matches_jax():
         np.testing.assert_array_equal(a[2:], b[2:])  # frozen lanes: bit for bit
 
 
+def test_population_step_with_a_shared_batch_matches_jax():
+    """The default population step (``per_trial_batch=False``, as in JAX):
+    one (B, S) batch broadcast to K=4 lanes with per-lane hyperparameters, a
+    0-budget lane and a NaN lane, against ``JP.make_population_train_step``
+    with its default: last_loss, latches, step counters and parameters
+    within 1e-4."""
+    jtc, tc = _configs()
+    budgets = [STEPS, 2, 0, STEPS]
+    jp, tp, jhp, hp = _population(jtc, tc, budgets)
+    data = SyntheticLM(tc.model.vocab_size, S, B, seed=0)
+    jstep = jax.jit(JP.make_population_train_step(jtc))
+    step = P.make_population_train_step(tc)
+    for t in range(STEPS):
+        batch = data.make_batch(t)
+        jp, jm = jstep(jp, batch, jhp)
+        tp, m = step(tp, _t(batch), hp)
+        np.testing.assert_array_equal(m["active"].numpy(), np.asarray(jm["active"]))
+        np.testing.assert_allclose(m["loss"].numpy(), np.asarray(jm["loss"]),
+                                   atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(tp["diverged"].numpy(), np.asarray(jp["diverged"]))
+    np.testing.assert_array_equal(tp["inner"]["opt"]["step"].numpy(),
+                                  np.asarray(jp["inner"]["opt"]["step"]))
+    np.testing.assert_allclose(tp["last_loss"].numpy(), np.asarray(jp["last_loss"]),
+                               atol=1e-4, rtol=1e-4)
+    _assert_tree_close(tp["inner"]["params"], jp["inner"]["params"], 1e-4)
+
+
 def test_k1_step_matches_k_lane_step():
     """Inside the port: each lane of a K=3 population step equals the K=1
     step on that lane alone, within 1e-6."""
@@ -138,7 +165,7 @@ def test_k1_step_matches_k_lane_step():
     lanes = [interop.tree_map(lambda t, i=i: t[i:i + 1].clone(), pstate) for i in range(3)]
     cfgs = [dict(c, total_steps=STEPS) for c in LANES]
     hp = stack_hparams([hparams_from_dict(c, tc) for c in cfgs])
-    step = P.make_population_train_step(tc)
+    step = P.make_population_train_step(tc, per_trial_batch=True)
     for t in range(STEPS):
         batch = _t(data.make_population_batch(t, [0, 1, 2]))
         pstate, _ = step(pstate, batch, hp)
