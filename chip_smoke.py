@@ -32,12 +32,15 @@ Phases, each printing one JSON line:
    chunked_path — the same two trainers through the fused chunked engine
    (``--chunk-steps 4``, 8 steps a trial: two chunks, each one replay of a
    captured CUDA graph whose batches the synthesis kernel makes on the
-   card), beside a per-step flight of the same trials: per-step losses and
-   per-leaf checksums of the final state's raw bits equal, one host
-   dispatch a chunk, the launch counters at capture and the kernels the
-   profiler sees in one replayed chunk equal to the launches a step makes
-   times the chunk; capture seconds, the graph pool, peak memory, the
-   replayed chunk's step time, idle share and device time by group;
+   card), beside a per-step flight of the same trials, and a flight of 9
+   steps under the in-flight rung rule (boundaries 1 and 3: chunks of 1, 2,
+   4 and 2 steps, graphs of 1 and 2 steps in the same pool) beside its
+   per-step flight: per-step losses and per-leaf checksums of the final
+   state's raw bits equal, one host dispatch a chunk, the wrapper calls at
+   capture and the kernels the profiler sees in one replayed chunk equal to
+   the launches a step makes times the chunk; capture seconds, the graph
+   pool, peak memory, the replayed chunk's step time, idle share and device
+   time by group;
 5. card_vs_cpu — the same population step on the starcoder2 and the
    falcon-mamba smoke configs in fp32, once on the card (kernels) and once
    on the CPU (plain versions): losses and parameters agree within 1e-4, and
@@ -90,6 +93,7 @@ SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (
 SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
 CHUNK, CHUNK_FLIGHT_STEPS = 4, 8                   # the chunked paths: two chunks of 4 a flight
+RUNG_FLIGHT = dict(steps=9, eta=3, min_iter=1)      # rung boundaries 1, 3: chunks of 1, 2, 4, 2
 # our kernels by the substring of their device name (the fp32 flash kernel's
 # name is not a substring of the tensor-core one's)
 KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "flash_attention_sm90": "flash_fwd_sm90_kernel",
@@ -674,11 +678,14 @@ def state_checksums(torch, pstate) -> list:
     return out
 
 
-def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed=0):
+def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed=0,
+               rungs=False):
     """One flight of the Experiment (random proposer, vectorized resource
     manager) at ``chunk_steps``, recording its per-step losses and the
-    checksums of its final state; the launch counters are set to 0 just
-    before it and read just after."""
+    checksums of its final state; with ``rungs`` under the in-flight rung
+    rule of ``RUNG_FLIGHT``.  The launch counters are set to 0 just before
+    it and read just after."""
+    from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
     from repro_torch.configs import get_config
     from repro_torch.core.experiment import Experiment
     from repro_torch.core.job import JobStatus
@@ -690,8 +697,11 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
     overrides["n_layers"] = n_layers
     trial = PopulationTrial(arch, steps, batch, seq, seed, population=population,
                             model_overrides=overrides, device=dev, chunk_steps=chunk_steps)
-    sums = []
-    trial.on_flight_end = lambda ps: sums.append(state_checksums(torch, ps))
+    if rungs:
+        trial.early_stop = InFlightSuccessiveHalving(
+            eta=RUNG_FLIGHT["eta"], min_iter=RUNG_FLIGHT["min_iter"], max_iter=steps)
+    record = []
+    trial.record_flight = lambda ls, ps: record.append((ls, state_checksums(torch, ps)))
     exp = Experiment({"proposer": "random", "parameter_config": SPACE,
                       "n_samples": population, "n_parallel": population,
                       "target": "max", "random_seed": seed, "resource": "vectorized"},
@@ -718,11 +728,12 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
                j.status == JobStatus.FINISHED for j in jobs),
            "scores": [None if j.result is None else j.result.score for j in jobs],
            "errors": [j.result.error for j in jobs
-                      if j.status != JobStatus.FINISHED and j.result is not None]}
+                      if j.status != JobStatus.FINISHED and j.result is not None],
+           "truncated_lanes": trial.early_stop.n_truncated if rungs else None}
     tc, data = trial._setup()
-    losses = trial.flight_losses
     del exp, trial
-    return out, losses, sums[0] if sums else None, tc, data
+    losses, sums = record[0] if record else (None, None)
+    return out, losses, sums, tc, data
 
 
 def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK_FLIGHT_STEPS,
@@ -731,18 +742,30 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     per-step flights of the same trials: two flights of each (the second
     per-step flight without the process's first-call set-up, the second
     chunked flight initialised into the captured state and replaying the
-    graph captured by the first), then one captured chunk replayed for its
-    step time and its profile."""
+    graph captured by the first), one of each under the rung rule (its
+    chunked flight captures graphs of 1 and 2 steps into the same pool),
+    then one captured chunk called again for its step time and its profile.
+    The per-step flights run first: beside the captured state and its pool
+    a second falcon-mamba state does not fit.  Returns the kernels' launches
+    on the card in the chunked flights: the profiler's count in a replayed
+    chunk, per step, times the steps replayed, plus the eager warm-up step
+    before the first capture."""
+    from repro_torch.data.pipeline import split_streams
+    from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
     from repro_torch.train import population as P
 
     P.clear_population_cache()
-    flights, losses, sums = {}, {}, {}
-    for name, chunk_steps in (("per_step", 1), ("per_step_again", 1),
-                              ("chunked", chunk), ("chunked_again", chunk)):
+    flights, losses, sums, graphs = {}, {}, {}, {}
+    plan = (("per_step", 1, steps, False), ("per_step_again", 1, steps, False),
+            ("per_step_rungs", 1, RUNG_FLIGHT["steps"], True),
+            ("chunked", chunk, steps, False), ("chunked_again", chunk, steps, False),
+            ("chunked_rungs", chunk, RUNG_FLIGHT["steps"], True))
+    for name, chunk_steps, n_steps, rungs in plan:
         flights[name], losses[name], sums[name], tc, data = run_flight(
-            torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed)
-        if name == "chunked":
-            graphs = P.graph_stats()
+            torch, dev, arch, n_layers, population, batch, seq, n_steps, chunk_steps, seed,
+            rungs=rungs)
+        if chunk_steps > 1:
+            graphs[name] = P.graph_stats()
         gc.collect()
         torch.cuda.empty_cache()
     per_step = launches_per_step(tc.model, chunked=True)
@@ -751,28 +774,43 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     for t in range(3):
         data.make_population_batch(t, streams)
     host_batch_s = (time.perf_counter() - t0) / 3
+    # one more dispatch of the captured chunk, as the driver makes it: every
+    # lane active from cursor 0
     prog = P.get_compiled_population_scan_step(tc, population, data, chunk, per_trial_batch=True)
-    prog.replay(dev)   # warm
-    torch.cuda.synchronize()
-    n_timed = 3
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        prog.replay(dev)
-    torch.cuda.synchronize()
-    replay_s = (time.perf_counter() - t0) / n_timed
-    prof = profile_step(torch, lambda: prog.replay(dev))
+    hp = stack_hparams([hparams_from_dict(dict(learning_rate=1e-3, total_steps=10 ** 6), tc)]
+                       * population, dev)
+    steps0 = torch.zeros(population, dtype=torch.int64, device=dev)
+    lo, hi = (torch.tensor(w.astype("int64"), device=dev) for w in split_streams(streams))
+    with P.flight_lease(tc, population, data, True, dev) as state:
+        def dispatch():
+            return prog(state, hp, steps0, lo, hi)
+
+        dispatch()   # warm
+        torch.cuda.synchronize()
+        n_timed = 3
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            dispatch()
+        torch.cuda.synchronize()
+        replay_s = (time.perf_counter() - t0) / n_timed
+        prof = profile_step(torch, dispatch)
     seen = prof.pop("kernel_launches_seen")
     prof.pop("launches")
     raw = lambda t: t.view(torch.int32)  # noqa: E731  (fp32 losses as raw bits)
-    ref_losses = losses["per_step"]
-    losses_equal = {n: bool(ls is not None and ref_losses is not None
-                            and ls.shape == ref_losses.shape
-                            and torch.equal(raw(ls), raw(ref_losses)))
-                    for n, ls in losses.items() if n != "per_step"}
-    sums_equal = {n: sm is not None and sm == sums["per_step"]
-                  for n, sm in sums.items() if n != "per_step"}
+    refs = {"per_step_again": "per_step", "chunked": "per_step",
+            "chunked_again": "per_step", "chunked_rungs": "per_step_rungs"}
+    losses_equal = {n: bool(losses[n] is not None and losses[r] is not None
+                            and losses[n].shape == losses[r].shape
+                            and torch.equal(raw(losses[n]), raw(losses[r])))
+                    for n, r in refs.items()}
+    sums_equal = {n: sums[n] is not None and sums[n] == sums[r] for n, r in refs.items()}
     chunked, again, base = flights["chunked"], flights["chunked_again"], flights["per_step"]
+    rung, rung_base = flights["chunked_rungs"], flights["per_step_rungs"]
     n_chunks = steps // chunk
+    replayed_steps = sum(flights[n]["train_steps"] for n in refs if n.startswith("chunked"))
+    # the warm-up step before the first capture runs eagerly; every other
+    # step of a chunked flight is replayed
+    launches = {name: seen[name] // chunk * replayed_steps + n for name, n in per_step.items()}
     out = {
         "phase": "chunked_path", "arch": arch, "n_layers": tc.model.n_layers,
         "population": population, "batch": batch, "seq": seq, "steps_per_trial": steps,
@@ -780,25 +818,33 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
         "dispatches": chunked["dispatches"], "train_steps": chunked["train_steps"],
         "dispatches_per_step": chunked["dispatches_per_step"],
         "per_step_dispatches": base["dispatches"],
+        "rung_flight": {"steps_per_trial": RUNG_FLIGHT["steps"],
+                        "dispatches": rung["dispatches"], "train_steps": rung["train_steps"],
+                        "per_step_dispatches": rung_base["dispatches"],
+                        "truncated_lanes": rung["truncated_lanes"],
+                        "per_step_truncated_lanes": rung_base["truncated_lanes"]},
         "flight_s_per_step": {n: f["flight_s_per_step"] for n, f in flights.items()},
         "flight_wall_s": {n: f["wall_s"] for n, f in flights.items()},
         "host_batch_s": host_batch_s,
         "replayed_chunk_s": replay_s, "replayed_s_per_step": replay_s / chunk,
         "per_step_steady_s_per_step": per_step_steady,
-        "graphs": graphs, "capture_s": sum(g["capture_s"] for g in graphs),
-        "graph_pool_gib": sum(g["pool_bytes"] for g in graphs) / 2 ** 30,
+        "graphs": graphs["chunked_rungs"],
+        "capture_s": {n: sum(g["capture_s"] for g in gs) for n, gs in graphs.items()},
+        "graph_pool_gib": {n: sum(g["pool_bytes"] for g in gs) / 2 ** 30
+                           for n, gs in graphs.items()},
         # a replay allocates nothing, so the pool's use shows in reserved memory
         "peak_memory_gib": {n: f["peak_memory_gib"] for n, f in flights.items()},
         "peak_reserved_gib": {n: f["peak_reserved_gib"] for n, f in flights.items()},
-        "launches_at_capture": chunked["launches"],
-        "launches_second_chunked_flight": again["launches"],
+        "wrapper_calls_at_capture": {n: flights[n]["launches"] for n in graphs},
+        "launches": launches, "replayed_steps": replayed_steps,
         "launches_per_step": per_step,
         "kernel_launches_per_step_seen": {n: c / chunk for n, c in seen.items()},
         "profile": prof,
-        "losses_bit_equal_to_per_step": losses_equal,
-        "state_checksums_equal_to_per_step": sums_equal,
+        "losses_bit_equal": losses_equal,
+        "state_checksums_equal": sums_equal,
         "state_leaves": None if sums["chunked"] is None else len(sums["chunked"]),
         "scores": chunked["scores"], "per_step_scores": base["scores"],
+        "rung_scores": rung["scores"], "per_step_rung_scores": rung_base["scores"],
     }
     emit(out)
     problems = []
@@ -812,23 +858,34 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
                             f"steps, want {n_chunks} for {steps}")
     if base["dispatches"] != steps:
         problems.append(f"the per-step flight made {base['dispatches']} dispatches")
+    # the rung flight: chunks of 1, 2, 4 and 2 steps toward boundaries 1 and 3
+    if (rung["train_steps"], rung["dispatches"]) != (RUNG_FLIGHT["steps"], 4):
+        problems.append(f"the chunked rung flight made {rung['dispatches']} dispatches for "
+                        f"{rung['train_steps']} steps, want 4 for {RUNG_FLIGHT['steps']}")
+    if not rung["truncated_lanes"] or rung["truncated_lanes"] != rung_base["truncated_lanes"]:
+        problems.append(f"the rung rule cut {rung['truncated_lanes']} lanes chunked and "
+                        f"{rung_base['truncated_lanes']} per step; want the same, and some")
     if not all(losses_equal.values()):
         problems.append(f"per-step losses differ from the per-step flight's: {losses_equal}")
     if not all(sums_equal.values()):
         problems.append(f"final states differ from the per-step flight's: {sums_equal}")
-    if [g["chunk"] for g in graphs] != [chunk] or P.graph_stats() != graphs:
-        problems.append(f"captured graphs {P.graph_stats()}, want one of chunk {chunk}, "
-                        f"captured once")
+    want_graphs = {"chunked": [chunk], "chunked_again": [chunk],
+                   "chunked_rungs": sorted({1, 2, chunk})}
+    first = {g["chunk"]: g for g in graphs["chunked"]}
+    if ({n: [g["chunk"] for g in gs] for n, gs in graphs.items()} != want_graphs
+            or any(g["chunk"] in first and g != first[g["chunk"]]
+                   for gs in graphs.values() for g in gs)
+            or P.graph_stats() != graphs["chunked_rungs"]):
+        problems.append(f"captured graphs {graphs}, want {want_graphs}, each captured once")
     if prof.get("device_ms") is None:
         problems.append("the profiled chunk shows no device time")
     for name, n in per_step.items():
-        # the warm-up step and the captured chunk; a replay calls no wrapper
-        if chunked["launches"][name] != n * (chunk + 1):
-            problems.append(f"{name}: {chunked['launches'][name]} launches at capture, want "
-                            f"{n} x ({chunk} + 1)")
-        if again["launches"][name] != 0:
-            problems.append(f"{name}: {again['launches'][name]} wrapper calls in the second "
-                            f"chunked flight, want 0 (replays only)")
+        calls = {n_: c[name] for n_, c in out["wrapper_calls_at_capture"].items()}
+        # the warm-up step and the chunk of 4; no wrapper call in a replay; the
+        # graphs of 1 and 2 steps
+        want_calls = {"chunked": n * (chunk + 1), "chunked_again": 0, "chunked_rungs": n * 3}
+        if calls != want_calls:
+            problems.append(f"{name}: wrapper calls at capture {calls}, want {want_calls}")
         if seen[name] != n * chunk:
             problems.append(f"{name}: the profiler saw {seen[name]} launches in one replayed "
                             f"chunk, want {n} x {chunk}")
@@ -837,7 +894,7 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     torch.cuda.empty_cache()
     if problems:
         die(f"chunked path {arch}: " + "; ".join(problems))
-    return chunked["launches"], out
+    return launches, out
 
 
 # ------------------------------------------------------------------- phase 5

@@ -34,9 +34,11 @@ chunks of up to T steps between host events (rung boundaries, the flight's
 end), sized in powers of two (``launch/chunkplan.py``); each step of a chunk
 makes its batch on the device from the lanes' stream words and step cursors,
 bit-identical to the host batches, so a chunked flight gives the per-step
-flight's scores.  A chunk of one step is the per-step path.  On the card a
-chunk is one replay of a captured CUDA graph, and its batches are made by
-the ``csrc/synth_tokens.cu`` kernel.
+flight's scores.  On the card a chunk, one of a single step too, is one
+replay of a captured CUDA graph, its batches are made by the
+``csrc/synth_tokens.cu`` kernel, and a flight holds the state the graphs
+captured until its scores are read (a second flight of the same geometry
+waits for it).
 
 **Device.**  Trials run on ``cuda`` unless ``--device cpu`` is given; without
 a GPU the driver raises rather than fall back.  On the card every RMSNorm,
@@ -102,10 +104,10 @@ class PopulationTrial:
     ``fused_*`` switch.
 
     ``chunk_steps`` > 1 runs the population flights in fused chunks (see the
-    module docstring); ``n_dispatches`` then counts chunks.  Each flight
-    keeps its per-step losses, ``flight_losses`` (``(steps, K)`` on the
-    device); ``on_flight_end``, if set, is called with each flight's final
-    population state.
+    module docstring); ``n_dispatches`` then counts chunks.
+    ``record_flight``, if set, is called at each flight's end with its
+    per-step losses (``(steps, K)`` on the device) and its final population
+    state; the losses are kept only then.
     """
 
     DIVERGED_SCORE = -1e9
@@ -126,8 +128,7 @@ class PopulationTrial:
         self.early_stop = early_stop
         self.model_overrides = dict(model_overrides or {})
         self.chunk_steps = max(1, int(chunk_steps))
-        self.flight_losses = None   # (steps, K) losses of the last flight
-        self.on_flight_end = None   # callable(pstate) at each flight's end
+        self.record_flight = None   # callable(losses, pstate) at each flight's end
         # [[boundary_step, steps, s_per_step], ...] between rung boundaries
         self.per_rung_step_time_s: list = []
         self.n_dispatches = 0       # population steps issued
@@ -241,18 +242,10 @@ class PopulationTrial:
         (they freeze at once) reading distinct negative sentinel streams.
         With ``chunk_steps`` > 1 the flight advances in fused chunks whose
         boundaries land on the rung boundaries, so the rung rule sees exactly
-        the state the per-step loop would at the same step."""
-        from ..data.pipeline import HostPrefetcher, split_stream, split_streams
+        the state the per-step loop would at the same step; on the card it
+        holds its geometry's captured state for the whole flight."""
         from ..optim.hparams import stack_hparams
-        from ..train.population import (
-            flight_state,
-            get_compiled_population_scan_step,
-            init_population_state,
-            init_population_state_from_keys,
-            make_population_train_step,
-            pad_population,
-            population_scores,
-        )
+        from ..train.population import flight_lease, pad_population
 
         tc, data = self._setup()
         dev = self.device
@@ -265,42 +258,65 @@ class PopulationTrial:
         streams += [-(i + 1) for i in range(len(streams), k)]
         budgets = np.concatenate([budgets, np.zeros(k - len(budgets))])
         php = stack_hparams(hps, dev)
+        if self.chunk_steps > 1 and dev.type == "cuda":
+            # the state the chunk graphs captured is reused in place, not held
+            # twice, and by one flight at a time
+            with flight_lease(tc, k, data, self.per_trial_streams, dev) as out:
+                scores = self._flight(tc, data, k, streams, budgets, php, out)
+        else:
+            scores = self._flight(tc, data, k, streams, budgets, php, None)
+        return [float(x) for x in scores[: len(configs)]]
+
+    def _flight(self, tc, data, k, streams, budgets, php, out):
+        """One flight of ``run_population`` from init to scores (numpy
+        (K,)); ``out``: a population state of this geometry to initialise
+        into."""
+        from ..data.pipeline import HostPrefetcher, split_stream, split_streams
+        from ..train.population import (
+            get_compiled_population_scan_step,
+            init_population_state,
+            init_population_state_from_keys,
+            make_population_train_step,
+            population_scores,
+        )
+
+        dev = self.device
         chunk = self.chunk_steps
         ptb = self.per_trial_streams
-        # the state a chunk graph captured is reused in place, not held twice
-        out = flight_state(tc, k, data, ptb, dev) if chunk > 1 and dev.type == "cuda" else None
         if self.per_trial_init:
             pstate = init_population_state_from_keys(
                 [self._generator(s) for s in streams], tc, dev, out=out)
         else:
             pstate = init_population_state(self._generator(0), tc, k, dev, out=out)
-        pstep = make_population_train_step(tc, per_trial_batch=ptb)
         if chunk > 1:
             words = split_streams(streams) if ptb else split_stream(0)
             s_lo, s_hi = (torch.as_tensor(np.asarray(w, np.int64), device=dev) for w in words)
-
-            def scan_of(t):
-                return get_compiled_population_scan_step(tc, k, data, t, per_trial_batch=ptb)
+        else:
+            pstep = make_population_train_step(tc, per_trial_batch=ptb)
+            feed = HostPrefetcher(lambda t: self._batch(data, t, streams), dev)
 
         hook = self.early_stop
         planner = ChunkPlanner(chunk_steps=chunk,
                                boundaries=hook.boundaries if hook is not None else ())
-        feed = HostPrefetcher(lambda t: self._batch(data, t, streams), dev)
-        losses = []
+        losses = [] if self.record_flight is not None else None
         s = 0
         seg_t0, seg_s0 = time.perf_counter(), 0
         while s < int(budgets.max()):
             max_b = int(budgets.max())
             t = planner.chunk_to(s, planner.next_cohort_event(s, max_b))
-            if t > 1:
+            if chunk > 1:
+                # every dispatch of a chunked flight, one step too, is a chunk
+                # program: on the card a graph replay in the captured pool
                 steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
-                pstate, metrics = scan_of(t)(pstate, php, steps0, s_lo, s_hi)
+                pstate, metrics = get_compiled_population_scan_step(
+                    tc, k, data, t, per_trial_batch=ptb)(pstate, php, steps0, s_lo, s_hi)
             else:
                 pstate, metrics = pstep(pstate, feed.pop(s), php)
-                if chunk == 1 and s + 1 < max_b:
+                if s + 1 < max_b:
                     feed.prefetch(s + 1)  # host synthesis overlaps the device step
-            # cloned: a graph's metrics are overwritten by its next replay
-            losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+            if losses is not None:
+                # cloned: a graph's metrics are overwritten by its next replay
+                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
             self.n_dispatches += 1
             self.n_train_steps += t
             s += t
@@ -328,10 +344,9 @@ class PopulationTrial:
             self.per_rung_step_time_s.append(
                 [int(s), int(s - seg_s0),
                  round((time.perf_counter() - seg_t0) / (s - seg_s0), 6)])
-        self.flight_losses = torch.cat(losses) if losses else None
-        if self.on_flight_end is not None:
-            self.on_flight_end(pstate)
-        return [float(x) for x in scores[: len(configs)]]
+        if losses is not None:
+            self.record_flight(torch.cat(losses) if losses else None, pstate)
+        return scores
 
 
 SPACE = [

@@ -34,6 +34,7 @@ is one captured ``torch.cuda.CUDAGraph`` replayed per chunk (see
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import threading
@@ -175,9 +176,13 @@ def make_population_scan_step(tc: TrainConfig, data, chunk: int,
 # every graph of one flight geometry (static config, K, batch mode, data
 # spec, device) captures the same tensors: the state of the first flight
 # that ran it, and static copies of the hyperparameters, the cursor and the
-# stream words.  A call copies its inputs into them (a no-op for the tensors
-# already captured) and replays.  All graphs of a geometry share one memory
-# pool.  A failed capture raises: there is no eager path on the card.
+# stream words.  A call copies its inputs into the static copies and
+# replays.  All graphs of a geometry share one memory pool.  A failed capture
+# raises: there is no eager path on the card.
+#
+# The captured state has one owner at a time: a flight holds the geometry's
+# lease (``flight_lease``) from its init to its scores, and a second flight
+# of the same geometry waits for it rather than write into the same tensors.
 
 
 @dataclasses.dataclass
@@ -199,18 +204,21 @@ class _FlightGraphs:
         self.graphs: Dict[int, _Captured] = {}
         self.pool = None
         self.stream = None
-        self.lock = threading.Lock()
+        # held by a flight for its whole run, and by every call: reentrant
+        self.lease = threading.RLock()
 
     def bind(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi) -> None:
-        """Make the captured tensors hold this call's inputs: the first call's
-        state becomes the captured state; later calls copy into it."""
+        """Make the static inputs hold this call's: the first call's state
+        becomes the captured state, and later calls must pass that state."""
         if self.state is None:
             self.state = pstate
             self.inputs = (HParams(**{f: getattr(hp, f).clone() for f in FIELDS}),
                            steps0.clone(), stream_lo.clone(), stream_hi.clone())
             return
         if pstate is not self.state:
-            tree_map(lambda dst, x: dst.copy_(x), self.state, pstate)
+            raise ValueError("this geometry's chunk graphs captured another population "
+                             "state: initialise the flight into the state "
+                             "flight_lease() yields")
         hp_s, *rest_s = self.inputs
         for f in FIELDS:
             _copy_into(getattr(hp_s, f), getattr(hp, f))
@@ -256,7 +264,7 @@ class _FlightGraphs:
         return got
 
     def run(self, fn: Callable, chunk: int, pstate, hp, steps0, stream_lo, stream_hi):
-        with self.lock:
+        with self.lease:
             self.bind(pstate, hp, steps0, stream_lo, stream_hi)
             got = self.graphs.get(chunk) or self.capture(fn, chunk)
             got.graph.replay()
@@ -279,43 +287,41 @@ def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst.copy_(src)
 
 
+def _geometry(tc: TrainConfig, population: int, per_trial_batch: bool, data) -> Tuple:
+    """What the chunk graphs of one flight geometry share (the chunk-program
+    key without its chunk size)."""
+    return (ts.static_step_key(tc), int(population), bool(per_trial_batch), "scan",
+            data.spec_key)
+
+
+def _flight_graphs(tc: TrainConfig, population: int, per_trial_batch: bool, data,
+                   device) -> _FlightGraphs:
+    key = _geometry(tc, population, per_trial_batch, data) + (_device_key(device),)
+    with _POP_CACHE_LOCK:
+        fg = _GRAPHS.get(key)
+        if fg is None:
+            fg = _GRAPHS[key] = _FlightGraphs(tc, data, bool(per_trial_batch), device)
+    return fg
+
+
 class _ChunkProgram:
     """One entry of the chunk-program cache: ``chunk`` population steps for
     one flight geometry.  A CPU state runs the plain T-step loop; a CUDA
     state replays the chunk's captured graph."""
 
-    def __init__(self, tc: TrainConfig, data, chunk: int, per_trial_batch: bool,
-                 graphs_key: Tuple):
+    def __init__(self, tc: TrainConfig, data, population: int, chunk: int,
+                 per_trial_batch: bool):
         self.fn = make_population_scan_step(tc, data, chunk, per_trial_batch)
         self.chunk = int(chunk)
-        self._graph_args = (tc, data, bool(per_trial_batch))
-        self._graphs_key = graphs_key
-
-    def graphs(self, device) -> "_FlightGraphs":
-        key = self._graphs_key + (_device_key(device),)
-        with _POP_CACHE_LOCK:
-            fg = _GRAPHS.get(key)
-            if fg is None:
-                fg = _GRAPHS[key] = _FlightGraphs(*self._graph_args, device)
-        return fg
-
-    def replay(self, device) -> Dict[str, torch.Tensor]:
-        """Replay this chunk's captured graph on ``device`` as it stands (its
-        captured inputs unchanged) and return its metrics: for timing and
-        profiling a chunk after a flight."""
-        fg = self.graphs(device)
-        with fg.lock:
-            got = fg.graphs[self.chunk]
-            got.graph.replay()
-            return got.metrics
+        self._geometry = (tc, int(population), bool(per_trial_batch), data)
 
     def __call__(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi):
         dev = pstate["diverged"].device
         if dev.type == "cpu":
             return self.fn(pstate, hp, steps0, stream_lo, stream_hi)
         if dev.type == "cuda":
-            return self.graphs(dev).run(self.fn, self.chunk, pstate, hp, steps0,
-                                        stream_lo, stream_hi)
+            return _flight_graphs(*self._geometry, dev).run(
+                self.fn, self.chunk, pstate, hp, steps0, stream_lo, stream_hi)
         raise ValueError(f"chunk program: no path for device {dev}")
 
 
@@ -336,26 +342,29 @@ def get_compiled_population_scan_step(tc: TrainConfig, population: int, data, ch
     call).  Drivers dispatch power-of-two chunk sizes, so an experiment makes
     at most ``log2(chunk_steps) + 1`` programs per geometry.
     ``clear_population_cache()`` drops them and their graphs."""
-    geometry = (ts.static_step_key(tc), int(population), bool(per_trial_batch))
-    key = geometry + ("scan", int(chunk), data.spec_key)
+    g = _geometry(tc, population, per_trial_batch, data)
+    key = g[:-1] + (int(chunk), g[-1])
     with _POP_CACHE_LOCK:
         fn = _POP_CACHE.get(key)
         if fn is None:
-            fn = _POP_CACHE[key] = _ChunkProgram(tc, data, chunk, per_trial_batch,
-                                                 geometry + ("scan", data.spec_key))
+            fn = _POP_CACHE[key] = _ChunkProgram(tc, data, population, chunk,
+                                                 per_trial_batch)
     return fn
 
 
-def flight_state(tc: TrainConfig, population: int, data, per_trial_batch: bool,
-                 device) -> Optional[PopState]:
-    """The state the chunk graphs of this geometry captured on ``device``, or
-    None: a new flight initialises into it (``init_population_state(...,
-    out=)``) instead of holding a second copy beside it."""
-    key = (ts.static_step_key(tc), int(population), bool(per_trial_batch), "scan",
-           data.spec_key, _device_key(device))
-    with _POP_CACHE_LOCK:
-        fg = _GRAPHS.get(key)
-    return None if fg is None else fg.state
+@contextlib.contextmanager
+def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, device):
+    """Own this geometry's captured state on ``device`` for one flight.
+
+    Yields the state the chunk graphs captured, or None before the first
+    capture (the flight's own state then becomes the captured one).  A new
+    flight initialises into the yielded state (``init_population_state(...,
+    out=)``) instead of holding a second copy beside it.  A second flight of
+    the same geometry waits here until the first has left; a call of the
+    geometry's chunk programs from another thread waits too."""
+    fg = _flight_graphs(tc, population, per_trial_batch, data, device)
+    with fg.lease:
+        yield fg.state
 
 
 def graph_stats() -> list:

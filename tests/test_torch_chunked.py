@@ -5,17 +5,20 @@ the numpy host path and JAX's ``synth_population_batch(xp=jnp)``; a chunk
 bit for bit against the per-step loop inside the port (mid-chunk budget end,
 mid-chunk divergence, shared stream); the chunk against JAX's
 ``make_population_scan_step`` within 1e-4 in both batch modes; the chunk
-cache's bound; and the CLI with ``--chunk-steps`` against the JAX CLI
-(1e-4) and against its own per-step run (bit for bit).  Initial states come
+cache's bound; the lease on a geometry's captured state; and the CLI with
+``--chunk-steps`` against the JAX CLI (1e-4) and against its own per-step
+run (bit for bit).  Initial states come
 from JAX through ``repro_torch.interop``.  On an NVIDIA GPU (marker
-``cuda``): the synthesis kernel against its plain version, and a chunk
-replayed from its CUDA graph against the eager per-step loop, bit for bit.
+``cuda``): the synthesis kernel against its plain version, a chunk replayed
+from its CUDA graph against the eager per-step loop, and two overlapping
+chunked flights against their per-step flights, bit for bit.
 
 JAX is imported inside the tests that compare with it, so the card-only
 cases also run where JAX is not installed:
 ``python -m pytest tests/test_torch_chunked.py -m cuda``.
 """
 import json
+import threading
 
 import numpy as np
 import pytest
@@ -323,9 +326,10 @@ def test_chunk_matches_jax_scan_step(per_trial_batch):
 
 # ------------------------------------------------------------- cache
 def test_chunk_cache_is_bounded_and_cleared():
-    """A flight of 13 steps dispatches a chunk of 8, one of 4 and one step:
-    repeated chunked flights keep at most log2(T)+1 chunk programs, and
-    ``clear_population_cache`` empties the cache."""
+    """A flight of 13 steps dispatches a chunk of 8, one of 4 and one of a
+    single step, each a chunk program: repeated chunked flights keep at most
+    log2(T)+1 chunk programs, and ``clear_population_cache`` empties the
+    cache."""
     P.clear_population_cache()
     trial = hpo.PopulationTrial(ARCH, steps=13, batch=BATCH, seq=SEQ, seed=0, population=2,
                                 chunk_steps=8, device="cpu")
@@ -334,26 +338,93 @@ def test_chunk_cache_is_bounded_and_cleared():
     size = len(P._POP_CACHE)
     assert trial.n_dispatches == 3 and trial.n_train_steps == 13
     assert trial.run_population(cfgs) == first
-    assert size == len(P._POP_CACHE) == 2 <= pow2_floor(8).bit_length()
+    assert size == len(P._POP_CACHE) == 3 <= pow2_floor(8).bit_length()
     P.clear_population_cache()
     assert not P._POP_CACHE and not P._GRAPHS
 
 
 def test_driver_keeps_losses_and_hands_over_the_final_state():
-    """A flight's per-step losses (steps, K) are equal between a chunked and
-    a per-step flight, and ``on_flight_end`` sees the final state."""
+    """``record_flight`` gets a flight's per-step losses (steps, K), equal
+    between a chunked and a per-step flight, and its final state; without
+    it the driver keeps no losses."""
     seen = {}
     runs = {}
     for chunk in (1, 4):
         trial = hpo.PopulationTrial(ARCH, steps=8, batch=BATCH, seq=SEQ, seed=0,
                                     population=2, chunk_steps=chunk, device="cpu")
-        trial.on_flight_end = lambda ps, c=chunk: seen.__setitem__(c, _clone(ps))
+        trial.record_flight = lambda ls, ps, c=chunk: seen.__setitem__(c, (ls, _clone(ps)))
         scores = trial.run_population([dict(learning_rate=1e-3), dict(learning_rate=3e-3)])
-        runs[chunk] = (scores, trial.flight_losses, trial.n_dispatches)
+        runs[chunk] = (scores, trial.n_dispatches)
     assert runs[1][0] == runs[4][0]
-    assert runs[1][1].shape == (8, 2) and torch.equal(_raw(runs[1][1]), _raw(runs[4][1]))
-    assert (runs[1][2], runs[4][2]) == (8, 2)
-    assert _bits_equal(seen[1], seen[4])
+    assert seen[1][0].shape == (8, 2) and torch.equal(_raw(seen[1][0]), _raw(seen[4][0]))
+    assert (runs[1][1], runs[4][1]) == (8, 2)
+    assert _bits_equal(seen[1][1], seen[4][1])
+    quiet = hpo.PopulationTrial(ARCH, steps=8, batch=BATCH, seq=SEQ, seed=0, population=2,
+                                chunk_steps=4, device="cpu")
+    assert quiet.record_flight is None
+    assert quiet.run_population([dict(learning_rate=1e-3), dict(learning_rate=3e-3)]) \
+        == runs[4][0]
+
+
+# ------------------------------------------------------------- the captured state
+def test_flight_lease_makes_a_second_flight_of_the_geometry_wait():
+    """``flight_lease`` on a card's geometry (no card is touched until a
+    graph is captured): a second flight of the same geometry waits until the
+    first has left; one of another geometry does not."""
+    tc = _tc()
+    data = _data(tc)
+    order = []
+    entered, release = threading.Event(), threading.Event()
+
+    def first():
+        with P.flight_lease(tc, 2, data, True, "cuda:0"):
+            order.append("first in")
+            entered.set()
+            release.wait(10)
+            order.append("first out")
+
+    def second(k):
+        with P.flight_lease(tc, k, data, True, "cuda:0"):
+            order.append(f"K={k} in")
+
+    P.clear_population_cache()
+    a = threading.Thread(target=first)
+    a.start()
+    assert entered.wait(10)
+    other = threading.Thread(target=second, args=(4,))
+    other.start()
+    other.join(10)
+    same = threading.Thread(target=second, args=(2,))
+    same.start()
+    same.join(0.5)
+    assert same.is_alive() and order == ["first in", "K=4 in"]
+    release.set()
+    for t in (a, same):
+        t.join(10)
+    assert order == ["first in", "K=4 in", "first out", "K=2 in"]
+    P.clear_population_cache()
+
+
+def test_captured_state_is_never_written_from_another_state():
+    """After the first call binds a state as the geometry's captured state,
+    a call with another state raises instead of copying it over the
+    captured tensors; the captured state itself binds again."""
+    tc = _tc()
+    data = _data(tc)
+    P.clear_population_cache()
+    fg = P._flight_graphs(tc, 2, True, data, "cuda:0")
+    hp = _hp(tc, [1e-3, 2e-3], [4, 4])
+    words = _words([0, 1])
+    steps0 = torch.zeros(2, dtype=torch.int64)
+    mine, theirs = _state(tc, 2), _state(tc, 2)
+    fg.bind(mine, hp, steps0, *words)
+    fg.bind(mine, hp, steps0 + 4, *words)
+    assert fg.inputs[1].tolist() == [4, 4]
+    with pytest.raises(ValueError, match="captured another population state"):
+        fg.bind(theirs, hp, steps0, *words)
+    with P.flight_lease(tc, 2, data, True, "cuda:0") as st:
+        assert st is mine
+    P.clear_population_cache()
 
 
 # ------------------------------------------------------------- CLI
@@ -449,8 +520,8 @@ def test_graph_chunk_matches_eager_loop_bitwise(cuda, per_trial_batch):
     """Two replays of a captured chunk of 4 (steps 0-3, 4-7) against eight
     eager per-step calls on host batches, at the smoke config: every state
     leaf and every per-step loss equal bit for bit; the lane with budget 5
-    stops at step 5; a later flight copies its state into the captured one
-    without capturing again."""
+    stops at step 5; a later flight writes its initial state into the
+    captured one (``flight_lease``) and replays without capturing again."""
     tc = _tc()
     data = _data(tc, seq=64, batch=2)
     k = 4
@@ -472,7 +543,12 @@ def test_graph_chunk_matches_eager_loop_bitwise(cuda, per_trial_batch):
         lo, hi = (torch.tensor(w, dtype=torch.int64, device=cuda) for w in split_stream(0))
     shape = (k,) if per_trial_batch else ()
     for run in range(2):
-        got, losses = _clone(init), []
+        if run == 0:
+            got = _clone(init)
+        else:
+            with P.flight_lease(tc, k, data, per_trial_batch, cuda) as got:
+                interop.tree_map(lambda dst, x: dst.copy_(x), got, init)
+        losses = []
         for s in (0, 4):
             got, m = scan(got, hp, torch.full(shape, s, dtype=torch.int64, device=cuda), lo, hi)
             losses.append(m["loss"].clone())
@@ -481,4 +557,43 @@ def test_graph_chunk_matches_eager_loop_bitwise(cuda, per_trial_batch):
         assert _bits_equal(got, want)
         assert got["inner"]["opt"]["step"].tolist() == [8, 5, 8, 8]
         assert [g["chunk"] for g in P.graph_stats()] == [4]
+    P.clear_population_cache()
+
+
+@pytest.mark.cuda
+def test_overlapping_chunked_flights_take_turns_on_the_captured_state(cuda):
+    """Two chunked flights of one geometry started together from two threads
+    (as the vectorized resource manager may start two batches): the second
+    waits for the first's lease on the captured state, and each gives the
+    scores of its own per-step flight bit for bit.  The rung rule's
+    boundaries (1 and 3 of 9 steps) make chunks of 1, 2, 4 and 2 steps."""
+    from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
+
+    P.clear_population_cache()
+    batches = [[dict(learning_rate=lr, stream=i) for i, lr in enumerate(lrs)]
+               for lrs in ((1e-3, 3e-3, 2e-3), (5e-3, 4e-4, 2e-3, 1e-2))]
+
+    def trial(chunk):
+        t = hpo.PopulationTrial(ARCH, steps=9, batch=2, seq=64, seed=0, population=4,
+                                chunk_steps=chunk, device=cuda)
+        t.early_stop = InFlightSuccessiveHalving(eta=3, min_iter=1, max_iter=9)
+        return t
+
+    want = [trial(1).run_population(b) for b in batches]
+    chunked = trial(4)
+    got = [None, None]
+    start = threading.Barrier(2)
+
+    def fly(i):
+        start.wait()
+        got[i] = chunked.run_population(batches[i])
+
+    threads = [threading.Thread(target=fly, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert got == want
+    assert chunked.n_dispatches == 2 * 4 and chunked.n_train_steps == 2 * 9
+    assert sorted(g["chunk"] for g in P.graph_stats()) == [1, 2, 4]
     P.clear_population_cache()
