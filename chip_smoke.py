@@ -41,6 +41,24 @@ Phases, each printing one JSON line:
    the launches a step makes times the chunk; capture seconds, the graph
    pool, peak memory, the replayed chunk's step time, idle share and device
    time by group;
+   streaming_path — the same two trainers through the streaming engines
+   (``--lane-refill``), all flights through the Experiment and the
+   vectorized manager: a grid of two waves of K trials (2 steps, then 4)
+   under the in-flight rung rule (boundary 3, eta 4), offered at once so
+   every lease lands at a fixed step, (a) per step, (b) chunked (chunks of
+   up to 4, graph replays), (c) chunked with the rule in the chunks
+   (``--device-rules``, rule-chunk graphs in the same pool); streaming PBT
+   in 3 synchronized rounds, (d) chunked and (e) per step; the grid as two
+   batch flights under the rung rule.  (a), (b) and (c) equal in scores,
+   steps, cuts and streamed order, bit for bit, (c) in fewer dispatches;
+   every lane leased twice or more; (d) and (e) equal per (member, round)
+   with a clone and no host checkpoint, each clone's target lane equal in
+   raw bits to its donor; a refilled trial rerun as the first lane of a
+   fresh batch flight scores the same; no eager training step in a chunked
+   flight (wrapper calls: captures and the warm-up step only; the profiler
+   over one replayed rule chunk); lane ops timed against their byte
+   bounds with the memory each allocates; active lane share, dispatches
+   per step, seconds per result, captures and peak reserved memory;
 5. card_vs_cpu — the same population step on the starcoder2 and the
    falcon-mamba smoke configs in fp32, once on the card (kernels) and once
    on the CPU (plain versions): losses and parameters agree within 1e-4, and
@@ -54,6 +72,7 @@ Phases, each printing one JSON line:
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
+``--phases`` runs a subset of the trainer phases (all by default).
 Without a GPU, or outside a checkout of the repository, the script exits
 non-zero before printing any result.
 """
@@ -94,6 +113,20 @@ SSM_CHUNK = 128                                    # the chunk states SSMScan.fo
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
 CHUNK, CHUNK_FLIGHT_STEPS = 4, 8                   # the chunked paths: two chunks of 4 a flight
 RUNG_FLIGHT = dict(steps=9, eta=3, min_iter=1)      # rung boundaries 1, 3: chunks of 1, 2, 4, 2
+# the streaming paths: a grid of two waves of K trials (2 steps, then 4) under
+# the in-flight rung rule at lane-local step 3 (eta 4), and PBT in 3 rounds of
+# 2 steps; chunks of up to 4
+STREAM = dict(steps=2, eta=4.0, min_iter=3, max_iter=4, chunk=4)
+STREAM_SPACE = [
+    {"name": "n_iterations", "type": "choice", "range": [1, 2]},
+    {"name": "learning_rate", "type": "choice", "range": [3e-3, 2e-3, 1e-3, 5e-4]},
+    {"name": "warmup_frac", "type": "choice", "range": [0.25]},
+]
+PBT_FLIGHT = dict(steps=2, rounds=3, quantile=0.25)
+PBT_SPACE = [
+    {"name": "learning_rate", "type": "float", "range": [1e-4, 3e-3], "scale": "log"},
+    {"name": "weight_decay", "type": "float", "range": [0.0, 0.2]},
+]
 # our kernels by the substring of their device name (the fp32 flash kernel's
 # name is not a substring of the tensor-core one's)
 KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "flash_attention_sm90": "flash_fwd_sm90_kernel",
@@ -608,8 +641,9 @@ def profile_step(torch, fn, top=12):
     """Device time of one call of ``fn`` (a steady population step, or one
     replayed chunk) by kernel, from ``torch.profiler``; the device's busy and
     idle share of its wall time.  The profiler's schedule runs ``fn`` once
-    as a warm-up and records only the second call: the device trace can
-    miss the kernels of the first milliseconds after it starts.  Reports no
+    as a warm-up and records only the second call, after one small kernel:
+    the device trace can miss the kernels of the first milliseconds after
+    it starts.  Reports no
     split where the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -634,6 +668,10 @@ def profile_step(torch, fn, top=12):
         torch.cuda.synchronize()
         prof.step()
         reset_counters()
+        # one small kernel and a sync first: the trace can miss the first
+        # kernels of a graph replay that is the first launch it sees
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -897,6 +935,374 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     return launches, out
 
 
+# -------------------------------------------------------- phase 4, streaming
+def lane_checksums(torch, pstate, lane: int) -> list:
+    """``state_checksums`` of one lane's slice of a population state."""
+    from repro_torch.interop import tree_map
+
+    return state_checksums(torch, tree_map(lambda t: t[lane], pstate))
+
+
+def published_widths(arch, n_layers) -> dict:
+    """``model_overrides`` for ``arch`` at its published widths, depth cut to
+    ``n_layers``."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    out = {f.name: getattr(full, f.name) for f in dataclasses.fields(full) if f.name != "name"}
+    out["n_layers"] = n_layers
+    return out
+
+
+def stream_flight(torch, dev, arch, n_layers, population, batch, seq, *, kind, chunk_steps,
+                  device_rules=False, lane_refill=True, seed=0):
+    """One flight of the Experiment with the vectorized manager.  ``kind``
+    ``asha``: the grid of ``STREAM_SPACE`` (two waves of K trials) under the
+    in-flight rung rule of ``STREAM``; ``rungs``: 2K random trials of
+    ``RUNG_FLIGHT``'s 9 steps under its rung rule (boundaries 1 and 3); both
+    with all 2K trials offered at once (``lane_refill``) or in two batches
+    of K.  ``pbt``: streaming PBT with synchronized rounds (``PBT_FLIGHT``).
+    The launch counters are set to 0 just before the flight and read just
+    after."""
+    from repro_torch.core.experiment import Experiment
+    from repro_torch.core.job import JobStatus
+    from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
+    from repro_torch.launch.hpo import SPACE, PopulationTrial
+    from repro_torch.train import population as P
+
+    overrides = published_widths(arch, n_layers)
+    spec = {"asha": STREAM, "rungs": RUNG_FLIGHT, "pbt": PBT_FLIGHT}[kind]
+    trial = PopulationTrial(arch, spec["steps"], batch, seq, seed, population=population,
+                            model_overrides=overrides, device=dev, chunk_steps=chunk_steps,
+                            device_rules=device_rules)
+    cfg = {"target": "max", "seed": seed, "resource": "vectorized"}
+    if kind == "asha":
+        trial.early_stop = InFlightSuccessiveHalving(
+            eta=STREAM["eta"], min_iter=STREAM["min_iter"], max_iter=STREAM["max_iter"])
+        # a streaming flight is offered every trial at once, so each lease
+        # lands at the same step whatever the experiment loop's timing
+        cfg.update(proposer="grid", parameter_config=STREAM_SPACE, n_samples=2 * population,
+                   n_parallel=2 * population if lane_refill else population)
+    elif kind == "rungs":
+        trial.early_stop = InFlightSuccessiveHalving(
+            eta=RUNG_FLIGHT["eta"], min_iter=RUNG_FLIGHT["min_iter"],
+            max_iter=RUNG_FLIGHT["steps"])
+        cfg.update(proposer="random", parameter_config=SPACE, n_samples=2 * population,
+                   n_parallel=2 * population if lane_refill else population)
+    else:
+        cfg.update(proposer="pbt", parameter_config=PBT_SPACE,
+                   n_samples=population * PBT_FLIGHT["rounds"], n_parallel=population,
+                   population=population, n_generations=PBT_FLIGHT["rounds"],
+                   streaming=True, sync_rounds=True, quantile=PBT_FLIGHT["quantile"])
+    if lane_refill:
+        cfg["lane_refill"] = True
+    clones = []
+
+    def on_lane_op(op, pstate, lanes, donors):
+        # a clone's target against its donor, raw bits, right after the copy:
+        # the donor was pinned since its round ended, so this is its state at
+        # the round boundary
+        if op == "clone":
+            for t, d in zip(lanes, donors):
+                clones.append({"target": t, "donor": d,
+                               "equal": lane_checksums(torch, pstate, t)
+                               == lane_checksums(torch, pstate, d)})
+
+    trial.record_lane_op = on_lane_op
+    exp = Experiment(cfg, trial)
+    jobs = []
+    exp.add_result_callback(jobs.append)
+    graphs0 = {(g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"]))
+               for g in P.graph_stats()}
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    exp.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters()
+    new_graphs = [g for g in P.graph_stats()
+                  if (g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"])) not in graphs0]
+
+    def key(j):
+        c = j.config
+        return (f"m{c['pbt_member']}r{c['pbt_round']}" if kind == "pbt" else f"j{j.job_id}")
+
+    extras = {key(j): (None if j.result is None or j.result.extra is None else
+                       {n: j.result.extra[n] for n in ("steps", "total_steps", "diverged",
+                                                       "lane")})
+              for j in jobs}
+    out = {"kind": kind, "chunk_steps": chunk_steps, "device_rules": device_rules,
+           "lane_refill": lane_refill, "wall_s": wall, "launches": launches,
+           "dispatches": trial.n_dispatches, "train_steps": trial.n_train_steps,
+           "dispatches_per_step": trial.n_dispatches / max(1, trial.n_train_steps),
+           "active_lane_share": trial.active_lane_share,
+           "s_per_result": wall / max(1, len(jobs)),
+           "refills": trial.n_refills, "splices": trial.n_splices, "clones": trial.n_clones,
+           "ladder_dispatches": trial.ladder_dispatches,
+           "host_ckpt_roundtrips": trial.n_host_ckpt_roundtrips,
+           "lineage_resets": trial.n_lineage_resets,
+           "truncated": trial.early_stop.n_truncated if kind != "pbt" else None,
+           "streamed": getattr(exp.rm, "n_streamed", None),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "finished": len(jobs) == exp.proposer.n_samples and all(
+               j.status == JobStatus.FINISHED for j in jobs),
+           "errors": [j.result.error for j in jobs
+                      if j.status != JobStatus.FINISHED and j.result is not None],
+           "order": [key(j) for j in jobs],
+           "scores": {key(j): None if j.result is None else j.result.score for j in jobs},
+           "extras": extras, "clone_checks": clones, "new_graphs": new_graphs,
+           "configs": {key(j): dict(j.config) for j in jobs}}
+    del exp, trial
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lane_op_timings(torch, dev, tc, data, population):
+    """Splice, masked init (half the lanes) and clone on the geometry's
+    captured state, timed with CUDA events at full width, beside their byte
+    bounds (one lane's state written; read and written for a clone), with
+    the most memory each allocated beside the state."""
+    from repro_torch.interop import tree_leaves
+    from repro_torch.train import population as P
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    half = [i < population // 2 for i in range(population)]
+    with P.flight_lease(tc, population, data, True, dev) as state:
+        if state is None:
+            die("lane op timings: no captured state to time on")
+        lane_bytes = sum(t[0].numel() * t.element_size()
+                         for t in tree_leaves(state["inner"]))
+        params = tree_leaves(state["inner"]["params"])
+        param_bytes = sum(t[0].numel() * t.element_size() for t in params)
+        leaf_bytes = max(t[0].numel() * t.element_size() for t in tree_leaves(state))
+        # init draws a leaf in fp32, then casts it: one fp32 leaf beside the
+        # lane's parameters
+        init_allowed = param_bytes + 4 * max(t[0].numel() for t in params)
+        ops = {
+            "splice": (lambda: P.get_lane_op(tc, population, "splice")(state, 0, gen),
+                       lane_bytes, init_allowed),
+            "init_half": (lambda: P.get_lane_op(tc, population, "init")(
+                state, half, [gen] * population), lane_bytes * sum(half), init_allowed),
+            "clone": (lambda: P.get_lane_op(tc, population, "clone")(
+                state, [i == 1 for i in range(population)], list(range(population))),
+                2 * lane_bytes, leaf_bytes),
+        }
+        out = {"lane_state_gib": lane_bytes / 2 ** 30, "lane_param_gib": param_bytes / 2 ** 30,
+               "largest_leaf_lane_gib": leaf_bytes / 2 ** 30}
+        for name, (fn, nbytes, allowed) in ops.items():
+            ms = event_ms(torch, fn, n=5, warmup=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            out[name] = {"ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes", "extra_alloc_gib": extra / 2 ** 30,
+                         "allowed_gib": allowed / 2 ** 30}
+    return out
+
+
+def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
+    """The streaming engines at published widths: (a) refill under the
+    rung rule per step, (b) chunked, (c) chunked with the rule in the
+    chunks, (d) streaming PBT chunked, (e) per step; beside them the same
+    grid as batch flights under the rung rule, one refilled trial rerun as
+    the first lane of a fresh batch flight, the lane ops timed, and one
+    replayed rule chunk profiled.  The per-step flights run first (beside
+    the captured state and its pool a second falcon-mamba state does not
+    fit).  Returns the kernels' launches on the card over the phase."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import split_streams
+    from repro_torch.launch.hpo import PopulationTrial
+    from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
+    from repro_torch.train import population as P
+
+    P.clear_population_cache()
+    geo = dict(arch=arch, n_layers=n_layers, population=population, batch=batch, seq=seq)
+    plan = (("a_refill_per_step", "asha", 1, False, True),
+            ("e_pbt_per_step", "pbt", 1, False, True),
+            ("b_refill_chunked", "asha", STREAM["chunk"], False, True),
+            ("c_refill_device_rules", "asha", STREAM["chunk"], True, True),
+            ("d_pbt_chunked", "pbt", STREAM["chunk"], False, True),
+            ("batch_inflight", "asha", STREAM["chunk"], False, False),
+            # the same rung flight as chunked_path's, streaming and as batches:
+            # what refilling cut lanes does to the active lane share
+            ("f_refill_rungs", "rungs", STREAM["chunk"], False, True),
+            ("g_batch_rungs", "rungs", STREAM["chunk"], False, False))
+    flights = {}
+    for name, kind, chunk, device_rules, refill in plan:
+        flights[name] = stream_flight(torch, dev, **geo, kind=kind, chunk_steps=chunk,
+                                      device_rules=device_rules, lane_refill=refill,
+                                      seed=seed)
+    a, b, c = (flights[n] for n in ("a_refill_per_step", "b_refill_chunked",
+                                    "c_refill_device_rules"))
+    d, e = flights["d_pbt_chunked"], flights["e_pbt_per_step"]
+
+    # the refill contract: wave 2's first trial (always kept: it meets an
+    # empty rung history) refilled a used lane; as the first lane of a fresh
+    # batch flight of the same geometry it must score the same, bit for bit
+    rerun_key = f"j{population}"
+    fresh = PopulationTrial(arch, STREAM["steps"], batch, seq, seed, population=population,
+                            model_overrides=published_widths(arch, n_layers), device=dev,
+                            chunk_steps=2)
+    rerun = (fresh.run_population([b["configs"][rerun_key]])[0]
+             if rerun_key in b["configs"] else None)
+    tc, data = fresh._setup()
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one replayed rule chunk (staggered, 4 steps, the history capacity the
+    # flights used): its step time and its profile
+    per_step = launches_per_step(tc.model, chunked=True)
+    chunk = STREAM["chunk"]
+    rule_graphs = [g for g in P.graph_stats() if g["kind"] == "rulescan" and g["chunk"] == chunk]
+    cap = rule_graphs[0]["shape"]["hist"][1] if rule_graphs else population
+    hp = stack_hparams([hparams_from_dict(dict(learning_rate=1e-3, total_steps=10 ** 6), tc)]
+                       * population, dev)
+    lo, hi = (torch.tensor(w.astype("int64"), device=dev)
+              for w in split_streams(list(range(population))))
+    steps0 = torch.zeros(population, dtype=torch.int64, device=dev)
+    prog = P.get_compiled_population_rule_scan_step(tc, population, data, chunk, "staggered")
+    hist = np.full((1, cap), np.inf, np.float32)
+    rules = P.staggered_rule_state(np.full(population, 10.0 ** 6), np.zeros(population),
+                                   np.zeros(population), [STREAM["min_iter"]], STREAM["eta"],
+                                   hist, np.zeros(1, np.int32), dev)
+    n_graphs = len(P.graph_stats())
+    with P.flight_lease(tc, population, data, True, dev) as state:
+        def dispatch():
+            return prog(state, hp, steps0, lo, hi, rules)
+
+        dispatch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dispatch()
+        torch.cuda.synchronize()
+        rule_chunk_s = (time.perf_counter() - t0) / 3
+        prof = profile_step(torch, dispatch)
+    seen = prof.pop("kernel_launches_seen", {})
+    prof.pop("launches", None)
+    recaptured = len(P.graph_stats()) != n_graphs
+    ops = lane_op_timings(torch, dev, tc, data, population)
+    graphs = P.graph_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def same(x, y, fields):
+        return all(x[f] == y[f] for f in fields)
+
+    fields = ("scores", "extras", "order", "truncated", "train_steps")
+    cut = {n: sorted(k for k, x in f["extras"].items() if x and x["steps"] < 2 * STREAM["steps"]
+                     and int(k[1:]) >= population)
+           for n, f in flights.items() if f["kind"] == "asha" and f["lane_refill"]}
+    # (a)-(e): each lane takes a second lease
+    lanes_used = {n: sorted({x["lane"] for x in f["extras"].values() if x})
+                  for n, f in flights.items() if f["lane_refill"] and f["kind"] != "rungs"}
+    leases_per_lane = {n: {ln: sum(1 for x in flights[n]["extras"].values()
+                                   if x and x["lane"] == ln) for ln in lanes}
+                       for n, lanes in lanes_used.items()}
+    chunked = [f for f in flights.values() if f["chunk_steps"] > 1]
+    # wrapper calls in a chunked flight: the warm-up step before the
+    # geometry's first capture, and the calls of each capture (a chunk of t
+    # steps: t calls a kernel); an eager training step would add more
+    want_calls = {n: {k: v * (int(n == "b_refill_chunked")
+                              + sum(g["chunk"] for g in f["new_graphs"]))
+                      for k, v in per_step.items()}
+                  for n, f in flights.items() if f["chunk_steps"] > 1}
+    replayed = sum(f["train_steps"] for f in chunked)
+    eager = {k: sum(f["launches"][k] for f in flights.values() if f["chunk_steps"] == 1)
+             for k in per_step}
+    launches = {k: eager[k] + v * (1 + replayed) for k, v in per_step.items()}
+    peak_reserved = max(f["peak_reserved_gib"] for f in flights.values())
+    out = {
+        "phase": "streaming_path", "arch": arch, "n_layers": tc.model.n_layers,
+        "population": population, "batch": batch, "seq": seq,
+        "flights": {n: {k: v for k, v in f.items() if k not in ("configs",)}
+                    for n, f in flights.items()},
+        "cut": cut, "leases_per_lane": leases_per_lane,
+        "active_lane_share": {n: f["active_lane_share"] for n, f in flights.items()},
+        "dispatches_per_step": {n: f["dispatches_per_step"] for n, f in flights.items()},
+        "s_per_result": {n: f["s_per_result"] for n, f in flights.items()},
+        "refill_rerun": {"job": rerun_key, "streamed": b["scores"].get(rerun_key),
+                         "fresh": rerun},
+        "rule_chunk": {"chunk": chunk, "hist_capacity": cap, "replayed_s": rule_chunk_s,
+                       "replayed_s_per_step": rule_chunk_s / chunk, "recaptured": recaptured,
+                       "kernel_launches_seen": seen, "profile": prof},
+        "lane_ops": ops,
+        "graphs": graphs,
+        "wrapper_calls": {n: f["launches"] for n, f in flights.items() if f["chunk_steps"] > 1},
+        "wrapper_calls_want": want_calls,
+        "launches": launches, "launches_per_step": per_step,
+        "peak_reserved_gib": peak_reserved, "card_total_gib": total / 2 ** 30,
+    }
+    emit(out)
+    problems = []
+    for n, f in flights.items():
+        if not f["finished"]:
+            problems.append(f"{n}: not every trial finished: {f['errors']}")
+    for n, f in (("b", b), ("c", c)):
+        if not same(f, a, fields):
+            problems.append(f"({n}) differs from (a): " + ", ".join(
+                x for x in fields if f[x] != a[x]))
+    if not cut["a_refill_per_step"]:
+        problems.append("the rung rule cut no lane")
+    if c["dispatches"] >= b["dispatches"]:
+        problems.append(f"device rules made {c['dispatches']} dispatches, host rules "
+                        f"{b['dispatches']}")
+    for n, per_lane in leases_per_lane.items():
+        if len(per_lane) != population or min(per_lane.values()) < 2:
+            problems.append(f"{n}: not every lane took a second lease: {per_lane}")
+    if rerun is None or rerun != b["scores"].get(rerun_key):
+        problems.append(f"the refilled trial {rerun_key} scored "
+                        f"{b['scores'].get(rerun_key)} streamed and {rerun} in a fresh flight")
+    if d["scores"] != e["scores"]:
+        problems.append(f"streaming PBT chunked and per step differ: {d['scores']} "
+                        f"{e['scores']}")
+    for n, f in (("d", d), ("e", e)):
+        if f["clones"] < 1 or f["host_ckpt_roundtrips"] != 0:
+            problems.append(f"PBT ({n}): {f['clones']} clones, {f['host_ckpt_roundtrips']} "
+                            f"host checkpoint round trips")
+        if not f["clone_checks"] or not all(x["equal"] for x in f["clone_checks"]):
+            problems.append(f"PBT ({n}): clone targets differ from their donors: "
+                            f"{f['clone_checks']}")
+    for n, want in want_calls.items():
+        if flights[n]["launches"] != want:
+            problems.append(f"{n}: wrapper calls {flights[n]['launches']}, want {want} "
+                            f"(an eager training step in a chunked flight)")
+    if recaptured:
+        problems.append("the profiled rule chunk was captured anew")
+    for k, v in per_step.items():
+        if seen.get(k) != v * chunk:
+            problems.append(f"{k}: the profiler saw {seen.get(k)} launches in one replayed "
+                            f"rule chunk, want {v} x {chunk}")
+    if prof.get("device_ms") is None:
+        problems.append("the profiled rule chunk shows no device time")
+    for name, op in ops.items():
+        if not isinstance(op, dict):
+            continue
+        # 64 MiB for the index tensors and the allocator's rounding
+        if op["extra_alloc_gib"] > op["allowed_gib"] + 1 / 16:
+            problems.append(f"lane op {name} allocated {op['extra_alloc_gib']:.3f} GiB beside "
+                            f"the state, more than {op['allowed_gib']:.3f} GiB (init: one "
+                            f"lane's parameters and one fp32 leaf; clone: one leaf's rows)")
+    if peak_reserved * 2 ** 30 >= total:
+        problems.append(f"peak reserved {peak_reserved} GiB is not below the card's total")
+    P.clear_population_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        die(f"streaming path {arch}: " + "; ".join(problems))
+    return launches, out
+
+
 # ------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
     from repro_torch.configs import get_smoke_config
@@ -1109,7 +1515,19 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     return rows
 
 
-def main() -> int:
+PHASES = ("main_path", "chunked_path", "streaming_path", "card_vs_cpu")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="on-card smoke test of the PyTorch port")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the trainer phases to run (default: "
+                         "all; the kernel build, checks and timings always run)")
+    phases = set(ap.parse_args(argv).phases.split(","))
+    if phases - set(PHASES):
+        die(f"unknown phases {sorted(phases - set(PHASES))}; known: {PHASES}")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         die(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(SRC))
@@ -1142,18 +1560,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path, chunk_launches = {}, {}
     for path in (MAIN, MAMBA):
-        by_path[path["arch"]], out = main_path(torch, dev, **path)
-        gc.collect()
-        torch.cuda.empty_cache()
         kw = {k: v for k, v in path.items() if k != "steps"}
-        launches, out = chunked_path(torch, dev, per_step_steady=out["steady_s_per_step"], **kw)
-        by_path[path["arch"] + "+chunked"] = launches
-        chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
-            "synth_tokens"] * out["chunk"]
-        gc.collect()
-        torch.cuda.empty_cache()
-    fp32_launches = sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
-                        for path in (MAIN, MAMBA))
+        steady = None
+        if "main_path" in phases:
+            by_path[path["arch"]], out = main_path(torch, dev, **path)
+            steady = out["steady_s_per_step"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "chunked_path" in phases:
+            launches, out = chunked_path(torch, dev, per_step_steady=steady, **kw)
+            by_path[path["arch"] + "+chunked"] = launches
+            chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
+                "synth_tokens"] * out["chunk"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "streaming_path" in phases:
+            by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
+            gc.collect()
+            torch.cuda.empty_cache()
+    fp32_launches = (sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
+                         for path in (MAIN, MAMBA)) if "card_vs_cpu" in phases else None)
     emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

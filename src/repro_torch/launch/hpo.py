@@ -40,14 +40,25 @@ replay of a captured CUDA graph, its batches are made by the
 captured until its scores are read (a second flight of the same geometry
 waits for it).
 
+With ``--lane-refill`` (and ``--vectorize K``) a flight streams: a lane
+whose trial retires (budget done, rung-truncated, diverged) reports its
+result at once and takes the next proposal in place (``_run_streaming``),
+so no lane idles until the slowest trial of a batch ends.  With
+``--pbt-streaming`` PBT runs on the same engine: a member keeps its lane
+across rounds, and an exploit step copies the donor lane's state on the
+device (no host checkpoint).  With ``--device-rules`` the rung rule (or
+PBT's window quantile) runs inside the chunk, so a whole ladder can be one
+dispatch.  On the card a chunked streaming flight holds its geometry's
+captured state from its first init to its return; every lane op writes
+into that state and every training dispatch replays a graph.
+
 **Device.**  Trials run on ``cuda`` unless ``--device cpu`` is given; without
 a GPU the driver raises rather than fall back.  On the card every RMSNorm,
 every attention forward and every Mamba selective scan runs the hand-written
 Hopper kernels; on the CPU their plain PyTorch versions.
 
-Engines of later slices (streaming refill and PBT, device-side rules, crash
-safety, the prefetch ring, multi-device meshes) are refused with the
-ROADMAP.md item that brings them.
+Engines of later slices (crash safety, the prefetch ring, multi-device
+meshes) are refused with the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -61,7 +72,7 @@ import time
 import numpy as np
 import torch
 
-from .chunkplan import ChunkPlanner
+from .chunkplan import ChunkPlanner, pow2_ceil
 
 _U32 = 0xFFFFFFFF
 
@@ -104,10 +115,18 @@ class PopulationTrial:
     ``fused_*`` switch.
 
     ``chunk_steps`` > 1 runs the population flights in fused chunks (see the
-    module docstring); ``n_dispatches`` then counts chunks.
-    ``record_flight``, if set, is called at each flight's end with its
-    per-step losses (``(steps, K)`` on the device) and its final population
-    state; the losses are kept only then.
+    module docstring); ``n_dispatches`` then counts chunks and lane ops.
+    ``device_rules`` runs the rung rule (or PBT's window quantile) inside
+    the chunks.  ``record_flight``, if set, is called at each flight's end
+    with its per-step losses (``(steps, K)`` on the device) and its final
+    population state; the losses are kept only then.  ``record_lane_op``,
+    if set, is called after each lane op of a streaming flight as
+    ``(op, pstate, lanes, donors)``.
+
+    ``run_population(configs=[], scheduler=...)`` is the streaming (lane
+    refill) protocol: jobs arrive through ``scheduler.lease()`` and leave
+    through ``scheduler.complete()`` (see ``_run_streaming``).  ``lifecycle``
+    is streaming PBT's lane-lifecycle hook, wired by the Experiment.
     """
 
     DIVERGED_SCORE = -1e9
@@ -115,7 +134,9 @@ class PopulationTrial:
     def __init__(self, arch: str, steps: int, batch: int, seq: int, seed: int,
                  population: int = 0, per_trial_streams: bool = True,
                  early_stop=None, per_trial_init: bool = False,
-                 model_overrides=None, device=None, chunk_steps: int = 1):
+                 model_overrides=None, device=None, chunk_steps: int = 1,
+                 device_rules: bool = False, refill_idle_grace_s: float = 0.25,
+                 lifecycle=None):
         self.device = resolve_device(device)
         self.arch = arch
         self.steps = int(steps)
@@ -128,12 +149,33 @@ class PopulationTrial:
         self.early_stop = early_stop
         self.model_overrides = dict(model_overrides or {})
         self.chunk_steps = max(1, int(chunk_steps))
+        self.device_rules = bool(device_rules)
         self.record_flight = None   # callable(losses, pstate) at each flight's end
+        self.record_lane_op = None  # callable(op, pstate, lanes, donors) after a lane op
         # [[boundary_step, steps, s_per_step], ...] between rung boundaries
         self.per_rung_step_time_s: list = []
-        self.n_dispatches = 0       # population steps issued
+        self.n_dispatches = 0       # device calls issued (steps, chunks, lane ops)
         self.n_train_steps = 0      # population steps those calls advanced
+        self.n_lane_steps = 0       # lane-steps computed: K a population step
+        self.n_active_lane_steps = 0  # of those, lane-steps of an active lane
         self.last_flight_steps = 0
+        # streaming engines: PBT's lane-lifecycle hook (wired by the Experiment),
+        # the flight journal, and how long an empty flight waits for proposals
+        self.lifecycle = lifecycle
+        self.journal = None
+        self.refill_idle_grace_s = float(refill_idle_grace_s)
+        # device dispatches from a streaming flight's start to its first
+        # retirement: 1 when a device-rule ladder fits one chunk
+        self.ladder_dispatches = None
+        self.n_refills = 0          # lanes reused within a streaming flight
+        self.n_clones = 0           # donor-clone lane ops
+        self.n_splices = 0          # single-lane re-inits
+        self.n_donor_waits = 0      # leases parked on a busy donor lane
+        self.n_lineage_resets = 0   # keep/clone degraded to a fresh init
+        self.n_host_ckpt_roundtrips = 0  # train states through the host (serial PBT)
+        self._flight_epoch = 0
+        self._event_seq = 0         # streaming event passes, all flights
+        self._hist_cap = 0          # staggered rule history capacity (power of two)
         self._tc = None
         self._data = None
         self._serial_seq = 0  # fallback stream counter for anonymous configs
@@ -194,6 +236,20 @@ class PopulationTrial:
             seed = (seed << 32) | (int(stream) & _U32)
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    @property
+    def active_lane_share(self):
+        """Lane-steps that trained an active lane over lane-steps computed,
+        over every population flight so far (None before the first)."""
+        if not self.n_lane_steps:
+            return None
+        return self.n_active_lane_steps / self.n_lane_steps
+
+    def _count_active(self, acc, metrics, k: int, t: int):
+        """Add a dispatch's active lane-steps to the flight's device-side
+        count (no host sync) and its computed lane-steps to the trial's."""
+        self.n_lane_steps += k * t
+        acc.add_(metrics["active"].sum())
+
     def _batch(self, data, step: int, streams):
         if self.per_trial_streams:
             return data.make_population_batch(step, streams)
@@ -236,17 +292,27 @@ class PopulationTrial:
                 return self.DIVERGED_SCORE
         return -loss
 
-    def run_population(self, configs) -> list:
+    def run_population(self, configs, scheduler=None) -> list:
         """Batch protocol: K trials in one lane-batched program.  Partial
         batches are padded to the fixed population size with 0-budget lanes
         (they freeze at once) reading distinct negative sentinel streams.
         With ``chunk_steps`` > 1 the flight advances in fused chunks whose
         boundaries land on the rung boundaries, so the rung rule sees exactly
-        the state the per-step loop would at the same step; on the card it
-        holds its geometry's captured state for the whole flight."""
+        the state the per-step loop would at the same step; with
+        ``device_rules`` the rung rule runs inside the chunks instead.  On the
+        card a chunked flight holds its geometry's captured state for the
+        whole flight.
+
+        With ``scheduler`` the call is the streaming protocol instead
+        (``configs`` must be empty; see ``_run_streaming``)."""
         from ..optim.hparams import stack_hparams
         from ..train.population import flight_lease, pad_population
 
+        if scheduler is not None:
+            if configs:
+                raise ValueError(
+                    "streaming mode: seed proposals through the scheduler, not configs")
+            return self._run_streaming(scheduler)
         tc, data = self._setup()
         dev = self.device
         budgets = np.array([float(self._n_steps(c)) for c in configs])
@@ -258,20 +324,41 @@ class PopulationTrial:
         streams += [-(i + 1) for i in range(len(streams), k)]
         budgets = np.concatenate([budgets, np.zeros(k - len(budgets))])
         php = stack_hparams(hps, dev)
-        if self.chunk_steps > 1 and dev.type == "cuda":
+        spec = self._device_rule_spec()
+        if self._graphed(spec is not None):
             # the state the chunk graphs captured is reused in place, not held
             # twice, and by one flight at a time
             with flight_lease(tc, k, data, self.per_trial_streams, dev) as out:
-                scores = self._flight(tc, data, k, streams, budgets, php, out)
+                scores = self._flight(tc, data, k, streams, budgets, php, out, spec)
         else:
-            scores = self._flight(tc, data, k, streams, budgets, php, None)
+            scores = self._flight(tc, data, k, streams, budgets, php, None, spec)
         return [float(x) for x in scores[: len(configs)]]
 
-    def _flight(self, tc, data, k, streams, budgets, php, out):
+    def _device_rule_spec(self):
+        """The rung rule lowered for the chunks (``device_rules`` with a rung
+        hook), else None."""
+        hook = self.early_stop
+        if self.device_rules and hook is not None and hook.boundaries:
+            return hook.device_rule()
+        return None
+
+    def _graphed(self, device_rule: bool) -> bool:
+        """Whether a flight's training dispatches are chunk programs: on the
+        card, graph replays on the geometry's captured state."""
+        return self.device.type == "cuda" and (self.chunk_steps > 1 or device_rule)
+
+    def _stream_words(self, streams):
+        from ..data.pipeline import split_stream, split_streams
+
+        words = split_streams(streams) if self.per_trial_streams else split_stream(0)
+        return tuple(torch.as_tensor(np.asarray(w, np.int64), device=self.device)
+                     for w in words)
+
+    def _flight(self, tc, data, k, streams, budgets, php, out, spec=None):
         """One flight of ``run_population`` from init to scores (numpy
         (K,)); ``out``: a population state of this geometry to initialise
-        into."""
-        from ..data.pipeline import HostPrefetcher, split_stream, split_streams
+        into; ``spec``: the rung rule lowered for the chunks."""
+        from ..data.pipeline import HostPrefetcher
         from ..train.population import (
             get_compiled_population_scan_step,
             init_population_state,
@@ -288,9 +375,10 @@ class PopulationTrial:
                 [self._generator(s) for s in streams], tc, dev, out=out)
         else:
             pstate = init_population_state(self._generator(0), tc, k, dev, out=out)
+        if spec is not None:
+            return self._flight_device_rules(tc, data, k, streams, budgets, php, pstate, spec)
         if chunk > 1:
-            words = split_streams(streams) if ptb else split_stream(0)
-            s_lo, s_hi = (torch.as_tensor(np.asarray(w, np.int64), device=dev) for w in words)
+            s_lo, s_hi = self._stream_words(streams)
         else:
             pstep = make_population_train_step(tc, per_trial_batch=ptb)
             feed = HostPrefetcher(lambda t: self._batch(data, t, streams), dev)
@@ -299,6 +387,7 @@ class PopulationTrial:
         planner = ChunkPlanner(chunk_steps=chunk,
                                boundaries=hook.boundaries if hook is not None else ())
         losses = [] if self.record_flight is not None else None
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
         s = 0
         seg_t0, seg_s0 = time.perf_counter(), 0
         while s < int(budgets.max()):
@@ -314,6 +403,7 @@ class PopulationTrial:
                 pstate, metrics = pstep(pstate, feed.pop(s), php)
                 if s + 1 < max_b:
                     feed.prefetch(s + 1)  # host synthesis overlaps the device step
+            self._count_active(acc, metrics, k, t)
             if losses is not None:
                 # cloned: a graph's metrics are overwritten by its next replay
                 losses.append(metrics["loss"].detach().reshape(-1, k).clone())
@@ -344,9 +434,626 @@ class PopulationTrial:
             self.per_rung_step_time_s.append(
                 [int(s), int(s - seg_s0),
                  round((time.perf_counter() - seg_t0) / (s - seg_s0), 6)])
+        self.n_active_lane_steps += int(acc)
         if losses is not None:
             self.record_flight(torch.cat(losses) if losses else None, pstate)
         return scores
+
+    def _flight_device_rules(self, tc, data, k, streams, budgets, php, pstate, spec):
+        """A batch flight with the cohort rung rule carried in the chunks
+        (``device_rules``): chunks no longer stop at rung boundaries, and no
+        budget goes back to the device between them, so a ladder whose
+        largest budget fits one chunk is one dispatch.  Only the budgets
+        come back per dispatch (to bound the loop); the hook's counters are
+        rebuilt from the budget change at the end."""
+        from ..train.population import (
+            cohort_rule_state,
+            get_compiled_population_rule_scan_step,
+            population_scores,
+        )
+
+        dev = self.device
+        ptb = self.per_trial_streams
+        planner = ChunkPlanner(chunk_steps=self.chunk_steps)   # boundaries ride in-chunk
+        init_budgets = budgets.copy()
+        s_lo, s_hi = self._stream_words(streams)
+        losses = [] if self.record_flight is not None else None
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        s = 0
+        while s < int(budgets.max()):
+            t = planner.chunk_to(s, int(budgets.max()))
+            rules = cohort_rule_state(budgets, np.zeros(k), np.full(k, s), spec.boundaries,
+                                      spec.eta, dev)
+            steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
+            (pstate, rout), metrics = get_compiled_population_rule_scan_step(
+                tc, k, data, t, "cohort", per_trial_batch=ptb)(
+                    pstate, php, steps0, s_lo, s_hi, rules)
+            self._count_active(acc, metrics, k, t)
+            if losses is not None:
+                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+            budgets = rout["budgets"].cpu().numpy().astype(np.float64)
+            self.n_dispatches += 1
+            self.n_train_steps += t
+            s += t
+        spec.absorb_cuts(init_budgets, budgets, pstate["diverged"].cpu().numpy())
+        self.last_flight_steps = s
+        scores = population_scores(pstate, self.DIVERGED_SCORE).cpu().numpy()
+        self.n_active_lane_steps += int(acc)
+        if losses is not None:
+            self.record_flight(torch.cat(losses) if losses else None, pstate)
+        return scores
+
+    # -- the streaming protocol ---------------------------------------------------
+    def _run_streaming(self, scheduler) -> list:
+        """A lane-refill flight: Algorithm 1's busy-resource rule inside one
+        population.
+
+        A lane **leases** a job from the scheduler, takes that trial's
+        weights through a lane op, trains on its own data stream, and
+        **retires** when its budget runs out, the rung rule truncates it, or
+        it diverges.  Retiring streams the job's result out at once
+        (``scheduler.complete``) and frees the lane for the next lease, so a
+        losing lane hands its device time to a fresh proposal mid-flight.
+
+        The lane op of a lease (never a host round trip of the weights):
+
+        * default: **splice** (one lane's fresh init written into the lane),
+          or one masked **init** when several lanes fill in one pass;
+        * ``pbt_lifecycle == "keep"``: none; the member's lane keeps its
+          weights and optimizer state, and only its hyperparameters, budget
+          and data cursor move to the next round;
+        * ``pbt_lifecycle == "clone"``: **clone** the donor member's lane
+          (weights and optimizer state).  A clone whose donor is mid-round
+          is parked until the donor retires, and the donor's next round
+          waits for the clone (donor pinning), so the copy reads the donor's
+          round-boundary state.
+
+        A keep/clone lane's optimizer step counter runs on across rounds,
+        so its ``total_steps`` is the steps already in the state plus this
+        round's budget, and its data cursor continues the member's stream at
+        ``round * round_steps``.
+
+        The scheduler needs ``lease() -> (handle, config) | None``,
+        ``complete(handle, score, extra)`` and, optionally, ``closed`` (True:
+        no more jobs are coming, so an empty flight returns without waiting
+        for its idle grace) and ``complete_retirements`` (device rules: one
+        batch of results a dispatch).  ``core.resource.vectorized.LaneScheduler``
+        is Algorithm 1's; ``QueueFeedScheduler`` a fixed queue.
+
+        On the card a flight whose dispatches are chunk programs holds the
+        geometry's captured state (``flight_lease``) from its first init to
+        its return: every lane op writes into that state, and every training
+        dispatch replays a graph."""
+        from ..train.population import flight_lease, pad_population
+
+        if not self.per_trial_streams:
+            raise ValueError(
+                "lane refill requires per-trial data streams: a refilled lane "
+                "must replay its own stream from its own step 0 (drop "
+                "--shared-stream)")
+        tc, data = self._setup()
+        k = pad_population(max(self.population, 1))
+        lifecycle = self.lifecycle
+        spec = self._device_rule_spec()
+        device_pbt = bool(self.device_rules and lifecycle is not None
+                          and getattr(lifecycle, "device_rule_on", False))
+        if self._graphed(spec is not None or device_pbt):
+            with flight_lease(tc, k, data, True, self.device) as out:
+                return self._stream(tc, data, k, scheduler, spec, device_pbt, out)
+        return self._stream(tc, data, k, scheduler, spec, device_pbt, None)
+
+    def _stream(self, tc, data, k, scheduler, device_spec, device_pbt, out) -> list:
+        """The body of ``_run_streaming``; ``out`` is the captured state to
+        initialise into (or None)."""
+        from ..core import faultinject
+        from ..data.pipeline import to_device
+        from ..optim.hparams import stack_hparams
+        from ..train.population import (
+            get_compiled_population_rule_scan_step,
+            get_compiled_population_scan_step,
+            get_lane_op,
+            init_population_state_from_keys,
+            make_population_train_step,
+            pbt_rule_state,
+            staggered_rule_state,
+        )
+
+        dev = self.device
+        chunk = self.chunk_steps
+        hook = self.early_stop
+        lifecycle = self.lifecycle
+        # device rules: the rung rule (staggered) or PBT's window quantile
+        # runs in the chunks; the host skips observe(), stops only at the poll
+        # or the flight's end, and harvests retirements from the emitted rules
+        device_active = device_spec is not None or device_pbt
+        batch_complete = (getattr(scheduler, "complete_retirements", None)
+                          if device_active else None)
+        fault_plan = faultinject.get_plan()
+        splice_fn = get_lane_op(tc, k, "splice")
+        init_fn = get_lane_op(tc, k, "init")
+        clone_fn = get_lane_op(tc, k, "clone") if lifecycle is not None else None
+        pstep = (make_population_train_step(tc, per_trial_batch=True)
+                 if chunk == 1 and not device_active else None)
+        self._flight_epoch += 1
+        epoch = self._flight_epoch
+        dispatches0 = self.n_dispatches
+
+        # the host's lane table (lane-local: budgets and steps restart per
+        # lease; lineage lanes carry cumulative bases across rounds)
+        handles: list = [None] * k
+        used = [False] * k
+        lineage: list = [None] * k           # member whose weights live here
+        lane_round = [0] * k                 # pbt_round of the current lease
+        rounds_done: dict = {}               # member -> rounds completed here
+        starts = np.zeros(k, np.int64)       # global step of the lane's local 0
+        base_data = np.zeros(k, np.int64)    # member data cursor at local 0
+        applied0 = np.zeros(k, np.int64)     # optimizer step at lease time
+        lane_applied = np.zeros(k, np.int64)  # optimizer step at last retire
+        budgets = np.zeros(k, np.float64)    # this round's budget (lane-local)
+        streams = [-(i + 1) for i in range(k)]     # idle = sentinel stream
+        hps = [self._hparams({}, 0) for _ in range(k)]
+        pstate = init_population_state_from_keys(
+            [self._generator(st) for st in streams], tc, dev, out=out)
+        php = stack_hparams(hps, dev)
+        s_lo, s_hi = self._stream_words(streams)
+        # device rules only: while True the state is still its initial one,
+        # so the first fill needs no counted dispatch and a whole ladder can
+        # be one
+        virgin = True
+        s = 0
+        idle_deadline = None
+        grace = self.refill_idle_grace_s
+        if lifecycle is not None:
+            # a lifecycle flight must outlive the proposer's round trip between
+            # rounds: losing it loses every member's state
+            grace = max(grace, 2.0)
+        parked: list = []   # leases that cannot run yet (busy donor / no lane)
+        donor_waited: set = set()
+        force_parked = False  # the grace ran out: stuck directives degrade to init
+        planner = ChunkPlanner(chunk_steps=chunk,
+                               boundaries=hook.boundaries if hook is not None else ())
+        next_event = 0
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        losses = [] if self.record_flight is not None else None
+
+        def note_op(op, lanes, donors=None):
+            if self.record_lane_op is not None:
+                self.record_lane_op(op, pstate, list(lanes), donors)
+
+        def next_event_step() -> int:
+            live_now = [i for i in range(k) if handles[i] is not None]
+            if device_active:
+                # rung cuts and budget ends happen in the chunks: the host
+                # stops only for the poll or the whole flight's end
+                return planner.device_horizon(s, starts, budgets, live_now)
+            return planner.next_stream_event(s, starts, budgets, live_now)
+
+        while True:
+            live = [i for i in range(k) if handles[i] is not None]
+            php_dirty = False
+            if fault_plan is not None and live:
+                # raise@step kills the flight (the supervisor restarts it);
+                # nan@lane sets the divergence latch, and the retire path
+                # takes over
+                fault_plan.check("flight-step", step=s)
+                poison = [i for i in fault_plan.poison_lanes(s) if i < k]
+                if poison:
+                    pmask = torch.zeros(k, dtype=torch.bool)
+                    pmask[poison] = True
+                    pstate["diverged"].logical_or_(pmask.to(dev))
+                    virgin = False
+            # 1) at an event step: the rung rule, then retire the lanes whose
+            # budget is spent (truncated ones too) or that diverged
+            if live and s >= next_event:
+                self._event_seq += 1
+                diverged = pstate["diverged"].cpu().numpy()
+                last = pstate["last_loss"].cpu().numpy()
+                # the optimizer's step counter is the exact count of applied
+                # steps: a diverged lane froze there, however late it is seen
+                applied = pstate["inner"]["opt"]["step"].cpu().numpy().astype(np.int64)
+                if fault_plan is not None:
+                    fault_plan.check("event", event=self._event_seq)
+                if hook is not None and device_spec is None:
+                    local = np.array([s - starts[i] if handles[i] is not None else 0
+                                      for i in range(k)], np.float64)
+                    budgets = np.asarray(hook.observe(local, last, budgets, diverged),
+                                         np.float64)
+                retired: list = []  # device rules: one batch an event pass
+                for lane in live:
+                    local_s = int(s - starts[lane])
+                    if not (diverged[lane] or local_s >= budgets[lane]):
+                        continue
+                    bad = bool(diverged[lane]) or not np.isfinite(last[lane])
+                    score = self.DIVERGED_SCORE if bad else -float(last[lane])
+                    if (hook is not None and diverged[lane]
+                            and budgets[lane] > applied[lane] - applied0[lane]):
+                        # a diverged lane's remaining budget is reclaimed
+                        hook.n_reclaimed += 1
+                    extra = {
+                        "steps": int(applied[lane] - applied0[lane]),
+                        "total_steps": int(applied[lane]),
+                        "diverged": bool(diverged[lane]),
+                        "lane": lane,
+                        "resumed_from_step": 0,
+                    }
+                    if device_active:
+                        # the step this lane retired at inside the chunk
+                        at = (starts[lane] + applied[lane] - applied0[lane] if diverged[lane]
+                              else starts[lane] + budgets[lane])
+                        retired.append((int(at), lane, handles[lane], score, extra))
+                    else:
+                        scheduler.complete(handles[lane], score, extra=extra)
+                    if self.journal is not None:
+                        self.journal.append("retire", lane=lane, step=local_s,
+                                            detail={"stream": int(streams[lane]),
+                                                    "score": score})
+                    handles[lane] = None
+                    budgets[lane] = 0.0
+                    lane_applied[lane] = int(applied[lane])
+                    if lineage[lane] is not None:
+                        # a lineage lane freezes without a restack: its step
+                        # counter equals its total_steps (or the latch holds it)
+                        # until the next directive
+                        rounds_done[lineage[lane]] = lane_round[lane] + 1
+                    else:
+                        streams[lane] = -(lane + 1)
+                        hps[lane] = self._hparams({}, 0)
+                        php_dirty = True  # restack: the retired lane freezes
+                if retired:
+                    # the chunk's retirements, settled in the order the host
+                    # rule would have settled them (by the step each lane
+                    # retired at, then by lane), in one call where the
+                    # scheduler takes a batch
+                    retired.sort(key=lambda r: r[:2])
+                    if batch_complete is not None:
+                        batch_complete([r[2:] for r in retired])
+                    else:
+                        for _, _, handle, score, extra in retired:
+                            scheduler.complete(handle, score, extra=extra)
+                if self.ladder_dispatches is None and any(handles[i] is None for i in live):
+                    self.ladder_dispatches = self.n_dispatches - dispatches0
+                live = [i for i in range(k) if handles[i] is not None]
+            # 2) lease pending proposals (parked ones first), each through its
+            # lane op
+            pending, parked = parked + self._drain_leases(scheduler), []
+            if pending:
+                # clones first: a clone reads its donor's round-boundary state,
+                # so it runs before a keep of the same round restarts the donor
+                pending.sort(key=lambda hc: hc[1].get("pbt_lifecycle") != "clone")
+                free = [i for i in range(k) if handles[i] is None and lineage[i] is None]
+                clone_jobs: list = []   # (lane, donor_lane, cfg)
+                splice_jobs: list = []  # lanes taking a fresh init
+                for handle, cfg in pending:
+                    directive = cfg.get("pbt_lifecycle")
+                    member = cfg.get("pbt_member")
+                    lane = donor_lane = None
+                    if lifecycle is not None and directive in ("keep", "clone"):
+                        lane = lifecycle.lane_of(member, epoch)
+                        if force_parked:
+                            if lane is not None and handles[lane] is not None:
+                                # a second stuck round of this member waits
+                                # for the first
+                                parked.append((handle, cfg))
+                                continue
+                            # the flight idled out with this lease stuck (its
+                            # predecessor or donor never comes): a counted init
+                            self.n_lineage_resets += 1
+                            if directive == "clone":
+                                lifecycle.clone_done(cfg)
+                            directive = "init" if lane is not None else None
+                        else:
+                            if lane is not None and handles[lane] is not None:
+                                parked.append((handle, cfg))  # member's lane mid-round
+                                continue
+                            if int(cfg.get("pbt_round", 0)) != rounds_done.get(member, 0):
+                                # rounds run in order: a later round offered
+                                # early waits for its predecessor
+                                parked.append((handle, cfg))
+                                continue
+                            if directive == "keep" and lane is not None \
+                                    and lifecycle.pinned(member):
+                                # donor pinning: a pending clone still needs this
+                                # lane's state
+                                if handle not in donor_waited:
+                                    donor_waited.add(handle)
+                                    self.n_donor_waits += 1
+                                parked.append((handle, cfg))
+                                continue
+                            if directive == "clone" and lane is not None:
+                                donor_lane = lifecycle.lane_of(cfg.get("pbt_donor"), epoch)
+                                if donor_lane is not None and handles[donor_lane] is not None:
+                                    # donor mid-round: wait for its boundary
+                                    if handle not in donor_waited:
+                                        donor_waited.add(handle)
+                                        self.n_donor_waits += 1
+                                    parked.append((handle, cfg))
+                                    continue
+                                if donor_lane is None:
+                                    # the donor's state is gone: a counted init
+                                    self.n_lineage_resets += 1
+                                    lifecycle.clone_done(cfg)
+                                    directive = "init"
+                            if lane is None:
+                                # keep/clone of a member whose state is gone
+                                self.n_lineage_resets += 1
+                                if directive == "clone":
+                                    lifecycle.clone_done(cfg)
+                                directive = None  # the init path below
+                    if lane is None:
+                        if not free:
+                            parked.append((handle, cfg))  # every lane is busy
+                            continue
+                        lane = free.pop(0)
+                        directive = "init"
+                        if lifecycle is not None and member is not None:
+                            lifecycle.bind(member, lane, epoch)
+                            lineage[lane] = member
+                    # the serial driver's stream: explicit stream / job id,
+                    # else a distinct lease-order stream (never the lane index)
+                    sid = self._serial_stream_of(cfg)
+                    round_steps = int(self._n_steps(cfg))
+                    handles[lane] = handle
+                    starts[lane] = s
+                    lane_round[lane] = int(cfg.get("pbt_round", 0))
+                    base_data[lane] = lane_round[lane] * round_steps
+                    budgets[lane] = float(round_steps)
+                    streams[lane] = sid
+                    if directive == "keep":
+                        base_sched = int(lane_applied[lane])
+                    elif directive == "clone":
+                        base_sched = int(lane_applied[donor_lane])
+                        clone_jobs.append((lane, donor_lane, cfg))
+                    else:
+                        base_sched = 0
+                        splice_jobs.append(lane)
+                    if used[lane] and directive != "keep":
+                        self.n_refills += 1
+                    applied0[lane] = base_sched
+                    used[lane] = True
+                    hps[lane] = self._hparams(cfg, base_sched + round_steps)
+                    php_dirty = True
+                    if self.journal is not None:
+                        self.journal.append("lease", job_id=cfg.get("job_id"), lane=lane,
+                                            step=int(s), detail={"stream": sid})
+                # lane ops: clones first (they read donor lanes, never a
+                # splice target), then the fresh inits
+                if clone_jobs:
+                    mask = np.zeros(k, bool)
+                    donor_idx = np.arange(k)
+                    for lane, donor_lane, _ in clone_jobs:
+                        mask[lane] = True
+                        donor_idx[lane] = donor_lane
+                    clone_fn(pstate, mask, donor_idx)
+                    virgin = False
+                    self.n_clones += len(clone_jobs)
+                    self.n_dispatches += 1
+                    note_op("clone", [j[0] for j in clone_jobs], [j[1] for j in clone_jobs])
+                    for _, _, cfg in clone_jobs:
+                        lifecycle.clone_done(cfg)
+                if splice_jobs:
+                    gens = [self._generator(streams[i]) if i in splice_jobs else None
+                            for i in range(k)]
+                    if len(splice_jobs) == 1 and not (virgin and device_active):
+                        lane = splice_jobs[0]
+                        splice_fn(pstate, lane, gens[lane])
+                        self.n_splices += 1
+                        note_op("splice", splice_jobs)
+                    else:
+                        # several lanes in one pass (the first fill, a mass
+                        # refill): one masked init
+                        mask = np.zeros(k, bool)
+                        mask[splice_jobs] = True
+                        init_fn(pstate, mask, gens)
+                        note_op("init", splice_jobs)
+                    if not (virgin and device_active):
+                        # the first fill of a device-rule flight is not a
+                        # dispatch of its ladder: nothing has trained yet
+                        self.n_dispatches += 1
+                        virgin = False
+                live = [i for i in range(k) if handles[i] is not None]
+                force_parked = False
+            if php_dirty:
+                php = stack_hparams(hps, dev)
+                s_lo, s_hi = self._stream_words(streams)
+            if not live:
+                # 3) the flight is idle: wait briefly for late proposals
+                # (Algorithm 1 may be mid-callback), then give the lanes back
+                if getattr(scheduler, "closed", False) and not parked:
+                    break
+                now = time.time()
+                if idle_deadline is None:
+                    idle_deadline = now + grace
+                if now >= idle_deadline:
+                    if any(c.get("pbt_lifecycle") in ("keep", "clone") for _, c in parked):
+                        # stuck lifecycle leases: re-init them, do not strand them
+                        force_parked = True
+                        idle_deadline = None
+                        continue
+                    break
+                time.sleep(0.002)
+                continue
+            idle_deadline = None
+            next_event = next_event_step()
+            if next_event <= s:
+                # an event is due now (a zero-budget lease): back to the event
+                # pass without a dispatch
+                continue
+            # 4) advance to the next event: lane i reads its own stream at its
+            # own cursor (a refilled lane from 0, a keep/clone round from
+            # round * round_steps)
+            t = planner.chunk_to(s, next_event)
+            cursors = np.zeros(k, np.int64)
+            local0 = np.zeros(k, np.int64)
+            for i in range(k):
+                if handles[i] is not None:
+                    local0[i] = s - starts[i]
+                    cursors[i] = base_data[i] + local0[i]
+            if device_active:
+                if device_spec is not None:
+                    counts_max = max((len(v) for v in hook._rung_history.values()), default=0)
+                    # the capacity never shrinks: on the card each new shape is
+                    # a new graph (padding the history changes no output)
+                    self._hist_cap = max(self._hist_cap, pow2_ceil(counts_max + k))
+                    hist, counts = device_spec.lower_history(self._hist_cap)
+                    rules = staggered_rule_state(budgets, applied0, local0,
+                                                 device_spec.boundaries, device_spec.eta,
+                                                 hist, counts, dev)
+                    mode = "staggered"
+                else:
+                    wentries = lifecycle.window_snapshot()
+                    wscore = np.zeros(lifecycle.window.maxlen, np.float32)
+                    for j, (_, sc, _) in enumerate(wentries):
+                        wscore[j] = sc
+                    rules = pbt_rule_state(budgets, applied0, local0, lifecycle.quantile,
+                                           wscore, len(wentries), dev)
+                    mode = "pbt"
+                (pstate, rout), metrics = get_compiled_population_rule_scan_step(
+                    tc, k, data, t, mode)(pstate, php, torch.as_tensor(cursors, device=dev),
+                                          s_lo, s_hi, rules)
+                # read now: the graph's next replay overwrites its outputs
+                rout = {n: v.cpu().numpy().copy() for n, v in rout.items()}
+                virgin = False
+                if device_spec is not None:
+                    new_budgets = rout["budgets"].astype(np.float64)
+                    # every shrink in the chunk is a rung cut (the staggered
+                    # rule skips diverged lanes; their reclaim is the retire
+                    # pass's)
+                    hook.n_truncated += int((new_budgets < budgets).sum())
+                    device_spec.absorb_history(rout["hist"], rout["counts"])
+                    budgets = new_budgets
+                else:
+                    for lane in range(k):
+                        if rout["vready"][lane] and lineage[lane] is not None:
+                            lifecycle.note_device_verdict(
+                                lineage[lane], lane_round[lane], bool(rout["vbottom"][lane]),
+                                float(rout["vlo"][lane]), float(rout["vhi"][lane]))
+            elif chunk > 1:
+                # every dispatch of a chunked flight, one step too, is a chunk
+                # program (on the card a graph replay); batches made on the device
+                pstate, metrics = get_compiled_population_scan_step(tc, k, data, t)(
+                    pstate, php, torch.as_tensor(cursors, device=dev), s_lo, s_hi)
+            else:
+                # one host synthesis call for all K lanes (idle lanes read their
+                # sentinel stream at cursor 0; their steps are never applied)
+                batch = to_device(data.make_population_batch(cursors, streams), dev)
+                pstate, metrics = pstep(pstate, batch, php)
+            self._count_active(acc, metrics, k, t)
+            if losses is not None:
+                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+            self.n_dispatches += 1
+            self.n_train_steps += t
+            s += t
+        self.last_flight_steps = s
+        self.n_active_lane_steps += int(acc)
+        if losses is not None:
+            self.record_flight(torch.cat(losses) if losses else None, pstate)
+        return []
+
+    @staticmethod
+    def _drain_leases(scheduler) -> list:
+        out = []
+        while True:
+            lease = scheduler.lease()
+            if lease is None:
+                return out
+            out.append(lease)
+
+
+class _ReplayJob:
+    """A minimal job for feeding a proposer outside Algorithm 1."""
+
+    def __init__(self, cfg):
+        self.config = cfg
+
+
+def run_pbt_serial(trial: PopulationTrial, proposer) -> dict:
+    """The generation-barriered serial PBT driver, with host checkpoints.
+
+    Drives a streaming ``PBTProposer`` with an explicit generation barrier:
+    each pass takes one whole generation of member configs, trains every
+    member's round one trial at a time (the population step at K=1), and
+    takes the weights each round's directive names from checkpoints kept on
+    the host as CPU tensor trees: ``keep`` the member's own, ``clone`` the
+    donor's from the end of the previous generation.  Every round costs two
+    host round trips (restore, checkpoint), counted in
+    ``trial.n_host_ckpt_roundtrips``.
+
+    The decision rule, the RNG, the data streams, the schedule bases and the
+    init generators are those of the streaming engine, so a same-seed
+    streaming flight must give these scores.  Returns ``{(member, round):
+    score}``."""
+    from ..data.pipeline import HostPrefetcher
+    from ..interop import add_lane_axis, tree_map
+    from ..optim.hparams import stack_hparams
+    from ..train import train_step as ts
+
+    tc, data = trial._setup()
+    dev = trial.device
+    step_fn = ts.make_hparam_train_step(tc)
+    ckpts: dict = {}
+    applied: dict = {}
+    scores: dict = {}
+    hook = proposer.lifecycle_hook()
+
+    def to_host(state):
+        return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+    def to_card(state):
+        return tree_map(lambda t: t.to(dev, copy=True), state)
+
+    while not proposer.finished():
+        gen = proposer.get_params(proposer.population)
+        if not gen:
+            break
+        # a clone reads its donor's checkpoint from the generation barrier,
+        # not one the donor already advanced in this generation
+        gen_ckpts, gen_applied = dict(ckpts), dict(applied)
+        results = []
+        for cfg in gen:
+            m, r = int(cfg["pbt_member"]), int(cfg["pbt_round"])
+            lc = cfg.get("pbt_lifecycle", "init")
+            n_steps = trial._n_steps(cfg)
+            stream = trial._stream_of(cfg, m)
+            if lc == "keep":
+                state = to_card(ckpts[m])
+                trial.n_host_ckpt_roundtrips += 1
+                base_sched = applied[m]
+            elif lc == "clone":
+                donor = int(cfg["pbt_donor"])
+                state = to_card(gen_ckpts[donor])
+                trial.n_host_ckpt_roundtrips += 1
+                base_sched = gen_applied[donor]
+                if hook is not None:
+                    hook.clone_done(cfg)  # pins are an engine concept
+            else:
+                state = add_lane_axis(ts.init_train_state(trial._generator(stream), tc, dev))
+                base_sched = 0
+            hp = stack_hparams([trial._hparams(cfg, base_sched + n_steps)], dev)
+
+            def build(t, base=r * n_steps, stream=stream):
+                return {n: v[None] for n, v in data.make_batch(base + t, stream=stream).items()}
+
+            feed = HostPrefetcher(build, dev)
+            loss, n_applied = float("inf"), 0
+            for t in range(n_steps):
+                state, metrics = step_fn(state, feed.pop(t), hp)
+                if t + 1 < n_steps:
+                    feed.prefetch(t + 1)
+                loss = float(metrics["loss"][0])
+                if not np.isfinite(loss):
+                    break
+                n_applied += 1
+            score = -loss if n_applied == n_steps else trial.DIVERGED_SCORE
+            ckpts[m] = to_host(state)
+            trial.n_host_ckpt_roundtrips += 1
+            applied[m] = base_sched + n_applied
+            scores[(m, r)] = score
+            results.append((cfg, score))
+        # the generation barrier: results go back only once the whole
+        # generation has run, in member order
+        for cfg, score in results:
+            proposer.update(score, _ReplayJob(cfg))
+    return scores
 
 
 SPACE = [
@@ -363,9 +1070,6 @@ _LATER_FLAGS = (
     ("shard_population", "--shard-population", _ITEM.format("12 (multi-device engines)")),
     ("model_parallel", "--model-parallel", _ITEM.format("12 (multi-device engines)")),
     ("elastic_regrid", "--elastic-regrid", _ITEM.format("12 (multi-device engines)")),
-    ("lane_refill", "--lane-refill", _ITEM.format("8 (streaming engines)")),
-    ("pbt_streaming", "--pbt-streaming", _ITEM.format("8 (streaming engines)")),
-    ("device_rules", "--device-rules", _ITEM.format("8 (device-side rules)")),
     ("data_ring", "--data-ring", _ITEM.format("10 (prefetch ring)")),
     ("snapshot_every", "--snapshot-every", _ITEM.format("9 (crash safety)")),
     ("resume", "--resume", _ITEM.format("9 (crash safety)")),
@@ -428,13 +1132,36 @@ def main(argv=None) -> int:
     p.add_argument("--fault-spec", default="",
                    help="deterministic fault injection, e.g. 'raise@step=20' "
                         "(see repro_torch.core.faultinject)")
+    p.add_argument("--lane-refill", action="store_true",
+                   help="with --vectorize: streaming flights; a retired lane "
+                        "(budget done, rung-truncated, diverged) reports its "
+                        "result at once and takes the next proposal in place")
+    p.add_argument("--pbt-streaming", action="store_true",
+                   help="with --proposer pbt and --vectorize K: PBT on the "
+                        "streaming engine (implies --lane-refill); an exploit "
+                        "step copies the donor lane's weights and optimizer "
+                        "state on the device, with no host checkpoint")
+    p.add_argument("--pbt-async", action="store_true",
+                   help="with --pbt-streaming: no round gate; exploit decisions "
+                        "come from the sliding window of member scores alone")
+    p.add_argument("--pbt-perturb", type=float, default=1.2,
+                   help="PBT explore factor: floats scale by it or its inverse")
+    p.add_argument("--pbt-quantile", type=float, default=0.25,
+                   help="PBT exploit quantile: members in the bottom fraction "
+                        "clone a donor from the top fraction")
+    p.add_argument("--pbt-window", type=int, default=0,
+                   help="sliding window of member scores for streaming PBT "
+                        "(0 = the population size)")
+    p.add_argument("--pbt-rounds", type=int, default=0,
+                   help="training rounds per PBT member (0 = n-samples / "
+                        "population)")
+    p.add_argument("--device-rules", action="store_true",
+                   help="with --vectorize: run the rung rule (--inflight-stop) "
+                        "or PBT's window quantile (--pbt-streaming --pbt-async) "
+                        "inside the chunks, so chunks no longer stop at rung "
+                        "boundaries and a whole ladder can be one dispatch")
     # accepted like the JAX CLI; they act only with engines refused below
     p.add_argument("--snapshot-dir", default="", help=argparse.SUPPRESS)
-    p.add_argument("--pbt-async", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--pbt-perturb", type=float, default=1.2, help=argparse.SUPPRESS)
-    p.add_argument("--pbt-quantile", type=float, default=0.25, help=argparse.SUPPRESS)
-    p.add_argument("--pbt-window", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--pbt-rounds", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--ring-windows", type=int, default=2, help=argparse.SUPPRESS)
     p.add_argument("--chunk-steps", type=int, default=1, metavar="T",
                    help="with --vectorize K: advance each flight in fused chunks "
@@ -443,9 +1170,6 @@ def main(argv=None) -> int:
                         "1 = the per-step loop")
     for flag, kw in (
         ("--shard-population", dict(action="store_true")),
-        ("--lane-refill", dict(action="store_true")),
-        ("--pbt-streaming", dict(action="store_true")),
-        ("--device-rules", dict(action="store_true")),
         ("--elastic-regrid", dict(action="store_true")),
         ("--data-ring", dict(action="store_true")),
         ("--model-parallel", dict(type=int, default=1, metavar="W")),
@@ -461,14 +1185,35 @@ def main(argv=None) -> int:
         if _later(args, name):
             p.error(f"{flag} is not ported to the PyTorch package yet; it comes "
                     f"with {item}")
-    if args.pbt_async:
+    if args.pbt_streaming:
+        if args.proposer != "pbt":
+            p.error(f"--pbt-streaming needs --proposer pbt, got {args.proposer!r}")
+        if args.vectorize <= 0:
+            p.error("--pbt-streaming requires --vectorize K (members live in "
+                    "population lanes)")
+        args.lane_refill = True  # streaming PBT rides the lane-refill engine
+    elif args.pbt_async:
         p.error("--pbt-async only applies with --pbt-streaming")
     if args.vectorize <= 0 and args.inflight_stop:
         p.error("--inflight-stop requires --vectorize K (it acts on the "
                 "population engine)")
+    if args.vectorize <= 0 and args.lane_refill:
+        p.error("--shard-population/--inflight-stop/--lane-refill require "
+                "--vectorize K (they act on the population engines)")
+    if args.lane_refill and args.shared_stream:
+        p.error("--lane-refill needs per-trial data streams (a refilled lane "
+                "replays its own stream from step 0); drop --shared-stream")
     if args.chunk_steps > 1 and args.vectorize <= 0:
         p.error("--chunk-steps acts on the population engines; it requires "
                 "--vectorize K")
+    if args.device_rules:
+        if args.vectorize <= 0:
+            p.error("--device-rules acts on the population engines; it "
+                    "requires --vectorize K")
+        if not (args.inflight_stop or (args.pbt_streaming and args.pbt_async)):
+            p.error("--device-rules needs an in-scan rule: --inflight-stop "
+                    "(rung cuts) or --pbt-streaming with --pbt-async "
+                    "(window-quantile verdicts)")
     if args.fused_attention or args.fused_ssm:
         from ..configs import get_smoke_config
 
@@ -498,23 +1243,36 @@ def main(argv=None) -> int:
         exp_cfg["db_path"] = args.db
     if args.deadline:
         exp_cfg["job_deadline_s"] = args.deadline
+    if args.pbt_streaming:
+        exp_cfg.update(
+            streaming=True,
+            sync_rounds=not args.pbt_async,
+            population=args.vectorize,
+            perturb=args.pbt_perturb,
+            quantile=args.pbt_quantile,
+            window=args.pbt_window,
+        )
+        if args.pbt_rounds:
+            exp_cfg["n_generations"] = args.pbt_rounds
     per_trial_streams = not args.shared_stream
     trial_kw = dict(per_trial_streams=per_trial_streams,
                     per_trial_init=args.per_trial_init, device=args.device)
     if args.vectorize > 0:
         exp_cfg["resource"] = "vectorized"
         exp_cfg["n_parallel"] = args.vectorize
+        if args.lane_refill:
+            exp_cfg["lane_refill"] = True
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 population=args.vectorize, chunk_steps=args.chunk_steps,
-                                **trial_kw)
+                                device_rules=args.device_rules, **trial_kw)
     else:
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 **trial_kw)
     exp_cfg["cli"] = {k: getattr(args, k) for k in (
         "arch", "steps", "batch", "seq", "seed", "vectorize", "chunk_steps",
-        "per_trial_init",
-        "shared_stream", "inflight_stop", "fused_rmsnorm", "fused_attention",
-        "fused_ssm", "device", "max_flight_restarts")}
+        "per_trial_init", "shared_stream", "lane_refill", "inflight_stop",
+        "pbt_streaming", "pbt_async", "device_rules", "fused_rmsnorm",
+        "fused_attention", "fused_ssm", "device", "max_flight_restarts")}
     t0 = time.time()
     exp = Experiment(exp_cfg, trial)
     result_times: list = []
@@ -525,16 +1283,23 @@ def main(argv=None) -> int:
             p.error(f"--inflight-stop needs a rung proposer (asha/hyperband/bohb), "
                     f"got {args.proposer!r}")
         trial.early_stop = hook_factory(steps_per_unit=args.steps)
+    if args.device_rules and args.pbt_streaming:
+        # decide() takes the window-quantile verdicts the chunks emit
+        exp.proposer.lifecycle_hook().enable_device_rule()
     best = exp.run()
     dt = time.time() - t0
     out = {
         "proposer": args.proposer,
         "arch": args.arch,
         "engine": ("serial" if args.vectorize == 0 else "vmapped")
-                  + ("+chunked" if args.chunk_steps > 1 else ""),
+                  + ("+refill" if args.lane_refill else "")
+                  + ("+chunked" if args.chunk_steps > 1 else "")
+                  + ("+devrules" if args.device_rules else ""),
         "vectorize": args.vectorize,
         "device": str(trial.device),
     }
+    if args.device_rules:
+        out["device_rules"] = True
     if args.vectorize > 0:
         trained = int(trial.n_train_steps)
         out["chunk_steps"] = args.chunk_steps
@@ -542,6 +1307,9 @@ def main(argv=None) -> int:
         out["trained_steps"] = trained
         out["dispatches_per_step"] = (
             round(trial.n_dispatches / trained, 3) if trained else None)
+        # the port's own: lane-steps of active lanes over lane-steps computed
+        share = trial.active_lane_share
+        out["active_lane_share"] = None if share is None else round(share, 4)
     if args.fused_rmsnorm:
         out["fused_rmsnorm"] = True
     if args.fused_attention:
@@ -553,6 +1321,28 @@ def main(argv=None) -> int:
     if trial.early_stop is not None:
         out["inflight_truncated_lanes"] = trial.early_stop.n_truncated
         out["inflight_reclaimed_diverged_lanes"] = trial.early_stop.n_reclaimed
+    if args.lane_refill:
+        if trial.ladder_dispatches is not None:
+            # the first cohort's dispatches: 1 when a device-rule ladder fits
+            # one chunk
+            out["ladder_device_dispatches"] = trial.ladder_dispatches
+        out["lane_refills"] = trial.n_refills
+        out["streamed_results"] = exp.rm.n_streamed
+        out["refill_flights"] = exp.rm.n_refill_flights
+        out["flight_deaths"] = exp.rm.n_flight_deaths
+        out["flight_restarts"] = exp.rm.n_flight_restarts
+        out["quarantined"] = exp.rm.n_quarantined
+    if args.pbt_streaming:
+        hook = exp.proposer.lifecycle_hook()
+        out["pbt_clones"] = trial.n_clones
+        out["pbt_splices"] = trial.n_splices
+        out["pbt_keeps"] = hook.n_keeps
+        out["pbt_donor_waits"] = trial.n_donor_waits + hook.n_donor_waits
+        out["pbt_lineage_resets"] = trial.n_lineage_resets
+        # weights never go through the host on the streaming engine
+        out["pbt_host_ckpt_roundtrips"] = trial.n_host_ckpt_roundtrips
+        if args.device_rules:
+            out["pbt_device_verdicts"] = hook.n_device_verdicts
     if result_times:
         out["first_result_s"] = round(result_times[0] - t0, 2)
         out["last_result_s"] = round(result_times[-1] - t0, 2)

@@ -28,7 +28,7 @@ def _trunc_normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
                   dtype, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)   # in place: one fp32 temporary a leaf
 
 
 def dense_init(gen, shape: Tuple[int, ...], dtype, device,

@@ -76,10 +76,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     if cfg.prefix_pattern:
         params["prefix"] = [_layer_init(gen, m, f, cfg, device)
                             for m, f in cfg.prefix_pattern]
-    blocks = [{f"l{i}": _layer_init(gen, m, f, cfg, device)
-               for i, (m, f) in enumerate(cfg.pattern)}
-              for _ in range(cfg.n_superblocks)]
-    params["blocks"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
+    # superblock by superblock into the stacked leaves: one superblock's
+    # parameters are allocated beside them, not all of them twice
+    blocks = None
+    for b in range(cfg.n_superblocks):
+        block = {f"l{i}": _layer_init(gen, m, f, cfg, device)
+                 for i, (m, f) in enumerate(cfg.pattern)}
+        if blocks is None:
+            blocks = tree_map(lambda x: x.new_empty((cfg.n_superblocks,) + tuple(x.shape)),
+                              block)
+        tree_map(lambda dst, x: dst[b].copy_(x), blocks, block)
+        del block
+    params["blocks"] = blocks
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype_of(cfg.param_dtype), device)
     return params
 

@@ -31,6 +31,15 @@ the host.  ``get_compiled_population_scan_step`` caches one program per
 chunk size.  On the CPU a program is that plain T-step loop; on the card it
 is one captured ``torch.cuda.CUDAGraph`` replayed per chunk (see
 ``_FlightGraphs``), so a chunk costs one host dispatch.
+
+**Lane ops and device-side rules** (the streaming engines).  The lane ops
+``make_lane_init`` / ``make_lane_clone`` / ``make_lane_splice`` re-initialise
+or copy lanes of a population state in place, so a flight's captured state
+stays the one its graphs replay.  ``make_population_rule_scan_step`` is the
+chunk with a decision rule carried through it (``cohort_rule_update``,
+``staggered_rule_update`` or ``pbt_rule_update``): each step rebuilds the
+lanes' budgets from the carried rule state and applies the rule to the
+step's losses, with no host sync, so a rung cut lands inside the chunk.
 """
 from __future__ import annotations
 
@@ -39,8 +48,9 @@ import dataclasses
 import gc
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..configs.base import TrainConfig
@@ -64,15 +74,11 @@ def _init_into(out: PopState, gens, tc: TrainConfig, device) -> PopState:
     parameters from ``gens[i]`` (one generator: every lane), a zero optimizer
     state, as ``train_step.init_train_state`` makes them.  Only one lane's
     parameters are allocated beside ``out``."""
-    lanes = [None] if len(gens) == 1 else range(len(gens))
-    for lane, g in zip(lanes, gens):
-        params = ts.init_params(g, tc, device)
-        if lane is None:
-            tree_map(lambda dst, x: dst.copy_(x[None].expand_as(dst)),
-                     out["inner"]["params"], params)
-        else:
-            tree_map(lambda dst, x: dst[lane].copy_(x), out["inner"]["params"], params)
-        del params
+    if len(gens) > 1:
+        return _reinit_lanes(out, range(len(gens)), gens, tc)
+    params = ts.init_params(gens[0], tc, device)
+    tree_map(lambda dst, x: dst.copy_(x[None].expand_as(dst)), out["inner"]["params"], params)
+    del params
     for leaf in tree_leaves(out["inner"]["opt"]):
         leaf.zero_()
     out["diverged"].fill_(False)
@@ -97,12 +103,133 @@ def init_population_state(gen: torch.Generator, tc: TrainConfig, population: int
 def init_population_state_from_keys(gens, tc: TrainConfig, device,
                                     out: Optional[PopState] = None) -> PopState:
     """One trial per generator (per-trial init weights); ``out`` as in
-    ``init_population_state``."""
+    ``init_population_state``.  Without ``out``, lane 0's state is made
+    for every lane and the other lanes then draw their parameters in place,
+    so one lane's state is allocated beside the population, not K states
+    and their stack."""
+    gens = list(gens)
     if out is not None:
-        return _init_into(out, list(gens), tc, device)
-    states = [ts.init_train_state(g, tc, device) for g in gens]
-    inner = tree_map(lambda *xs: torch.stack(xs), *states)
-    return _wrap(inner, len(states), device)
+        return _init_into(out, gens, tc, device)
+    out = init_population_state(gens[0], tc, len(gens), device)
+    return _reinit_lanes(out, range(1, len(gens)), gens[1:], tc)
+
+
+# -- lane ops ------------------------------------------------------------------
+#
+# The streaming engines change single lanes of a live population state: a
+# retired lane takes the next proposal's weights, or a PBT member inherits a
+# donor lane's weights and optimizer state.  Each op writes into the state's
+# own tensors and returns the same dict, so a CUDA graph that captured the
+# state replays onto the new lanes.  Beside the state, init and splice
+# allocate one lane's parameters at a time, and clone one leaf's donor rows.
+#
+# * ``init``   (``make_lane_init``)   — re-initialise the masked lanes;
+# * ``clone``  (``make_lane_clone``)  — copy donor lanes into the masked lanes;
+# * ``splice`` (``make_lane_splice``) — re-initialise one lane.
+
+
+def _lanes_of(mask) -> list:
+    """The masked lanes' indices (a host list) from a bool mask (list,
+    numpy or tensor)."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    return [int(i) for i in np.flatnonzero(np.asarray(mask, bool))]
+
+
+def _reinit_lanes(pstate: PopState, lanes: Sequence[int], gens, tc: TrainConfig) -> PopState:
+    """Lane ``lanes[j]`` takes fresh parameters from ``gens[j]`` (through
+    ``train_step.init_params``), a zero optimizer state, a cleared
+    divergence latch and the ``last_loss`` sentinel."""
+    if not lanes:
+        return pstate
+    dev = pstate["diverged"].device
+    for lane, g in zip(lanes, gens):
+        params = ts.init_params(g, tc, dev)
+        tree_map(lambda dst, x: dst[lane].copy_(x), pstate["inner"]["params"], params)
+        del params
+    idx = torch.as_tensor(list(lanes), dtype=torch.long, device=dev)
+    for leaf in tree_leaves(pstate["inner"]["opt"]):
+        leaf.index_fill_(0, idx, 0)
+    pstate["diverged"].index_fill_(0, idx, False)
+    pstate["last_loss"].index_fill_(0, idx, float("inf"))
+    return pstate
+
+
+def make_lane_init(tc: TrainConfig) -> Callable:
+    """``(pstate, mask, gens) -> pstate`` with the masked lanes re-initialised.
+
+    ``mask`` is bool[K]; ``gens`` holds one init generator per lane (entries
+    of unmasked lanes are not read), so a refilled lane starts from exactly
+    the weights a fresh trial with the same generator would.  Unmasked lanes
+    keep their state bit for bit."""
+
+    def init(pstate: PopState, mask, gens) -> PopState:
+        lanes = _lanes_of(mask)
+        return _reinit_lanes(pstate, lanes, [gens[i] for i in lanes], tc)
+
+    return init
+
+
+def make_lane_clone(tc: TrainConfig) -> Callable:
+    """``(pstate, mask, donor_idx) -> pstate`` cloning donor lanes in place.
+
+    Every masked lane ``i`` takes lane ``donor_idx[i]``'s whole state
+    (parameters, AdamW moments, step counter, divergence latch and
+    ``last_loss``); unmasked lanes are untouched.  Each leaf gathers its donor
+    rows before it writes, so a lane that is both a donor and a target (a
+    chain 0<-1, 1<-2) reads the state from before the op, as the JAX
+    package's functional clone does."""
+
+    def clone(pstate: PopState, mask, donor_idx) -> PopState:
+        lanes = _lanes_of(mask)
+        if not lanes:
+            return pstate
+        if isinstance(donor_idx, torch.Tensor):
+            donor_idx = donor_idx.detach().cpu().numpy()
+        dev = pstate["diverged"].device
+        targets = torch.as_tensor(lanes, dtype=torch.long, device=dev)
+        donors = torch.as_tensor([int(donor_idx[i]) for i in lanes], dtype=torch.long,
+                                 device=dev)
+        for leaf in tree_leaves(pstate):
+            leaf.index_copy_(0, targets, leaf.index_select(0, donors))
+        return pstate
+
+    return clone
+
+
+def make_lane_splice(tc: TrainConfig) -> Callable:
+    """``(pstate, lane, gen) -> pstate`` re-initialising exactly one lane
+    from ``gen``: one lane's init, whatever K is."""
+
+    def splice(pstate: PopState, lane, gen) -> PopState:
+        return _reinit_lanes(pstate, [int(lane)], [gen], tc)
+
+    return splice
+
+
+_LANE_OPS: Dict[str, Callable] = {
+    "init": make_lane_init,
+    "clone": make_lane_clone,
+    "splice": make_lane_splice,
+}
+_LATER_LANE_OPS = {
+    "snapshot": "ROADMAP.md section 1, item 9 (crash safety)",
+    "restore": "ROADMAP.md section 1, item 9 (crash safety)",
+    "regrid": "ROADMAP.md section 1, item 12 (multi-device engines)",
+}
+
+
+def get_lane_op(tc: TrainConfig, population: int, kind: str) -> Callable:
+    """The lane op ``kind`` (``init`` / ``clone`` / ``splice``) for a
+    population of ``population`` lanes.  The ops are eager in-place writes,
+    so there is nothing to compile or cache; snapshot, restore and regrid
+    come with later items of the port and raise."""
+    if kind in _LATER_LANE_OPS:
+        raise NotImplementedError(
+            f"lane op {kind!r} is not ported yet; it comes with {_LATER_LANE_OPS[kind]}")
+    if kind not in _LANE_OPS:
+        raise KeyError(f"unknown lane op {kind!r}; available: {sorted(_LANE_OPS)}")
+    return _LANE_OPS[kind](tc)
 
 
 def make_population_train_step(tc: TrainConfig, per_trial_batch: bool = False) -> Callable:
@@ -149,22 +276,249 @@ def make_population_scan_step(tc: TrainConfig, data, chunk: int,
     to run past it.  ``metrics`` come back stacked with a leading
     ``(chunk,)`` axis.  The state is updated in place.
     """
-    from ..data.pipeline import synth_batch_device, synth_population_batch_device
-
     step = make_population_train_step(tc, per_trial_batch=per_trial_batch)
 
     def scan_chunk(pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi):
         per_step = []
         for t in range(int(chunk)):
-            if per_trial_batch:
-                batch = synth_population_batch_device(data, stream_lo, stream_hi, steps0,
-                                                      offset=t)
-            else:
-                batch = synth_batch_device(data, stream_lo, stream_hi, steps0, offset=t)
+            batch = _synth(data, per_trial_batch, stream_lo, stream_hi, steps0, t)
             pstate, metrics = step(pstate, batch, hp)
             per_step.append(metrics)
             del batch
-        return pstate, {n: torch.stack([m[n] for m in per_step]) for n in per_step[0]}
+        return pstate, _stack(per_step)
+
+    return scan_chunk
+
+
+def _synth(data, per_trial_batch: bool, stream_lo, stream_hi, steps0, t: int):
+    """Step ``t`` of a chunk's batch, made on the device."""
+    from ..data.pipeline import synth_batch_device, synth_population_batch_device
+
+    if per_trial_batch:
+        return synth_population_batch_device(data, stream_lo, stream_hi, steps0, offset=t)
+    return synth_batch_device(data, stream_lo, stream_hi, steps0, offset=t)
+
+
+def _stack(per_step) -> Dict[str, torch.Tensor]:
+    return {n: torch.stack([m[n] for m in per_step]) for n in per_step[0]}
+
+
+# -- device-side decision rules ---------------------------------------------------
+#
+# The rung rules and the PBT window quantile as functions of tensors, so a
+# chunk carries them step by step (``--device-rules``).  Each takes the rule
+# state, the lanes' ``last_loss`` and ``diverged`` after a step and each
+# lane's lane-local step count, and returns a new rule state.  None of them
+# reads a tensor on the host: ranks come from O(K^2) pairwise counts (ties
+# keep the lower lane first, as ``np.argsort(kind="stable")`` does) and
+# appends scatter through one extra "dump" slot that is dropped afterwards,
+# so they run inside a captured CUDA graph.  Rule state leaves:
+#
+#   all modes   budgets f32[K] (lane-local), base f32[K] (steps already in
+#               the lane's optimizer state: total_steps = base + budgets),
+#               local0 i32[K] (each lane's local step at the chunk start)
+#   cohort      boundaries f32[B], eta f32[]
+#   staggered   + hist f32[B, cap] (per-rung loss history, +inf padded),
+#               counts i32[B]
+#   pbt         quantile f32[], wscore f32[W] (score ring), wcount i32[],
+#               vbottom/vready bool[K], vlo/vhi f32[K]
+
+
+def cohort_rule_update(rules, losses, diverged, local):
+    """The rung rule of a synchronized batch flight
+    (``InFlightSuccessiveHalving.__call__``) on tensors.
+
+    ``local`` is the cohort's step (i32[K], all lanes equal).  Off a rung
+    boundary it changes nothing; at one, diverged lanes' remaining budgets
+    are reclaimed and ranked lanes outside the top ``1/eta`` are truncated to
+    the boundary step."""
+    budgets, boundaries, eta = rules["budgets"], rules["boundaries"], rules["eta"]
+    k = budgets.shape[0]
+    idx = torch.arange(k, device=budgets.device)
+    sf = local[0].to(torch.float32)
+    at = (boundaries == sf).any()
+    dead = diverged & (budgets > sf)
+    b2 = torch.where(dead, sf, budgets)
+    ranked = (b2 >= sf) & (b2 > 0) & ~diverged & torch.isfinite(losses)
+    n_ranked = ranked.sum()
+    n_keep = torch.ceil(n_ranked.to(torch.float32) / eta).to(torch.int64)
+    lower = ((losses[None, :] < losses[:, None]) & ranked[None, :]).sum(1)
+    ties = ((losses[None, :] == losses[:, None]) & ranked[None, :]
+            & (idx[None, :] < idx[:, None])).sum(1)
+    rank = lower + ties
+    noop = (n_ranked <= 1) | (n_keep >= n_ranked)
+    cut = ranked & (rank >= n_keep) & (b2 > sf) & ~noop
+    nb = torch.where(cut, sf, b2)
+    return dict(rules, budgets=torch.where(at, nb, budgets))
+
+
+def staggered_rule_update(rules, losses, diverged, local):
+    """The asynchronous rung rule of a refill flight
+    (``InFlightSuccessiveHalving.observe``) on tensors.
+
+    ``local`` is each lane's own step (i32[K]).  A live lane (budget > 0,
+    not diverged, finite loss, still inside its budget) whose step lands on a
+    rung boundary appends its loss to that rung's history and is truncated
+    unless it ranks in the top ``1/eta`` of the history including its own
+    entry.  Lanes hitting a boundary in the same step append in lane order,
+    as the host rule's lane loop does.  The history's capacity must hold
+    every append (the driver sizes it to the largest count plus K, rounded
+    up to a power of two); a larger capacity changes no output."""
+    budgets, boundaries, eta = rules["budgets"], rules["boundaries"], rules["eta"]
+    hist, counts = rules["hist"], rules["counts"]
+    k = budgets.shape[0]
+    n_rungs, cap = hist.shape
+    dev = budgets.device
+    idx = torch.arange(k, device=dev)
+    lf = local.to(torch.float32)
+    eq = lf[:, None] == boundaries[None, :]                       # [K, B]
+    at = eq.any(1)
+    bi = eq.to(torch.int32).argmax(1)
+    hit = at & (budgets > 0) & ~diverged & torch.isfinite(losses) & (lf <= budgets)
+    j_lt_i = idx[None, :] < idx[:, None]
+    same = hit[None, :] & hit[:, None] & (bi[None, :] == bi[:, None])
+    n_before = (same & j_lt_i).sum(1)
+    cnt = counts.to(torch.int64)[bi]
+    new_len = cnt + n_before + 1
+    n_keep = torch.ceil(new_len.to(torch.float32) / eta).to(torch.int64)
+    col = torch.arange(cap, device=dev)
+    rank_hist = ((hist[bi] < losses[:, None]) & (col[None, :] < cnt[:, None])).sum(1)
+    rank_same = (same & j_lt_i & (losses[None, :] < losses[:, None])).sum(1)
+    cut = hit & (rank_hist + rank_same >= n_keep) & (budgets > lf)
+    slot = cnt + n_before
+    ok = hit & (slot < cap)
+    flat = torch.where(ok, bi.to(torch.int64) * cap + slot,
+                       torch.full_like(slot, n_rungs * cap))          # last = dump
+    padded = torch.cat([hist.reshape(-1), hist.new_zeros(1)])
+    padded = padded.scatter(0, flat, losses.to(hist.dtype))
+    new_counts = counts + (ok[:, None] & eq).sum(0).to(counts.dtype)
+    return dict(rules, budgets=torch.where(cut, lf, budgets),
+                hist=padded[: n_rungs * cap].reshape(n_rungs, cap), counts=new_counts)
+
+
+def window_quantile(scores, count, quantile):
+    """``(lo, hi)`` quantile scores of a sliding window held as a ring of
+    length W: the tensor twin of ``core.proposer.pbt.window_quantile``.
+    ``count`` is how many appends the ring ever took, so the first
+    ``min(count, W)`` slots are valid; ``lo`` is the k-th smallest and ``hi``
+    the k-th largest valid score, ``k = max(1, int(quantile * n))``.  Both
+    come back as 0-d tensors, without a host sync."""
+    w = scores.shape[0]
+    n = torch.clamp(count, max=w)
+    k = torch.clamp((quantile * n.to(scores.dtype)).to(torch.int64), min=1)
+    valid = torch.arange(w, device=scores.device) < n
+    inf = torch.full_like(scores, float("inf"))
+    asc_lo = torch.sort(torch.where(valid, scores, inf)).values
+    asc_hi = torch.sort(torch.where(valid, scores, -inf)).values
+    return (asc_lo.gather(0, (k - 1).reshape(1))[0],
+            asc_hi.gather(0, (w - k).reshape(1))[0])
+
+
+def pbt_rule_update(rules, losses, diverged, local):
+    """The sliding-window quantile of streaming PBT (``PBTLifecycle``'s
+    asynchronous rule) on tensors.
+
+    A lane reaching its round end (``local == budgets``; a diverged lane's
+    step count still reaches it) appends its score to the window ring in
+    lane order, then latches a verdict: ``vbottom`` (its score at or below
+    the window's low quantile), the quantiles ``vlo``/``vhi`` it saw, and
+    ``vready``.  The host hands the verdicts to
+    ``PBTLifecycle.note_device_verdict``; donor choice and perturbation stay
+    on the host (they draw from the proposer's RNG).  Budgets are never
+    truncated: PBT rounds end by budget."""
+    from ..core.proposer.pbt import DIVERGED_SCORE
+
+    budgets, wscore, wcount = rules["budgets"], rules["wscore"], rules["wcount"]
+    k = budgets.shape[0]
+    w = wscore.shape[0]
+    idx = torch.arange(k, device=budgets.device)
+    lf = local.to(torch.float32)
+    hit = (budgets > 0) & (lf == budgets)
+    score = torch.where(diverged | ~torch.isfinite(losses),
+                        torch.full_like(losses, DIVERGED_SCORE), -losses)
+    n_before = (hit[None, :] & (idx[None, :] < idx[:, None])).sum(1)
+    slot = (wcount.to(torch.int64) + n_before) % w
+    flat = torch.where(hit, slot, torch.full_like(slot, w))           # last = dump
+    padded = torch.cat([wscore, wscore.new_zeros(1)]).scatter(0, flat, score.to(wscore.dtype))
+    new_wscore = padded[:w]
+    new_wcount = wcount + hit.sum().to(wcount.dtype)
+    lo, hi = window_quantile(new_wscore, new_wcount, rules["quantile"])
+    return dict(rules, wscore=new_wscore, wcount=new_wcount,
+                vbottom=torch.where(hit, score <= lo, rules["vbottom"]),
+                vready=rules["vready"] | hit,
+                vlo=torch.where(hit, lo, rules["vlo"]),
+                vhi=torch.where(hit, hi, rules["vhi"]))
+
+
+_RULE_UPDATES: Dict[str, Callable] = {
+    "cohort": cohort_rule_update,
+    "staggered": staggered_rule_update,
+    "pbt": pbt_rule_update,
+}
+
+
+def _f32(x, device):
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def _i32(x, device):
+    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+def cohort_rule_state(budgets, base, local0, boundaries, eta, device="cpu") -> Dict[str, Any]:
+    return {"budgets": _f32(budgets, device), "base": _f32(base, device),
+            "local0": _i32(local0, device), "boundaries": _f32(boundaries, device),
+            "eta": _f32(eta, device)}
+
+
+def staggered_rule_state(budgets, base, local0, boundaries, eta, hist, counts,
+                         device="cpu") -> Dict[str, Any]:
+    state = cohort_rule_state(budgets, base, local0, boundaries, eta, device)
+    state["hist"] = _f32(hist, device)
+    state["counts"] = _i32(counts, device)
+    return state
+
+
+def pbt_rule_state(budgets, base, local0, quantile, wscore, wcount,
+                   device="cpu") -> Dict[str, Any]:
+    k = len(budgets)
+    return {"budgets": _f32(budgets, device), "base": _f32(base, device),
+            "local0": _i32(local0, device), "quantile": _f32(quantile, device),
+            "wscore": _f32(wscore, device), "wcount": _i32(wcount, device),
+            "vbottom": torch.zeros((k,), dtype=torch.bool, device=device),
+            "vready": torch.zeros((k,), dtype=torch.bool, device=device),
+            "vlo": torch.zeros((k,), dtype=torch.float32, device=device),
+            "vhi": torch.zeros((k,), dtype=torch.float32, device=device)}
+
+
+def make_population_rule_scan_step(tc: TrainConfig, data, chunk: int, mode: str,
+                                   per_trial_batch: bool = True) -> Callable:
+    """``(pstate, hp, steps0, stream_lo, stream_hi, rules)
+    -> ((pstate, rules), metrics)``: the chunk with a decision rule.
+
+    As ``make_population_scan_step``, but before each step the lanes' step
+    budgets are rebuilt from the carried rule state (``total_steps = base +
+    budgets``), and after it ``mode``'s rule update runs on the lanes'
+    ``last_loss``, ``diverged`` and lane-local steps (``local0 + t + 1``), so
+    a rung cut (or a PBT verdict) lands at exactly the step the host rule
+    would apply it.  ``metrics`` gain ``budgets`` (``(chunk, K)``), the log
+    the host harvests retirements from; the rule state after the chunk comes
+    back beside the population state (a new dict: the input rules are not
+    written)."""
+    step = make_population_train_step(tc, per_trial_batch=per_trial_batch)
+    update = _RULE_UPDATES[mode]
+
+    def scan_chunk(pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi, rules):
+        per_step = []
+        for t in range(int(chunk)):
+            hp_t = dataclasses.replace(hp, total_steps=rules["base"] + rules["budgets"])
+            batch = _synth(data, per_trial_batch, stream_lo, stream_hi, steps0, t)
+            pstate, metrics = step(pstate, batch, hp_t)
+            del batch
+            rules = update(rules, pstate["last_loss"], pstate["diverged"],
+                           rules["local0"] + (t + 1))
+            per_step.append(dict(metrics, budgets=rules["budgets"]))
+        return (pstate, rules), _stack(per_step)
 
     return scan_chunk
 
@@ -176,9 +530,11 @@ def make_population_scan_step(tc: TrainConfig, data, chunk: int,
 # every graph of one flight geometry (static config, K, batch mode, data
 # spec, device) captures the same tensors: the state of the first flight
 # that ran it, and static copies of the hyperparameters, the cursor and the
-# stream words.  A call copies its inputs into the static copies and
-# replays.  All graphs of a geometry share one memory pool.  A failed capture
-# raises: there is no eager path on the card.
+# stream words (a rule chunk also of its rule state, one set per rule mode
+# and shapes).  A call copies its inputs into the static copies and
+# replays.  All graphs of a geometry share one memory pool; they are keyed
+# by (kind, rule mode, chunk, rule shapes).  A failed capture raises: there
+# is no eager path on the card.
 #
 # The captured state has one owner at a time: a flight holds the geometry's
 # lease (``flight_lease``) from its init to its scores, and a second flight
@@ -188,9 +544,17 @@ def make_population_scan_step(tc: TrainConfig, data, chunk: int,
 @dataclasses.dataclass
 class _Captured:
     graph: Any
-    metrics: Dict[str, torch.Tensor]
+    outputs: Any          # what the captured call returned; a replay overwrites it
     capture_s: float
     pool_bytes: int
+
+
+def _rule_shapes(rules) -> Tuple:
+    return tuple((n, tuple(rules[n].shape)) for n in sorted(rules))
+
+
+def _scan_key(chunk: int) -> Tuple:
+    return ("scan", "", int(chunk), ())
 
 
 class _FlightGraphs:
@@ -201,7 +565,8 @@ class _FlightGraphs:
         self.warm_up_step = make_population_scan_step(tc, data, 1, per_trial_batch)
         self.state: Optional[PopState] = None
         self.inputs: Optional[Tuple] = None     # (hp, steps0, stream_lo, stream_hi)
-        self.graphs: Dict[int, _Captured] = {}
+        self.rule_inputs: Dict[Tuple, Dict[str, torch.Tensor]] = {}   # (mode, shapes)
+        self.graphs: Dict[Tuple, _Captured] = {}
         self.pool = None
         self.stream = None
         # held by a flight for its whole run, and by every call: reentrant
@@ -225,6 +590,18 @@ class _FlightGraphs:
         for dst, x in zip(rest_s, (steps0, stream_lo, stream_hi)):
             _copy_into(dst, x)
 
+    def bind_rules(self, mode: str, rules) -> Dict[str, torch.Tensor]:
+        """The static copy of a rule state of this mode and these shapes,
+        holding ``rules``' values."""
+        key = (mode, _rule_shapes(rules))
+        static = self.rule_inputs.get(key)
+        if static is None:
+            static = self.rule_inputs[key] = {n: v.clone() for n, v in rules.items()}
+        else:
+            for n, v in rules.items():
+                _copy_into(static[n], v)
+        return static
+
     def warm_up(self) -> None:
         """One population step on the capture stream with every lane frozen
         (budgets 0): it runs every kernel and library call of a step once, so
@@ -239,11 +616,25 @@ class _FlightGraphs:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
 
-    def capture(self, fn: Callable, chunk: int) -> _Captured:
+    def warm_up_rule(self, mode: str, rules) -> None:
+        """One eager call of the rule update on the capture stream, so its
+        first-launch set-up happens outside the capture (it writes no state:
+        the update returns a new rule state)."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            _RULE_UPDATES[mode](rules, self.state["last_loss"], self.state["diverged"],
+                                rules["local0"] + 1)
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        torch.cuda.synchronize(self.device)
+
+    def capture(self, key: Tuple, fn: Callable, *extra) -> _Captured:
+        """Capture ``fn(state, *inputs, *extra)`` as the graph ``key``."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
             self.warm_up()
+        if key[0] == "rulescan":
+            self.warm_up_rule(key[1], extra[0])
         torch.cuda.synchronize(self.device)
         gc.collect()
         torch.cuda.empty_cache()   # the eager blocks go back before the pool grows
@@ -252,23 +643,38 @@ class _FlightGraphs:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            _, metrics = fn(self.state, *self.inputs)
+            outputs = fn(self.state, *self.inputs, *extra)
         torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         if any(a is not b for a, b in zip(leaves, tree_leaves(self.state))):
             raise RuntimeError("population step rebound a state tensor under capture: "
                                "a captured graph only updates tensors in place")
-        got = _Captured(graph, metrics, seconds,
+        got = _Captured(graph, outputs, seconds,
                         torch.cuda.memory_reserved(self.device) - before)
-        self.graphs[chunk] = got
+        self.graphs[key] = got
         return got
 
     def run(self, fn: Callable, chunk: int, pstate, hp, steps0, stream_lo, stream_hi):
         with self.lease:
             self.bind(pstate, hp, steps0, stream_lo, stream_hi)
-            got = self.graphs.get(chunk) or self.capture(fn, chunk)
+            key = _scan_key(chunk)
+            got = self.graphs.get(key) or self.capture(key, fn)
             got.graph.replay()
-            return self.state, got.metrics
+            return self.state, got.outputs[1]
+
+    def run_rules(self, fn: Callable, mode: str, chunk: int, pstate, hp, steps0,
+                  stream_lo, stream_hi, rules):
+        """A rule chunk: as ``run``, the rule state bound too.  The rule
+        state and metrics it returns are the graph's outputs, which the next
+        replay of this graph overwrites."""
+        with self.lease:
+            self.bind(pstate, hp, steps0, stream_lo, stream_hi)
+            static = self.bind_rules(mode, rules)
+            key = ("rulescan", mode, int(chunk), _rule_shapes(static))
+            got = self.graphs.get(key) or self.capture(key, fn, static)
+            got.graph.replay()
+            (_, rules_out), metrics = got.outputs
+            return (self.state, rules_out), metrics
 
 
 def _device_key(device) -> str:
@@ -325,10 +731,33 @@ class _ChunkProgram:
         raise ValueError(f"chunk program: no path for device {dev}")
 
 
+class _RuleChunkProgram(_ChunkProgram):
+    """A chunk program with the decision rule ``mode`` carried through it
+    (``make_population_rule_scan_step``); called with the rule state as a
+    sixth argument, it returns ``((pstate, rules), metrics)``."""
+
+    def __init__(self, tc: TrainConfig, data, population: int, chunk: int, mode: str,
+                 per_trial_batch: bool):
+        super().__init__(tc, data, population, chunk, per_trial_batch)
+        self.fn = make_population_rule_scan_step(tc, data, chunk, mode, per_trial_batch)
+        self.mode = str(mode)
+
+    def __call__(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi, rules):
+        dev = pstate["diverged"].device
+        if dev.type == "cpu":
+            return self.fn(pstate, hp, steps0, stream_lo, stream_hi, rules)
+        if dev.type == "cuda":
+            return _flight_graphs(*self._geometry, dev).run_rules(
+                self.fn, self.mode, self.chunk, pstate, hp, steps0, stream_lo, stream_hi,
+                rules)
+        raise ValueError(f"rule chunk program: no path for device {dev}")
+
+
 # -- program caches -------------------------------------------------------------
 #
 # One chunk program per (static config, population size, batch mode, "scan",
-# chunk, data spec) -- the JAX package's key; the captured graphs of the
+# chunk, data spec) -- the JAX package's key -- and one rule chunk program per
+# (..., "rulescan", mode, chunk, data spec); the captured graphs of the
 # programs of one geometry live in ``_GRAPHS``, one entry per card.
 
 _POP_CACHE: Dict[Tuple, Any] = {}
@@ -352,6 +781,24 @@ def get_compiled_population_scan_step(tc: TrainConfig, population: int, data, ch
     return fn
 
 
+def get_compiled_population_rule_scan_step(tc: TrainConfig, population: int, data,
+                                           chunk: int, mode: str,
+                                           per_trial_batch: bool = True) -> _RuleChunkProgram:
+    """Memoized rule chunk program (see ``make_population_rule_scan_step``
+    for its call).  On the card its graphs join the geometry's chunk graphs:
+    the same captured state and pool, one graph per (mode, chunk, rule
+    shapes), so drivers keep the staggered history's capacity at a power of
+    two."""
+    g = _geometry(tc, population, per_trial_batch, data)
+    key = g[:3] + ("rulescan", str(mode), int(chunk), g[-1])
+    with _POP_CACHE_LOCK:
+        fn = _POP_CACHE.get(key)
+        if fn is None:
+            fn = _POP_CACHE[key] = _RuleChunkProgram(tc, data, population, chunk, mode,
+                                                     per_trial_batch)
+    return fn
+
+
 @contextlib.contextmanager
 def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, device):
     """Own this geometry's captured state on ``device`` for one flight.
@@ -368,12 +815,16 @@ def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, 
 
 
 def graph_stats() -> list:
-    """Per captured chunk graph: its chunk size, capture seconds and the
-    bytes its capture added to the geometry's memory pool."""
+    """Per captured chunk graph: its kind (``scan`` or ``rulescan``), rule
+    mode, chunk size and rule shapes, its capture seconds and the bytes its
+    capture added to the geometry's memory pool."""
     with _POP_CACHE_LOCK:
         groups = list(_GRAPHS.values())
-    return [{"chunk": c, "capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
-            for fg in groups for c, g in sorted(fg.graphs.items())]
+    return [{"kind": kind, "mode": mode or None, "chunk": c,
+             "shape": {n: list(sh) for n, sh in shapes} or None,
+             "capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
+            for fg in groups
+            for (kind, mode, c, shapes), g in sorted(fg.graphs.items())]
 
 
 def clear_population_cache() -> None:
