@@ -49,7 +49,10 @@ Phases, each printing one JSON line:
    up to 4, graph replays), (c) chunked with the rule in the chunks
    (``--device-rules``, rule-chunk graphs in the same pool); streaming PBT
    in 3 synchronized rounds, (d) chunked and (e) per step; the grid as two
-   batch flights under the rung rule.  (a), (b) and (c) equal in scores,
+   batch flights under the rung rule; (h) the ASHA proposer with its
+   in-flight rung rule, chunked, promotions offered mid-flight, held to
+   every job finished and streamed only.  No flight may die, restart or
+   quarantine a job.  (a), (b) and (c) equal in scores,
    steps, cuts and streamed order, bit for bit, (c) in fewer dispatches;
    every lane leased twice or more; (d) and (e) equal per (member, round)
    with a clone and no host checkpoint, each clone's target lane equal in
@@ -72,7 +75,6 @@ Phases, each printing one JSON line:
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
-``--phases`` runs a subset of the trainer phases (all by default).
 Without a GPU, or outside a checkout of the repository, the script exits
 non-zero before printing any result.
 """
@@ -123,6 +125,9 @@ STREAM_SPACE = [
     {"name": "warmup_frac", "type": "choice", "range": [0.25]},
 ]
 PBT_FLIGHT = dict(steps=2, rounds=3, quantile=0.25)
+# the CLI's --lane-refill --proposer asha --inflight-stop: 2K configs over
+# the CLI's search space, rungs of 2, 4 and 8 steps (eta 2)
+ASHA_FLIGHT = dict(steps=2, max_iter=4, min_iter=1, eta=2.0)
 PBT_SPACE = [
     {"name": "learning_rate", "type": "float", "range": [1e-4, 3e-3], "scale": "log"},
     {"name": "weight_decay", "type": "float", "range": [0.0, 0.2]},
@@ -962,8 +967,11 @@ def stream_flight(torch, dev, arch, n_layers, population, batch, seq, *, kind, c
     ``RUNG_FLIGHT``'s 9 steps under its rung rule (boundaries 1 and 3); both
     with all 2K trials offered at once (``lane_refill``) or in two batches
     of K.  ``pbt``: streaming PBT with synchronized rounds (``PBT_FLIGHT``).
-    The launch counters are set to 0 just before the flight and read just
-    after."""
+    ``asha_proposer``: the ASHA proposer of ``ASHA_FLIGHT`` on 2K configs
+    with its in-flight rung rule, K offered at a time, promotions offered
+    as the results come.  The launch counters are set to 0 just before the
+    flight and read just after; the manager's flight deaths, restarts and
+    quarantined jobs are read with them."""
     from repro_torch.core.experiment import Experiment
     from repro_torch.core.job import JobStatus
     from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
@@ -971,7 +979,8 @@ def stream_flight(torch, dev, arch, n_layers, population, batch, seq, *, kind, c
     from repro_torch.train import population as P
 
     overrides = published_widths(arch, n_layers)
-    spec = {"asha": STREAM, "rungs": RUNG_FLIGHT, "pbt": PBT_FLIGHT}[kind]
+    spec = {"asha": STREAM, "rungs": RUNG_FLIGHT, "pbt": PBT_FLIGHT,
+            "asha_proposer": ASHA_FLIGHT}[kind]
     trial = PopulationTrial(arch, spec["steps"], batch, seq, seed, population=population,
                             model_overrides=overrides, device=dev, chunk_steps=chunk_steps,
                             device_rules=device_rules)
@@ -989,6 +998,10 @@ def stream_flight(torch, dev, arch, n_layers, population, batch, seq, *, kind, c
             max_iter=RUNG_FLIGHT["steps"])
         cfg.update(proposer="random", parameter_config=SPACE, n_samples=2 * population,
                    n_parallel=2 * population if lane_refill else population)
+    elif kind == "asha_proposer":
+        cfg.update(proposer="asha", parameter_config=SPACE, n_samples=2 * population,
+                   n_parallel=population, max_iter=ASHA_FLIGHT["max_iter"],
+                   min_iter=ASHA_FLIGHT["min_iter"], eta=ASHA_FLIGHT["eta"])
     else:
         cfg.update(proposer="pbt", parameter_config=PBT_SPACE,
                    n_samples=population * PBT_FLIGHT["rounds"], n_parallel=population,
@@ -1010,6 +1023,8 @@ def stream_flight(torch, dev, arch, n_layers, population, batch, seq, *, kind, c
 
     trial.record_lane_op = on_lane_op
     exp = Experiment(cfg, trial)
+    if kind == "asha_proposer":
+        trial.early_stop = exp.proposer.inflight_hook(steps_per_unit=ASHA_FLIGHT["steps"])
     jobs = []
     exp.add_result_callback(jobs.append)
     graphs0 = {(g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"]))
@@ -1049,8 +1064,13 @@ def stream_flight(torch, dev, arch, n_layers, population, batch, seq, *, kind, c
            "streamed": getattr(exp.rm, "n_streamed", None),
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
-           "finished": len(jobs) == exp.proposer.n_samples and all(
-               j.status == JobStatus.FINISHED for j in jobs),
+           "flight_deaths": exp.rm.n_flight_deaths,
+           "flight_restarts": exp.rm.n_flight_restarts,
+           "quarantined": exp.rm.n_quarantined,
+           # ASHA's job count depends on its promotions: every config ran
+           "finished": (len(jobs) >= exp.proposer.n_configs_target
+                        if kind == "asha_proposer" else len(jobs) == exp.proposer.n_samples)
+                       and all(j.status == JobStatus.FINISHED for j in jobs),
            "errors": [j.result.error for j in jobs
                       if j.status != JobStatus.FINISHED and j.result is not None],
            "order": [key(j) for j in jobs],
@@ -1136,7 +1156,9 @@ def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
             # the same rung flight as chunked_path's, streaming and as batches:
             # what refilling cut lanes does to the active lane share
             ("f_refill_rungs", "rungs", STREAM["chunk"], False, True),
-            ("g_batch_rungs", "rungs", STREAM["chunk"], False, False))
+            ("g_batch_rungs", "rungs", STREAM["chunk"], False, False),
+            # what users send: the ASHA proposer, promotions offered mid-flight
+            ("h_asha_proposer", "asha_proposer", STREAM["chunk"], False, True))
     flights = {}
     for name, kind, chunk, device_rules, refill in plan:
         flights[name] = stream_flight(torch, dev, **geo, kind=kind, chunk_steps=chunk,
@@ -1205,7 +1227,8 @@ def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
            for n, f in flights.items() if f["kind"] == "asha" and f["lane_refill"]}
     # (a)-(e): each lane takes a second lease
     lanes_used = {n: sorted({x["lane"] for x in f["extras"].values() if x})
-                  for n, f in flights.items() if f["lane_refill"] and f["kind"] != "rungs"}
+                  for n, f in flights.items()
+                  if f["lane_refill"] and f["kind"] in ("asha", "pbt")}
     leases_per_lane = {n: {ln: sum(1 for x in flights[n]["extras"].values()
                                    if x and x["lane"] == ln) for ln in lanes}
                        for n, lanes in lanes_used.items()}
@@ -1248,6 +1271,11 @@ def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
     for n, f in flights.items():
         if not f["finished"]:
             problems.append(f"{n}: not every trial finished: {f['errors']}")
+        if f["flight_deaths"] or f["flight_restarts"] or f["quarantined"]:
+            problems.append(f"{n}: {f['flight_deaths']} flight deaths, {f['flight_restarts']} "
+                            f"restarts, {f['quarantined']} jobs quarantined")
+        if f["lane_refill"] and f["streamed"] != len(f["order"]):
+            problems.append(f"{n}: {f['streamed']} of {len(f['order'])} results streamed")
     for n, f in (("b", b), ("c", c)):
         if not same(f, a, fields):
             problems.append(f"({n}) differs from (a): " + ", ".join(
@@ -1515,19 +1543,7 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     return rows
 
 
-PHASES = ("main_path", "chunked_path", "streaming_path", "card_vs_cpu")
-
-
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description="on-card smoke test of the PyTorch port")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of the trainer phases to run (default: "
-                         "all; the kernel build, checks and timings always run)")
-    phases = set(ap.parse_args(argv).phases.split(","))
-    if phases - set(PHASES):
-        die(f"unknown phases {sorted(phases - set(PHASES))}; known: {PHASES}")
+def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         die(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(SRC))
@@ -1560,26 +1576,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path, chunk_launches = {}, {}
     for path in (MAIN, MAMBA):
+        by_path[path["arch"]], out = main_path(torch, dev, **path)
+        gc.collect()
+        torch.cuda.empty_cache()
         kw = {k: v for k, v in path.items() if k != "steps"}
-        steady = None
-        if "main_path" in phases:
-            by_path[path["arch"]], out = main_path(torch, dev, **path)
-            steady = out["steady_s_per_step"]
-            gc.collect()
-            torch.cuda.empty_cache()
-        if "chunked_path" in phases:
-            launches, out = chunked_path(torch, dev, per_step_steady=steady, **kw)
-            by_path[path["arch"] + "+chunked"] = launches
-            chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
-                "synth_tokens"] * out["chunk"]
-            gc.collect()
-            torch.cuda.empty_cache()
-        if "streaming_path" in phases:
-            by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
-            gc.collect()
-            torch.cuda.empty_cache()
-    fp32_launches = (sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
-                         for path in (MAIN, MAMBA)) if "card_vs_cpu" in phases else None)
+        launches, out = chunked_path(torch, dev, per_step_steady=out["steady_s_per_step"], **kw)
+        by_path[path["arch"] + "+chunked"] = launches
+        chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
+            "synth_tokens"] * out["chunk"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    fp32_launches = sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
+                        for path in (MAIN, MAMBA))
     emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -157,7 +157,7 @@ class PopulationTrial:
         self.n_dispatches = 0       # device calls issued (steps, chunks, lane ops)
         self.n_train_steps = 0      # population steps those calls advanced
         self.n_lane_steps = 0       # lane-steps computed: K a population step
-        self.n_active_lane_steps = 0  # of those, lane-steps of an active lane
+        self.n_active_lane_steps = 0  # of those, lane-steps that applied an update
         self.last_flight_steps = 0
         # streaming engines: PBT's lane-lifecycle hook (wired by the Experiment),
         # the flight journal, and how long an empty flight waits for proposals
@@ -238,17 +238,17 @@ class PopulationTrial:
 
     @property
     def active_lane_share(self):
-        """Lane-steps that trained an active lane over lane-steps computed,
-        over every population flight so far (None before the first)."""
+        """Lane-steps that applied an update over lane-steps computed, over
+        every population flight so far (None before the first)."""
         if not self.n_lane_steps:
             return None
         return self.n_active_lane_steps / self.n_lane_steps
 
     def _count_active(self, acc, metrics, k: int, t: int):
-        """Add a dispatch's active lane-steps to the flight's device-side
+        """Add a dispatch's applied lane-steps to the flight's device-side
         count (no host sync) and its computed lane-steps to the trial's."""
         self.n_lane_steps += k * t
-        acc.add_(metrics["active"].sum())
+        acc.add_(metrics["applied"].sum())
 
     def _batch(self, data, step: int, streams):
         if self.per_trial_streams:
@@ -1307,7 +1307,7 @@ def main(argv=None) -> int:
         out["trained_steps"] = trained
         out["dispatches_per_step"] = (
             round(trial.n_dispatches / trained, 3) if trained else None)
-        # the port's own: lane-steps of active lanes over lane-steps computed
+        # the port's own: lane-steps that applied an update over lane-steps computed
         share = trial.active_lane_share
         out["active_lane_share"] = None if share is None else round(share, 4)
     if args.fused_rmsnorm:

@@ -236,7 +236,7 @@ def make_population_train_step(tc: TrainConfig, per_trial_batch: bool = False) -
     """``(pstate, batch, hp) -> (pstate, metrics)`` over a leading K axis.
 
     ``hp`` is a stacked HParams (fields (K,)); metrics come back per lane plus
-    the ``active`` mask.  With ``per_trial_batch`` the batch leaves carry a
+    the ``active`` mask and the ``applied`` mask (active with a finite loss).  With ``per_trial_batch`` the batch leaves carry a
     leading K axis (one data stream per trial); otherwise one batch is
     broadcast to every lane.  The state is updated in place.
     """
@@ -254,7 +254,7 @@ def make_population_train_step(tc: TrainConfig, per_trial_batch: bool = False) -
         applied = active & finite
         pstate["diverged"].copy_(pstate["diverged"] | (active & ~finite))
         pstate["last_loss"].copy_(torch.where(applied, metrics["loss"], pstate["last_loss"]))
-        return pstate, dict(metrics, active=active)
+        return pstate, dict(metrics, active=active, applied=applied)
 
     return pop_step
 

@@ -622,6 +622,17 @@ def test_active_lane_share_rises_with_refill():
     assert 0 < batch.active_lane_share < stream.active_lane_share <= 1
 
 
+def test_active_lane_share_leaves_out_the_diverging_step():
+    """A lane whose learning rate is NaN applies its first step, then gives a
+    non-finite loss: that step is computed and active but not applied, so
+    the share counts 1 + 3 of the 2 x 3 lane-steps."""
+    trial = _trial(population=2, steps=3)
+    scores = trial.run_population([{"learning_rate": float("nan"), "stream": 0},
+                                   {"learning_rate": 1e-3, "stream": 1}])
+    assert scores[0] == hpo.PopulationTrial.DIVERGED_SCORE and math.isfinite(scores[1])
+    assert (trial.n_active_lane_steps, trial.n_lane_steps) == (4, 6)
+
+
 # ------------------------------------------------------------- CLI
 BASE = ["--n-samples", "4", "--steps", "3", "--batch", "2", "--seq", "16", "--vectorize", "4"]
 
