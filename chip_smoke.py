@@ -115,6 +115,21 @@ SSM_CHUNK = 128                                    # the chunk states SSMScan.fo
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
 CHUNK, CHUNK_FLIGHT_STEPS = 4, 8                   # the chunked paths: two chunks of 4 a flight
 RUNG_FLIGHT = dict(steps=9, eta=3, min_iter=1)      # rung boundaries 1, 3: chunks of 1, 2, 4, 2
+# crash_path: a grid of K trials of 4 and 8 steps (two each) on K lanes, all
+# leased at step 0; the event pass at step 4 retires the short ones and
+# snapshots the long ones at their local step 4; ``raise@step=5`` kills the
+# flight at step 8, before the long ones retire, and the restarted flight
+# restores them at step 4 and trains them 4 more steps.  Every chunk is of 4
+# steps: one scan graph and one ring graph beside falcon-mamba's state
+CRASH = dict(steps=4, fault="raise@step=5,times=1")
+CRASH_SPACE = [
+    {"name": "n_iterations", "type": "choice", "range": [1, 2]},
+    {"name": "learning_rate", "type": "choice", "range": [3e-3, 1e-3]},
+]
+RING_WINDOWS = 2
+# ring_path's refill flight: 4 trials of 4, 4, 8, 8 steps, then two of 4 steps
+# refilling lanes 0 and 1 at step 4; no lane idles, so every loss is a trial's
+RING_REFILL_ITERS = (1, 1, 2, 2, 1, 1)
 # the streaming paths: a grid of two waves of K trials (2 steps, then 4) under
 # the in-flight rung rule at lane-local step 3 (eta 4), and PBT in 3 rounds of
 # 2 steps; chunks of up to 4
@@ -645,61 +660,61 @@ KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
 def profile_step(torch, fn, top=12):
     """Device time of one call of ``fn`` (a steady population step, or one
     replayed chunk) by kernel, from ``torch.profiler``; the device's busy and
-    idle share of its wall time.  The profiler's schedule runs ``fn`` once
-    as a warm-up and records only the second call, after one small kernel:
-    the device trace can miss the kernels of the first milliseconds after
-    it starts.  Reports no
-    split where the trace holds no device time."""
+    idle share of its wall time.  The trace holds two calls of ``fn`` with a
+    marker kernel between them, and only the kernels that start after the
+    marker are counted: the device trace can miss kernels of the first
+    milliseconds after it starts, so the first call takes that loss.
+    Reports no split where the trace holds no device time after the
+    marker."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    kernels = []
+    kernels = {}
 
     def ready(prof):
-        for e in prof.key_averages():
-            # the schedule's step annotation spans the whole step on the device too
-            if e.device_type != DeviceType.CUDA or e.key.startswith("ProfilerStep"):
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            kernels.append((e.key, us / 1e3, e.count))
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               # the schedule's step annotation spans the whole step on the device too
+               and not e.name.startswith("ProfilerStep")]
+        marks = [e.time_range.start for e in evs if "spin_kernel" in e.name]
+        if not marks:
+            return
+        for e in evs:
+            if e.time_range.start > marks[-1] and "spin_kernel" not in e.name:
+                ms, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 schedule=schedule(wait=0, warmup=0, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
         fn()
         torch.cuda.synchronize()
-        prof.step()
-        reset_counters()
-        # one small kernel and a sync first: the trace can miss the first
-        # kernels of a graph replay that is the first launch it sees
-        torch.ones(1, device="cuda").add_(1)
+        torch.cuda._sleep(1000)   # the marker: counting starts after it
         torch.cuda.synchronize()
+        reset_counters()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         launches = counters()
         prof.step()
-    busy = sum(ms for _, ms, _ in kernels)
+    rows = sorted(((name, ms, c) for name, (ms, c) in kernels.items()), key=lambda r: -r[1])
+    seen = {name: sum(c for key, _, c in rows if sub in key)
+            for name, sub in KERNEL_NAMES.items()}
+    busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         return {"wall_ms": wall_ms, "device_ms": None, "launches": launches,
-                "note": "no device time in the trace"}
+                "kernel_launches_seen": seen, "note": "no device time in the trace"}
     groups = {}
-    for name, ms, _ in kernels:
+    for name, ms, _ in rows:
         low = name.lower()
         g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + ms
-    kernels.sort(key=lambda r: -r[1])
-    seen = {name: sum(c for key, _, c in kernels if sub in key)
-            for name, sub in KERNEL_NAMES.items()}
     return {"wall_ms": wall_ms, "device_ms": busy, "idle_share": max(0.0, 1 - busy / wall_ms),
             "launches": launches, "kernel_launches_seen": seen,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
-                            for n, ms, c in kernels[:top]]}
+                            for n, ms, c in rows[:top]]}
 
 
 # ---------------------------------------------------------- phase 4, chunked
@@ -722,12 +737,13 @@ def state_checksums(torch, pstate) -> list:
 
 
 def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed=0,
-               rungs=False):
+               rungs=False, data_ring=False):
     """One flight of the Experiment (random proposer, vectorized resource
     manager) at ``chunk_steps``, recording its per-step losses and the
     checksums of its final state; with ``rungs`` under the in-flight rung
-    rule of ``RUNG_FLIGHT``.  The launch counters are set to 0 just before
-    it and read just after."""
+    rule of ``RUNG_FLIGHT``; with ``data_ring`` fed from the prefetch ring
+    (``RING_WINDOWS`` windows).  The launch counters are set to 0 just
+    before it and read just after."""
     from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
     from repro_torch.configs import get_config
     from repro_torch.core.experiment import Experiment
@@ -739,7 +755,8 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
                  if f.name != "name"}
     overrides["n_layers"] = n_layers
     trial = PopulationTrial(arch, steps, batch, seq, seed, population=population,
-                            model_overrides=overrides, device=dev, chunk_steps=chunk_steps)
+                            model_overrides=overrides, device=dev, chunk_steps=chunk_steps,
+                            data_ring=data_ring, ring_windows=RING_WINDOWS)
     if rungs:
         trial.early_stop = InFlightSuccessiveHalving(
             eta=RUNG_FLIGHT["eta"], min_iter=RUNG_FLIGHT["min_iter"], max_iter=steps)
@@ -772,7 +789,8 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
            "scores": [None if j.result is None else j.result.score for j in jobs],
            "errors": [j.result.error for j in jobs
                       if j.status != JobStatus.FINISHED and j.result is not None],
-           "truncated_lanes": trial.early_stop.n_truncated if rungs else None}
+           "truncated_lanes": trial.early_stop.n_truncated if rungs else None,
+           "ring": ring_stats(trial) if data_ring else None}
     tc, data = trial._setup()
     del exp, trial
     losses, sums = record[0] if record else (None, None)
@@ -1331,6 +1349,544 @@ def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
     return launches, out
 
 
+# ------------------------------------------------------ phase 4, crash safety
+def ring_stats(trial) -> dict:
+    """A trial's prefetch-ring telemetry, summed over its flights."""
+    return {"fills": trial.n_ring_fills, "invalidations": trial.n_ring_invalidations,
+            "fill_wait_s": trial.ring_fill_wait_s, "fill_busy_s": trial.ring_fill_busy_s,
+            "overlap_frac": trial.ring_overlap_frac}
+
+
+def graph_keys(P) -> set:
+    return {(g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"])) for g in P.graph_stats()}
+
+
+def calls_for(per_step: dict, graphs, warm_up: bool) -> dict:
+    """The wrapper calls a flight of chunk programs makes with no eager
+    training step: the warm-up step before the geometry's first capture (a
+    scan step of 1, its synthesis included) and each new graph's capture (a
+    chunk of t steps: t calls a kernel; a ring chunk makes no synthesis)."""
+    out = {}
+    for k, v in per_step.items():
+        n = v * int(warm_up)
+        for g in graphs:
+            if not (k == "synth_tokens" and g["kind"] == "ringscan"):
+                n += v * g["chunk"]
+        out[k] = n
+    return out
+
+
+def flight_launches(seen: dict, in_chunk_steps: int, ring_steps: int, warm_up) -> dict:
+    """Kernel launches on the card of chunked flights: the profiler's count
+    in one replayed chunk (``seen["scan"]``: in-chunk synthesis,
+    ``seen["ring"]``: ring-fed), per step, times the steps replayed that
+    way, plus the eager warm-up step before the geometry's first capture
+    (``warm_up``: a step's launches, or None)."""
+    return {k: seen["scan"][k] // CHUNK * in_chunk_steps + seen["ring"][k] // CHUNK * ring_steps
+            + (warm_up[k] if warm_up else 0) for k in seen["scan"]}
+
+
+def replayed_chunk_profile(torch, dev, tc, data, population, ring_capacity=None):
+    """``profile_step`` over one replay of the geometry's captured chunk of
+    ``CHUNK`` steps, every lane active from cursor 0: the in-chunk synthesis
+    chunk, or with ``ring_capacity`` the ring-fed chunk reading the
+    geometry's ring tensor from slot 0.  Fails if that graph was not
+    captured by the flights before it, or if the profile captured one."""
+    from repro_torch.data.pipeline import split_streams
+    from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
+    from repro_torch.train import population as P
+
+    hp = stack_hparams([hparams_from_dict(dict(learning_rate=1e-3, total_steps=10 ** 6), tc)]
+                       * population, dev)
+    if ring_capacity is None:
+        prog = P.get_compiled_population_scan_step(tc, population, data, CHUNK,
+                                                   per_trial_batch=True)
+        steps0 = torch.zeros(population, dtype=torch.int64, device=dev)
+        lo, hi = (torch.tensor(w.astype("int64"), device=dev)
+                  for w in split_streams(list(range(population))))
+        key = ("scan", None, CHUNK, "null")
+        call = lambda state: prog(state, hp, steps0, lo, hi)  # noqa: E731
+    else:
+        ring = P.ring_buffer(tc, population, data, ring_capacity, dev)
+        prog = P.get_compiled_population_ring_scan_step(tc, population, data, CHUNK,
+                                                        ring_capacity)
+        key = ("ringscan", None, CHUNK, json.dumps({"ring": list(ring.shape)}))
+        call = lambda state: prog(state, hp, ring, 0)  # noqa: E731
+    keys = graph_keys(P)
+    if key not in keys:
+        die(f"no captured {key[0]} chunk of {CHUNK} steps to profile: {sorted(keys)}")
+    with P.flight_lease(tc, population, data, True, dev) as state:
+        prof = profile_step(torch, lambda: call(state))
+    if graph_keys(P) != keys:
+        die(f"profiling the replayed {key[0]} chunk captured a graph")
+    prof.pop("launches")
+    return prof
+
+
+def card_memory(torch) -> dict:
+    """The card's free memory, the allocator's reserved and allocated bytes,
+    and its largest segments with the bytes still allocated in each."""
+    free, total = torch.cuda.mem_get_info()
+    segs = sorted(torch.cuda.memory_snapshot(), key=lambda g: -g["total_size"])
+    return {"free_gib": free / 2 ** 30, "total_gib": total / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+            "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30,
+            "segments": len(segs),
+            "largest_segments_mib": [[g["total_size"] / 2 ** 20, g["allocated_size"] / 2 ** 20]
+                                     for g in segs[:8]]}
+
+
+def crash_flight(torch, dev, arch, n_layers, population, batch, seq, *, data_ring,
+                 fault=None, snapshot_every=0, seed=0):
+    """A chunked refill flight of ``CRASH_SPACE``'s grid through the
+    Experiment and the vectorized manager (whose supervisor restarts a
+    flight that dies), with an in-memory snapshot store; ``fault`` is armed
+    for the flight only.  The launch counters are set to 0 just before it
+    and read just after."""
+    from repro_torch.checkpoint import LaneSnapshotStore
+    from repro_torch.core import faultinject
+    from repro_torch.core.experiment import Experiment
+    from repro_torch.core.job import JobStatus
+    from repro_torch.launch.hpo import PopulationTrial
+    from repro_torch.train import population as P
+
+    trial = PopulationTrial(arch, CRASH["steps"], batch, seq, seed, population=population,
+                            model_overrides=published_widths(arch, n_layers), device=dev,
+                            chunk_steps=CHUNK, snapshot_every=snapshot_every,
+                            snapshots=LaneSnapshotStore(), data_ring=data_ring,
+                            ring_windows=RING_WINDOWS)
+    exp = Experiment({"proposer": "grid", "parameter_config": CRASH_SPACE, "target": "max",
+                      "seed": seed, "resource": "vectorized", "n_parallel": population,
+                      "lane_refill": True, "restart_backoff_s": 0.01}, trial)
+    jobs = []
+    exp.add_result_callback(jobs.append)
+    graphs0 = graph_keys(P)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    faultinject.disarm()
+    if fault:
+        faultinject.arm(fault)
+    t0 = time.perf_counter()
+    try:
+        exp.run()
+    finally:
+        faultinject.disarm()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"ring": data_ring, "fault": fault, "snapshot_every": snapshot_every, "wall_s": wall,
+           "launches": counters(), "train_steps": trial.n_train_steps,
+           "dispatches": trial.n_dispatches,
+           "new_graphs": [g for g in P.graph_stats()
+                          if (g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"]))
+                          not in graphs0],
+           "finished": len(jobs) == exp.proposer.n_samples
+                       and all(j.status == JobStatus.FINISHED for j in jobs),
+           "errors": [j.result.error for j in jobs
+                      if j.status != JobStatus.FINISHED and j.result is not None],
+           "scores": {f"j{j.job_id}": None if j.result is None else j.result.score for j in jobs},
+           "flight_deaths": exp.rm.n_flight_deaths, "flight_restarts": exp.rm.n_flight_restarts,
+           "quarantined": exp.rm.n_quarantined, "snapshots": trial.n_snapshots,
+           "lane_restores": trial.n_lane_restores,
+           "resumed_from_steps": list(trial.resumed_from_steps),
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "ring_stats": ring_stats(trial) if data_ring else None}
+    tc, data = trial._setup()
+    del exp, trial
+    gc.collect()
+    return out, tc, data
+
+
+def timed(torch, fn, n=2):
+    """Host seconds of each of ``n`` calls of ``fn``, synchronised."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def trees_bit_equal(torch, a, b) -> bool:
+    from repro_torch.interop import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    raw = lambda t: t.view(getattr(torch, INT_OF_SIZE[t.element_size()])) \
+        if t.dtype != torch.bool else t.to(torch.uint8)  # noqa: E731
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(raw(x), raw(y))
+        for x, y in zip(la, lb))
+
+
+def lane_snapshot_costs(torch, dev, tc, data, population, src=1, dst=2):
+    """On the geometry's captured state: copy lane ``src`` into fresh
+    pageable host tensors (a plain loop over the lane views), then snapshot
+    it twice with the engine's op, into a new page-locked slot (its
+    allocation and registration included) and, once released, into the
+    same slot again; restore the pageable copy and the snapshot into lane
+    ``dst``; each timed beside a plain copy of the same bytes between the
+    lane views and the slot (the link's rate, the bound); the state's
+    checksums before and after a snapshot; lane ``dst`` against lane
+    ``src`` in raw bits; the device memory each op allocated beside the
+    state; the host bytes the slots page-lock.  Then the snapshot through a
+    ``LaneSnapshotStore`` on disk and back, raw bits compared, write and
+    read rates; the free bytes are checked first and the directory is
+    removed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import LaneSnapshotStore
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.train import population as P
+
+    out = {}
+    with P.flight_lease(tc, population, data, True, dev) as state:
+        if state is None:
+            die("crash path: no captured state to snapshot")
+        leaves = tree_leaves(state)
+        lane_bytes = sum(t[0].numel() * t.element_size() for t in leaves)
+        leaf_bytes = max(t[0].numel() * t.element_size() for t in leaves)
+        out.update(lane_state_gib=lane_bytes / 2 ** 30, largest_leaf_lane_gib=leaf_bytes / 2 ** 30)
+        snapshot_fn = P.get_lane_op(tc, population, "snapshot")
+        restore_fn = P.get_lane_op(tc, population, "restore")
+        lane_tree = {"inner": state["inner"], "diverged": state["diverged"],
+                     "last_loss": state["last_loss"]}
+        before = state_checksums(torch, state)
+        t0 = time.perf_counter()
+        pageable = tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype).copy_(t[src]),
+                            lane_tree)
+        pageable_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        snap = snapshot_fn(state, src)
+        pinned_cold_s = time.perf_counter() - t0
+        snap_extra = torch.cuda.max_memory_allocated() - base
+        unchanged = state_checksums(torch, state) == before
+        first = snap
+        P.release_lane_snapshot(snap)
+        t0 = time.perf_counter()
+        snap = snapshot_fn(state, src)
+        pinned_warm_s = time.perf_counter() - t0
+        slot_reused = snap is first
+        pinned = all(t.is_pinned() for t in tree_leaves(snap))
+        pinned_equal = trees_bit_equal(torch, snap, pageable)
+        # the bound: the same bytes between the lane views and the slot
+        views = list(zip(leaves, tree_leaves(snap)))
+
+        def d2h():
+            for t, v in views:
+                v.copy_(t[src])
+
+        def h2d():
+            for t, v in views:
+                t[dst].copy_(v)
+
+        d2h_s = min(timed(torch, d2h))
+        h2d_s = min(timed(torch, h2d))          # writes lane dst: restored over below
+        del views
+        restore_pageable_s = timed(torch, lambda: restore_fn(state, dst, pageable))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        restore_s = timed(torch, lambda: restore_fn(state, dst, snap))
+        restore_extra = torch.cuda.max_memory_allocated() - base
+        restored_equal = lane_checksums(torch, state, dst) == lane_checksums(torch, state, src)
+        del pageable
+        gc.collect()
+        gb = lane_bytes / 1e9
+        out.update({
+            "snapshot_pageable_ms": pageable_s * 1e3,
+            "snapshot_pinned_cold_ms": pinned_cold_s * 1e3,
+            "snapshot_pinned_warm_ms": pinned_warm_s * 1e3,
+            "restore_pageable_ms": [x * 1e3 for x in restore_pageable_s],
+            "restore_pinned_ms": [x * 1e3 for x in restore_s],
+            "bound_d2h_ms": d2h_s * 1e3, "bound_h2d_ms": h2d_s * 1e3, "bound_by": "host link",
+            "link_d2h_gb_s": gb / d2h_s, "link_h2d_gb_s": gb / h2d_s,
+            "snapshot_pageable_gb_s": gb / pageable_s,
+            "snapshot_pinned_cold_gb_s": gb / pinned_cold_s,
+            "snapshot_pinned_warm_gb_s": gb / pinned_warm_s,
+            "restore_pageable_gb_s": gb / min(restore_pageable_s),
+            "restore_pinned_gb_s": gb / min(restore_s),
+            "snapshot_slots": P.lane_snapshot_slot_stats(),
+            "snapshot_extra_alloc_gib": snap_extra / 2 ** 30,
+            "restore_extra_alloc_gib": restore_extra / 2 ** 30,
+            "state_unchanged_by_snapshot": unchanged, "pinned_equals_pageable": pinned_equal,
+            "snapshot_slot_pinned_and_reused": pinned and slot_reused,
+            "restored_lane_equals_source": restored_equal})
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    need = lane_bytes + (1 << 30)
+    out.update(disk_free_gib=free / 2 ** 30, disk_need_gib=need / 2 ** 30)
+    if free < need:
+        die(f"crash path: {free / 2 ** 30:.1f} GiB free under {root}, the disk round trip "
+            f"of one lane snapshot needs {need / 2 ** 30:.1f} GiB")
+    tmp = tempfile.mkdtemp(prefix="lane_snapshots_", dir=root)
+    try:
+        meta = {"local": 4, "stream": 0, "applied": 4, "applied0": 0, "budget": 8.0,
+                "data_cursor": 4}
+        t0 = time.perf_counter()
+        LaneSnapshotStore(root=tmp).put(0, snap, meta)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = LaneSnapshotStore(root=tmp).get(0)
+        read_s = time.perf_counter() - t0
+        disk_equal = trees_bit_equal(torch, back, snap)
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(disk_write_s=write_s, disk_read_s=read_s, disk_write_gb_s=lane_bytes / 1e9 / write_s,
+               disk_read_gb_s=lane_bytes / 1e9 / read_s, disk_round_trip_equal=disk_equal,
+               disk_dir_removed=not Path(tmp).exists())
+    P.release_lane_snapshot(snap)
+    del snap
+    gc.collect()
+    return out
+
+
+def crash_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
+    """Crash safety at published widths: the unbroken chunked refill flight
+    of ``CRASH_SPACE``; then (a) snapshot and restore on its captured state,
+    timed against a plain copy of the same bytes, and (d) one snapshot
+    through the store's disk copy and back; (b) the flight killed by
+    ``raise@step`` under the supervisor, its lanes restored from the
+    in-memory store; (c) the same ring-fed; (b) and (c) against the
+    unbroken flight; the snapshot slots the flights left.  Then the
+    profiler over one replayed in-chunk and one replayed ring-fed chunk.
+    Returns the kernels' launches on the card over the phase (the
+    profiler's counts a step times the steps replayed, plus the warm-up
+    step) and the report, whose ``replayed_chunk_launches_seen`` holds the
+    two counts."""
+    from repro_torch.train import population as P
+
+    P.clear_population_cache()
+    memory = {"before": card_memory(torch)}
+    # earlier phases' capture streams each left a cuBLAS workspace, and one
+    # such block keeps its whole segment reserved: falcon-mamba's flights
+    # need that memory beside the captured state and its pool
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear_workspaces is not None:
+        clear_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory["after_release"] = card_memory(torch)
+    geo = dict(arch=arch, n_layers=n_layers, population=population, batch=batch, seq=seq)
+    flights = {}
+    for name, ring, fault, every in (("unbroken", False, None, 0),
+                                     ("killed", False, CRASH["fault"], 1),
+                                     ("killed_ring", True, CRASH["fault"], 1)):
+        flights[name], tc, data = crash_flight(torch, dev, **geo, data_ring=ring, fault=fault,
+                                               snapshot_every=every, seed=seed)
+        if name == "unbroken":
+            # before the killed flights' harvests: its first snapshot makes
+            # the geometry's first page-locked slot
+            ops = lane_snapshot_costs(torch, dev, tc, data, population)
+    slots = P.lane_snapshot_slot_stats()
+    # what a replayed chunk launches on the card, in-chunk synthesis and
+    # ring-fed, from the profiler; ring_path's flights replay these graphs
+    profiles = {"scan": replayed_chunk_profile(torch, dev, tc, data, population),
+                "ring": replayed_chunk_profile(torch, dev, tc, data, population,
+                                               ring_capacity=RING_WINDOWS * CHUNK)}
+    seen = {k: prof.pop("kernel_launches_seen") for k, prof in profiles.items()}
+    per_step = launches_per_step(tc.model, chunked=True)
+    want_seen = {"scan": {k: v * CHUNK for k, v in per_step.items()},
+                 "ring": {k: 0 if k == "synth_tokens" else v * CHUNK
+                          for k, v in per_step.items()}}
+    want_calls = {n: calls_for(per_step, f["new_graphs"], warm_up=n == "unbroken")
+                  for n, f in flights.items()}
+    launches = flight_launches(
+        seen, sum(f["train_steps"] for f in flights.values() if not f["ring"]),
+        sum(f["train_steps"] for f in flights.values() if f["ring"]), per_step)
+    out = {"phase": "crash_path", "arch": arch, "n_layers": tc.model.n_layers,
+           "population": population, "batch": batch, "seq": seq, "chunk": CHUNK,
+           "memory_at_start": memory,
+           "flights": flights, "lane_ops": ops, "snapshot_slots_after_flights": slots,
+           "host_pinned_gib": sum(g["pinned_bytes"] for g in slots) / 2 ** 30,
+           "wrapper_calls_want": want_calls, "replayed_chunk_launches_seen": seen,
+           "replayed_chunk_profiles": profiles, "launches": launches,
+           "launches_per_step": per_step}
+    emit(out)
+    problems = []
+    for kind, want in want_seen.items():
+        if seen[kind] != want:
+            problems.append(f"the profiler saw {seen[kind]} launches in one replayed {kind} "
+                            f"chunk, want {want}")
+        if profiles[kind].get("device_ms") is None:
+            problems.append(f"the profiled {kind} chunk shows no device time")
+    if len(slots) != 1 or slots[0]["slots"] > population + 1 or slots[0]["held"] \
+            or slots[0]["pinned_bytes"] != slots[0]["slots"] * slots[0]["slot_bytes"]:
+        problems.append(f"snapshot slots after the flights {slots}: want at most K + 1 = "
+                        f"{population + 1} page-locked, none held")
+    base = flights["unbroken"]
+    for n, f in flights.items():
+        if not f["finished"]:
+            problems.append(f"{n}: not every trial finished: {f['errors']}")
+        if f["launches"] != want_calls[n]:
+            problems.append(f"{n}: wrapper calls {f['launches']}, want {want_calls[n]} (an "
+                            f"eager training step in a chunked flight)")
+        if f["quarantined"]:
+            problems.append(f"{n}: {f['quarantined']} jobs quarantined")
+    if base["flight_deaths"] or base["flight_restarts"]:
+        problems.append(f"the unbroken flight died {base['flight_deaths']} times")
+    for n in ("killed", "killed_ring"):
+        f = flights[n]
+        if f["scores"] != base["scores"]:
+            problems.append(f"{n}: scores {f['scores']} differ from the unbroken flight's "
+                            f"{base['scores']}")
+        if (f["flight_deaths"], f["flight_restarts"]) != (1, 1):
+            problems.append(f"{n}: {f['flight_deaths']} deaths and {f['flight_restarts']} "
+                            f"restarts, want 1 and 1")
+        if f["lane_restores"] < 1 or not all(x > 0 for x in f["resumed_from_steps"]):
+            problems.append(f"{n}: {f['lane_restores']} lane restores from steps "
+                            f"{f['resumed_from_steps']}, want one or more, each past step 0")
+    if not flights["killed_ring"]["new_graphs"] or not all(
+            g["kind"] == "ringscan" for g in flights["killed_ring"]["new_graphs"]):
+        problems.append(f"the ring-fed flight captured {flights['killed_ring']['new_graphs']}")
+    for key in ("state_unchanged_by_snapshot", "pinned_equals_pageable",
+                "snapshot_slot_pinned_and_reused", "restored_lane_equals_source",
+                "disk_round_trip_equal", "disk_dir_removed"):
+        if not ops[key]:
+            problems.append(f"lane snapshot: {key} is false")
+    # 64 MiB for the allocator's rounding, as the streaming path allows
+    allowed = ops["largest_leaf_lane_gib"] + 1 / 16
+    for key in ("snapshot_extra_alloc_gib", "restore_extra_alloc_gib"):
+        if ops[key] > allowed:
+            problems.append(f"lane snapshot: {key} {ops[key]:.3f} GiB beside the state, more "
+                            f"than one leaf ({allowed:.3f} GiB)")
+    if problems:
+        P.clear_population_cache()
+        die(f"crash path {arch}: " + "; ".join(problems))
+    return launches, out
+
+
+# ------------------------------------------------------- phase 4, the ring
+def queue_flight(torch, dev, arch, n_layers, population, batch, seq, *, data_ring, seed=0):
+    """``RING_REFILL_ITERS``'s trials through one refill flight
+    (``QueueFeedScheduler``), chunked, in-chunk synthesis or ring-fed;
+    per-step losses and the final state's checksums recorded.  The launch
+    counters are set to 0 just before it and read just after."""
+    from repro_torch.core.resource.vectorized import QueueFeedScheduler
+    from repro_torch.launch.hpo import PopulationTrial
+    from repro_torch.train import population as P
+
+    trial = PopulationTrial(arch, CRASH["steps"], batch, seq, seed, population=population,
+                            model_overrides=published_widths(arch, n_layers), device=dev,
+                            chunk_steps=CHUNK, data_ring=data_ring, ring_windows=RING_WINDOWS,
+                            refill_idle_grace_s=0.0)
+    record = []
+    trial.record_flight = lambda ls, ps: record.append((ls, state_checksums(torch, ps)))
+    cfgs = [{"learning_rate": 1e-3 * (i + 1), "n_iterations": n, "stream": i}
+            for i, n in enumerate(RING_REFILL_ITERS)]
+    feed = QueueFeedScheduler(cfgs)
+    graphs0 = graph_keys(P)
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    trial.run_population([], scheduler=feed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses, sums = record[0] if record else (None, None)
+    out = {"ring": data_ring, "wall_s": wall, "launches": counters(),
+           "train_steps": trial.n_train_steps, "dispatches": trial.n_dispatches,
+           "s_per_step": wall / max(1, trial.n_train_steps), "refills": trial.n_refills,
+           "new_graphs": [g for g in P.graph_stats()
+                          if (g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"]))
+                          not in graphs0],
+           "scores": [feed.scores.get(i) for i in range(len(cfgs))],
+           "order": list(feed.scores), "ring_stats": ring_stats(trial) if data_ring else None}
+    del trial
+    gc.collect()
+    return out, losses, sums
+
+
+def ring_path(torch, dev, arch, n_layers, population, batch, seq, seen, seed=0):
+    """The prefetch ring at published widths: a batch flight (8 steps, two
+    chunks of 4) and a refill flight (``RING_REFILL_ITERS``), each fed by
+    in-chunk synthesis and then by a ring of ``RING_WINDOWS`` windows of 4;
+    per-step losses and the final state's checksums equal, no eager step,
+    the ring's telemetry and bytes.  Runs on the graphs ``crash_path``
+    captured, which captures none: no flight here captures a graph.
+    Returns the kernels' launches on the card over the phase, from the
+    profiler's counts in ``crash_path``'s replayed chunks (``seen``)."""
+    from repro_torch.train import population as P
+
+    geo = dict(arch=arch, n_layers=n_layers, population=population, batch=batch, seq=seq)
+    flights, losses, sums, graphs = {}, {}, {}, {}
+    for name, ring in (("batch", False), ("batch_ring", True)):
+        before = graph_keys(P)
+        flights[name], losses[name], sums[name], tc, data = run_flight(
+            torch, dev, **geo, steps=CHUNK_FLIGHT_STEPS, chunk_steps=CHUNK, seed=seed,
+            data_ring=ring)
+        graphs[name] = [g for g in P.graph_stats()
+                        if (g["kind"], g["mode"], g["chunk"], json.dumps(g["shape"]))
+                        not in before]
+    for name, ring in (("refill", False), ("refill_ring", True)):
+        flights[name], losses[name], sums[name] = queue_flight(torch, dev, **geo,
+                                                                data_ring=ring, seed=seed)
+        graphs[name] = flights[name].pop("new_graphs")
+    per_step = launches_per_step(tc.model, chunked=True)
+    want_calls = {n: calls_for(per_step, graphs[n], warm_up=False) for n in flights}
+    launches = flight_launches(
+        seen, sum(f["train_steps"] for n, f in flights.items() if "ring" not in n),
+        sum(f["train_steps"] for n, f in flights.items() if "ring" in n), None)
+    raw = lambda t: t.view(torch.int32)  # noqa: E731  (fp32 losses as raw bits)
+    pairs = {"batch_ring": "batch", "refill_ring": "refill"}
+    losses_equal = {n: bool(losses[n] is not None and losses[r] is not None
+                            and losses[n].shape == losses[r].shape
+                            and torch.equal(raw(losses[n]), raw(losses[r])))
+                    for n, r in pairs.items()}
+    sums_equal = {n: sums[n] is not None and sums[n] == sums[r] for n, r in pairs.items()}
+    rb = flights["batch_ring"]["ring"]
+    ring_bytes = RING_WINDOWS * CHUNK * population * batch * (seq + 1) * 4
+    out = {"phase": "ring_path", "arch": arch, "n_layers": tc.model.n_layers,
+           "population": population, "batch": batch, "seq": seq, "chunk": CHUNK,
+           "ring_windows": RING_WINDOWS, "ring_bytes": ring_bytes,
+           "flights": {n: {k: v for k, v in f.items()} for n, f in flights.items()},
+           "graphs": graphs, "losses_bit_equal": losses_equal,
+           "state_checksums_equal": sums_equal,
+           "s_per_step": {"batch": flights["batch"]["flight_s_per_step"],
+                          "batch_ring": flights["batch_ring"]["flight_s_per_step"],
+                          "refill": flights["refill"]["s_per_step"],
+                          "refill_ring": flights["refill_ring"]["s_per_step"]},
+           "overlap_frac": {"batch_ring": rb["overlap_frac"],
+                            "refill_ring": flights["refill_ring"]["ring_stats"]["overlap_frac"]},
+           "wrapper_calls_want": want_calls, "launches": launches,
+           "launches_per_step": per_step}
+    emit(out)
+    problems = []
+    if any(graphs.values()):
+        problems.append(f"the ring path's flights captured graphs: {graphs}")
+    for n, f in flights.items():
+        if f.get("finished") is False:
+            problems.append(f"{n}: not every trial finished: {f['errors']}")
+        if f["launches"] != want_calls[n]:
+            problems.append(f"{n}: wrapper calls {f['launches']}, want {want_calls[n]} (an "
+                            f"eager training step in a chunked flight)")
+    if not all(losses_equal.values()):
+        problems.append(f"ring-fed per-step losses differ from in-chunk synthesis: {losses_equal}")
+    if not all(sums_equal.values()):
+        problems.append(f"ring-fed final states differ from in-chunk synthesis: {sums_equal}")
+    if flights["refill_ring"]["scores"] != flights["refill"]["scores"] or \
+            flights["refill_ring"]["order"] != flights["refill"]["order"]:
+        problems.append("the ring-fed refill flight streamed other scores or another order")
+    if flights["refill_ring"]["refills"] < 2:
+        problems.append(f"the refill flight refilled {flights['refill_ring']['refills']} lanes")
+    for n in pairs:
+        st = rb if n == "batch_ring" else flights[n]["ring_stats"]
+        if st["fills"] < 2 or not 0.0 <= st["overlap_frac"] <= 1.0:
+            problems.append(f"{n}: ring telemetry {st}")
+    P.clear_population_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        die(f"ring path {arch}: " + "; ".join(problems))
+    return launches, out
+
+
 # ------------------------------------------------------------------- phase 5
 def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
     from repro_torch.configs import get_smoke_config
@@ -1401,6 +1957,42 @@ def ssm_fwd_bwd(torch, ss, *inputs):
     leaves = [t.detach().requires_grad_(True) for t in inputs]
     y, h = ss.ssm_scan(*leaves)
     return torch.autograd.grad((y, h), leaves, (torch.ones_like(y), torch.zeros_like(h)))
+
+
+# csrc/synth_tokens.cu's rule step, counted from the code: two mix_word
+# rounds (4 and 3 dependent ops: the second word's multiply is off the
+# chain), the finalizer (8: three shift-xors of 2, two multiplies) and the
+# remainder by the vocabulary once its reciprocal is hoisted (6: a high
+# multiply, a multiply-add, two compare-and-adjust pairs); 21 dependent
+# integer operations of 4 cycles each, the ALU and FMA pipes' dependent-issue
+# latency since Volta
+RULE_STEP_CYCLES = 21 * 4
+
+
+def rule_steps_per_row(data, k: int, step: int = 0) -> int:
+    """Rule evaluations on the busiest row of a (k, batch) token block at
+    cursor ``step`` of streams 0..k-1: positions t >= 2 whose FOLLOW draw
+    falls below ``order_mix`` (the data decides how many)."""
+    import numpy as np
+
+    from repro_torch.data import pipeline as dp
+
+    lo, hi = dp.split_streams(list(range(k)))
+    n_pos, rows = int(data.seq_len) + 1, int(data.global_batch)
+    shape = (k, rows, n_pos - 2)
+    h = dp._hash_u32(shape, [dp._KIND_FOLLOW, int(data.seed), lo[:, None, None],
+                             hi[:, None, None], step, 0,
+                             np.arange(rows, dtype=np.uint32)[None, :, None],
+                             np.arange(2, n_pos, dtype=np.uint32)[None, None, :]])
+    follow = dp._u01(h) < np.float32(data.order_mix)
+    return int(follow.sum(-1).max())
+
+
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
@@ -1525,6 +2117,8 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
               for w in split_streams(list(range(K))))
     st = torch.zeros(K, dtype=torch.int64, device=dev)
     nb = K * rows_ * (seq + 1) * 4 + 3 * K * 8      # the tokens written, cursors and words read
+    rule_steps = rule_steps_per_row(data, K)
+    clock_mhz = sm_clock_max_mhz()
     rows.append({
         "name": "synth_tokens", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/synth_tokens.cu",
@@ -1536,7 +2130,13 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         "ms": event_ms(torch, lambda: sk.synth_tokens_cuda(data, st, lo, hi)),
         "plain_ms": event_ms(torch, lambda: sk.synth_tokens_plain(data, st, lo, hi),
                              n=3, warmup=1),
-        "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        # what binds it: one thread a row runs the bigram rule position after
+        # position, each a chain of dependent integer operations, so the
+        # bound is the latency of the longest row's chain at the top clock
+        "bound_ms": rule_steps * RULE_STEP_CYCLES / (clock_mhz * 1e3),
+        "bound_by": "operations", "bound_note": "latency of the serial rule chain",
+        "rule_steps_longest_row": rule_steps, "cycles_per_rule_step": RULE_STEP_CYCLES,
+        "sm_clock_max_mhz": clock_mhz, "byte_bound_ms": nb / HBM_BYTES_PER_S * 1e3,
         "library_ms": None,   # no PyTorch call computes this generator
         "shape": {"tokens": [K, rows_, seq + 1], "dtype": "int32"},
     })
@@ -1544,6 +2144,7 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         die(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
     sys.path.insert(0, str(SRC))
@@ -1589,9 +2190,15 @@ def main() -> int:
         by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
         gc.collect()
         torch.cuda.empty_cache()
+        by_path[path["arch"] + "+crash"], out = crash_path(torch, dev, **kw)
+        by_path[path["arch"] + "+ring"], _ = ring_path(
+            torch, dev, seen=out["replayed_chunk_launches_seen"], **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
     fp32_launches = sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
                         for path in (MAIN, MAMBA))
     emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

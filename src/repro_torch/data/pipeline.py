@@ -31,12 +31,14 @@ token recurrence runs as one kernel, ``repro_torch.kernels.synth``.
 
 ``HostPrefetcher`` moves host batches onto the device: pinned host tensors
 copied with ``non_blocking=True`` so the copy of batch ``s+1`` overlaps the
-device work of step ``s``.
+device work of step ``s``.  ``HostDataset`` is what the prefetch ring
+(``repro_torch.data.ring``) reads: ``SynthHostDataset`` over this stream,
+``ArrayHostDataset`` over a token array in host memory.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -309,6 +311,111 @@ class SyntheticLM:
         toks = synth_tokens(self, (len(streams), self.global_batch), st,
                             lo[:, None], hi[:, None])
         return tokens_to_batch(self, toks)
+
+
+class HostDataset(Protocol):
+    """What the prefetch ring (``repro_torch.data.ring``) needs from a host
+    data source.
+
+    One method: a *lane block*, per-lane token rows for K population lanes,
+    each lane at its own step cursor, shaped ``(K, batch, seq_len + 1)``
+    int32 (the raw ``synth_tokens`` layout; ``tokens_to_batch_device`` splits
+    it into tokens/targets/mask on the device).  Implementations must be
+    pure functions of ``(streams, steps)`` so a crash-restored flight
+    replays the same bytes.
+    """
+
+    seq_len: int
+    global_batch: int
+
+    def lane_block(self, streams: Sequence[int], steps) -> np.ndarray:
+        """Token rows ``(K, global_batch, seq_len + 1)`` int32 for lane ``i``
+        reading ``streams[i]`` at step ``steps[i]``."""
+        ...
+
+    # Implementations may also provide
+    #     lane_window(streams, steps, n) -> (n, K, global_batch, seq_len + 1)
+    # n consecutive lane blocks in one vectorized call, bit-identical to
+    # stacking ``lane_block`` per step; the ring's fill thread prefers it.
+
+
+@dataclasses.dataclass
+class SynthHostDataset:
+    """``HostDataset`` over the counter-based synthetic stream: the ring's
+    bit-equality oracle.  ``lane_block`` evaluates the same ``synth_tokens``
+    the chunk programs run on the device, so a ring filled from this adapter
+    reproduces in-chunk synthesis bit for bit."""
+
+    spec: SyntheticLM
+
+    @property
+    def seq_len(self) -> int:
+        return int(self.spec.seq_len)
+
+    @property
+    def global_batch(self) -> int:
+        return int(self.spec.global_batch)
+
+    def lane_block(self, streams: Sequence[int], steps) -> np.ndarray:
+        lo, hi = split_streams(streams)
+        st = np.asarray([int(s) for s in steps], np.int64)
+        return synth_tokens(self.spec, (len(streams), self.global_batch), st[:, None],
+                            lo[:, None], hi[:, None])
+
+    def lane_window(self, streams: Sequence[int], steps, n: int) -> np.ndarray:
+        """``n`` consecutive ``lane_block`` slabs (steps ``steps[i] + t`` for
+        ``t in [0, n)``) in one vectorized synthesis call, shape ``(n, K,
+        global_batch, seq_len + 1)``; bit-identical to stacking
+        ``lane_block`` per step."""
+        lo, hi = split_streams(streams)
+        st = np.asarray([int(s) for s in steps], np.int64)
+        step = st[None, :, None] + np.arange(int(n), dtype=np.int64)[:, None, None]
+        return synth_tokens(self.spec, (int(n), len(streams), self.global_batch), step,
+                            lo[None, :, None], hi[None, :, None])
+
+
+@dataclasses.dataclass
+class ArrayHostDataset:
+    """``HostDataset`` over a token corpus held in host memory: a ``(n_rows,
+    seq_len + 1)`` int32 array (e.g. a memory-mapped tokenized shard).  Lane
+    ``i`` at step ``s`` reads ``global_batch`` consecutive rows from ``(streams[i]
+    * stream_stride + s * global_batch) % n_rows``: per-trial streams start
+    at disjoint offsets and the cursor is the step counter, so a resume
+    replays the same rows."""
+
+    tokens: np.ndarray
+    global_batch: int
+    stream_stride: int = 997
+
+    def __post_init__(self):
+        self.tokens = np.asarray(self.tokens, np.int32)
+        if self.tokens.ndim != 2 or len(self.tokens) == 0:
+            raise ValueError(f"ArrayHostDataset: tokens must be a non-empty (n_rows, "
+                             f"seq_len + 1) array, got shape {self.tokens.shape}")
+
+    @property
+    def seq_len(self) -> int:
+        return int(self.tokens.shape[1]) - 1
+
+    def lane_block(self, streams: Sequence[int], steps) -> np.ndarray:
+        n = len(self.tokens)
+        b = int(self.global_batch)
+        out = np.empty((len(streams), b, self.tokens.shape[1]), np.int32)
+        for i, (stream, step) in enumerate(zip(streams, steps)):
+            start = (int(stream) * self.stream_stride + int(step) * b) % n
+            out[i] = self.tokens[(start + np.arange(b)) % n]
+        return out
+
+    def lane_window(self, streams: Sequence[int], steps, n: int) -> np.ndarray:
+        """``n`` consecutive ``lane_block`` slabs in one gather, shape ``(n,
+        K, global_batch, seq_len + 1)``."""
+        nrows = len(self.tokens)
+        b = int(self.global_batch)
+        sid = np.asarray([int(s) for s in streams], np.int64)
+        st = np.asarray([int(s) for s in steps], np.int64)
+        step = st[None, :] + np.arange(int(n), dtype=np.int64)[:, None]
+        start = sid[None, :] * self.stream_stride + step * b
+        return self.tokens[(start[..., None] + np.arange(b)) % nrows]
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -193,7 +193,11 @@ def _blocked_bwd(
         qblk, doblk, oblk = qf[:, iq], do[:, iq], of[:, iq]
         lseblk = lse[:, :, :, iq]
         q_pos = q_offset + iq * block_q + torch.arange(block_q, device=dev)
-        delta = torch.einsum("bqngd,bqngd->bngq", doblk, oblk)
+        # rowsum(dO * O) as a reduction over d: as an einsum it becomes a
+        # batched product of B * Hkv * g * block_q dot products, and on the
+        # card cuBLAS rounds the batches past the grid's limit differently,
+        # so a lane's gradient would depend on its lane index
+        delta = (doblk * oblk).sum(-1).permute(0, 2, 3, 1)
         # rows with the NEG_INF sentinel (fully masked / q padding) must give
         # p = exp(s - inf) = 0, never exp(s + 1e30)
         lse_safe = torch.where(lseblk > NEG_INF / 2, lseblk, float("inf"))

@@ -57,12 +57,21 @@ a GPU the driver raises rather than fall back.  On the card every RMSNorm,
 every attention forward and every Mamba selective scan runs the hand-written
 Hopper kernels; on the CPU their plain PyTorch versions.
 
-Engines of later slices (crash safety, the prefetch ring, multi-device
-meshes) are refused with the ROADMAP.md item that brings them.
+With ``--snapshot-every N`` (and ``--lane-refill``) a streaming flight is
+crash-safe: every N-th event pass copies each live lane's state to the host
+(on disk beside ``--db``), a flight that dies restarts under the supervisor
+and its leases restore their lanes, and ``--resume`` picks a killed run up
+from the tracking DB and the snapshots.  With ``--data-ring`` the chunks
+read a prefetch ring on the device, filled from the host a window ahead
+(``--ring-windows W``), instead of making their batches on the device.
+
+Engines of later slices (multi-device meshes, the throughput benchmark's
+baselines) are refused with the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -127,6 +136,15 @@ class PopulationTrial:
     refill) protocol: jobs arrive through ``scheduler.lease()`` and leave
     through ``scheduler.complete()`` (see ``_run_streaming``).  ``lifecycle``
     is streaming PBT's lane-lifecycle hook, wired by the Experiment.
+
+    ``snapshot_every`` > 0 with a ``snapshots`` store
+    (``checkpoint.LaneSnapshotStore``) makes streaming flights crash-safe:
+    every ``snapshot_every``-th event pass copies each live lane's state to
+    the store, and a lease whose stream has a snapshot restores it and
+    trains on from its step (a store alone, as ``--resume`` arms it, only
+    restores).  ``data_ring`` feeds chunked flights from a prefetch ring of
+    ``ring_windows`` chunk-windows filled on a host thread from
+    ``host_dataset`` (default: the synthetic stream's host adapter).
     """
 
     DIVERGED_SCORE = -1e9
@@ -136,7 +154,8 @@ class PopulationTrial:
                  early_stop=None, per_trial_init: bool = False,
                  model_overrides=None, device=None, chunk_steps: int = 1,
                  device_rules: bool = False, refill_idle_grace_s: float = 0.25,
-                 lifecycle=None):
+                 lifecycle=None, snapshot_every: int = 0, snapshots=None,
+                 data_ring: bool = False, ring_windows: int = 2):
         self.device = resolve_device(device)
         self.arch = arch
         self.steps = int(steps)
@@ -173,6 +192,27 @@ class PopulationTrial:
         self.n_donor_waits = 0      # leases parked on a busy donor lane
         self.n_lineage_resets = 0   # keep/clone degraded to a fresh init
         self.n_host_ckpt_roundtrips = 0  # train states through the host (serial PBT)
+        # crash-safe streaming: every snapshot_every-th event pass harvests
+        # each live lane's state to the snapshot store (0 = off); a lease
+        # whose stream has a stored snapshot restores it instead of starting
+        # at step 0 (after a supervised restart or a --resume)
+        self.snapshot_every = max(0, int(snapshot_every))
+        self.snapshots = snapshots      # checkpoint.LaneSnapshotStore
+        self.n_snapshots = 0            # lane snapshots harvested to the host
+        self.n_lane_restores = 0        # leases resumed from a snapshot
+        self.resumed_from_steps: list = []  # lane-local step of each restore
+        # --data-ring: chunks read a prefetch ring filled from the host
+        # (data.ring) instead of making their batches on the device; the
+        # default fill, the synthetic stream's host adapter, gives in-chunk
+        # synthesis's scores bit for bit
+        self.data_ring = bool(data_ring)
+        self.ring_windows = max(2, int(ring_windows))
+        self.host_dataset = None        # a HostDataset (default: the synthetic stream)
+        self.ring_fill_wait_s = 0.0     # the driver's wait on the host fill
+        self.ring_fill_busy_s = 0.0     # the host's time producing windows
+        self.ring_overlap_frac = 1.0    # share of the fill hidden behind the chunks
+        self.n_ring_fills = 0
+        self.n_ring_invalidations = 0
         self._flight_epoch = 0
         self._event_seq = 0         # streaming event passes, all flights
         self._hist_cap = 0          # staggered rule history capacity (power of two)
@@ -354,6 +394,47 @@ class PopulationTrial:
         return tuple(torch.as_tensor(np.asarray(w, np.int64), device=self.device)
                      for w in words)
 
+    def _make_ring(self, tc, data, k: int):
+        """A flight's prefetch ring (``--data-ring``): ``ring_windows``
+        chunk-windows filled from ``host_dataset`` (default: the synthetic
+        stream's host adapter, in-chunk synthesis's bit-equality oracle).
+        On the card it fills the geometry's ring tensor, the one the ring
+        chunks' graphs read."""
+        from ..data.pipeline import SynthHostDataset
+        from ..data.ring import PrefetchRing
+        from ..train.population import ring_buffer
+
+        ds = self.host_dataset if self.host_dataset is not None else SynthHostDataset(data)
+        capacity = self.ring_windows * self.chunk_steps
+        buf = (ring_buffer(tc, k, data, capacity, self.device)
+               if self.device.type == "cuda" else None)
+        return PrefetchRing(ds, population=k, win_steps=self.chunk_steps,
+                            windows=self.ring_windows, device=self.device, buffer=buf)
+
+    def _absorb_ring(self, ring) -> None:
+        """Stop a flight's ring and add its telemetry to the trial's."""
+        ring.stop()
+        self.ring_fill_wait_s += ring.fill_wait_s
+        self.ring_fill_busy_s += ring.fill_busy_s
+        self.n_ring_fills += ring.n_fills
+        self.n_ring_invalidations += ring.n_invalidations
+        if self.ring_fill_busy_s > 0.0:
+            self.ring_overlap_frac = max(0.0, min(
+                1.0, 1.0 - self.ring_fill_wait_s / self.ring_fill_busy_s))
+
+    def _ring_chunk(self, tc, data, k, ring, pstate, php, s: int, t: int):
+        """One ring-fed chunk of ``t`` steps from global step ``s``: wait
+        until the host has staged exactly these steps (a lagging fill costs
+        wait time, never another chunk split), dispatch, and free the
+        slots."""
+        from ..train.population import get_compiled_population_ring_scan_step
+
+        ring.wait_filled(s, t)
+        out = get_compiled_population_ring_scan_step(tc, k, data, t, ring.capacity)(
+            pstate, php, ring.slots, s % ring.capacity)
+        ring.consume_to(s + t)
+        return out
+
     def _flight(self, tc, data, k, streams, budgets, php, out, spec=None):
         """One flight of ``run_population`` from init to scores (numpy
         (K,)); ``out``: a population state of this geometry to initialise
@@ -379,6 +460,8 @@ class PopulationTrial:
             return self._flight_device_rules(tc, data, k, streams, budgets, php, pstate, spec)
         if chunk > 1:
             s_lo, s_hi = self._stream_words(streams)
+            if self.data_ring and not ptb:
+                raise ValueError("--data-ring fills per-lane slabs; drop --shared-stream")
         else:
             pstep = make_population_train_step(tc, per_trial_batch=ptb)
             feed = HostPrefetcher(lambda t: self._batch(data, t, streams), dev)
@@ -390,44 +473,51 @@ class PopulationTrial:
         acc = torch.zeros((), dtype=torch.int64, device=dev)
         s = 0
         seg_t0, seg_s0 = time.perf_counter(), 0
-        while s < int(budgets.max()):
-            max_b = int(budgets.max())
-            t = planner.chunk_to(s, planner.next_cohort_event(s, max_b))
-            if chunk > 1:
-                # every dispatch of a chunked flight, one step too, is a chunk
-                # program: on the card a graph replay in the captured pool
-                steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
-                pstate, metrics = get_compiled_population_scan_step(
-                    tc, k, data, t, per_trial_batch=ptb)(pstate, php, steps0, s_lo, s_hi)
-            else:
-                pstate, metrics = pstep(pstate, feed.pop(s), php)
-                if s + 1 < max_b:
-                    feed.prefetch(s + 1)  # host synthesis overlaps the device step
-            self._count_active(acc, metrics, k, t)
-            if losses is not None:
-                # cloned: a graph's metrics are overwritten by its next replay
-                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
-            self.n_dispatches += 1
-            self.n_train_steps += t
-            s += t
-            if hook is not None and s in hook.boundaries:
-                new_budgets = hook(
-                    s,
-                    pstate["last_loss"].cpu().numpy(),
-                    budgets,
-                    pstate["diverged"].cpu().numpy(),
-                )
-                # the last_loss read above synced the device, so this
-                # segment's wall-clock is honest
-                self.per_rung_step_time_s.append(
-                    [int(s), int(s - seg_s0),
-                     round((time.perf_counter() - seg_t0) / max(1, s - seg_s0), 6)])
-                seg_t0, seg_s0 = time.perf_counter(), s
-                if (new_budgets != budgets).any():
-                    # truncating a lane's budget freezes it on the next step;
-                    # written in place, as a captured graph reads it
-                    budgets = new_budgets
-                    php.total_steps.copy_(torch.as_tensor(budgets, dtype=torch.float32))
+        with self._ring_for(tc, data, k, self.data_ring and chunk > 1) as ring:
+            if ring is not None:
+                # every lane's data cursor is the global step in a batch
+                # flight: offsets 0, and the lanes never re-key
+                ring.set_lanes(streams, [0] * k, at_step=0)
+            while s < int(budgets.max()):
+                max_b = int(budgets.max())
+                t = planner.chunk_to(s, planner.next_cohort_event(s, max_b))
+                if ring is not None:
+                    pstate, metrics = self._ring_chunk(tc, data, k, ring, pstate, php, s, t)
+                elif chunk > 1:
+                    # every dispatch of a chunked flight, one step too, is a
+                    # chunk program: on the card a graph replay in the pool
+                    steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
+                    pstate, metrics = get_compiled_population_scan_step(
+                        tc, k, data, t, per_trial_batch=ptb)(pstate, php, steps0, s_lo, s_hi)
+                else:
+                    pstate, metrics = pstep(pstate, feed.pop(s), php)
+                    if s + 1 < max_b:
+                        feed.prefetch(s + 1)  # host synthesis overlaps the device step
+                self._count_active(acc, metrics, k, t)
+                if losses is not None:
+                    # cloned: a graph's metrics are overwritten by its next replay
+                    losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+                self.n_dispatches += 1
+                self.n_train_steps += t
+                s += t
+                if hook is not None and s in hook.boundaries:
+                    new_budgets = hook(
+                        s,
+                        pstate["last_loss"].cpu().numpy(),
+                        budgets,
+                        pstate["diverged"].cpu().numpy(),
+                    )
+                    # the last_loss read above synced the device, so this
+                    # segment's wall-clock is honest
+                    self.per_rung_step_time_s.append(
+                        [int(s), int(s - seg_s0),
+                         round((time.perf_counter() - seg_t0) / max(1, s - seg_s0), 6)])
+                    seg_t0, seg_s0 = time.perf_counter(), s
+                    if (new_budgets != budgets).any():
+                        # truncating a lane's budget freezes it on the next
+                        # step; written in place, as a captured graph reads it
+                        budgets = new_budgets
+                        php.total_steps.copy_(torch.as_tensor(budgets, dtype=torch.float32))
         self.last_flight_steps = s
         scores = population_scores(pstate, self.DIVERGED_SCORE).cpu().numpy()
         if s > seg_s0:  # the tail past the last rung boundary (scores synced)
@@ -537,14 +627,30 @@ class PopulationTrial:
         spec = self._device_rule_spec()
         device_pbt = bool(self.device_rules and lifecycle is not None
                           and getattr(lifecycle, "device_rule_on", False))
+        # a ring feeds the training chunks; a rule chunk makes its own batches
+        ring_on = self.data_ring and self.chunk_steps > 1 and not (spec is not None or device_pbt)
         if self._graphed(spec is not None or device_pbt):
-            with flight_lease(tc, k, data, True, self.device) as out:
-                return self._stream(tc, data, k, scheduler, spec, device_pbt, out)
-        return self._stream(tc, data, k, scheduler, spec, device_pbt, None)
+            with flight_lease(tc, k, data, True, self.device) as out, \
+                    self._ring_for(tc, data, k, ring_on) as ring:
+                return self._stream(tc, data, k, scheduler, spec, device_pbt, out, ring)
+        with self._ring_for(tc, data, k, ring_on) as ring:
+            return self._stream(tc, data, k, scheduler, spec, device_pbt, None, ring)
 
-    def _stream(self, tc, data, k, scheduler, device_spec, device_pbt, out) -> list:
+    @contextlib.contextmanager
+    def _ring_for(self, tc, data, k: int, on: bool):
+        """A flight's prefetch ring (None unless ``on``), stopped and its
+        telemetry absorbed however the flight ends."""
+        ring = self._make_ring(tc, data, k) if on else None
+        try:
+            yield ring
+        finally:
+            if ring is not None:
+                self._absorb_ring(ring)
+
+    def _stream(self, tc, data, k, scheduler, device_spec, device_pbt, out, ring) -> list:
         """The body of ``_run_streaming``; ``out`` is the captured state to
-        initialise into (or None)."""
+        initialise into (or None), ``ring`` the flight's prefetch ring (or
+        None)."""
         from ..core import faultinject
         from ..data.pipeline import to_device
         from ..optim.hparams import stack_hparams
@@ -555,6 +661,7 @@ class PopulationTrial:
             init_population_state_from_keys,
             make_population_train_step,
             pbt_rule_state,
+            release_lane_snapshot,
             staggered_rule_state,
         )
 
@@ -572,6 +679,12 @@ class PopulationTrial:
         splice_fn = get_lane_op(tc, k, "splice")
         init_fn = get_lane_op(tc, k, "init")
         clone_fn = get_lane_op(tc, k, "clone") if lifecycle is not None else None
+        # crash safety: harvest a live lane to the host, restore a harvested
+        # one into a lane of this flight
+        snap_fn = restore_fn = None
+        if self.snapshots is not None:
+            snap_fn = get_lane_op(tc, k, "snapshot")
+            restore_fn = get_lane_op(tc, k, "restore")
         pstep = (make_population_train_step(tc, per_trial_batch=True)
                  if chunk == 1 and not device_active else None)
         self._flight_epoch += 1
@@ -590,6 +703,7 @@ class PopulationTrial:
         applied0 = np.zeros(k, np.int64)     # optimizer step at lease time
         lane_applied = np.zeros(k, np.int64)  # optimizer step at last retire
         budgets = np.zeros(k, np.float64)    # this round's budget (lane-local)
+        resumed_at = np.zeros(k, np.int64)   # lane-local step a restore resumed from
         streams = [-(i + 1) for i in range(k)]     # idle = sentinel stream
         hps = [self._hparams({}, 0) for _ in range(k)]
         pstate = init_population_state_from_keys(
@@ -651,7 +765,38 @@ class PopulationTrial:
                 # the optimizer's step counter is the exact count of applied
                 # steps: a diverged lane froze there, however late it is seen
                 applied = pstate["inner"]["opt"]["step"].cpu().numpy().astype(np.int64)
+                if snap_fn is not None and self.snapshot_every \
+                        and self._event_seq % self.snapshot_every == 0:
+                    # before the retirements and leases below, so the store
+                    # and the journal describe this boundary; diverged lanes
+                    # (nothing to resume) and lineage (PBT) lanes (their state
+                    # is the proposer's: a dead flight re-inits them) are
+                    # skipped, as are lanes at their step 0 or budget's end
+                    for lane in live:
+                        local = int(s - starts[lane])
+                        if (diverged[lane] or lineage[lane] is not None
+                                or local <= 0 or local >= budgets[lane]):
+                            continue
+                        snap = snap_fn(pstate, lane)
+                        self.n_dispatches += 1
+                        self.n_snapshots += 1
+                        release_lane_snapshot(self.snapshots.put(streams[lane], snap, {
+                            "local": local,
+                            "stream": int(streams[lane]),
+                            "applied": int(applied[lane]),
+                            "applied0": int(applied0[lane]),
+                            "budget": float(budgets[lane]),
+                            # the lane's data cursor at this boundary: a
+                            # restored lease re-derives base_data from it, so
+                            # a ring-fed flight resumes the stream mid-window
+                            "data_cursor": int(base_data[lane] + local),
+                        }))
+                        if self.journal is not None:
+                            self.journal.append("snapshot", lane=lane, step=local,
+                                                detail={"stream": int(streams[lane])})
                 if fault_plan is not None:
+                    # kill@event fires after any due harvest: a crash at an
+                    # event boundary finds its snapshots stored
                     fault_plan.check("event", event=self._event_seq)
                 if hook is not None and device_spec is None:
                     local = np.array([s - starts[i] if handles[i] is not None else 0
@@ -674,7 +819,7 @@ class PopulationTrial:
                         "total_steps": int(applied[lane]),
                         "diverged": bool(diverged[lane]),
                         "lane": lane,
-                        "resumed_from_step": 0,
+                        "resumed_from_step": int(resumed_at[lane]),
                     }
                     if device_active:
                         # the step this lane retired at inside the chunk
@@ -687,6 +832,10 @@ class PopulationTrial:
                         self.journal.append("retire", lane=lane, step=local_s,
                                             detail={"stream": int(streams[lane]),
                                                     "score": score})
+                    if self.snapshots is not None and lineage[lane] is None:
+                        # the trial is done: its snapshots are dead weight
+                        release_lane_snapshot(self.snapshots.forget(streams[lane]))
+                    resumed_at[lane] = 0
                     handles[lane] = None
                     budgets[lane] = 0.0
                     lane_applied[lane] = int(applied[lane])
@@ -804,8 +953,34 @@ class PopulationTrial:
                         base_sched = int(lane_applied[donor_lane])
                         clone_jobs.append((lane, donor_lane, cfg))
                     else:
-                        base_sched = 0
-                        splice_jobs.append(lane)
+                        stored = self.snapshots.get(sid) if restore_fn is not None else None
+                        if stored is not None:
+                            # this stream died mid-lane in an earlier flight (a
+                            # supervised restart or --resume): write its
+                            # harvested state back and train on from the
+                            # snapshot's lane-local step, not step 0
+                            snap, meta = stored
+                            local = int(meta["local"])
+                            restore_fn(pstate, lane, snap)
+                            virgin = False
+                            self.n_dispatches += 1
+                            self.n_lane_restores += 1
+                            starts[lane] = s - local
+                            resumed_at[lane] = local
+                            self.resumed_from_steps.append(local)
+                            if "data_cursor" in meta:
+                                # and its data cursor: the ring and the chunk
+                                # cursors replay the stream from the snapshot's
+                                # position
+                                base_data[lane] = int(meta["data_cursor"]) - local
+                            base_sched = int(meta.get("applied0", 0))
+                            if self.journal is not None:
+                                self.journal.append("lane_restore", lane=lane, step=local,
+                                                    detail={"stream": sid})
+                        else:
+                            base_sched = 0
+                            resumed_at[lane] = 0
+                            splice_jobs.append(lane)
                     if used[lane] and directive != "keep":
                         self.n_refills += 1
                     applied0[lane] = base_sched
@@ -855,6 +1030,14 @@ class PopulationTrial:
             if php_dirty:
                 php = stack_hparams(hps, dev)
                 s_lo, s_hi = self._stream_words(streams)
+                if ring is not None:
+                    # the lane table changed: re-key the ring so lane i's slab
+                    # at global step s' is its own stream at base_data + s' -
+                    # starts (idle lanes read their sentinel stream; their
+                    # steps are never applied)
+                    ring.set_lanes(streams, [int(base_data[i] - starts[i])
+                                             if handles[i] is not None else 0
+                                             for i in range(k)], at_step=s)
             if not live:
                 # 3) the flight is idle: wait briefly for late proposals
                 # (Algorithm 1 may be mid-callback), then give the lanes back
@@ -927,6 +1110,10 @@ class PopulationTrial:
                             lifecycle.note_device_verdict(
                                 lineage[lane], lane_round[lane], bool(rout["vbottom"][lane]),
                                 float(rout["vlo"][lane]), float(rout["vhi"][lane]))
+            elif ring is not None:
+                # the slabs of steps [s, s + t) come from the ring; the lanes'
+                # cursors are in its contents, not in stream words
+                pstate, metrics = self._ring_chunk(tc, data, k, ring, pstate, php, s, t)
             elif chunk > 1:
                 # every dispatch of a chunked flight, one step too, is a chunk
                 # program (on the card a graph replay); batches made on the device
@@ -1070,9 +1257,6 @@ _LATER_FLAGS = (
     ("shard_population", "--shard-population", _ITEM.format("12 (multi-device engines)")),
     ("model_parallel", "--model-parallel", _ITEM.format("12 (multi-device engines)")),
     ("elastic_regrid", "--elastic-regrid", _ITEM.format("12 (multi-device engines)")),
-    ("data_ring", "--data-ring", _ITEM.format("10 (prefetch ring)")),
-    ("snapshot_every", "--snapshot-every", _ITEM.format("9 (crash safety)")),
-    ("resume", "--resume", _ITEM.format("9 (crash safety)")),
     ("legacy_recompile", "--legacy-recompile",
      _ITEM.format("13 (tooling: the throughput benchmark's baselines)")),
 )
@@ -1082,8 +1266,6 @@ def _later(args, name: str) -> bool:
     val = getattr(args, name)
     if name == "model_parallel":
         return val > 1
-    if name == "resume":
-        return val is not None
     return bool(val)
 
 
@@ -1160,9 +1342,28 @@ def main(argv=None) -> int:
                         "or PBT's window quantile (--pbt-streaming --pbt-async) "
                         "inside the chunks, so chunks no longer stop at rung "
                         "boundaries and a whole ladder can be one dispatch")
-    # accepted like the JAX CLI; they act only with engines refused below
-    p.add_argument("--snapshot-dir", default="", help=argparse.SUPPRESS)
-    p.add_argument("--ring-windows", type=int, default=2, help=argparse.SUPPRESS)
+    p.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                   help="with --lane-refill: copy every live lane's train state to "
+                        "the host at every N-th streaming event pass (kept on "
+                        "disk beside --db), so a crashed run resumes each lane "
+                        "from its last snapshot instead of step 0 (0 = off)")
+    p.add_argument("--snapshot-dir", default="",
+                   help="lane-snapshot directory (default: <db>.lanes)")
+    p.add_argument("--resume", nargs="?", type=int, const=-1, default=None,
+                   metavar="EXP_ID",
+                   help="resume a crashed experiment from --db (no id = the "
+                        "latest): replays finished jobs into the proposer, "
+                        "re-queues the ones in flight at the crash, and restores "
+                        "snapshotted lanes from --snapshot-dir")
+    p.add_argument("--data-ring", action="store_true",
+                   help="with --vectorize and --chunk-steps T > 1: feed the chunks "
+                        "from a prefetch ring on the device, filled on a host "
+                        "thread ahead of them, instead of making batches on the "
+                        "device; the default fill (the synthetic stream) gives "
+                        "in-chunk synthesis's scores bit for bit")
+    p.add_argument("--ring-windows", type=int, default=2, metavar="W",
+                   help="with --data-ring: prefetch depth in chunk-windows (>= 2; "
+                        "2 = double buffering, one window training, one filling)")
     p.add_argument("--chunk-steps", type=int, default=1, metavar="T",
                    help="with --vectorize K: advance each flight in fused chunks "
                         "of up to T steps between host events, batches made on "
@@ -1171,15 +1372,31 @@ def main(argv=None) -> int:
     for flag, kw in (
         ("--shard-population", dict(action="store_true")),
         ("--elastic-regrid", dict(action="store_true")),
-        ("--data-ring", dict(action="store_true")),
         ("--model-parallel", dict(type=int, default=1, metavar="W")),
         ("--legacy-recompile", dict(action="store_true")),
-        ("--snapshot-every", dict(type=int, default=0, metavar="N")),
-        ("--resume", dict(nargs="?", type=int, const=-1, default=None, metavar="EXP_ID")),
     ):
         p.add_argument(flag, help="not ported yet: refused with the ROADMAP.md "
                                   "item that brings it", **kw)
     args = p.parse_args(argv)
+
+    from ..core.tracking.database import TrackingDB
+
+    resume_db = resume_exp_id = None
+    if args.resume is not None:
+        if not args.db:
+            p.error("--resume needs --db (the tracking DB to resume from)")
+        resume_db = TrackingDB(args.db)
+        resume_exp_id = (resume_db.latest_experiment_id()
+                         if args.resume == -1 else args.resume)
+        if resume_exp_id is None:
+            p.error(f"--resume: no experiment found in {args.db!r}")
+        row = resume_db.get_experiment(resume_exp_id)
+        if row is None:
+            p.error(f"--resume: experiment {resume_exp_id} not in {args.db!r}")
+        # the stored CLI wins: the trial must be rebuilt exactly as the
+        # crashed run built it, or the resumed lanes would not score the same
+        for key, val in (row["exp_config"].get("cli") or {}).items():
+            setattr(args, key, val)
 
     for name, flag, item in _LATER_FLAGS:
         if _later(args, name):
@@ -1206,6 +1423,9 @@ def main(argv=None) -> int:
     if args.chunk_steps > 1 and args.vectorize <= 0:
         p.error("--chunk-steps acts on the population engines; it requires "
                 "--vectorize K")
+    if args.snapshot_every and not args.lane_refill:
+        p.error("--snapshot-every snapshots streaming lanes; it requires "
+                "--lane-refill")
     if args.device_rules:
         if args.vectorize <= 0:
             p.error("--device-rules acts on the population engines; it "
@@ -1222,6 +1442,20 @@ def main(argv=None) -> int:
             p.error(f"--fused-attention: arch {args.arch!r} has no attention mixer")
         if args.fused_ssm and not cfg.has_mamba:
             p.error(f"--fused-ssm: arch {args.arch!r} has no SSM mixer")
+
+    if args.data_ring:
+        if args.vectorize <= 0 or args.chunk_steps <= 1:
+            p.error("--data-ring feeds the fused scans; it requires "
+                    "--vectorize K and --chunk-steps T > 1")
+        if args.shared_stream:
+            p.error("--data-ring fills per-lane slabs; drop --shared-stream")
+        if args.device_rules:
+            p.error("--data-ring is incompatible with --device-rules: the "
+                    "rule-carrying scan synthesizes its own batches (in-scan "
+                    "cursors ride the rule state)")
+        if args.ring_windows < 2:
+            p.error("--ring-windows must be >= 2 (one window training, one "
+                    "filling)")
 
     from ..core import faultinject
     from ..core.experiment import Experiment
@@ -1243,6 +1477,8 @@ def main(argv=None) -> int:
         exp_cfg["db_path"] = args.db
     if args.deadline:
         exp_cfg["job_deadline_s"] = args.deadline
+    if args.snapshot_every:
+        exp_cfg["snapshot_every"] = args.snapshot_every
     if args.pbt_streaming:
         exp_cfg.update(
             streaming=True,
@@ -1257,6 +1493,14 @@ def main(argv=None) -> int:
     per_trial_streams = not args.shared_stream
     trial_kw = dict(per_trial_streams=per_trial_streams,
                     per_trial_init=args.per_trial_init, device=args.device)
+    # the lane-snapshot store: armed when snapshots are taken, or when a
+    # resume may restore lanes an earlier run kept
+    snap_store = None
+    if args.lane_refill and (args.snapshot_every > 0 or args.resume is not None):
+        from ..checkpoint import LaneSnapshotStore
+
+        snap_store = LaneSnapshotStore(
+            root=args.snapshot_dir or (args.db + ".lanes" if args.db else None))
     if args.vectorize > 0:
         exp_cfg["resource"] = "vectorized"
         exp_cfg["n_parallel"] = args.vectorize
@@ -1264,17 +1508,25 @@ def main(argv=None) -> int:
             exp_cfg["lane_refill"] = True
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 population=args.vectorize, chunk_steps=args.chunk_steps,
-                                device_rules=args.device_rules, **trial_kw)
+                                device_rules=args.device_rules,
+                                snapshot_every=args.snapshot_every, snapshots=snap_store,
+                                data_ring=args.data_ring, ring_windows=args.ring_windows,
+                                **trial_kw)
     else:
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 **trial_kw)
+    # the stored CLI is what --resume rebuilds the trial from
     exp_cfg["cli"] = {k: getattr(args, k) for k in (
         "arch", "steps", "batch", "seq", "seed", "vectorize", "chunk_steps",
         "per_trial_init", "shared_stream", "lane_refill", "inflight_stop",
-        "pbt_streaming", "pbt_async", "device_rules", "fused_rmsnorm",
-        "fused_attention", "fused_ssm", "device", "max_flight_restarts")}
+        "snapshot_every", "snapshot_dir", "pbt_streaming", "pbt_async", "device_rules",
+        "data_ring", "ring_windows", "fused_rmsnorm", "fused_attention", "fused_ssm",
+        "device", "max_flight_restarts")}
     t0 = time.time()
-    exp = Experiment(exp_cfg, trial)
+    if resume_db is not None:
+        exp = Experiment.resume(resume_db, trial, exp_id=resume_exp_id)
+    else:
+        exp = Experiment(exp_cfg, trial)
     result_times: list = []
     exp.add_result_callback(lambda job: result_times.append(time.time()))
     if args.inflight_stop:
@@ -1294,6 +1546,7 @@ def main(argv=None) -> int:
         "engine": ("serial" if args.vectorize == 0 else "vmapped")
                   + ("+refill" if args.lane_refill else "")
                   + ("+chunked" if args.chunk_steps > 1 else "")
+                  + ("+ring" if args.data_ring else "")
                   + ("+devrules" if args.device_rules else ""),
         "vectorize": args.vectorize,
         "device": str(trial.device),
@@ -1310,6 +1563,13 @@ def main(argv=None) -> int:
         # the port's own: lane-steps that applied an update over lane-steps computed
         share = trial.active_lane_share
         out["active_lane_share"] = None if share is None else round(share, 4)
+    if args.data_ring:
+        out["ring_windows"] = args.ring_windows
+        out["ring_fills"] = trial.n_ring_fills
+        out["ring_invalidations"] = trial.n_ring_invalidations
+        out["ring_fill_wait_s"] = round(trial.ring_fill_wait_s, 4)
+        out["ring_fill_busy_s"] = round(trial.ring_fill_busy_s, 4)
+        out["overlap_frac"] = round(trial.ring_overlap_frac, 4)
     if args.fused_rmsnorm:
         out["fused_rmsnorm"] = True
     if args.fused_attention:
@@ -1332,6 +1592,11 @@ def main(argv=None) -> int:
         out["flight_deaths"] = exp.rm.n_flight_deaths
         out["flight_restarts"] = exp.rm.n_flight_restarts
         out["quarantined"] = exp.rm.n_quarantined
+    if args.snapshot_every or args.resume is not None:
+        out["snapshots"] = trial.n_snapshots
+        out["resumed"] = args.resume is not None
+        out["resumed_lanes"] = trial.n_lane_restores
+        out["resumed_from_steps"] = list(trial.resumed_from_steps)
     if args.pbt_streaming:
         hook = exp.proposer.lifecycle_hook()
         out["pbt_clones"] = trial.n_clones

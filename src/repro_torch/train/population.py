@@ -35,11 +35,18 @@ is one captured ``torch.cuda.CUDAGraph`` replayed per chunk (see
 **Lane ops and device-side rules** (the streaming engines).  The lane ops
 ``make_lane_init`` / ``make_lane_clone`` / ``make_lane_splice`` re-initialise
 or copy lanes of a population state in place, so a flight's captured state
-stays the one its graphs replay.  ``make_population_rule_scan_step`` is the
+stays the one its graphs replay; ``make_lane_snapshot`` copies one lane to
+the host and ``make_lane_restore`` writes such a snapshot back into any lane
+(crash-safe streaming).  ``make_population_rule_scan_step`` is the
 chunk with a decision rule carried through it (``cohort_rule_update``,
 ``staggered_rule_update`` or ``pbt_rule_update``): each step rebuilds the
 lanes' budgets from the carried rule state and applies the rule to the
 step's losses, with no host sync, so a rung cut lands inside the chunk.
+
+**Ring-fed chunks** (``--data-ring``).  ``make_population_ring_scan_step``
+is the chunk fed from a prefetch ring (``repro_torch.data.ring``) instead of
+in-chunk synthesis; on the card its graphs read the geometry's ring tensor
+(``ring_buffer``), allocated once beside the captured state.
 """
 from __future__ import annotations
 
@@ -121,11 +128,14 @@ def init_population_state_from_keys(gens, tc: TrainConfig, device,
 # donor lane's weights and optimizer state.  Each op writes into the state's
 # own tensors and returns the same dict, so a CUDA graph that captured the
 # state replays onto the new lanes.  Beside the state, init and splice
-# allocate one lane's parameters at a time, and clone one leaf's donor rows.
+# allocate one lane's parameters at a time and clone one leaf's donor rows;
+# snapshot and restore copy between lane views and the host, nothing more.
 #
 # * ``init``   (``make_lane_init``)   — re-initialise the masked lanes;
 # * ``clone``  (``make_lane_clone``)  — copy donor lanes into the masked lanes;
-# * ``splice`` (``make_lane_splice``) — re-initialise one lane.
+# * ``splice`` (``make_lane_splice``) — re-initialise one lane;
+# * ``snapshot`` (``make_lane_snapshot``) — copy one lane to the host (a read);
+# * ``restore`` (``make_lane_restore``) — write a snapshot into one lane.
 
 
 def _lanes_of(mask) -> list:
@@ -207,23 +217,194 @@ def make_lane_splice(tc: TrainConfig) -> Callable:
     return splice
 
 
+def _lane_tree(pstate: PopState) -> PopState:
+    """The snapshot tree's structure over a population state's leaves."""
+    return {"inner": pstate["inner"], "diverged": pstate["diverged"],
+            "last_loss": pstate["last_loss"]}
+
+
+class _LaneSlots:
+    """Host copies of one lane of a population geometry, reused across
+    harvests: at most ``count`` of them (K + 1: every live lane's snapshot
+    held in a store, and one more to harvest into before the store lets the
+    superseded one go).  Each slot is one flat host buffer, page-locked from
+    a card with ``cudaHostRegister`` (its exact size, where the caching host
+    allocator would round a block up to a power of two and keep it for the
+    process); its leaves are views into it.  ``clear_population_cache``
+    unregisters the buffers."""
+
+    _ALIGN = 64
+
+    def __init__(self, pstate: PopState, count: int):
+        self.count = int(count)
+        self.pin = pstate["diverged"].is_cuda
+        leaves = tree_leaves(pstate)
+        self.slot_bytes = sum(-(-t[0].numel() * t.element_size() // self._ALIGN) * self._ALIGN
+                              for t in leaves)
+        self.free: list = []
+        self.held: Dict[int, Tuple[PopState, torch.Tensor]] = {}   # id(tree) -> slot
+        self.buffers: list = []
+        self.pinned_bytes = 0
+        self.lock = threading.Lock()
+
+    def _make(self, pstate: PopState) -> Tuple[PopState, torch.Tensor]:
+        flat = torch.empty(self.slot_bytes, dtype=torch.uint8)
+        if self.pin:
+            err = torch.cuda.cudart().cudaHostRegister(flat.data_ptr(), self.slot_bytes, 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of a {self.slot_bytes}-byte lane "
+                                   f"snapshot slot failed (error {int(err)})")
+            self.pinned_bytes += self.slot_bytes
+        offset = [0]
+
+        def view(leaf):
+            n = leaf[0].numel() * leaf.element_size()
+            out = flat[offset[0]: offset[0] + n].view(leaf.dtype).view(leaf.shape[1:])
+            offset[0] += -(-n // self._ALIGN) * self._ALIGN
+            return out
+
+        self.buffers.append(flat)
+        return tree_map(view, _lane_tree(pstate)), flat
+
+    def take(self, pstate: PopState) -> Optional[PopState]:
+        """A free slot's tree, a new slot's while fewer than ``count``
+        exist, else None (every slot is held)."""
+        with self.lock:
+            if self.free:
+                slot = self.free.pop()
+            elif len(self.buffers) < self.count:
+                slot = self._make(pstate)
+            else:
+                return None
+            self.held[id(slot[0])] = slot
+            return slot[0]
+
+    def release(self, snap: PopState) -> bool:
+        with self.lock:
+            slot = self.held.pop(id(snap), None)
+            if slot is not None:
+                self.free.append(slot)
+            return slot is not None
+
+    def stats(self) -> Dict[str, int]:
+        with self.lock:
+            return {"slots": len(self.buffers), "max_slots": self.count,
+                    "held": len(self.held), "slot_bytes": self.slot_bytes,
+                    "pinned_bytes": self.pinned_bytes}
+
+    def unregister(self) -> None:
+        with self.lock:
+            if self.pin:
+                for flat in self.buffers:
+                    torch.cuda.cudart().cudaHostUnregister(flat.data_ptr())
+            self.pinned_bytes = 0
+            self.pin = False
+
+
+_SLOTS: Dict[Tuple, _LaneSlots] = {}
+
+
+def _lane_slots(pstate: PopState) -> _LaneSlots:
+    """The snapshot slots of this state's geometry: its device, K and the
+    shapes and dtypes of its leaves."""
+    leaves = tree_leaves(pstate)
+    key = (_device_key(leaves[0].device),) + tuple((tuple(t.shape), str(t.dtype))
+                                                   for t in leaves)
+    with _POP_CACHE_LOCK:
+        slots = _SLOTS.get(key)
+        if slots is None:
+            slots = _SLOTS[key] = _LaneSlots(pstate, pstate["diverged"].shape[0] + 1)
+    return slots
+
+
+def make_lane_snapshot(tc: TrainConfig) -> Callable:
+    """``(pstate, lane) -> snap`` harvesting one lane's whole state to the host.
+
+    The snapshot is the lane's ``inner`` leaves (parameters, AdamW moments,
+    step counter), its divergence latch and its ``last_loss``, as CPU tensors
+    without the lane axis, the JAX package's snapshot tree.  Each leaf's lane
+    view is copied straight from the device into its host tensor, so nothing
+    is gathered or staged on the device, and the state is only read: the
+    flight trains on after a harvest.  The host tensors are a slot of the
+    geometry's K + 1 (page-locked from a card), or fresh pageable ones while
+    every slot is held; ``release_lane_snapshot`` hands a superseded
+    snapshot's slot back.  On an H100 a lane crossed at 2.2-2.5 GB/s into
+    pageable memory and at the link's ~55 GB/s into a page-locked slot
+    (``PERF.md``)."""
+
+    def snapshot(pstate: PopState, lane) -> PopState:
+        lane = int(lane)
+        out = _lane_slots(pstate).take(pstate)
+        if out is None:
+            return tree_map(lambda leaf: leaf[lane].to("cpu", copy=True), _lane_tree(pstate))
+        tree_map(lambda dst, leaf: dst.copy_(leaf[lane]), out, _lane_tree(pstate))
+        return out
+
+    return snapshot
+
+
+def release_lane_snapshot(snap: Optional[PopState]) -> None:
+    """Hand a snapshot's host slot back for the next harvest, once nothing
+    reads it any more (a store replaced or dropped it).  A snapshot that is
+    no slot (fresh host tensors, or read from disk) is left to the garbage
+    collector."""
+    if snap is None:
+        return
+    with _POP_CACHE_LOCK:
+        pools = list(_SLOTS.values())
+    for slots in pools:
+        if slots.release(snap):
+            return
+
+
+def lane_snapshot_slot_stats() -> list:
+    """Per geometry with snapshot slots: the slots made and their bound
+    (K + 1), the slots a store holds, a slot's bytes, the page-locked bytes."""
+    with _POP_CACHE_LOCK:
+        pools = list(_SLOTS.values())
+    return [slots.stats() for slots in pools]
+
+
+def make_lane_restore(tc: TrainConfig) -> Callable:
+    """``(pstate, lane, snap) -> pstate`` writing a harvested snapshot
+    (``make_lane_snapshot``) into lane ``lane``, in place.
+
+    Every leaf of the lane takes the snapshot's, its optimizer step counter,
+    divergence latch and ``last_loss`` included, so the restored lane is the
+    harvested one bit for bit; a snapshot of lane i of a dead flight may land
+    in any lane j of a new one.  Each leaf is copied from the host straight
+    into its lane view (a leaf of another dtype is cast, as JAX's ``astype``),
+    so a captured chunk graph stays valid and nothing is staged on the
+    device."""
+
+    def restore(pstate: PopState, lane, snap) -> PopState:
+        lane = int(lane)
+        tree_map(lambda dst, src: dst[lane].copy_(src), pstate["inner"], snap["inner"])
+        pstate["diverged"][lane].copy_(torch.as_tensor(snap["diverged"]))
+        pstate["last_loss"][lane].copy_(torch.as_tensor(snap["last_loss"]))
+        return pstate
+
+    return restore
+
+
 _LANE_OPS: Dict[str, Callable] = {
     "init": make_lane_init,
     "clone": make_lane_clone,
     "splice": make_lane_splice,
+    "snapshot": make_lane_snapshot,
+    "restore": make_lane_restore,
 }
 _LATER_LANE_OPS = {
-    "snapshot": "ROADMAP.md section 1, item 9 (crash safety)",
-    "restore": "ROADMAP.md section 1, item 9 (crash safety)",
     "regrid": "ROADMAP.md section 1, item 12 (multi-device engines)",
 }
 
 
 def get_lane_op(tc: TrainConfig, population: int, kind: str) -> Callable:
-    """The lane op ``kind`` (``init`` / ``clone`` / ``splice``) for a
-    population of ``population`` lanes.  The ops are eager in-place writes,
-    so there is nothing to compile or cache; snapshot, restore and regrid
-    come with later items of the port and raise."""
+    """The lane op ``kind`` (``init`` / ``clone`` / ``splice`` / ``snapshot`` /
+    ``restore``) for a population of ``population`` lanes.  The ops are eager
+    in-place writes (or, for a snapshot, reads), so there is nothing to
+    compile or cache; regrid comes with a later item of the port and
+    raises."""
     if kind in _LATER_LANE_OPS:
         raise NotImplementedError(
             f"lane op {kind!r} is not ported yet; it comes with {_LATER_LANE_OPS[kind]}")
@@ -301,6 +482,39 @@ def _synth(data, per_trial_batch: bool, stream_lo, stream_hi, steps0, t: int):
 
 def _stack(per_step) -> Dict[str, torch.Tensor]:
     return {n: torch.stack([m[n] for m in per_step]) for n in per_step[0]}
+
+
+def make_population_ring_scan_step(tc: TrainConfig, data, chunk: int,
+                                   capacity: int) -> Callable:
+    """``(pstate, hp, ring, slot0) -> (pstate, metrics)``: the chunk fed from
+    a prefetch ring (``repro_torch.data.ring.PrefetchRing``) instead of
+    in-chunk synthesis.
+
+    ``ring`` is the ring's ``(capacity, K, batch, seq_len+1)`` int32 token
+    tensor, one slab a global step, filled from the host ahead of the chunk;
+    step ``t`` reads slot ``(slot0 + t) % capacity`` (``slot0``: an int, or a
+    0-d integer tensor on the ring's device, the dispatch step's slot) and
+    splits it into the batch on the device.  The train step, budget and
+    divergence masking included, is the in-chunk synthesis path's, so a ring
+    filled from the synthetic stream's host adapter reproduces that path bit
+    for bit.  The ring is only read."""
+    from ..data.pipeline import tokens_to_batch_device
+
+    step = make_population_train_step(tc, per_trial_batch=True)
+    cap = int(capacity)
+
+    def scan_chunk(pstate: PopState, hp: HParams, ring, slot0):
+        per_step = []
+        for t in range(int(chunk)):
+            slot = (slot0 + t) % cap
+            slab = ring[slot] if isinstance(slot, int) else ring.index_select(
+                0, slot.reshape(1))[0]
+            pstate, metrics = step(pstate, tokens_to_batch_device(data, slab), hp)
+            per_step.append(metrics)
+            del slab
+        return pstate, _stack(per_step)
+
+    return scan_chunk
 
 
 # -- device-side decision rules ---------------------------------------------------
@@ -562,23 +776,32 @@ class _FlightGraphs:
 
     def __init__(self, tc: TrainConfig, data, per_trial_batch: bool, device):
         self.device = device
+        self.per_trial_batch = bool(per_trial_batch)
         self.warm_up_step = make_population_scan_step(tc, data, 1, per_trial_batch)
         self.state: Optional[PopState] = None
         self.inputs: Optional[Tuple] = None     # (hp, steps0, stream_lo, stream_hi)
         self.rule_inputs: Dict[Tuple, Dict[str, torch.Tensor]] = {}   # (mode, shapes)
+        self.rings: Dict[Tuple, torch.Tensor] = {}   # ring shape -> the ring tensor
+        self.ring_slot: Optional[torch.Tensor] = None   # a ring chunk's first slot
         self.graphs: Dict[Tuple, _Captured] = {}
         self.pool = None
         self.stream = None
         # held by a flight for its whole run, and by every call: reentrant
         self.lease = threading.RLock()
 
-    def bind(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi) -> None:
+    def bind(self, pstate: PopState, hp: HParams, steps0=None, stream_lo=None,
+             stream_hi=None) -> None:
         """Make the static inputs hold this call's: the first call's state
-        becomes the captured state, and later calls must pass that state."""
+        becomes the captured state, and later calls must pass that state.  A
+        ring chunk passes no cursor or stream words: their static copies then
+        start at zeros (the warm-up step reads them) and keep their values."""
         if self.state is None:
+            k = pstate["diverged"].shape[0]
+            zeros = lambda: torch.zeros((k,) if self.per_trial_batch else (),  # noqa: E731
+                                        dtype=torch.int64, device=self.device)
             self.state = pstate
-            self.inputs = (HParams(**{f: getattr(hp, f).clone() for f in FIELDS}),
-                           steps0.clone(), stream_lo.clone(), stream_hi.clone())
+            self.inputs = (HParams(**{f: getattr(hp, f).clone() for f in FIELDS}),) + tuple(
+                zeros() if x is None else x.clone() for x in (steps0, stream_lo, stream_hi))
             return
         if pstate is not self.state:
             raise ValueError("this geometry's chunk graphs captured another population "
@@ -588,7 +811,8 @@ class _FlightGraphs:
         for f in FIELDS:
             _copy_into(getattr(hp_s, f), getattr(hp, f))
         for dst, x in zip(rest_s, (steps0, stream_lo, stream_hi)):
-            _copy_into(dst, x)
+            if x is not None:
+                _copy_into(dst, x)
 
     def bind_rules(self, mode: str, rules) -> Dict[str, torch.Tensor]:
         """The static copy of a rule state of this mode and these shapes,
@@ -601,6 +825,18 @@ class _FlightGraphs:
             for n, v in rules.items():
                 _copy_into(static[n], v)
         return static
+
+    def ring(self, shape) -> torch.Tensor:
+        """The geometry's ring tensor of this shape, allocated once beside
+        the captured state: a ring chunk's graph reads it at a fixed
+        address, so every ring-fed flight of the geometry fills this one."""
+        shape = tuple(int(n) for n in shape)
+        with self.lease:
+            buf = self.rings.get(shape)
+            if buf is None:
+                buf = self.rings[shape] = torch.zeros(shape, dtype=torch.int32,
+                                                      device=self.device)
+        return buf
 
     def warm_up(self) -> None:
         """One population step on the capture stream with every lane frozen
@@ -627,14 +863,18 @@ class _FlightGraphs:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
 
-    def capture(self, key: Tuple, fn: Callable, *extra) -> _Captured:
-        """Capture ``fn(state, *inputs, *extra)`` as the graph ``key``."""
+    def ensure_stream(self) -> None:
+        """The capture stream and the graph pool, made (with the warm-up
+        step) before the geometry's first capture."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
             self.warm_up()
-        if key[0] == "rulescan":
-            self.warm_up_rule(key[1], extra[0])
+
+    def capture(self, key: Tuple, call: Callable[[], Any]) -> _Captured:
+        """Capture ``call()`` (a chunk program applied to the captured state
+        and static inputs) as the graph ``key``."""
+        self.ensure_stream()
         torch.cuda.synchronize(self.device)
         gc.collect()
         torch.cuda.empty_cache()   # the eager blocks go back before the pool grows
@@ -642,8 +882,12 @@ class _FlightGraphs:
         leaves = tree_leaves(self.state)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            outputs = fn(self.state, *self.inputs, *extra)
+        # thread_local: a prefetch ring's fill thread keeps copying on its own
+        # stream while this thread captures; only this thread's calls are
+        # held to the capture's rules
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            outputs = call()
         torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         if any(a is not b for a, b in zip(leaves, tree_leaves(self.state))):
@@ -658,7 +902,8 @@ class _FlightGraphs:
         with self.lease:
             self.bind(pstate, hp, steps0, stream_lo, stream_hi)
             key = _scan_key(chunk)
-            got = self.graphs.get(key) or self.capture(key, fn)
+            got = self.graphs.get(key) or self.capture(
+                key, lambda: fn(self.state, *self.inputs))
             got.graph.replay()
             return self.state, got.outputs[1]
 
@@ -671,10 +916,31 @@ class _FlightGraphs:
             self.bind(pstate, hp, steps0, stream_lo, stream_hi)
             static = self.bind_rules(mode, rules)
             key = ("rulescan", mode, int(chunk), _rule_shapes(static))
-            got = self.graphs.get(key) or self.capture(key, fn, static)
+            got = self.graphs.get(key)
+            if got is None:
+                self.ensure_stream()
+                self.warm_up_rule(mode, static)
+                got = self.capture(key, lambda: fn(self.state, *self.inputs, static))
             got.graph.replay()
             (_, rules_out), metrics = got.outputs
             return (self.state, rules_out), metrics
+
+    def run_ring(self, fn: Callable, chunk: int, pstate, hp, ring, slot0):
+        """A ring chunk: as ``run``, reading the geometry's ring tensor (the
+        one ``ring(shape)`` hands out) from slot ``slot0``."""
+        with self.lease:
+            if self.rings.get(tuple(ring.shape)) is not ring:
+                raise ValueError("a ring chunk's graph reads the geometry's ring tensor: "
+                                 "fill the one population.ring_buffer() hands out")
+            self.bind(pstate, hp)
+            if self.ring_slot is None:
+                self.ring_slot = torch.zeros((), dtype=torch.int64, device=self.device)
+            self.ring_slot.fill_(int(slot0))
+            key = ("ringscan", "", int(chunk), (("ring", tuple(ring.shape)),))
+            got = self.graphs.get(key) or self.capture(
+                key, lambda: fn(self.state, self.inputs[0], ring, self.ring_slot))
+            got.graph.replay()
+            return self.state, got.outputs[1]
 
 
 def _device_key(device) -> str:
@@ -753,6 +1019,26 @@ class _RuleChunkProgram(_ChunkProgram):
         raise ValueError(f"rule chunk program: no path for device {dev}")
 
 
+class _RingChunkProgram(_ChunkProgram):
+    """A chunk program fed from a prefetch ring of ``capacity`` slots
+    (``make_population_ring_scan_step``); called as ``(pstate, hp, ring,
+    slot0)``.  On the card ``ring`` must be the geometry's ring tensor
+    (``ring_buffer``), the one its graphs read."""
+
+    def __init__(self, tc: TrainConfig, data, population: int, chunk: int, capacity: int):
+        super().__init__(tc, data, population, chunk, True)
+        self.fn = make_population_ring_scan_step(tc, data, chunk, capacity)
+
+    def __call__(self, pstate: PopState, hp: HParams, ring, slot0):
+        dev = pstate["diverged"].device
+        if dev.type == "cpu":
+            return self.fn(pstate, hp, ring, int(slot0))
+        if dev.type == "cuda":
+            return _flight_graphs(*self._geometry, dev).run_ring(
+                self.fn, self.chunk, pstate, hp, ring, slot0)
+        raise ValueError(f"ring chunk program: no path for device {dev}")
+
+
 # -- program caches -------------------------------------------------------------
 #
 # One chunk program per (static config, population size, batch mode, "scan",
@@ -799,6 +1085,32 @@ def get_compiled_population_rule_scan_step(tc: TrainConfig, population: int, dat
     return fn
 
 
+def get_compiled_population_ring_scan_step(tc: TrainConfig, population: int, data,
+                                           chunk: int, capacity: int) -> _RingChunkProgram:
+    """Memoized ring chunk program (see ``make_population_ring_scan_step``
+    for its call), keyed like the chunk programs plus the ring's capacity
+    (the slot modulus is part of the program).  On the card its graphs join
+    the geometry's chunk graphs: the same captured state and pool, one graph
+    per (chunk, ring shape)."""
+    g = _geometry(tc, population, True, data)
+    key = g[:3] + ("ringscan", int(chunk), int(capacity), g[-1])
+    with _POP_CACHE_LOCK:
+        fn = _POP_CACHE.get(key)
+        if fn is None:
+            fn = _POP_CACHE[key] = _RingChunkProgram(tc, data, population, chunk, capacity)
+    return fn
+
+
+def ring_buffer(tc: TrainConfig, population: int, data, capacity: int,
+                device) -> torch.Tensor:
+    """The ``(capacity, K, batch, seq_len+1)`` int32 ring tensor of this
+    geometry on the card, allocated once beside the captured state: a ring
+    chunk's graph reads it at a fixed address, so a ring-fed flight fills
+    this tensor (``PrefetchRing(..., buffer=)``) while it holds the lease."""
+    shape = (int(capacity), int(population), int(data.global_batch), int(data.seq_len) + 1)
+    return _flight_graphs(tc, population, True, data, device).ring(shape)
+
+
 @contextlib.contextmanager
 def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, device):
     """Own this geometry's captured state on ``device`` for one flight.
@@ -815,9 +1127,10 @@ def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, 
 
 
 def graph_stats() -> list:
-    """Per captured chunk graph: its kind (``scan`` or ``rulescan``), rule
-    mode, chunk size and rule shapes, its capture seconds and the bytes its
-    capture added to the geometry's memory pool."""
+    """Per captured chunk graph: its kind (``scan``, ``rulescan`` or
+    ``ringscan``), rule mode, chunk size and rule (or ring) shapes, its
+    capture seconds and the bytes its capture added to the geometry's memory
+    pool."""
     with _POP_CACHE_LOCK:
         groups = list(_GRAPHS.values())
     return [{"kind": kind, "mode": mode or None, "chunk": c,
@@ -828,9 +1141,15 @@ def graph_stats() -> list:
 
 
 def clear_population_cache() -> None:
+    """Drop the chunk programs, their graphs and captured states, and the
+    lane snapshot slots (their host buffers unregistered)."""
     with _POP_CACHE_LOCK:
         _POP_CACHE.clear()
         _GRAPHS.clear()
+        pools = list(_SLOTS.values())
+        _SLOTS.clear()
+    for slots in pools:
+        slots.unregister()
 
 
 def pad_population(k: int, mesh: Optional[Any] = None) -> int:

@@ -123,11 +123,11 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--chunk-steps", "4", "--data-ring"], "item 10"),
+    (["--chunk-steps", "4", "--data-ring", "--shared-stream"], "drop --shared-stream"),
     (["--lane-refill", "--shared-stream"], "per-trial data streams"),  # as the JAX CLI
     (["--pbt-streaming"], "needs --proposer pbt"),                     # as the JAX CLI
-    (["--snapshot-every", "2"], "item 9"),
-    (["--data-ring"], "item 10"),
+    (["--snapshot-every", "2"], "requires --lane-refill"),             # as the JAX CLI
+    (["--data-ring"], "--chunk-steps T > 1"),                          # as the JAX CLI
     (["--fused-ssm"], "no SSM mixer"),   # ported: refused only on an arch without one
     (["--shard-population"], "item 12"),
     (["--model-parallel", "2"], "item 12"),
@@ -136,7 +136,8 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
 def test_later_slice_flags_are_refused_with_their_roadmap_item(capsys, argv, item):
     """Flags of later slices exit naming their ROADMAP.md item; ``--fused-ssm``
     on the default arch (starcoder2-3b) exits naming the missing SSM mixer,
-    and the streaming flags' misuses exit with the JAX CLI's words."""
+    and misuses of the streaming, crash-safety and ring flags exit with the
+    JAX CLI's words."""
     with pytest.raises(SystemExit):
         hpo.main(BASE + ["--vectorize", "2", "--device", "cpu"] + argv)
     err = capsys.readouterr().err
