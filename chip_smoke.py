@@ -11,7 +11,7 @@ Phases, each printing one JSON line:
    instance of the tensor-core flash kernel and of the selective scan;
 3. kernels — each kernel against its plain PyTorch version on the card (the
    token synthesis kernel bit for bit, and against the numpy host path), at
-   the main paths' shapes in bf16 and fp32 and on small cases (window /
+   the main paths' shapes (the MoE path's too) in bf16 and fp32 and on small cases (window /
    softcap / ragged attention at head dims 16 to 256, fully masked rows;
    for the selective scan the main shape with the chunk states, falcon-mamba's
    initial A and dt over 1,024 steps, N of 4, 12, 16 and 64, ragged L, Dm and
@@ -21,7 +21,7 @@ Phases, each printing one JSON line:
    fed the tensor-core kernel's (out, lse) against the same backward fed the
    plain forward's, at the main shape; and the scan's chunked backward
    against autograd through its plain version;
-4. main_path — the HPO population trainer, twice: the port's Experiment
+4. main_path — the HPO population trainer: the port's Experiment
    with the random proposer and the vectorized resource manager, training
    K=4 trials as one lane-batched program, first of starcoder2-3b, then of
    falcon-mamba-7b, each at its published widths with depth cut to 4
@@ -62,16 +62,30 @@ Phases, each printing one JSON line:
    over one replayed rule chunk); lane ops timed against their byte
    bounds with the memory each allocates; active lane share, dispatches
    per step, seconds per result, captures and peak reserved memory;
-5. card_vs_cpu — the same population step on the starcoder2 and the
-   falcon-mamba smoke configs in fp32, once on the card (kernels) and once
-   on the CPU (plain versions): losses and parameters agree within 1e-4, and
-   the card's fp32 attention went through the CUDA-core flash kernel only;
+   then the MoE path, qwen3-moe-30b-a3b at its published widths (1 of 48
+   layers, K=2, batch 2, seq 1024), through main_path and chunked_path
+   (not the streaming, crash or ring phases: those engines do not depend on
+   the model), and between them moe — one population step with its MoE
+   layer's input recorded: the step under the profiler, the layer's router
+   with top-k, sort and dispatch, expert products and combine (each forward
+   and backward) under the profiler, the expert products against their
+   bound at the card's dense bf16 peak, the share of assignments dropped at
+   capacity, peak memory; and a gate: the layer's forward and backward run
+   twice give raw-bit-equal y, aux and gradients, and the same input in
+   lane 0 and lane 1 the same bits in each lane;
+5. card_vs_cpu — the same population step on the starcoder2, falcon-mamba,
+   qwen3-moe and jamba smoke configs in fp32, once on the card (kernels) and
+   once on the CPU (plain versions): losses and parameters agree within
+   1e-4, and the card's fp32 attention went through the CUDA-core flash
+   kernel only; for the MoE configs, the count of top-k assignments the
+   card routed differently (reported, not a gate beyond the 1e-4);
 6. timing — each kernel, its plain version and the PyTorch library call
    that computes the same function (none for the selective scan), timed
    with CUDA events at the main paths' shapes (the scan as the main path
    calls it, with the chunk states), beside the least time the card could
    take: bytes or operations, and for the scan also its exponentials on the
-   special-function units (``sfu_ms``), the bound that binds it.
+   special-function units (``sfu_ms``), the bound that binds it; RMSNorm
+   and flash also at the MoE path's shapes (``moe_shape``).
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -107,9 +121,17 @@ FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 # starcoder2-3b (30 layers) and falcon-mamba-7b (64 layers)
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
 MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
+# the MoE path: qwen3-moe-30b-a3b at its published widths, 1 of 48 layers and
+# two lanes (one lane's parameters and moments are 12.45 GB; the AdamW
+# temporaries of the stacked experts about 16 GB)
+MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=1, population=2, batch=2, seq=1024, steps=4)
+# the fp32 smoke configs held card against CPU; jamba runs every kernel
+CARD_VS_CPU = ("starcoder2-3b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b")
 RMS_SHAPE = (4, 4096, 3072)                        # (K, B*S, d), gain (K, d)
 RMS_MAMBA_SHAPE = (4, 2048, 4096)
+RMS_MOE_SHAPE = (2, 2048, 2048)
 FLASH_Q, FLASH_KV = (16, 1024, 24, 128), (16, 1024, 2, 128)   # (K*B, S, heads, D)
+FLASH_MOE_Q, FLASH_MOE_KV = (4, 1024, 32, 128), (4, 1024, 4, 128)   # a group of 8
 SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (K, d_inner, N)
 SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
@@ -405,10 +427,13 @@ def check_kernels(torch, dev):
     runs = [
         ("rmsnorm", "main", "bfloat16", lambda: rms(RMS_SHAPE, torch.bfloat16)),
         ("rmsnorm", "mamba-main", "bfloat16", lambda: rms(RMS_MAMBA_SHAPE, torch.bfloat16)),
+        ("rmsnorm", "moe-main", "bfloat16", lambda: rms(RMS_MOE_SHAPE, torch.bfloat16)),
         ("rmsnorm", "main", "float32", lambda: rms(RMS_SHAPE, torch.float32)),
         ("rmsnorm", "d=100", "float32", lambda: rms((2, 33, 100), torch.float32)),
         ("flash_attention", "main", "bfloat16",
          lambda: flash(FLASH_Q, FLASH_KV, torch.bfloat16)),
+        ("flash_attention", "moe-main", "bfloat16",
+         lambda: flash(FLASH_MOE_Q, FLASH_MOE_KV, torch.bfloat16)),
         ("flash_attention", "main", "float32",
          lambda: flash(FLASH_Q, FLASH_KV, torch.float32)),
         ("flash_attention", "window", "float32",
@@ -483,6 +508,8 @@ def check_kernels(torch, dev):
         if dtype == "bfloat16" and (case == "main" and name != "ssm_scan"
                                     or case == "main-chunk-states-128"):
             errs[name] = err   # at the main path's call (the scan's keeps chunk states)
+        if dtype == "bfloat16" and case == "moe-main":
+            errs[name + "@moe"] = err
         del got, want, d
     cases.extend(synth_cases(torch, dev))
     errs["synth_tokens"] = max(c["max_abs_err"] for c in cases if c["kernel"] == "synth_tokens")
@@ -572,6 +599,9 @@ def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0)
                "ssm_conv": cfg.ssm_conv} if cfg.has_mamba else
               {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                "head_dim": cfg.head_dim, "d_ff": cfg.d_ff})
+    if cfg.has_moe:
+        widths.update(n_experts=cfg.n_experts, moe_top_k=cfg.moe_top_k,
+                      moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor)
     out = {
         "phase": "main_path", "arch": arch, "n_layers": cfg.n_layers,
         "published_n_layers": full.n_layers, "d_model": cfg.d_model, **widths,
@@ -956,6 +986,189 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     if problems:
         die(f"chunked path {arch}: " + "; ".join(problems))
     return launches, out
+
+
+# -------------------------------------------------------------- phase 4, MoE
+MOE_RECKONED_PEAK_GB = 46.0   # the cell's reckoning from the code: state, gradients,
+                              # AdamW's temporaries over the stacked experts, logits
+
+
+def raw_bits(torch, t):
+    """A tensor's raw bits as integers of its element size."""
+    t = t.detach()
+    return t.view(getattr(torch, INT_OF_SIZE[t.element_size()]))
+
+
+def moe_layer_bits(torch, params, x, cfg) -> list:
+    """One MoE layer's y, aux and the gradients of ``sum(y**2) + aux`` in x
+    and every leaf, as raw bits."""
+    from repro_torch.interop import tree_leaves, tree_unflatten
+    from repro_torch.models import moe as M
+
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    xx = x.detach().requires_grad_(True)
+    y, aux = M.moe_apply(tree_unflatten(params, leaves), xx, cfg)
+    grads = torch.autograd.grad((y.float() ** 2).sum() + aux.sum(), [xx] + leaves)
+    return [raw_bits(torch, t) for t in [y, aux] + list(grads)]
+
+
+def moe_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
+    """The ``moe`` line: one eager population step at the MoE cell, its MoE
+    layer's input recorded; the step under the profiler; the layer's four
+    parts (router with top-k; sort and dispatch; expert products; combine)
+    each forward and backward under the profiler on that input; the expert
+    products against their bound at the card's dense bf16 peak; the share
+    of assignments dropped; peak memory against the reckoning.  Then the
+    determinism gate: the layer's forward and backward run twice on the
+    same input give raw-bit-equal y, aux and gradients, and the same input
+    and parameters in lane 0 and lane 1 give the same bits in each lane."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.hpo import PopulationTrial
+    from repro_torch.models import moe as M
+    from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
+    from repro_torch.train.population import (init_population_state,
+                                              make_population_train_step)
+
+    trial = PopulationTrial(arch, 1, batch, seq, seed, population=population,
+                            model_overrides=published_widths(arch, n_layers), device=dev)
+    tc, _ = trial._setup()
+    cfg = tc.model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pstate = init_population_state(torch.Generator(device=dev).manual_seed(seed), tc,
+                                   population, dev)
+    hp = stack_hparams([hparams_from_dict(dict(learning_rate=1e-3, total_steps=10 ** 6), tc)]
+                       * population, dev)
+    step = make_population_train_step(tc, per_trial_batch=True)
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    bt = to_device(data.make_population_batch(0, list(range(population))), dev)
+    seen = []
+    plain_apply = M.moe_apply
+
+    def recording(p, x, c, **kw):
+        if not seen:
+            seen.append((tree_map(lambda t: t.detach(), p), x.detach().clone()))
+        return plain_apply(p, x, c, **kw)
+
+    M.moe_apply = recording
+    try:
+        step(pstate, bt, hp)
+    finally:
+        M.moe_apply = plain_apply
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_prof = profile_step(torch, lambda: step(pstate, bt, hp))
+    step_prof.pop("launches")
+    params, x = seen[0]
+    params = tree_map(lambda t: t.clone(), params)   # outlive the state
+    del pstate, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    K, B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    T = B * S
+    G = M.dispatch_groups(T, cfg, False)
+    Tg = T // G
+    C = M.capacity(cfg, Tg)
+    xt = x.reshape(K, G, Tg, d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        probs, top_p, top_e = M.route(params["router"], xt, k)
+        slot = M.dispatch_slots(top_e, E, C)
+        buf = M.dispatch(xt, slot, E, C)
+        out = M.experts(buf, params, cfg)
+    dropped = int((slot == E * C).sum())
+    g_top_p = torch.randn(top_p.shape, generator=gen, device=dev)
+    g_buf = torch.randn(buf.shape, generator=gen, device=dev).to(buf.dtype)
+    g_out = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+    g_y = torch.randn(xt.shape, generator=gen, device=dev).to(x.dtype)
+
+    def leaf(t):
+        return t.detach().requires_grad_(True)
+
+    def route_fb():
+        r, xx = leaf(params["router"]), leaf(xt)
+        pr, tp, te = M.route(r, xx, k)
+        loss = M.aux_loss(pr, te, E).sum() + (tp * g_top_p).sum()
+        return torch.autograd.grad(loss, (r, xx))
+
+    def dispatch_fb():
+        xx = leaf(xt)
+        s_ = M.dispatch_slots(top_e, E, C)
+        return torch.autograd.grad(M.dispatch(xx, s_, E, C), xx, g_buf)
+
+    def experts_fb():
+        bb, wi, wo = leaf(buf), leaf(params["wi"]), leaf(params["wo"])
+        return torch.autograd.grad(M.experts(bb, {"wi": wi, "wo": wo}, cfg), (bb, wi, wo), g_out)
+
+    def combine_fb():
+        oo, tp = leaf(out), leaf(top_p)
+        return torch.autograd.grad(M.combine(oo, slot, tp), (oo, tp), g_y)
+
+    parts = {}
+    for name, fn in (("router_topk", route_fb), ("sort_dispatch", dispatch_fb),
+                     ("expert_products", experts_fb), ("combine", combine_fb)):
+        # the trace of a call of a few ms has come back empty (one run in
+        # two): take up to three, and the CUDA events' time beside it
+        for attempt in range(1, 4):
+            prof = profile_step(torch, fn, top=4)
+            if prof.get("device_ms") is not None:
+                break
+        prof.pop("launches")
+        prof.pop("kernel_launches_seen")
+        parts[name] = dict(prof, traces=attempt, event_ms=event_ms(torch, fn, n=10))
+    n_in, ff = params["wi"].shape[-2:]
+    rows = K * E * G * C
+    flops = 3 * 2 * rows * d * (n_in * ff + ff)        # forward and its two backward products
+    bound = flops / PEAK_OPS["bfloat16"] * 1e3
+    expert_ms = parts["expert_products"]["device_ms"] or parts["expert_products"]["event_ms"]
+    del probs, top_p, top_e, buf, out, g_top_p, g_buf, g_out, g_y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the determinism gate: lane 0's parameters and input in both lanes
+    one = tree_map(lambda t: t[:1].expand((2,) + tuple(t.shape[1:])).contiguous(), params)
+    x2 = x[:1].expand((2,) + tuple(x.shape[1:])).contiguous()
+    del params, x, xt
+    first = moe_layer_bits(torch, one, x2, cfg)
+    again = moe_layer_bits(torch, one, x2, cfg)
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    lanes_equal = all(torch.equal(t[0], t[1]) for t in first)
+    n_leaves = len(first)
+    del first, again, one, x2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = {
+        "phase": "moe", "arch": arch, "n_layers": cfg.n_layers, "population": population,
+        "batch": batch, "seq": seq, "d_model": d, "n_experts": E, "moe_top_k": k,
+        "moe_d_ff": cfg.moe_d_ff, "groups": G, "capacity": C,
+        "capacity_factor": cfg.capacity_factor, "assignments": K * T * k,
+        "dropped": dropped, "dropped_share": dropped / (K * T * k),
+        "parts_device_ms": {n: p_.get("device_ms") for n, p_ in parts.items()},
+        "parts_event_ms": {n: p_["event_ms"] for n, p_ in parts.items()},
+        "parts": parts,
+        "expert_products": {"flops_fwd_bwd": flops, "bound_ms": bound,
+                            "peak_tflops_bf16": PEAK_OPS["bfloat16"] / 1e12,
+                            "share_of_bound": None if not expert_ms else bound / expert_ms},
+        "step_profile": step_prof,
+        "peak_memory_gib": peak / 2 ** 30, "peak_memory_gb": peak / 1e9,
+        "reckoned_peak_gb": MOE_RECKONED_PEAK_GB,
+        "determinism": {"rerun_bit_equal": rerun_equal, "lanes_bit_equal": lanes_equal,
+                        "tensors": n_leaves},
+    }
+    emit(out)
+    problems = []   # the parts' times are observations; the gate is the bits
+    if not rerun_equal:
+        problems.append("the MoE layer's forward and backward differ run to run")
+    if not lanes_equal:
+        problems.append("the same input gives different bits in lane 0 and lane 1")
+    if problems:
+        die(f"moe {arch}: " + "; ".join(problems))
+    return out
 
 
 # -------------------------------------------------------- phase 4, streaming
@@ -1436,6 +1649,16 @@ def card_memory(torch) -> dict:
                                      for g in segs[:8]]}
 
 
+def release_cublas_workspaces(torch) -> None:
+    """Free the cuBLAS workspaces earlier phases' capture streams left: each
+    such block keeps its whole segment reserved."""
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear_workspaces is not None:
+        clear_workspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def crash_flight(torch, dev, arch, n_layers, population, batch, seq, *, data_ring,
                  fault=None, snapshot_every=0, seed=0):
     """A chunked refill flight of ``CRASH_SPACE``'s grid through the
@@ -1665,14 +1888,9 @@ def crash_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
 
     P.clear_population_cache()
     memory = {"before": card_memory(torch)}
-    # earlier phases' capture streams each left a cuBLAS workspace, and one
-    # such block keeps its whole segment reserved: falcon-mamba's flights
-    # need that memory beside the captured state and its pool
-    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear_workspaces is not None:
-        clear_workspaces()
-    gc.collect()
-    torch.cuda.empty_cache()
+    # falcon-mamba's flights need that memory beside the captured state and
+    # its pool
+    release_cublas_workspaces(torch)
     memory["after_release"] = card_memory(torch)
     geo = dict(arch=arch, n_layers=n_layers, population=population, batch=batch, seq=seq)
     flights = {}
@@ -1907,13 +2125,29 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
             for i in range(population)]
     hps = [hparams_from_dict(c, tc) for c in cfgs]
     step = make_population_train_step(tc, per_trial_batch=True)
+    # an MoE layer's top-k experts, by device, to count the assignments
+    # that the card routes elsewhere than the CPU
+    from repro_torch.models import moe as M
+
+    routed = {"cpu": [], "cuda": []}
+    plain_route = M.route
+
+    def recording(router, xt, k):
+        got = plain_route(router, xt, k)
+        routed[xt.device.type].append(got[2].detach().cpu())
+        return got
+
+    M.route = recording
     before = counters()
     loss_err = 0.0
-    for t in range(steps):
-        b = data.make_population_batch(t, list(range(population)))
-        cpu, mc = step(cpu, to_device(b, "cpu"), stack_hparams(hps, "cpu"))
-        card, mg = step(card, to_device(b, dev), stack_hparams(hps, dev))
-        loss_err = max(loss_err, float((mg["loss"].cpu() - mc["loss"]).abs().max()))
+    try:
+        for t in range(steps):
+            b = data.make_population_batch(t, list(range(population)))
+            cpu, mc = step(cpu, to_device(b, "cpu"), stack_hparams(hps, "cpu"))
+            card, mg = step(card, to_device(b, dev), stack_hparams(hps, dev))
+            loss_err = max(loss_err, float((mg["loss"].cpu() - mc["loss"]).abs().max()))
+    finally:
+        M.route = plain_route
     ok = loss_err <= 1e-4
     param_err = 0.0
     for a, b in zip(tree_leaves(card["inner"]["params"]), tree_leaves(cpu["inner"]["params"])):
@@ -1924,7 +2158,11 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
     want = {name: n * steps for name, n in launches_per_step(tc.model).items()}
     emit({"phase": "card_vs_cpu", "config": tc.model.name, "dtype": tc.model.param_dtype,
           "population": population, "seq": seq, "steps": steps, "loss_max_abs_err": loss_err,
-          "param_max_abs_err": param_err, "tol": 1e-4, "card_launches": through})
+          "param_max_abs_err": param_err, "tol": 1e-4, "card_launches": through,
+          **({"moe_assignments": sum(t.numel() for t in routed["cpu"]),
+              "moe_assignments_routed_differently": sum(
+                  int((a != b).sum()) for a, b in zip(routed["cpu"], routed["cuda"]))}
+             if tc.model.has_moe else {})})
     if not ok:
         die(f"card and CPU disagree on {arch}: loss {loss_err}, params {param_err}")
     if through != want:
@@ -2016,36 +2254,55 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         return {"launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()}}
 
-    K, R, d = RMS_SHAPE
-    x = torch.randn(RMS_SHAPE, generator=gen, device=dev).to(dt)
-    g = (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(dt)
-    w = (1.0 + g.float()).to(dt)
-    nb = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
-    b_ms, b_by = bound_ms(nb, 4 * x.numel(), "float32")
+    def rms_at(shape):
+        K, R, d = shape
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        g = (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(dt)
+        w = (1.0 + g.float()).to(dt)
+        nb = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
+        b_ms, b_by = bound_ms(nb, 4 * x.numel(), "float32")
+        return {
+            "ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
+            "plain_ms": event_ms(torch, lambda: rn.rmsnorm_plain(x, g, EPS)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": event_ms(torch, lambda: [F.rms_norm(x[k], (d,), weight=w[k], eps=EPS)
+                                                   for k in range(K)]),
+            "shape": {"x": list(shape), "gamma": [K, d], "dtype": dts},
+        }
+
     rows.append({
         "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:19", **counts("rmsnorm"),
-        "max_abs_err": errs["rmsnorm"],
-        "ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
-        "plain_ms": event_ms(torch, lambda: rn.rmsnorm_plain(x, g, EPS)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": event_ms(torch, lambda: [F.rms_norm(x[k], (d,), weight=w[k], eps=EPS)
-                                               for k in range(K)]),
-        "shape": {"x": list(RMS_SHAPE), "gamma": [K, d], "dtype": dts},
+        "max_abs_err": errs["rmsnorm"], **rms_at(RMS_SHAPE),
+        # the MoE path's call (qwen3-moe-30b-a3b)
+        "moe_shape": dict(rms_at(RMS_MOE_SHAPE), max_abs_err=errs["rmsnorm@moe"]),
     })
-    del x, g, w
 
-    B, S, H, D = FLASH_Q
-    Hkv = FLASH_KV[2]
-    q = torch.randn(FLASH_Q, generator=gen, device=dev).to(dt)
-    k = torch.randn(FLASH_KV, generator=gen, device=dev).to(dt)
-    v = torch.randn(FLASH_KV, generator=gen, device=dev).to(dt)
-    kw = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
-    pairs = S * (S + 1) // 2                       # unmasked (q, k) pairs per head
-    n_ops = 2 * B * H * pairs * (D + D)
-    nb = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + B * H * S * 4
-    b_ms, b_by = bound_ms(nb, n_ops, dts)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=True, window=None, softcap=None, scale=FLASH_Q[-1] ** -0.5)
+
+    def flash_at(qs, kvs):
+        """The tensor-core kernel, its plain version and SDPA at q ``qs``, kv
+        ``kvs`` (causal, bf16), and the tensors, for the fp32 kernel's row."""
+        B, S, H, D = qs
+        q = torch.randn(qs, generator=gen, device=dev).to(dt)
+        k = torch.randn(kvs, generator=gen, device=dev).to(dt)
+        v = torch.randn(kvs, generator=gen, device=dev).to(dt)
+        pairs = S * (S + 1) // 2                       # unmasked (q, k) pairs per head
+        n_ops = 2 * B * H * pairs * (D + D)
+        nb = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + B * H * S * 4
+        b_ms, b_by = bound_ms(nb, n_ops, dts)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return {
+            "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw)),
+            "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), n=5,
+                                 warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "shape": {"q": list(qs), "kv": list(kvs), "causal": True, "dtype": dts},
+        }, (q, k, v, nb, n_ops)
+
+    main_shape, (q, k, v, nb, n_ops) = flash_at(FLASH_Q, FLASH_KV)
     by_kernel = {kern: sum(p[f"flash_attention_{kern}"] for p in by_path.values())
                  for kern in ("sm90", "fp32")}
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -2055,13 +2312,7 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",
         **counts("flash_attention_sm90"), "launches_by_kernel": by_kernel,
-        "max_abs_err": errs["flash_attention"],
-        "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw)),
-        "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), n=5, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "shape": {"q": list(FLASH_Q), "kv": list(FLASH_KV), "causal": True, "dtype": dts},
+        "max_abs_err": errs["flash_attention"], **main_shape,
         # the fp32 path's CUDA-core kernel (card-against-CPU phase), same shape in fp32
         "fp32_kernel": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2069,8 +2320,10 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
             "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q32, k32, v32, **kw), n=3, warmup=1),
             "bound_ms": b32_ms, "bound_by": b32_by},
     })
-    del q32, k32, v32
-    del q, k, v, qt, kt, vt
+    del q32, k32, v32, q, k, v
+    # the MoE path's call: 32 q heads over 4 kv heads
+    rows[-1]["moe_shape"] = dict(flash_at(FLASH_MOE_Q, FLASH_MOE_KV)[0],
+                                 max_abs_err=errs["flash_attention@moe"])
 
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_X
@@ -2176,17 +2429,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path, chunk_launches = {}, {}
-    for path in (MAIN, MAMBA):
+    for path in (MAIN, MAMBA, MOE):
+        release_cublas_workspaces(torch)
         by_path[path["arch"]], out = main_path(torch, dev, **path)
         gc.collect()
         torch.cuda.empty_cache()
         kw = {k: v for k, v in path.items() if k != "steps"}
+        if path is MOE:
+            moe_path(torch, dev, **kw)
+            gc.collect()
+            torch.cuda.empty_cache()
         launches, out = chunked_path(torch, dev, per_step_steady=out["steady_s_per_step"], **kw)
         by_path[path["arch"] + "+chunked"] = launches
         chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
             "synth_tokens"] * out["chunk"]
         gc.collect()
         torch.cuda.empty_cache()
+        if path is MOE:
+            # the streaming, crash and ring engines are arch-agnostic and run
+            # on the two paths above
+            continue
         by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2195,8 +2457,8 @@ def main() -> int:
             torch, dev, seen=out["replayed_chunk_launches_seen"], **kw)
         gc.collect()
         torch.cuda.empty_cache()
-    fp32_launches = sum(card_vs_cpu(torch, dev, path["arch"])["flash_attention_fp32"]
-                        for path in (MAIN, MAMBA))
+    fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
+                        for arch in CARD_VS_CPU)
     emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -99,6 +99,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def model_config(arch: str, overrides=None):
+    """``arch``'s smoke config with ``overrides`` (``ModelConfig`` fields)
+    applied: the model a trial trains."""
+    from ..configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
 class PopulationTrial:
     """Trial executor for one architecture.
 
@@ -220,20 +229,20 @@ class PopulationTrial:
         self._data = None
         self._serial_seq = 0  # fallback stream counter for anonymous configs
         self._setup_lock = threading.Lock()
+        # a model the port cannot build is refused here, in the caller's
+        # thread, not by every trial in the resource manager's workers
+        from ..models.transformer import check_supported
+
+        check_supported(model_config(arch, self.model_overrides))
 
     # locked because local resource managers call trials from worker threads
     def _setup(self):
         with self._setup_lock:
             if self._tc is None:
-                from ..configs import get_smoke_config
                 from ..configs.base import ParallelConfig, TrainConfig
                 from ..data.pipeline import SyntheticLM
-                from ..models.transformer import check_supported
 
-                cfg = get_smoke_config(self.arch)
-                if self.model_overrides:
-                    cfg = dataclasses.replace(cfg, **self.model_overrides)
-                check_supported(cfg)
+                cfg = model_config(self.arch, self.model_overrides)   # checked at init
                 self._data = SyntheticLM(cfg.vocab_size, self.seq, self.batch,
                                          seed=self.seed)
                 self._tc = TrainConfig(model=cfg, parallel=ParallelConfig(remat="none"),
@@ -1402,6 +1411,14 @@ def main(argv=None) -> int:
         if _later(args, name):
             p.error(f"{flag} is not ported to the PyTorch package yet; it comes "
                     f"with {item}")
+    from ..models.transformer import check_supported
+
+    try:
+        check_supported(model_config(args.arch))
+    except KeyError as e:
+        p.error(str(e.args[0]))
+    except NotImplementedError as e:   # a model of a later slice, with its item
+        p.error(f"--arch {args.arch}: {e}")
     if args.pbt_streaming:
         if args.proposer != "pbt":
             p.error(f"--pbt-streaming needs --proposer pbt, got {args.proposer!r}")

@@ -8,9 +8,11 @@ axis, the lane axis K, in front of it, so ``blocks`` leaves are
 projections are batched matmuls over K and the kernels take K as part of
 their batch dimension.
 
-Ported so far: mixers ``attn``, ``attn_local`` and ``mamba``; FFN ``dense``
-or ``none`` (a layer without FFN has no ``norm2`` and no second residual,
-as falcon-mamba's); ``post_norm``, softcaps and ``scale_embed``.
+Ported so far: mixers ``attn``, ``attn_local`` and ``mamba``; FFN ``dense``,
+``moe`` (``moe.py``, whose load-balancing loss ``forward`` sums over the
+layers, per lane) or ``none`` (a layer without FFN has no ``norm2`` and no
+second residual, as falcon-mamba's); ``post_norm``, softcaps and
+``scale_embed``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from ..interop import tree_map
 from . import attention as attn
 from . import mamba as mam
 from . import mlp as mlpm
+from . import moe as moem
 from .layers import (
     Params,
     apply_rmsnorm,
@@ -34,22 +37,21 @@ from .layers import (
 )
 
 _MIXER_INIT = {"attn": attn.gqa_init, "attn_local": attn.gqa_init, "mamba": mam.mamba_init}
-_FFNS = ("dense", "none")
-_LATER = ("the other model families (ROADMAP.md section 1, item 11: MLA, MoE "
-          "and the frontends)")
+# what a model may ask for that the port does not build yet, and the item
+# that brings it (every FFN of ``configs.base.FFNS`` is ported)
+_LATER_MIXER = "ROADMAP.md section 1, item 11.3 (MLA: multi-head latent attention)"
+_LATER_FRONTEND = "ROADMAP.md section 1, item 11.4 (the frontends)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    for mixer, ffn in cfg.prefix_pattern + cfg.pattern:
-        if mixer not in _MIXER_INIT:
+    for mixer, _ in cfg.prefix_pattern + cfg.pattern:
+        if mixer not in _MIXER_INIT:   # attn_mla, the one mixer still to come
             raise NotImplementedError(
-                f"{cfg.name}: mixer {mixer!r} is not ported yet; it comes with {_LATER}")
-        if ffn not in _FFNS:
-            raise NotImplementedError(
-                f"{cfg.name}: ffn {ffn!r} is not ported yet; it comes with {_LATER}")
+                f"{cfg.name}: mixer {mixer!r} is not ported yet; it comes with {_LATER_MIXER}")
     if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet; it comes with {_LATER}")
+            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet; it comes with "
+            f"{_LATER_FRONTEND}")
 
 
 # ------------------------------ init --------------------------------------------------
@@ -63,7 +65,8 @@ def _layer_init(gen, mixer: str, ffn: str, cfg: ModelConfig, device) -> Params:
         p["norm1_post"] = rmsnorm_init(cfg.d_model, pdt, device)
     if ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, pdt, device)
-        p["ffn"] = mlpm.mlp_init(gen, cfg, device)
+        p["ffn"] = (moem.moe_init(gen, cfg, device) if ffn == "moe"
+                    else mlpm.mlp_init(gen, cfg, device))
         if cfg.post_norm:
             p["norm2_post"] = rmsnorm_init(cfg.d_model, pdt, device)
     return p
@@ -94,7 +97,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 # ------------------------------ forward (train / prefill) ------------------------------
 def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, aux: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer; ``aux`` (K,) gains the layer's MoE loss."""
     h = apply_rmsnorm(x, lp["norm1"], cfg.norm_eps)
     if mixer == "mamba":
         h = mam.mamba_apply(lp["mixer"], h, cfg)
@@ -104,28 +109,36 @@ def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelCo
         h = apply_rmsnorm(h, lp["norm1_post"], cfg.norm_eps)
     x = x + h
     if ffn == "none":
-        return x
+        return x, aux
     h = apply_rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    h = mlpm.mlp_apply(lp["ffn"], h, cfg)
+    if ffn == "moe":
+        h, a = moem.moe_apply(lp["ffn"], h, cfg)
+        aux = aux + a
+    else:
+        h = mlpm.mlp_apply(lp["ffn"], h, cfg)
     if cfg.post_norm:
         h = apply_rmsnorm(h, lp["norm2_post"], cfg.norm_eps)
-    return x + h
+    return x + h, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (K, B, S) -> (logits fp32 (K, B, S, V), aux loss 0.0).
+    """tokens (K, B, S) -> (logits fp32 (K, B, S, V), aux (K,)): each lane's
+    MoE load-balancing loss summed over its layers (zeros without MoE).
 
     ``params`` is lane-batched: every leaf has the leading lane axis K."""
     check_supported(cfg)
     x = embed_tokens(params["embedding"], tokens, cfg)
     positions = torch.arange(x.shape[2], device=x.device)
+    aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     for i, (m, f) in enumerate(cfg.prefix_pattern):
-        x = _layer_apply(params["prefix"][i], x, m, f, cfg, positions)
+        x, aux = _layer_apply(params["prefix"][i], x, m, f, cfg, positions, aux)
     for j in range(cfg.n_superblocks):
         sp = tree_map(lambda a: a[:, j], params["blocks"])
+        block_aux = torch.zeros_like(aux)   # summed as the reference's scan sums it
         for i, (m, f) in enumerate(cfg.pattern):
-            x = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions)
+            x, block_aux = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions, block_aux)
+        aux = aux + block_aux
     x = apply_rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embedding"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux

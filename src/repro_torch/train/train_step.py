@@ -13,7 +13,9 @@ Numerics follow ``repro.train.train_step.make_hparam_train_step``: every
 gradient is rounded to ``parallel.grad_allreduce_dtype`` (bfloat16) before
 the global norm and AdamW, also in fp32 models; with
 ``parallel.microbatch`` the batch is split and the rounded per-microbatch
-gradients are summed in fp32 and averaged.
+gradients are summed in fp32 and averaged.  With MoE layers the loss adds
+``aux_loss_weight`` times each lane's load-balancing loss, which the metrics
+report as ``aux_loss``.
 """
 from __future__ import annotations
 
@@ -49,8 +51,12 @@ def static_step_key(tc: TrainConfig) -> Tuple:
 
 
 def _loss_fn(params, batch, tc: TrainConfig):
-    logits, _ = T.forward(params, batch["tokens"], tc.model)
+    cfg = tc.model
+    logits, aux = T.forward(params, batch["tokens"], cfg)
     loss, metrics = cross_entropy(logits, batch["targets"], batch["mask"], z_loss=tc.z_loss)
+    if cfg.has_moe:
+        loss = loss + cfg.aux_loss_weight * aux
+        metrics["aux_loss"] = aux
     metrics["loss"] = loss
     return loss, metrics
 

@@ -144,3 +144,28 @@ def test_later_slice_flags_are_refused_with_their_roadmap_item(capsys, argv, ite
     assert item in err
     if item.startswith("item"):
         assert "ROADMAP.md" in err
+
+
+@pytest.mark.parametrize("arch,words", [
+    ("deepseek-v2-lite-16b", ["MLA", "item 11.3"]),
+    ("pixtral-12b", ["frontend", "item 11.4"]),
+    ("no-such-arch", ["unknown arch"]),
+])
+def test_cli_refuses_an_arch_the_port_cannot_build(capsys, arch, words):
+    """An arch the port cannot build yet exits with code 2 at parse time,
+    naming what is missing and its ROADMAP.md item (before the check every
+    trial raised in the manager's workers and the CLI died with a
+    ``TypeError`` on the missing best result)."""
+    with pytest.raises(SystemExit) as exc:
+        hpo.main(BASE + ["--arch", arch, "--vectorize", "2", "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert all(w in err for w in words), err
+
+
+def test_population_trial_refuses_an_unported_model_override():
+    """A trial whose model overrides ask for a mixer the port cannot build
+    raises at construction, in the caller's thread, not in every trial."""
+    with pytest.raises(NotImplementedError, match="item 11.3"):
+        hpo.PopulationTrial("starcoder2-3b", 1, 1, 8, 0, device="cpu",
+                            model_overrides={"pattern": (("attn_mla", "moe"),)})

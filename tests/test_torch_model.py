@@ -1,5 +1,8 @@
 """The port's lane-batched model against ``repro.models.transformer``.
 
+Dense architectures and the MoE ones (qwen3-moe, and jamba with its Mamba,
+attention, dense and MoE layers); the MoE layers' aux loss is held too.
+
 The parameters are built by JAX and copied into the port through
 ``repro_torch.interop`` (the two RNGs differ); the batch is the numpy host
 synthesis, which both packages share.  fp32 on the CPU, 1e-4 on logits and
@@ -26,6 +29,8 @@ from repro_torch.train.loss import cross_entropy
 torch.set_num_threads(2)
 
 ARCHS = ["starcoder2-3b", "phi3-mini-3.8b", "gemma2-9b", "granite-34b"]
+# MoE FFNs: qwen3-moe (attention and MoE), jamba (Mamba, attention, dense, MoE)
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b"]
 
 
 def test_interop_round_trip_population_state():
@@ -52,7 +57,7 @@ def test_interop_round_trip_population_state():
         np.testing.assert_array_equal(np.asarray(a, np.float32), b)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_init_params_tree_matches_jax_layout(arch):
     """The port's own init builds the JAX package's tree: same keys, shapes
     and dtypes; gains start at zero (stored as gamma - 1)."""
@@ -67,11 +72,12 @@ def test_init_params_tree_matches_jax_layout(arch):
         assert tuple(g.shape) == tuple(w.shape)
         assert str(g.dtype).split(".")[-1] == str(w.dtype)
     assert float(got["final_norm"].abs().max()) == 0.0
-    wq = got["blocks"]["l0"]["mixer"]["wq"]
+    attn = next(lp for _, lp in sorted(got["blocks"].items()) if "wq" in lp["mixer"])
+    wq = attn["mixer"]["wq"]
     assert float(wq.abs().max()) <= 2.0 / cfg.d_model ** 0.5 + 1e-6
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_forward_and_loss_match_jax(arch):
     """Two lanes with different weights: each lane's logits and loss equal the
     JAX forward of that lane's weights on that lane's batch, at 1e-4."""
@@ -89,11 +95,13 @@ def test_forward_and_loss_match_jax(arch):
     tparams = interop.tree_map(lambda *xs: torch.stack(xs),
                                *[interop.to_torch(jax.device_get(p)) for p in jparams])
     tb = {k: torch.from_numpy(np.stack([b[k] for b in batches])) for k in batches[0]}
-    logits, _ = T.forward(tparams, tb["tokens"], cfg)
+    logits, aux = T.forward(tparams, tb["tokens"], cfg)
     loss, metrics = cross_entropy(logits, tb["targets"], tb["mask"])
     assert logits.shape == (K, B, S, cfg.vocab_size)
+    assert aux.shape == (K,)
     for i in range(K):
-        jlogits, _ = JT.forward(jparams[i], jnp.asarray(batches[i]["tokens"]), jcfg)
+        jlogits, jaux = JT.forward(jparams[i], jnp.asarray(batches[i]["tokens"]), jcfg)
+        np.testing.assert_allclose(float(aux[i]), float(jaux), atol=1e-4, rtol=1e-4)
         jloss, _ = jax_cross_entropy(jlogits, jnp.asarray(batches[i]["targets"]),
                                      jnp.asarray(batches[i]["mask"]))
         np.testing.assert_allclose(logits[i].detach().numpy(), np.asarray(jlogits),
