@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
    instance of the tensor-core flash kernel and of the selective scan;
 3. kernels — each kernel against its plain PyTorch version on the card (the
    token synthesis kernel bit for bit, and against the numpy host path), at
-   the main paths' shapes (the MoE path's too) in bf16 and fp32 and on small cases (window /
+   the main paths' shapes (the MoE path's, the MLA path's flash at q/k width
+   192 and v width 128 and its ``kv_norm``, and hubert-xlarge's non-causal
+   flash at head dim 80, too) in bf16 and fp32 and on small cases (window /
    softcap / ragged attention at head dims 16 to 256, fully masked rows;
    for the selective scan the main shape with the chunk states, falcon-mamba's
    initial A and dt over 1,024 steps, N of 4, 12, 16 and 64, ragged L, Dm and
@@ -73,8 +75,18 @@ Phases, each printing one JSON line:
    capacity, peak memory; and a gate: the layer's forward and backward run
    twice give raw-bit-equal y, aux and gradients, and the same input in
    lane 0 and lane 1 the same bits in each lane;
+   then the MLA path, deepseek-v2-lite-16b at its published widths (2 of 27
+   layers: the dense MLA prefix layer and one MLA + MoE superblock, K=2,
+   batch 2, seq 1024), through main_path (7 RMSNorm, 2 tensor-core flash a
+   step) and chunked_path, and between them mla — one population step with
+   its first MLA layer's input recorded: the step under the profiler, the
+   layer's parts (q and latent projections with kv_norm and RoPE; the
+   wk_b / wv_b decompression; the flash forward at q/k width 192, v width
+   128; the plain flash backward; wo) each under the profiler, the flash
+   forward against its bound, peak memory, and the same determinism gate;
 5. card_vs_cpu — the same population step on the starcoder2, falcon-mamba,
-   qwen3-moe and jamba smoke configs in fp32, once on the card (kernels) and
+   qwen3-moe, jamba, deepseek-v2-lite, hubert-xlarge and pixtral-12b smoke
+   configs in fp32, once on the card (kernels) and
    once on the CPU (plain versions): losses and parameters agree within
    1e-4, and the card's fp32 attention went through the CUDA-core flash
    kernel only; for the MoE configs, the count of top-k assignments the
@@ -85,7 +97,11 @@ Phases, each printing one JSON line:
    calls it, with the chunk states), beside the least time the card could
    take: bytes or operations, and for the scan also its exponentials on the
    special-function units (``sfu_ms``), the bound that binds it; RMSNorm
-   and flash also at the MoE path's shapes (``moe_shape``).
+   and flash also at the MoE path's shapes (``moe_shape``), RMSNorm at MLA's
+   ``kv_norm`` (``kv_norm_shape``), flash at the MLA path's and at
+   hubert-xlarge's shapes (``mla_shape``, ``hubert_shape``).
+
+The ``total`` line holds the wall seconds of each phase.
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -125,13 +141,24 @@ MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024
 # two lanes (one lane's parameters and moments are 12.45 GB; the AdamW
 # temporaries of the stacked experts about 16 GB)
 MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=1, population=2, batch=2, seq=1024, steps=4)
-# the fp32 smoke configs held card against CPU; jamba runs every kernel
-CARD_VS_CPU = ("starcoder2-3b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b")
+# the MLA path: deepseek-v2-lite-16b at its published widths, 2 of 27 layers
+# (the dense MLA prefix layer and one MLA + MoE superblock) and two lanes
+# (1.085 G parameters a lane; at 3 layers or K=4 the state, gradients and
+# AdamW's temporaries of the stacked experts pass the card's memory)
+DEEPSEEK = dict(arch="deepseek-v2-lite-16b", n_layers=2, population=2, batch=2, seq=1024,
+                steps=4)
+# the fp32 smoke configs held card against CPU; jamba runs every kernel,
+# deepseek MLA (q/k wider than v), hubert non-causal attention
+CARD_VS_CPU = ("starcoder2-3b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
+               "deepseek-v2-lite-16b", "hubert-xlarge", "pixtral-12b")
 RMS_SHAPE = (4, 4096, 3072)                        # (K, B*S, d), gain (K, d)
 RMS_MAMBA_SHAPE = (4, 2048, 4096)
-RMS_MOE_SHAPE = (2, 2048, 2048)
+RMS_MOE_SHAPE = (2, 2048, 2048)                    # qwen3-moe's and deepseek's d = 2048
+RMS_KV_NORM_SHAPE = (2, 2048, 512)                 # MLA's kv_norm over the latent
 FLASH_Q, FLASH_KV = (16, 1024, 24, 128), (16, 1024, 2, 128)   # (K*B, S, heads, D)
 FLASH_MOE_Q, FLASH_MOE_KV = (4, 1024, 32, 128), (4, 1024, 4, 128)   # a group of 8
+FLASH_MLA_Q, FLASH_MLA_DV = (4, 1024, 16, 192), 128   # q, k 128 + 64 wide; v 128
+FLASH_HUBERT_Q = (8, 1024, 16, 80)                 # hubert-xlarge, non-causal, MHA
 SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (K, d_inner, N)
 SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
@@ -400,7 +427,7 @@ def check_kernels(torch, dev):
 
     def flash(qs, kvs, dtype, dv=None, **kw):
         """Kernel and plain (out, lse) flattened, and the launches each flash
-        kernel made."""
+        kernel made; the scale is 1/sqrt of the q/k width."""
         q = torch.randn(qs, generator=gen, device=dev).to(dtype)
         k = torch.randn(kvs, generator=gen, device=dev).to(dtype)
         v = torch.randn(kvs[:3] + (dv or kvs[3],), generator=gen, device=dev).to(dtype)
@@ -424,16 +451,28 @@ def check_kernels(torch, dev):
                 torch.cat([want[0].float().flatten()] + [t.flatten() for t in want[1:]]),
                 x.numel(), chunk)
 
+    # the cases at the MoE and MLA paths' and hubert's shapes, by the key of
+    # their error in the ``kernels`` line's sub-rows
+    other_shapes = {("moe-main", "bfloat16"): "moe", ("mla-main", "bfloat16"): "mla",
+                    ("hubert-main", "bfloat16"): "hubert", ("kv-norm", "bfloat16"): "kv_norm",
+                    ("mla-d192-dv128-ragged-300", "float32"): "mla_ragged"}
     runs = [
         ("rmsnorm", "main", "bfloat16", lambda: rms(RMS_SHAPE, torch.bfloat16)),
         ("rmsnorm", "mamba-main", "bfloat16", lambda: rms(RMS_MAMBA_SHAPE, torch.bfloat16)),
         ("rmsnorm", "moe-main", "bfloat16", lambda: rms(RMS_MOE_SHAPE, torch.bfloat16)),
+        ("rmsnorm", "kv-norm", "bfloat16", lambda: rms(RMS_KV_NORM_SHAPE, torch.bfloat16)),
         ("rmsnorm", "main", "float32", lambda: rms(RMS_SHAPE, torch.float32)),
         ("rmsnorm", "d=100", "float32", lambda: rms((2, 33, 100), torch.float32)),
         ("flash_attention", "main", "bfloat16",
          lambda: flash(FLASH_Q, FLASH_KV, torch.bfloat16)),
         ("flash_attention", "moe-main", "bfloat16",
          lambda: flash(FLASH_MOE_Q, FLASH_MOE_KV, torch.bfloat16)),
+        ("flash_attention", "mla-main", "bfloat16",
+         lambda: flash(FLASH_MLA_Q, FLASH_MLA_Q, torch.bfloat16, dv=FLASH_MLA_DV)),
+        ("flash_attention", "hubert-main", "bfloat16",
+         lambda: flash(FLASH_HUBERT_Q, FLASH_HUBERT_Q, torch.bfloat16, causal=False)),
+        ("flash_attention", "mla-d192-dv128-ragged-300", "float32",
+         lambda: flash((2, 300, 4, 192), (2, 300, 4, 192), torch.float32, dv=128)),
         ("flash_attention", "main", "float32",
          lambda: flash(FLASH_Q, FLASH_KV, torch.float32)),
         ("flash_attention", "window", "float32",
@@ -508,8 +547,8 @@ def check_kernels(torch, dev):
         if dtype == "bfloat16" and (case == "main" and name != "ssm_scan"
                                     or case == "main-chunk-states-128"):
             errs[name] = err   # at the main path's call (the scan's keeps chunk states)
-        if dtype == "bfloat16" and case == "moe-main":
-            errs[name + "@moe"] = err
+        if (case, dtype) in other_shapes:
+            errs[f"{name}@{other_shapes[case, dtype]}"] = err
         del got, want, d
     cases.extend(synth_cases(torch, dev))
     errs["synth_tokens"] = max(c["max_abs_err"] for c in cases if c["kernel"] == "synth_tokens")
@@ -550,12 +589,14 @@ def counters() -> dict:
 def launches_per_step(cfg, chunked: bool = False) -> dict:
     """Kernel launches one population step of ``cfg`` makes: RMSNorm before
     the mixer, before the FFN (if the layer has one), after each with
-    ``post_norm``, and once at the end; one flash launch per attention layer,
+    ``post_norm``, once at the end, and on the latent of each MLA layer
+    (``kv_norm``); one flash launch per attention layer (MLA's too),
     of the tensor-core kernel in bf16 and of the CUDA-core kernel in fp32;
     one scan per Mamba layer; one token synthesis in a chunk (the per-step
     path feeds host batches)."""
     layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
-    rms = 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm)) for _, ffn in layers)
+    rms = 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm)) + (m == "attn_mla")
+                  for m, ffn in layers)
     attn = sum(m.startswith("attn") for m, _ in layers)
     bf16 = cfg.compute_dtype == "bfloat16"
     return {"rmsnorm": rms,
@@ -599,9 +640,12 @@ def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0)
                "ssm_conv": cfg.ssm_conv} if cfg.has_mamba else
               {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                "head_dim": cfg.head_dim, "d_ff": cfg.d_ff})
+    if any(m == "attn_mla" for m, _ in cfg.prefix_pattern + cfg.pattern):
+        widths.update(kv_lora_rank=cfg.kv_lora_rank, rope_head_dim=cfg.rope_head_dim)
     if cfg.has_moe:
         widths.update(n_experts=cfg.n_experts, moe_top_k=cfg.moe_top_k,
-                      moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor)
+                      moe_d_ff=cfg.moe_d_ff, capacity_factor=cfg.capacity_factor,
+                      n_shared_experts=cfg.n_shared_experts)
     out = {
         "phase": "main_path", "arch": arch, "n_layers": cfg.n_layers,
         "published_n_layers": full.n_layers, "d_model": cfg.d_model, **widths,
@@ -1108,18 +1152,8 @@ def moe_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
         oo, tp = leaf(out), leaf(top_p)
         return torch.autograd.grad(M.combine(oo, slot, tp), (oo, tp), g_y)
 
-    parts = {}
-    for name, fn in (("router_topk", route_fb), ("sort_dispatch", dispatch_fb),
-                     ("expert_products", experts_fb), ("combine", combine_fb)):
-        # the trace of a call of a few ms has come back empty (one run in
-        # two): take up to three, and the CUDA events' time beside it
-        for attempt in range(1, 4):
-            prof = profile_step(torch, fn, top=4)
-            if prof.get("device_ms") is not None:
-                break
-        prof.pop("launches")
-        prof.pop("kernel_launches_seen")
-        parts[name] = dict(prof, traces=attempt, event_ms=event_ms(torch, fn, n=10))
+    parts = timed_parts(torch, (("router_topk", route_fb), ("sort_dispatch", dispatch_fb),
+                                ("expert_products", experts_fb), ("combine", combine_fb)))
     n_in, ff = params["wi"].shape[-2:]
     rows = K * E * G * C
     flops = 3 * 2 * rows * d * (n_in * ff + ff)        # forward and its two backward products
@@ -1169,6 +1203,228 @@ def moe_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
     if problems:
         die(f"moe {arch}: " + "; ".join(problems))
     return out
+
+
+# -------------------------------------------------------------- phase 4, MLA
+DEEPSEEK_RECKONED_PEAK_GB = 48.0   # the cell's reckoning from the code: state 21.7 GB,
+                                   # gradients 4.3, AdamW's temporaries over the stacked
+                                   # experts ~15, fp32 logits 1.7 and their gradient
+
+
+def mla_layer_bits(torch, params, x, cfg) -> list:
+    """One MLA layer's y and the gradients of ``sum(y**2)`` in x and every
+    leaf, as raw bits."""
+    from repro_torch.interop import tree_leaves, tree_unflatten
+    from repro_torch.models import attention as A
+
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    xx = x.detach().requires_grad_(True)
+    y = A.mla_apply(tree_unflatten(params, leaves), xx, cfg,
+                    torch.arange(x.shape[2], device=x.device))
+    grads = torch.autograd.grad((y.float() ** 2).sum(), [xx] + leaves)
+    return [raw_bits(torch, t) for t in [y] + list(grads)]
+
+
+def timed_parts(torch, fns) -> dict:
+    """Each part's device time under the profiler (up to three traces: the
+    trace of a call of a few ms has come back empty) and its CUDA events'
+    time."""
+    parts = {}
+    for name, fn in fns:
+        for attempt in range(1, 4):
+            prof = profile_step(torch, fn, top=4)
+            if prof.get("device_ms") is not None:
+                break
+        prof.pop("launches")
+        prof.pop("kernel_launches_seen")
+        parts[name] = dict(prof, traces=attempt, event_ms=event_ms(torch, fn, n=10))
+    return parts
+
+
+def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
+    """The ``mla`` line: one eager population step at the MLA cell, the input
+    of its first MLA layer recorded; the step under the profiler; the
+    layer's parts, each forward and backward (the flash forward and the
+    plain flash backward apart) under the profiler on that input: the q and
+    latent projections with ``kv_norm`` and RoPE, the ``wk_b`` / ``wv_b``
+    decompression with the q/k concatenation, the flash forward at q/k
+    width 192 and v width 128, the plain flash backward, ``wo``; the flash
+    forward against its bound and its padded 256-wide instance's work; peak
+    memory against the reckoning.  Then the determinism gate: the layer's
+    forward and backward run twice on the same input give raw-bit-equal y
+    and gradients, and the same input and parameters in lane 0 and lane 1
+    give the same bits in each lane."""
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.hpo import PopulationTrial
+    from repro_torch.models import attention as A
+    from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
+    from repro_torch.train.population import (init_population_state,
+                                              make_population_train_step)
+
+    trial = PopulationTrial(arch, 1, batch, seq, seed, population=population,
+                            model_overrides=published_widths(arch, n_layers), device=dev)
+    tc, _ = trial._setup()
+    cfg = tc.model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pstate = init_population_state(torch.Generator(device=dev).manual_seed(seed), tc,
+                                   population, dev)
+    hp = stack_hparams([hparams_from_dict(dict(learning_rate=1e-3, total_steps=10 ** 6), tc)]
+                       * population, dev)
+    step = make_population_train_step(tc, per_trial_batch=True)
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    bt = to_device(data.make_population_batch(0, list(range(population))), dev)
+    seen = []
+    plain_apply = A.mla_apply
+
+    def recording(p, x, c, positions):
+        if not seen:
+            seen.append((tree_map(lambda t: t.detach(), p), x.detach().clone()))
+        return plain_apply(p, x, c, positions)
+
+    A.mla_apply = recording
+    try:
+        step(pstate, bt, hp)
+    finally:
+        A.mla_apply = plain_apply
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_prof = profile_step(torch, lambda: step(pstate, bt, hp))
+    step_prof.pop("launches")
+    params, x = seen[0]
+    params = tree_map(lambda t: t.clone(), params)   # outlive the state
+    del pstate, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    K, B, S, d = x.shape
+    H, Dh, rr, r = cfg.n_heads, cfg.resolved_head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    D, Dv = Dh + rr, Dh
+    scale = 1.0 / (D ** 0.5)
+    pos = torch.arange(S, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(shape, dtype=x.dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def leaf(t):
+        return t.detach().requires_grad_(True)
+
+    def decompress(c, k_rope, q_nope, q_rope, wk_b, wv_b):
+        k_nope = torch.einsum("kbsr,krhe->kbshe", c, wk_b)
+        v = torch.einsum("kbsr,krhe->kbshe", c, wv_b)
+        k_rope_h = k_rope[:, :, :, None, :].expand(k_nope.shape[:4] + (rr,))
+        return (torch.cat([q_nope, q_rope], dim=-1), torch.cat([k_nope, k_rope_h], dim=-1), v)
+
+    with torch.no_grad():
+        qkc = A._mla_qkc(params, x, cfg, pos)
+        q_full, k_full, v = decompress(*qkc[2:], *qkc[:2], params["wk_b"], params["wv_b"])
+        q_full, k_full, v = (t.reshape((K * B,) + t.shape[2:]).contiguous()
+                             for t in (q_full, k_full, v))
+        out, lse = fa.flash_fwd_cuda(q_full, k_full, v, causal=True, window=None,
+                                     softcap=None, scale=scale)
+    g_qkc = [rand(t.shape) for t in qkc]
+    g_full = [rand(t.shape) for t in (q_full, k_full, v)]
+    g_out = rand(out.shape)
+    g_y = rand(x.shape)
+    attn_out = out.reshape((K, B) + out.shape[1:])
+    lse_g = lse.reshape(K * B, H, 1, S)   # kv heads = q heads in MLA
+
+    def q_latent_rope_fb():
+        p_ = {n: leaf(params[n]) for n in ("wq", "wkv_a", "kv_norm")}
+        xx = leaf(x)
+        return torch.autograd.grad(A._mla_qkc(p_, xx, cfg, pos), [xx] + list(p_.values()),
+                                   g_qkc)
+
+    def decompress_fb():
+        ins = [leaf(t) for t in (qkc[2], qkc[3], qkc[0], qkc[1], params["wk_b"],
+                                 params["wv_b"])]
+        return torch.autograd.grad(decompress(*ins), ins, [g.reshape((K, B) + g.shape[1:])
+                                                           for g in g_full])
+
+    def flash_fwd():
+        return fa.flash_fwd_cuda(q_full, k_full, v, causal=True, window=None, softcap=None,
+                                 scale=scale)
+
+    def flash_bwd():   # as FlashAttention.backward calls it
+        return ref._blocked_bwd(q_full, k_full, v, out, lse_g, g_out, causal=True,
+                                window=None, softcap=None, scale=scale, q_offset=0,
+                                block_q=fa.BWD_BLOCK, block_kv=fa.BWD_BLOCK, causal_skip=True)
+
+    def wo_fb():
+        oo, wo = leaf(attn_out), leaf(params["wo"])
+        return torch.autograd.grad(torch.einsum("kbshe,khed->kbsd", oo, wo), (oo, wo), g_y)
+
+    fns = (("q_latent_rope", q_latent_rope_fb), ("decompress", decompress_fb),
+           ("flash_fwd", flash_fwd), ("flash_bwd_plain", flash_bwd), ("wo", wo_fb))
+    fa_before = (fa.launches_sm90, fa.launches_fp32)   # the profiler resets the counters
+    flash_fwd()
+    torch.cuda.synchronize()
+    flash_through = {"sm90": fa.launches_sm90 - fa_before[0],
+                     "fp32": fa.launches_fp32 - fa_before[1]}
+    parts = timed_parts(torch, fns)
+    pairs = S * (S + 1) // 2
+    flops = 2 * K * B * H * pairs * (D + Dv)
+    padded = 2 * K * B * H * pairs * (2 * 256)    # the 256-wide instance pads both widths
+    nb = ((2 * q_full.numel() + v.numel() + out.numel()) * q_full.element_size()
+          + lse.numel() * 4)
+    b_ms, b_by = bound_ms(nb, flops, "bfloat16")
+    flash_ms = parts["flash_fwd"]["device_ms"] or parts["flash_fwd"]["event_ms"]
+    layer_ms = {n: p_.get("device_ms") or p_["event_ms"] for n, p_ in parts.items()}
+    del qkc, q_full, k_full, v, out, lse, lse_g, g_qkc, g_full, g_out, g_y, attn_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the determinism gate: lane 0's parameters and input in both lanes
+    one = tree_map(lambda t: t[:1].expand((2,) + tuple(t.shape[1:])).contiguous(), params)
+    x2 = x[:1].expand((2,) + tuple(x.shape[1:])).contiguous()
+    del params, x
+    first = mla_layer_bits(torch, one, x2, cfg)
+    again = mla_layer_bits(torch, one, x2, cfg)
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(first, again))
+    lanes_equal = all(torch.equal(t[0], t[1]) for t in first)
+    differing = [i for i, t in enumerate(first) if not torch.equal(t[0], t[1])]
+    n_tensors = len(first)
+    del first, again, one, x2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_ms = step_prof.get("device_ms")
+    res = {
+        "phase": "mla", "arch": arch, "n_layers": cfg.n_layers, "population": population,
+        "batch": batch, "seq": seq, "d_model": d, "n_heads": H, "head_dim": Dh,
+        "rope_head_dim": rr, "kv_lora_rank": r, "qk_width": D, "v_width": Dv,
+        "parts_device_ms": {n: p_.get("device_ms") for n, p_ in parts.items()},
+        "parts_event_ms": {n: p_["event_ms"] for n, p_ in parts.items()},
+        "parts": parts,
+        "layer_ms": sum(layer_ms.values()),
+        "layer_share_of_step": None if not step_ms else sum(layer_ms.values()) / step_ms,
+        "flash_fwd": {"flops": flops, "padded_flops_256_instance": padded,
+                      "useful_share_of_arithmetic": flops / padded, "bytes": nb,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "share_of_bound": b_ms / flash_ms, "kernel_launches": flash_through},
+        "step_profile": step_prof,
+        "peak_memory_gib": peak / 2 ** 30, "peak_memory_gb": peak / 1e9,
+        "reckoned_peak_gb": DEEPSEEK_RECKONED_PEAK_GB,
+        "determinism": {"rerun_bit_equal": rerun_equal, "lanes_bit_equal": lanes_equal,
+                        "tensors": n_tensors, "lane_differing_tensors": differing},
+    }
+    emit(res)
+    problems = []   # the parts' times are observations; the gate is the bits
+    if flash_through != {"sm90": 1, "fp32": 0}:
+        problems.append(f"the bf16 flash forward went through {flash_through}")
+    if not rerun_equal:
+        problems.append("the MLA layer's forward and backward differ run to run")
+    if not lanes_equal:
+        problems.append(f"the same input gives different bits in lane 0 and lane 1 "
+                        f"(tensors {differing} of y and the gradients)")
+    if problems:
+        die(f"mla {arch}: " + "; ".join(problems))
+    return res
 
 
 # -------------------------------------------------------- phase 4, streaming
@@ -2274,32 +2530,40 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:19", **counts("rmsnorm"),
         "max_abs_err": errs["rmsnorm"], **rms_at(RMS_SHAPE),
-        # the MoE path's call (qwen3-moe-30b-a3b)
+        # the MoE and MLA paths' call at d = 2048 (qwen3-moe-30b-a3b, deepseek-v2-lite-16b)
         "moe_shape": dict(rms_at(RMS_MOE_SHAPE), max_abs_err=errs["rmsnorm@moe"]),
+        # MLA's kv_norm over the 512-wide latent (deepseek-v2-lite-16b)
+        "kv_norm_shape": dict(rms_at(RMS_KV_NORM_SHAPE), max_abs_err=errs["rmsnorm@kv_norm"]),
     })
 
     kw = dict(causal=True, window=None, softcap=None, scale=FLASH_Q[-1] ** -0.5)
 
-    def flash_at(qs, kvs):
-        """The tensor-core kernel, its plain version and SDPA at q ``qs``, kv
-        ``kvs`` (causal, bf16), and the tensors, for the fp32 kernel's row."""
+    def flash_at(qs, kvs, dv=None, causal=True, dtype=dt):
+        """The dtype's flash kernel (bf16: tensor cores), its plain version
+        and SDPA at q ``qs``, k ``kvs``, v as k or ``dv`` wide (scale 1/sqrt
+        of the q/k width), and the tensors, for the fp32 kernel's row."""
         B, S, H, D = qs
-        q = torch.randn(qs, generator=gen, device=dev).to(dt)
-        k = torch.randn(kvs, generator=gen, device=dev).to(dt)
-        v = torch.randn(kvs, generator=gen, device=dev).to(dt)
-        pairs = S * (S + 1) // 2                       # unmasked (q, k) pairs per head
-        n_ops = 2 * B * H * pairs * (D + D)
-        nb = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size() + B * H * S * 4
-        b_ms, b_by = bound_ms(nb, n_ops, dts)
+        Dv = dv or D
+        q = torch.randn(qs, generator=gen, device=dev).to(dtype)
+        k = torch.randn(kvs, generator=gen, device=dev).to(dtype)
+        v = torch.randn(kvs[:3] + (Dv,), generator=gen, device=dev).to(dtype)
+        pairs = S * (S + 1) // 2 if causal else S * S   # unmasked (q, k) pairs per head
+        n_ops = 2 * B * H * pairs * (D + Dv)
+        nb = (q.numel() + k.numel() + v.numel() + v.numel() * H // kvs[2]) \
+            * q.element_size() + B * H * S * 4         # q, k, v, out (H heads of Dv), lse
+        dname = str(dtype).split(".")[-1]
+        b_ms, b_by = bound_ms(nb, n_ops, dname)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kw_ = dict(kw, causal=causal, scale=D ** -0.5)
         return {
-            "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw)),
-            "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, **kw), n=5,
+            "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, **kw_)),
+            "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, **kw_), n=5,
                                  warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            "shape": {"q": list(qs), "kv": list(kvs), "causal": True, "dtype": dts},
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+            "shape": {"q": list(qs), "k": list(kvs), "v": list(v.shape), "causal": causal,
+                      "dtype": dname},
         }, (q, k, v, nb, n_ops)
 
     main_shape, (q, k, v, nb, n_ops) = flash_at(FLASH_Q, FLASH_KV)
@@ -2324,6 +2588,16 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     # the MoE path's call: 32 q heads over 4 kv heads
     rows[-1]["moe_shape"] = dict(flash_at(FLASH_MOE_Q, FLASH_MOE_KV)[0],
                                  max_abs_err=errs["flash_attention@moe"])
+    # the MLA path's call: q and k 192 wide, v 128 (deepseek-v2-lite-16b)
+    rows[-1]["mla_shape"] = dict(flash_at(FLASH_MLA_Q, FLASH_MLA_Q, dv=FLASH_MLA_DV)[0],
+                                 max_abs_err=errs["flash_attention@mla"])
+    # hubert-xlarge's encoder: non-causal, head dim 80 (padded to 128)
+    rows[-1]["hubert_shape"] = dict(flash_at(FLASH_HUBERT_Q, FLASH_HUBERT_Q, causal=False)[0],
+                                    max_abs_err=errs["flash_attention@hubert"])
+    # the CUDA-core kernel at q/k 192, v 128 over a ragged 300 rows (its check case)
+    rows[-1]["fp32_kernel"]["mla_ragged_shape"] = dict(
+        flash_at((2, 300, 4, 192), (2, 300, 4, 192), dv=128, dtype=torch.float32)[0],
+        max_abs_err=errs["flash_attention@mla_ragged"])
 
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_X
@@ -2416,9 +2690,18 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
+    seconds = {}   # wall seconds by phase, for the total line
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - clock[0]
+        clock[0] = now
+
     t0 = time.perf_counter()
     lib = build.build(verbose=True)
     build.library()
+    lap("build")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib.name,
           "sources": [s.name for s in build.sources()], "flags": build.NVCC_FLAGS,
           **{key: ptxas_summary(build.ptxas_report.get(src, ""), src)
@@ -2428,39 +2711,49 @@ def main() -> int:
     errs = check_kernels(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("kernels")
     by_path, chunk_launches = {}, {}
-    for path in (MAIN, MAMBA, MOE):
+    for path in (MAIN, MAMBA, MOE, DEEPSEEK):
         release_cublas_workspaces(torch)
         by_path[path["arch"]], out = main_path(torch, dev, **path)
         gc.collect()
         torch.cuda.empty_cache()
+        lap(path["arch"] + ":main_path")
         kw = {k: v for k, v in path.items() if k != "steps"}
-        if path is MOE:
-            moe_path(torch, dev, **kw)
+        if path is MOE or path is DEEPSEEK:
+            (moe_path if path is MOE else mla_path)(torch, dev, **kw)
             gc.collect()
             torch.cuda.empty_cache()
+            lap(path["arch"] + (":moe" if path is MOE else ":mla"))
         launches, out = chunked_path(torch, dev, per_step_steady=out["steady_s_per_step"], **kw)
         by_path[path["arch"] + "+chunked"] = launches
         chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
             "synth_tokens"] * out["chunk"]
         gc.collect()
         torch.cuda.empty_cache()
-        if path is MOE:
+        lap(path["arch"] + ":chunked_path")
+        if path is MOE or path is DEEPSEEK:
             # the streaming, crash and ring engines are arch-agnostic and run
             # on the two paths above
             continue
         by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
         gc.collect()
         torch.cuda.empty_cache()
+        lap(path["arch"] + ":streaming_path")
         by_path[path["arch"] + "+crash"], out = crash_path(torch, dev, **kw)
+        lap(path["arch"] + ":crash_path")
         by_path[path["arch"] + "+ring"], _ = ring_path(
             torch, dev, seen=out["replayed_chunk_launches_seen"], **kw)
         gc.collect()
         torch.cuda.empty_cache()
+        lap(path["arch"] + ":ring_path")
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
+    lap("card_vs_cpu")
     emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    lap("timing")
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": seconds})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

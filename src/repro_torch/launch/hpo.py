@@ -6,7 +6,9 @@ PyTorch port.
 
 Each trial trains the architecture's smoke config (or the config with
 ``model_overrides`` applied) for ``--steps`` on the deterministic synthetic
-stream and reports -final_loss as the score.  Every proposal and result lands
+stream and reports -final_loss as the score (the models with a frontend,
+hubert-xlarge and pixtral-12b, train on tokens too, as the JAX CLI's do:
+their frontends are stubs).  Every proposal and result lands
 in the tracking DB (``--db``).  Switching HPO algorithms is one flag
 (``--proposer``).
 
@@ -229,11 +231,9 @@ class PopulationTrial:
         self._data = None
         self._serial_seq = 0  # fallback stream counter for anonymous configs
         self._setup_lock = threading.Lock()
-        # a model the port cannot build is refused here, in the caller's
+        # an unknown arch or override is refused here, in the caller's
         # thread, not by every trial in the resource manager's workers
-        from ..models.transformer import check_supported
-
-        check_supported(model_config(arch, self.model_overrides))
+        model_config(arch, self.model_overrides)
 
     # locked because local resource managers call trials from worker threads
     def _setup(self):
@@ -1411,14 +1411,10 @@ def main(argv=None) -> int:
         if _later(args, name):
             p.error(f"{flag} is not ported to the PyTorch package yet; it comes "
                     f"with {item}")
-    from ..models.transformer import check_supported
-
     try:
-        check_supported(model_config(args.arch))
+        model_config(args.arch)
     except KeyError as e:
         p.error(str(e.args[0]))
-    except NotImplementedError as e:   # a model of a later slice, with its item
-        p.error(f"--arch {args.arch}: {e}")
     if args.pbt_streaming:
         if args.proposer != "pbt":
             p.error(f"--pbt-streaming needs --proposer pbt, got {args.proposer!r}")

@@ -8,15 +8,18 @@ axis, the lane axis K, in front of it, so ``blocks`` leaves are
 projections are batched matmuls over K and the kernels take K as part of
 their batch dimension.
 
-Ported so far: mixers ``attn``, ``attn_local`` and ``mamba``; FFN ``dense``,
-``moe`` (``moe.py``, whose load-balancing loss ``forward`` sums over the
-layers, per lane) or ``none`` (a layer without FFN has no ``norm2`` and no
-second residual, as falcon-mamba's); ``post_norm``, softcaps and
-``scale_embed``.
+Every mixer of ``configs.base.MIXERS`` is ported: ``attn``, ``attn_local``,
+``attn_mla`` (``attention.py``) and ``mamba``; every FFN: ``dense``, ``moe``
+(``moe.py``, whose load-balancing loss ``forward`` sums over the layers, per
+lane) or ``none`` (a layer without FFN has no ``norm2`` and no second
+residual, as falcon-mamba's); ``post_norm``, softcaps and ``scale_embed``.
+A model with a frontend (hubert's audio frames, pixtral's image patches)
+takes ``inputs_embeds`` in place of tokens; ``frontend.py`` makes synthetic
+ones, as the JAX package's stub does.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,22 +39,8 @@ from .layers import (
     unembed,
 )
 
-_MIXER_INIT = {"attn": attn.gqa_init, "attn_local": attn.gqa_init, "mamba": mam.mamba_init}
-# what a model may ask for that the port does not build yet, and the item
-# that brings it (every FFN of ``configs.base.FFNS`` is ported)
-_LATER_MIXER = "ROADMAP.md section 1, item 11.3 (MLA: multi-head latent attention)"
-_LATER_FRONTEND = "ROADMAP.md section 1, item 11.4 (the frontends)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    for mixer, _ in cfg.prefix_pattern + cfg.pattern:
-        if mixer not in _MIXER_INIT:   # attn_mla, the one mixer still to come
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {mixer!r} is not ported yet; it comes with {_LATER_MIXER}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet; it comes with "
-            f"{_LATER_FRONTEND}")
+_MIXER_INIT = {"attn": attn.gqa_init, "attn_local": attn.gqa_init,
+               "attn_mla": attn.mla_init, "mamba": mam.mamba_init}
 
 
 # ------------------------------ init --------------------------------------------------
@@ -74,7 +63,6 @@ def _layer_init(gen, mixer: str, ffn: str, cfg: ModelConfig, device) -> Params:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     """One trial's parameters (no lane axis), from ``gen``."""
-    check_supported(cfg)
     params: Params = {"embedding": embedding_init(gen, cfg, device)}
     if cfg.prefix_pattern:
         params["prefix"] = [_layer_init(gen, m, f, cfg, device)
@@ -103,6 +91,8 @@ def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelCo
     h = apply_rmsnorm(x, lp["norm1"], cfg.norm_eps)
     if mixer == "mamba":
         h = mam.mamba_apply(lp["mixer"], h, cfg)
+    elif mixer == "attn_mla":
+        h = attn.mla_apply(lp["mixer"], h, cfg, positions)
     else:
         h = attn.gqa_apply(lp["mixer"], h, cfg, positions, local=(mixer == "attn_local"))
     if cfg.post_norm:
@@ -121,14 +111,18 @@ def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelCo
     return x + h, aux
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig
+def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
+            inputs_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (K, B, S) -> (logits fp32 (K, B, S, V), aux (K,)): each lane's
-    MoE load-balancing loss summed over its layers (zeros without MoE).
+    """tokens (K, B, S), or ``inputs_embeds`` (K, B, S, d) in their place ->
+    (logits fp32 (K, B, S, V), aux (K,)): each lane's MoE load-balancing loss
+    summed over its layers (zeros without MoE).
 
     ``params`` is lane-batched: every leaf has the leading lane axis K."""
-    check_supported(cfg)
-    x = embed_tokens(params["embedding"], tokens, cfg)
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(dtype_of(cfg.compute_dtype))
+    else:
+        x = embed_tokens(params["embedding"], tokens, cfg)
     positions = torch.arange(x.shape[2], device=x.device)
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     for i, (m, f) in enumerate(cfg.prefix_pattern):

@@ -15,7 +15,8 @@ the global norm and AdamW, also in fp32 models; with
 ``parallel.microbatch`` the batch is split and the rounded per-microbatch
 gradients are summed in fp32 and averaged.  With MoE layers the loss adds
 ``aux_loss_weight`` times each lane's load-balancing loss, which the metrics
-report as ``aux_loss``.
+report as ``aux_loss``.  A batch with ``embeds`` (K, B, S, d) feeds them
+to the model in place of ``tokens``, as the JAX step does.
 """
 from __future__ import annotations
 
@@ -52,7 +53,8 @@ def static_step_key(tc: TrainConfig) -> Tuple:
 
 def _loss_fn(params, batch, tc: TrainConfig):
     cfg = tc.model
-    logits, aux = T.forward(params, batch["tokens"], cfg)
+    logits, aux = T.forward(params, batch.get("tokens"), cfg,
+                            inputs_embeds=batch.get("embeds"))
     loss, metrics = cross_entropy(logits, batch["targets"], batch["mask"], z_loss=tc.z_loss)
     if cfg.has_moe:
         loss = loss + cfg.aux_loss_weight * aux
@@ -64,10 +66,12 @@ def _loss_fn(params, batch, tc: TrainConfig):
 def _value_and_grad(params, batch, tc: TrainConfig):
     """Per-lane metrics and per-lane gradients.  The lanes share no
     parameters, so the gradient of the summed lane losses is each lane's own
-    gradient."""
+    gradient.  A leaf the loss does not read (the embedding table of a batch
+    of ``embeds``) gets a zero gradient, as under ``jax.grad``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = _loss_fn(tree_unflatten(params, leaves), batch, tc)
-    grads = torch.autograd.grad(loss.sum(), leaves)
+    grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return metrics, tree_unflatten(params, list(grads))
 
@@ -84,7 +88,7 @@ def make_hparam_train_step(tc: TrainConfig) -> Callable:
     def train_step(state, batch, hp: HParams, active: Optional[torch.Tensor] = None):
         params = state["params"]
         if mb and mb > 0:
-            gb = batch["tokens"].shape[1]
+            gb = next(iter(batch.values())).shape[1]
             if gb % mb:
                 raise ValueError(f"batch {gb} is not a multiple of microbatch {mb}")
             n_mb = gb // mb

@@ -82,28 +82,35 @@ def test_rmsnorm_grads_match_jax_reference_vjp():
 
 
 FLASH_CASES = [
-    # B, Sq, H, Hkv, D, causal, window, softcap, Sk
-    pytest.param(2, 64, 4, 2, 16, True, None, None, None, id="gqa-causal"),
-    pytest.param(1, 128, 4, 1, 32, True, 40, None, None, id="window"),
-    pytest.param(1, 96, 2, 2, 16, True, None, 20.0, None, id="softcap"),
-    pytest.param(1, 200, 4, 2, 16, True, 64, 30.0, None, id="ragged-200"),
-    pytest.param(1, 80, 2, 1, 16, False, None, None, 112, id="non-causal-ragged-kv"),
+    # B, Sq, H, Hkv, D, causal, window, softcap, Sk, Dv, scale (None: D and D**-0.5)
+    pytest.param(2, 64, 4, 2, 16, True, None, None, None, None, None, id="gqa-causal"),
+    pytest.param(1, 128, 4, 1, 32, True, 40, None, None, None, None, id="window"),
+    pytest.param(1, 96, 2, 2, 16, True, None, 20.0, None, None, None, id="softcap"),
+    pytest.param(1, 200, 4, 2, 16, True, 64, 30.0, None, None, None, id="ragged-200"),
+    pytest.param(1, 80, 2, 1, 16, False, None, None, 112, None, None,
+                 id="non-causal-ragged-kv"),
+    # MLA's form: q/k wider than v (nope + rope), scale 1/sqrt(q/k width)
+    pytest.param(2, 64, 4, 4, 48, True, None, None, None, 32, 48 ** -0.5,
+                 id="mla-d48-dv32"),
+    pytest.param(1, 100, 4, 2, 48, True, None, None, None, 32, 0.3,
+                 id="ragged-100-d48-dv32-scale0.3"),
 ]
 
 
-@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk", FLASH_CASES)
-def test_flash_plain_matches_pallas(B, Sq, H, Hkv, D, causal, window, softcap, Sk):
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk,Dv,scale", FLASH_CASES)
+def test_flash_plain_matches_pallas(B, Sq, H, Hkv, D, causal, window, softcap, Sk, Dv,
+                                    scale):
     """Forward output and lse of the plain flash version against
     ``_flash_fwd_pallas(interpret=True)`` at 3e-5, and the gradients of the
     autograd function (plain blocked backward) against ``jax.grad`` through
-    the Pallas flash attention at 5e-5."""
+    the Pallas flash attention at 5e-5; v may be narrower than q and k."""
     jax, jnp = _jax()
     from repro.kernels.flash_attention import _flash_fwd_pallas, flash_attention
 
     rng = np.random.default_rng(2)
-    q, k, v = _qkv(rng, B, Sq, H, Hkv, D, Sk=Sk)
+    q, k, v = _qkv(rng, B, Sq, H, Hkv, D, Sk=Sk, Dv=Dv)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    scale = D ** -0.5
+    scale = scale or D ** -0.5
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     want_out, want_lse = _flash_fwd_pallas(jq, jk, jv, scale=scale, block_q=64,
                                            block_kv=64, interpret=True, **kw)
@@ -113,11 +120,11 @@ def test_flash_plain_matches_pallas(B, Sq, H, Hkv, D, causal, window, softcap, S
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=3e-5, rtol=3e-5)
 
     def jloss(q, k, v):
-        return (flash_attention(q, k, v, block_q=64, block_kv=64, interpret=True,
-                                **kw) ** 2).sum()
+        return (flash_attention(q, k, v, scale=scale, block_q=64, block_kv=64,
+                                interpret=True, **kw) ** 2).sum()
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
-    got_out = ops.attention(tq, tk, tv, **kw)
+    got_out = ops.attention(tq, tk, tv, scale=scale, **kw)
     np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(want_out),
                                atol=3e-5, rtol=3e-5)
     (got_out ** 2).sum().backward()
@@ -167,18 +174,25 @@ def _sm90_model(q, k, v, *, causal, window, softcap, scale):
 
 
 SM90_CASES = [
-    # B, Sq, H, Hkv, D, causal, window, softcap, Sk
-    pytest.param(2, 64, 4, 2, 16, True, None, None, None, id="gqa-causal-d16"),
-    pytest.param(1, 160, 4, 2, 96, True, 40, None, None, id="window-d96"),
-    pytest.param(1, 128, 2, 1, 128, True, None, 20.0, None, id="softcap-d128"),
-    pytest.param(1, 200, 4, 2, 128, True, 64, 30.0, 130, id="ragged-200-130-d128"),
-    pytest.param(1, 130, 6, 1, 16, False, None, None, 200, id="non-causal-130-200-gqa6"),
+    # B, Sq, H, Hkv, D, causal, window, softcap, Sk, Dv, scale (None: D and D**-0.5)
+    pytest.param(2, 64, 4, 2, 16, True, None, None, None, None, None, id="gqa-causal-d16"),
+    pytest.param(1, 160, 4, 2, 96, True, 40, None, None, None, None, id="window-d96"),
+    pytest.param(1, 128, 2, 1, 128, True, None, 20.0, None, None, None, id="softcap-d128"),
+    pytest.param(1, 200, 4, 2, 128, True, 64, 30.0, 130, None, None,
+                 id="ragged-200-130-d128"),
+    pytest.param(1, 130, 6, 1, 16, False, None, None, 200, None, None,
+                 id="non-causal-130-200-gqa6"),
+    # MLA's form: the 256-wide instance pads both to max(D, Dv), BK = 64
+    pytest.param(1, 200, 4, 4, 192, True, None, None, None, 128, 192 ** -0.5,
+                 id="mla-d192-dv128"),
+    pytest.param(2, 64, 4, 4, 48, True, None, None, None, 32, 48 ** -0.5,
+                 id="mla-d48-dv32"),
 ]
 
 
-@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk", SM90_CASES)
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk,Dv,scale", SM90_CASES)
 def test_sm90_rounding_model_matches_pallas_bf16(B, Sq, H, Hkv, D, causal, window, softcap,
-                                                 Sk, record_property):
+                                                 Sk, Dv, scale, record_property):
     """Rounding P to bf16 before P V (the tensor-core kernel's one change of
     arithmetic against the Pallas kernel, which multiplies P in fp32) stays
     inside the bf16 gate: the kernel's model against
@@ -188,9 +202,10 @@ def test_sm90_rounding_model_matches_pallas_bf16(B, Sq, H, Hkv, D, causal, windo
     from repro.kernels.flash_attention import _flash_fwd_pallas
 
     rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(rng, B, Sq, H, Hkv, D, Sk=Sk))
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(rng, B, Sq, H, Hkv, D, Sk=Sk, Dv=Dv))
     kw = dict(causal=causal, window=window, softcap=softcap)
-    scale = D ** -0.5
+    scale = scale or D ** -0.5
     jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v))
     want_out, want_lse = _flash_fwd_pallas(jq, jk, jv, scale=scale, block_q=64,
                                            block_kv=64, interpret=True, **kw)
@@ -281,6 +296,9 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, xdt, gdt):
     (1, 200, 4, 2, 128, False, None, None, 130, torch.bfloat16, None),
     (1, 130, 4, 2, 128, True, 48, None, 200, torch.bfloat16, None),
     (2, 384, 24, 2, 128, True, None, None, None, torch.bfloat16, None),
+    # MLA (deepseek-v2-lite): q/k 192 wide (nope + rope), v 128 wide
+    (2, 300, 16, 16, 192, True, None, None, None, torch.bfloat16, 128),
+    (1, 200, 4, 4, 192, True, None, None, None, torch.float32, 128),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, H, Hkv, D, causal, window, softcap,
                                     Sk, dtype, Dv):

@@ -1,7 +1,9 @@
 """The port's lane-batched model against ``repro.models.transformer``.
 
-Dense architectures and the MoE ones (qwen3-moe, and jamba with its Mamba,
-attention, dense and MoE layers); the MoE layers' aux loss is held too.
+Dense architectures, the MoE ones (qwen3-moe, and jamba with its Mamba,
+attention, dense and MoE layers; the MoE layers' aux loss is held too),
+deepseek-v2-lite (MLA) and the backbones of hubert-xlarge and pixtral-12b;
+and every configuration of the registry builds and runs.
 
 The parameters are built by JAX and copied into the port through
 ``repro_torch.interop`` (the two RNGs differ); the batch is the numpy host
@@ -31,6 +33,9 @@ torch.set_num_threads(2)
 ARCHS = ["starcoder2-3b", "phi3-mini-3.8b", "gemma2-9b", "granite-34b"]
 # MoE FFNs: qwen3-moe (attention and MoE), jamba (Mamba, attention, dense, MoE)
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b"]
+# MLA with a dense prefix and MoE superblocks; the backbones behind the two
+# frontend stubs (hubert encoder-only), on tokens as the CLIs train them
+LAST_ARCHS = ["deepseek-v2-lite-16b", "hubert-xlarge", "pixtral-12b"]
 
 
 def test_interop_round_trip_population_state():
@@ -57,7 +62,7 @@ def test_interop_round_trip_population_state():
         np.testing.assert_array_equal(np.asarray(a, np.float32), b)
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + LAST_ARCHS)
 def test_init_params_tree_matches_jax_layout(arch):
     """The port's own init builds the JAX package's tree: same keys, shapes
     and dtypes; gains start at zero (stored as gamma - 1)."""
@@ -77,7 +82,7 @@ def test_init_params_tree_matches_jax_layout(arch):
     assert float(wq.abs().max()) <= 2.0 / cfg.d_model ** 0.5 + 1e-6
 
 
-@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS + LAST_ARCHS)
 def test_forward_and_loss_match_jax(arch):
     """Two lanes with different weights: each lane's logits and loss equal the
     JAX forward of that lane's weights on that lane's batch, at 1e-4."""
@@ -110,7 +115,23 @@ def test_forward_and_loss_match_jax(arch):
     assert metrics["accuracy"].shape == (K,)
 
 
-def test_unported_mixer_raises_naming_the_roadmap_item():
-    cfg = get_smoke_config("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+def test_every_config_builds_and_runs():
+    """The port builds every configuration the JAX package has, every mixer
+    and FFN kind among them: each smoke config's own init runs one finite
+    forward on K=2 lanes."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.configs.base import FFNS, MIXERS
+
+    assert ARCH_IDS == JAX_ARCH_IDS
+    kinds = set()
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch)
+        kinds |= {k for layer in cfg.prefix_pattern + cfg.pattern for k in layer}
+        one = T.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        params = interop.tree_map(lambda t: torch.stack([t, 0.5 * t]), one)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 1, 8), generator=torch.Generator())
+        logits, aux = T.forward(params, tokens, cfg)
+        assert logits.shape == (2, 1, 8, cfg.vocab_size), arch
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux).all()), arch
+    assert kinds == set(MIXERS) | set(FFNS)
