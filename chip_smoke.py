@@ -21,8 +21,12 @@ Phases, each printing one JSON line:
    lane; TF32 off), with the flash kernel each case went through (bf16: the
    tensor-core kernel, fp32: the CUDA-core kernel); the plain flash backward
    fed the tensor-core kernel's (out, lse) against the same backward fed the
-   plain forward's, at the main shape; and the scan's chunked backward
-   against autograd through its plain version;
+   plain forward's, at the main shape; the scan's chunked backward
+   against autograd through its plain version; the RMSNorm backward kernel
+   (dx and dgamma) against its closed-form plain version at the four main
+   paths' shapes in bf16, in fp32, at d = 100 (the scalar kernels in bf16)
+   and in both mixes of x and gain dtypes, and its bits equal lane to lane
+   and run to run;
 4. main_path — the HPO population trainer: the port's Experiment
    with the random proposer and the vectorized resource manager, training
    K=4 trials as one lane-batched program, first of starcoder2-3b, then of
@@ -30,7 +34,8 @@ Phases, each printing one JSON line:
    layers; the kernels' launch counters, set to 0 before each path and read
    after it, must show that every population step went through each kernel
    its architecture runs (and through no other: the bf16 starcoder2 step
-   through the tensor-core flash kernel, never the CUDA-core one);
+   through the tensor-core flash kernel, never the CUDA-core one; every
+   RMSNorm forward's backward through the backward kernel);
    chunked_path — the same two trainers through the fused chunked engine
    (``--chunk-steps 4``, 8 steps a trial: two chunks, each one replay of a
    captured CUDA graph whose batches the synthesis kernel makes on the
@@ -88,8 +93,9 @@ Phases, each printing one JSON line:
    qwen3-moe, jamba, deepseek-v2-lite, hubert-xlarge and pixtral-12b smoke
    configs in fp32, once on the card (kernels) and
    once on the CPU (plain versions): losses and parameters agree within
-   1e-4, and the card's fp32 attention went through the CUDA-core flash
-   kernel only; for the MoE configs, the count of top-k assignments the
+   1e-4 (the parameter leaf with the largest error named), and the card's
+   fp32 attention went through the CUDA-core flash kernel only; for the
+   MoE configs, the count of top-k assignments the
    card routed differently (reported, not a gate beyond the 1e-4);
 6. timing — each kernel, its plain version and the PyTorch library call
    that computes the same function (none for the selective scan), timed
@@ -97,9 +103,15 @@ Phases, each printing one JSON line:
    calls it, with the chunk states), beside the least time the card could
    take: bytes or operations, and for the scan also its exponentials on the
    special-function units (``sfu_ms``), the bound that binds it; RMSNorm
-   and flash also at the MoE path's shapes (``moe_shape``), RMSNorm at MLA's
-   ``kv_norm`` (``kv_norm_shape``), flash at the MLA path's and at
-   hubert-xlarge's shapes (``mla_shape``, ``hubert_shape``).
+   and flash also at the MoE path's shapes (``moe_shape``), RMSNorm at
+   falcon-mamba's (``mamba_shape``) and MLA's ``kv_norm``
+   (``kv_norm_shape``), flash at the MLA path's and at hubert-xlarge's
+   shapes (``mla_shape``, ``hubert_shape``); the RMSNorm forward and
+   backward also as ``device_ms``, launches captured in a CUDA graph over
+   rotating inputs larger than the L2 and replayed, and the backward's
+   ``per_step`` ms on each main path (its cell's shapes, the calls of
+   ``rms_widths``) against the autograd backward's that it replaced, both
+   eager and graph-replayed.
 
 The ``total`` line holds the wall seconds of each phase.
 
@@ -127,6 +139,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
             "float32": 67e12}      # fp32 outside the tensor cores
 TOL = {"rmsnorm": {"float32": 1e-5, "bfloat16": 3e-2},
+       # dx and dgamma; x/gain dtype pairs at bf16's, which one of them has
+       "rmsnorm_bwd": {"float32": 5e-5, "bfloat16": 3e-2, "bfloat16/float32": 3e-2,
+                       "float32/bfloat16": 3e-2},
        "flash_attention": {"float32": 3e-5, "bfloat16": 3e-2},
        "ssm_scan": {"float32": 1e-4, "bfloat16": 3e-2}}   # on y; h_last always 1e-4
 SSM_STATE_TOL = 1e-4
@@ -147,6 +162,7 @@ MOE = dict(arch="qwen3-moe-30b-a3b", n_layers=1, population=2, batch=2, seq=1024
 # AdamW's temporaries of the stacked experts pass the card's memory)
 DEEPSEEK = dict(arch="deepseek-v2-lite-16b", n_layers=2, population=2, batch=2, seq=1024,
                 steps=4)
+PATHS = (MAIN, MAMBA, MOE, DEEPSEEK)
 # the fp32 smoke configs held card against CPU; jamba runs every kernel,
 # deepseek MLA (q/k wider than v), hubert non-causal attention
 CARD_VS_CPU = ("starcoder2-3b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
@@ -155,6 +171,7 @@ RMS_SHAPE = (4, 4096, 3072)                        # (K, B*S, d), gain (K, d)
 RMS_MAMBA_SHAPE = (4, 2048, 4096)
 RMS_MOE_SHAPE = (2, 2048, 2048)                    # qwen3-moe's and deepseek's d = 2048
 RMS_KV_NORM_SHAPE = (2, 2048, 512)                 # MLA's kv_norm over the latent
+L2_BYTES = 50e6                                    # H100 L2
 FLASH_Q, FLASH_KV = (16, 1024, 24, 128), (16, 1024, 2, 128)   # (K*B, S, heads, D)
 FLASH_MOE_Q, FLASH_MOE_KV = (4, 1024, 32, 128), (4, 1024, 4, 128)   # a group of 8
 FLASH_MLA_Q, FLASH_MLA_DV = (4, 1024, 16, 192), 128   # q, k 128 + 64 wide; v 128
@@ -197,8 +214,11 @@ PBT_SPACE = [
     {"name": "weight_decay", "type": "float", "range": [0.0, 0.2]},
 ]
 # our kernels by the substring of their device name (the fp32 flash kernel's
-# name is not a substring of the tensor-core one's)
-KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "flash_attention_sm90": "flash_fwd_sm90_kernel",
+# name is not a substring of the tensor-core one's, nor the RMSNorm
+# forward's of the backward's; the backward's dgamma sum is a second kernel,
+# rmsnorm_dgamma_kernel, of the same launch)
+KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "rmsnorm_bwd": "rmsnorm_bwd_kernel",
+                "flash_attention_sm90": "flash_fwd_sm90_kernel",
                 "flash_attention_fp32": "flash_fwd_kernel", "ssm_scan": "ssm_scan_kernel",
                 "synth_tokens": "synth_tokens_kernel"}
 INT_OF_SIZE = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
@@ -227,13 +247,19 @@ PTXAS_INSTANCES = {  # source: (its kernel's instances in the mangled names, lab
     "ssm_scan.cu": (r"ssm_scan_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)",
                     lambda m: "{}<{}>".format("bf16" if m[1] != "f" else "fp32",
                                               ",".join(re.findall(r"\d+", m[2])))),
+    # fwd / bwd <x, gain, P>: P 16-byte packs a thread (the scalar kernels not listed)
+    "rmsnorm.cu": (r"rmsnorm(_bwd)?_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|f|S\d*_)Li(\d+)E",
+                   lambda m: "{}<{},{},P{}>".format(
+                       "bwd" if m[1] else "fwd", "fp32" if m[2] == "f" else "bf16",
+                       {"f": "fp32", "13__nv_bfloat16": "bf16"}.get(
+                           m[3], "fp32" if m[2] == "f" else "bf16"), m[4])),
 }
 
 
 def ptxas_summary(report: str, source: str) -> dict:
     """Registers, spills and stack of each instance of ``source``'s kernel
     (the tensor-core flash kernel by head-dim width, the selective scan by
-    dtype and state split), from nvcc's ``-Xptxas=-v`` report; empty when the
+    dtype and state split, RMSNorm by direction, dtypes and packs a thread), from nvcc's ``-Xptxas=-v`` report; empty when the
     library was reused.  The flash kernel's registers are those the block
     launches with: ``setmaxnreg`` then moves them from the producer to the
     consumers."""
@@ -313,6 +339,31 @@ def ssm_backward_case(torch, dev, gen):
         for g, p in zip(a, b))
     return dict(kernel="ssm_scan", case="chunked-backward", dtype="float32",
                 max_abs_err=err, tol=SSM_BWD_TOL, kernel_launches=through, ok=ok)
+
+
+def rmsnorm_bwd_bits_cases(torch, dev, gen):
+    """The RMSNorm backward on two lanes fed the same x, dy and gain, called
+    twice: dx and dgamma raw-bit equal lane to lane and run to run (dgamma
+    is summed over rows in a fixed order, without atomics)."""
+    from repro_torch.kernels import rmsnorm as rn
+
+    cases = []
+    for shape, dtype in ((RMS_SHAPE, torch.bfloat16), (RMS_MOE_SHAPE, torch.float32)):
+        one = (1,) + shape[1:]
+        x, dy = (torch.randn(one, generator=gen, device=dev).to(dtype).expand(2, *one[1:])
+                 .contiguous() for _ in range(2))
+        g = (0.1 * torch.randn((1, shape[2]), generator=gen, device=dev)).to(dtype).expand(
+            2, -1).contiguous()
+        first = rn.rmsnorm_bwd_cuda(x, g, dy, EPS)
+        again = rn.rmsnorm_bwd_cuda(x, g, dy, EPS)
+        torch.cuda.synchronize()
+        runs = all(torch.equal(a, b) for a, b in zip(first, again))
+        lanes = all(torch.equal(a[0], a[1]) for a in first)
+        cases.append(dict(kernel="rmsnorm_bwd", case="bits-2-lanes-2-runs",
+                          dtype=str(dtype).split(".")[-1], shape=[2, *one[1:]],
+                          runs_bit_equal=runs, lanes_bit_equal=lanes, ok=runs and lanes))
+        del x, dy, g, first, again
+    return cases
 
 
 def flash_masked_rows_case(torch, dev, gen):
@@ -425,6 +476,16 @@ def check_kernels(torch, dev):
         g = (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(dtype)
         return rn.rmsnorm_cuda(x, g, EPS), rn.rmsnorm_plain(x, g, EPS)
 
+    def rms_bwd(shape, dtype, gain_dtype=None):
+        """(dx, dgamma) of the backward kernel and of the closed form, flattened."""
+        K, _, d = shape
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        g = (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(gain_dtype or dtype)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got, want = rn.rmsnorm_bwd_cuda(x, g, dy, EPS), rn.rmsnorm_bwd_plain(x, g, dy, EPS)
+        return (torch.cat([t.float().flatten() for t in got]),
+                torch.cat([t.float().flatten() for t in want]))
+
     def flash(qs, kvs, dtype, dv=None, **kw):
         """Kernel and plain (out, lse) flattened, and the launches each flash
         kernel made; the scale is 1/sqrt of the q/k width."""
@@ -454,6 +515,7 @@ def check_kernels(torch, dev):
     # the cases at the MoE and MLA paths' and hubert's shapes, by the key of
     # their error in the ``kernels`` line's sub-rows
     other_shapes = {("moe-main", "bfloat16"): "moe", ("mla-main", "bfloat16"): "mla",
+                    ("mamba-main", "bfloat16"): "mamba",
                     ("hubert-main", "bfloat16"): "hubert", ("kv-norm", "bfloat16"): "kv_norm",
                     ("mla-d192-dv128-ragged-300", "float32"): "mla_ragged"}
     runs = [
@@ -463,6 +525,20 @@ def check_kernels(torch, dev):
         ("rmsnorm", "kv-norm", "bfloat16", lambda: rms(RMS_KV_NORM_SHAPE, torch.bfloat16)),
         ("rmsnorm", "main", "float32", lambda: rms(RMS_SHAPE, torch.float32)),
         ("rmsnorm", "d=100", "float32", lambda: rms((2, 33, 100), torch.float32)),
+        ("rmsnorm", "d=100", "bfloat16", lambda: rms((2, 33, 100), torch.bfloat16)),
+        ("rmsnorm_bwd", "main", "bfloat16", lambda: rms_bwd(RMS_SHAPE, torch.bfloat16)),
+        ("rmsnorm_bwd", "mamba-main", "bfloat16",
+         lambda: rms_bwd(RMS_MAMBA_SHAPE, torch.bfloat16)),
+        ("rmsnorm_bwd", "moe-main", "bfloat16", lambda: rms_bwd(RMS_MOE_SHAPE, torch.bfloat16)),
+        ("rmsnorm_bwd", "kv-norm", "bfloat16",
+         lambda: rms_bwd(RMS_KV_NORM_SHAPE, torch.bfloat16)),
+        ("rmsnorm_bwd", "main", "float32", lambda: rms_bwd(RMS_SHAPE, torch.float32)),
+        ("rmsnorm_bwd", "d=100", "float32", lambda: rms_bwd((2, 33, 100), torch.float32)),
+        ("rmsnorm_bwd", "d=100", "bfloat16", lambda: rms_bwd((2, 33, 100), torch.bfloat16)),
+        ("rmsnorm_bwd", "d=384", "bfloat16/float32",
+         lambda: rms_bwd((2, 40, 384), torch.bfloat16, torch.float32)),
+        ("rmsnorm_bwd", "d=384", "float32/bfloat16",
+         lambda: rms_bwd((2, 40, 384), torch.float32, torch.bfloat16)),
         ("flash_attention", "main", "bfloat16",
          lambda: flash(FLASH_Q, FLASH_KV, torch.bfloat16)),
         ("flash_attention", "moe-main", "bfloat16",
@@ -519,6 +595,13 @@ def check_kernels(torch, dev):
          lambda: ssm((2, 1000, 256), 16, 2, torch.float32, chunk=128)),
         ("ssm_scan", "3-rows-a-lane", "float32",
          lambda: ssm((6, 130, 320), 16, 2, torch.float32, h0=True, chunk=64)),
+        # RMSNorm at jamba's d 8192, and at d 6144 with an fp32 gain: 2 row
+        # groups a block (enough rows), a gain and a fold of 48 KB or more of
+        # shared memory (last, so the cases above keep their inputs)
+        ("rmsnorm", "d=8192", "bfloat16", lambda: rms((2, 2048, 8192), torch.bfloat16)),
+        ("rmsnorm_bwd", "d=8192", "bfloat16", lambda: rms_bwd((2, 2048, 8192), torch.bfloat16)),
+        ("rmsnorm_bwd", "d=6144", "bfloat16/float32",
+         lambda: rms_bwd((1, 4096, 6144), torch.bfloat16, torch.float32)),
     ]
     for name, case, dtype, run in runs:
         got, want, *split = run()
@@ -555,6 +638,7 @@ def check_kernels(torch, dev):
     cases.append(flash_masked_rows_case(torch, dev, gen))
     cases.append(flash_backward_case(torch, dev, gen))
     cases.append(ssm_backward_case(torch, dev, gen))
+    cases.extend(rmsnorm_bwd_bits_cases(torch, dev, gen))
     emit({"phase": "kernels", "cases": cases})
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -581,29 +665,48 @@ def counters() -> dict:
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import synth as sk
 
-    return {"rmsnorm": rn.launches, "flash_attention_sm90": fa.launches_sm90,
+    return {"rmsnorm": rn.launches, "rmsnorm_bwd": rn.launches_bwd,
+            "flash_attention_sm90": fa.launches_sm90,
             "flash_attention_fp32": fa.launches_fp32, "ssm_scan": ss.launches,
             "synth_tokens": sk.launches}
 
 
-def launches_per_step(cfg, chunked: bool = False) -> dict:
-    """Kernel launches one population step of ``cfg`` makes: RMSNorm before
-    the mixer, before the FFN (if the layer has one), after each with
-    ``post_norm``, once at the end, and on the latent of each MLA layer
-    (``kv_norm``); one flash launch per attention layer (MLA's too),
-    of the tensor-core kernel in bf16 and of the CUDA-core kernel in fp32;
-    one scan per Mamba layer; one token synthesis in a chunk (the per-step
-    path feeds host batches)."""
+def rms_widths(cfg) -> dict:
+    """RMSNorm calls one population step of ``cfg`` makes, by row width:
+    before the mixer, before the FFN (if the layer has one), after each with
+    ``post_norm`` and once at the end, at d_model; on the latent of each MLA
+    layer (``kv_norm``), at kv_lora_rank."""
     layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
-    rms = 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm)) + (m == "attn_mla")
-                  for m, ffn in layers)
+    widths = {cfg.d_model: 1 + sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm))
+                                   for _, ffn in layers)}
+    mla = sum(m == "attn_mla" for m, _ in layers)
+    if mla:
+        widths[cfg.kv_lora_rank] = widths.get(cfg.kv_lora_rank, 0) + mla
+    return widths
+
+
+def launches_per_step(cfg, chunked: bool = False) -> dict:
+    """Kernel launches one population step of ``cfg`` makes: the RMSNorms of
+    ``rms_widths``, each forward with its backward; one flash launch per
+    attention layer (MLA's too), of the tensor-core kernel in bf16 and of
+    the CUDA-core kernel in fp32; one scan per Mamba layer; one token
+    synthesis in a chunk (the per-step path feeds host batches)."""
+    layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
+    rms = sum(rms_widths(cfg).values())
     attn = sum(m.startswith("attn") for m, _ in layers)
     bf16 = cfg.compute_dtype == "bfloat16"
-    return {"rmsnorm": rms,
+    return {"rmsnorm": rms, "rmsnorm_bwd": rms,
             "flash_attention_sm90": attn if bf16 else 0,
             "flash_attention_fp32": 0 if bf16 else attn,
             "ssm_scan": sum(m == "mamba" for m, _ in layers),
             "synth_tokens": int(chunked)}
+
+
+def path_config(arch, n_layers, **_):
+    """A main path's model: the published config with its depth cut."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
 
 
 def main_path(torch, dev, arch, n_layers, population, batch, seq, steps, seed=0):
@@ -722,6 +825,7 @@ def steady_state_step(torch, dev, tc, batch, seq, population, warmup=1, timed=3)
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("flash_attention_fwd (ours)", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("rmsnorm (ours)", ("rmsnorm_kernel",)),
+    ("rmsnorm_bwd (ours)", ("rmsnorm_bwd_kernel", "rmsnorm_dgamma_kernel")),
     ("ssm_scan (ours)", ("ssm_scan_kernel",)),
     ("synth_tokens (ours)", ("synth_tokens_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -2362,7 +2466,21 @@ def ring_path(torch, dev, arch, n_layers, population, batch, seq, seen, seed=0):
 
 
 # ------------------------------------------------------------------- phase 5
-def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
+def leaf_names(tree, prefix="") -> list:
+    """Paths of a tree's leaves ("blocks/0/mixer/wq"), in ``tree_leaves``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def card_vs_cpu_run(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
+    """``arch``'s fp32 smoke config, two lanes, ``steps`` population steps on
+    the card and on the CPU from the same state and batches: the phase's
+    record (loss and parameter max abs errors, the parameter leaf with the
+    largest, the card's launches), whether both errors are within 1e-4, and
+    the launches the steps should have made."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.data.pipeline import SyntheticLM, to_device
@@ -2405,25 +2523,40 @@ def card_vs_cpu(torch, dev, arch, steps=3, population=2, batch=2, seq=128):
     finally:
         M.route = plain_route
     ok = loss_err <= 1e-4
-    param_err = 0.0
-    for a, b in zip(tree_leaves(card["inner"]["params"]), tree_leaves(cpu["inner"]["params"])):
+    param_err, worst = 0.0, None
+    for name, a, b in zip(leaf_names(cpu["inner"]["params"]),
+                          tree_leaves(card["inner"]["params"]),
+                          tree_leaves(cpu["inner"]["params"])):
         a = a.cpu()
-        param_err = max(param_err, float((a - b).abs().max()))
+        err = float((a - b).abs().max())
+        if err > param_err:
+            param_err, worst = err, name
         ok = ok and bool(torch.allclose(a, b, atol=1e-4, rtol=1e-4))
     through = {name: n - before[name] for name, n in counters().items()}
     want = {name: n * steps for name, n in launches_per_step(tc.model).items()}
-    emit({"phase": "card_vs_cpu", "config": tc.model.name, "dtype": tc.model.param_dtype,
-          "population": population, "seq": seq, "steps": steps, "loss_max_abs_err": loss_err,
-          "param_max_abs_err": param_err, "tol": 1e-4, "card_launches": through,
-          **({"moe_assignments": sum(t.numel() for t in routed["cpu"]),
-              "moe_assignments_routed_differently": sum(
-                  int((a != b).sum()) for a, b in zip(routed["cpu"], routed["cuda"]))}
-             if tc.model.has_moe else {})})
+    rec = {"phase": "card_vs_cpu", "config": tc.model.name, "dtype": tc.model.param_dtype,
+           "population": population, "seq": seq, "steps": steps, "loss_max_abs_err": loss_err,
+           "param_max_abs_err": param_err, "param_worst_leaf": worst, "tol": 1e-4,
+           "card_launches": through,
+           **({"moe_assignments": sum(t.numel() for t in routed["cpu"]),
+               "moe_assignments_routed_differently": sum(
+                   int((a != b).sum()) for a, b in zip(routed["cpu"], routed["cuda"]))}
+              if tc.model.has_moe else {})}
+    return rec, ok, want
+
+
+def card_vs_cpu(torch, dev, arch):
+    rec, ok, want = card_vs_cpu_run(torch, dev, arch)
+    emit(rec)
     if not ok:
-        die(f"card and CPU disagree on {arch}: loss {loss_err}, params {param_err}")
-    if through != want:
-        die(f"the card's population steps on {arch} made launches {through}, want {want}")
-    return through
+        die(f"card and CPU disagree on {arch}: loss {rec['loss_max_abs_err']}, "
+            f"params {rec['param_max_abs_err']} at {rec['param_worst_leaf']}")
+    if rec["card_launches"] != want:
+        die(f"the card's population steps on {arch} made launches {rec['card_launches']}, "
+            f"want {want}")
+    return rec["card_launches"]
+
+
 
 
 # ------------------------------------------------------------------- phase 6
@@ -2438,6 +2571,48 @@ def event_ms(torch, fn, n=20, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_device_ms(torch, fn, sets, min_launches=20, replays=3) -> float:
+    """Device ms a call of ``fn(*args)``, host dispatch left out: calls over
+    the argument ``sets`` in turn (whose bytes together pass the L2, so a
+    call finds its inputs in device memory, as the main path does), at least
+    ``min_launches`` of them captured in one CUDA graph, replayed under CUDA
+    events."""
+    per_set = -(-min_launches // len(sets))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture stream, as capture wants
+        for args in sets:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(per_set):
+            for args in sets:
+                fn(*args)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * per_set * len(sets))
+    del graph
+    return ms
+
+
+def rmsnorm_bwd_autograd(x, gamma, dy, eps):
+    """The RMSNorm backward before the kernel: the plain forward recomputed
+    and autograd through it, (dx, dgamma)."""
+    import torch
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    with torch.enable_grad():
+        xx, gg = x.detach().requires_grad_(True), gamma.detach().requires_grad_(True)
+        return torch.autograd.grad(rn.rmsnorm_plain(xx, gg, eps), (xx, gg), dy)
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -2510,31 +2685,116 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         return {"launches": sum(p[name] for p in by_path.values()),
                 "launches_by_path": {path: p[name] for path, p in by_path.items()}}
 
-    def rms_at(shape):
+    def rms_inputs(shape, n_sets):
         K, R, d = shape
-        x = torch.randn(shape, generator=gen, device=dev).to(dt)
-        g = (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(dt)
+        return [(torch.randn(shape, generator=gen, device=dev).to(dt),
+                 (0.1 * torch.randn((K, d), generator=gen, device=dev)).to(dt),
+                 torch.randn(shape, generator=gen, device=dev).to(dt)) for _ in range(n_sets)]
+
+    def n_sets(read_bytes):   # input sets whose reads together pass twice the L2
+        return max(2, -(-int(2 * L2_BYTES) // int(read_bytes)))
+
+    def rms_at(shape):
+        """The forward at ``shape``: eager ``ms`` (20 calls, host dispatch
+        included) and ``device_ms`` (graph-replayed over rotating inputs)."""
+        K, R, d = shape
+        x_bytes = K * R * d * 2
+        sets = rms_inputs(shape, n_sets(x_bytes))
+        x, g, _ = sets[0]
         w = (1.0 + g.float()).to(dt)
-        nb = 2 * x.numel() * x.element_size() + g.numel() * g.element_size()
+        nb = 2 * x_bytes + g.numel() * g.element_size()
         b_ms, b_by = bound_ms(nb, 4 * x.numel(), "float32")
-        return {
+        out = {
             "ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
+            "device_ms": graph_device_ms(torch, lambda a, b, _: rn.rmsnorm_cuda(a, b, EPS), sets),
+            "rotating_input_sets": len(sets),
             "plain_ms": event_ms(torch, lambda: rn.rmsnorm_plain(x, g, EPS)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": event_ms(torch, lambda: [F.rms_norm(x[k], (d,), weight=w[k], eps=EPS)
                                                    for k in range(K)]),
             "shape": {"x": list(shape), "gamma": [K, d], "dtype": dts},
         }
+        out["device_share_of_bound"] = b_ms / out["device_ms"]
+        return out
 
+    def rms_bwd_at(shape):
+        """The backward at ``shape``: the kernel and the autograd backward that
+        it replaced (``plain``), each eager (``ms``, ``plain_ms``: host
+        dispatch included) and graph-replayed (``device_ms``,
+        ``plain_device_ms``); the closed form; and autograd of ``F.rms_norm``,
+        a lane at a time, backward only (``library_ms``)."""
+        K, R, d = shape
+        x_bytes = K * R * d * 2
+        sets = rms_inputs(shape, n_sets(2 * x_bytes))
+        x, g, dy = sets[0]
+        nb = 3 * x_bytes + 2 * g.numel() * g.element_size()   # x, dy, dx; gamma, dgamma
+        b_ms, b_by = bound_ms(nb, 10 * x.numel(), "float32")
+        xs = [x[k].detach().clone().requires_grad_(True) for k in range(K)]
+        ws = [(1.0 + g[k].float()).to(dt).requires_grad_(True) for k in range(K)]
+        ys = [F.rms_norm(xs[k], (d,), weight=ws[k], eps=EPS) for k in range(K)]
+        out = {
+            "ms": event_ms(torch, lambda: rn.rmsnorm_bwd_cuda(x, g, dy, EPS)),
+            "device_ms": graph_device_ms(torch, lambda *a: rn.rmsnorm_bwd_cuda(*a, EPS), sets),
+            "rotating_input_sets": len(sets),
+            "plain_ms": event_ms(torch, lambda: rmsnorm_bwd_autograd(x, g, dy, EPS), n=5,
+                                 warmup=1),
+            "plain_device_ms": graph_device_ms(
+                torch, lambda *a: rmsnorm_bwd_autograd(*a, EPS), sets, min_launches=10,
+                replays=2),
+            "closed_form_plain_ms": event_ms(torch, lambda: rn.rmsnorm_bwd_plain(x, g, dy, EPS),
+                                             n=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": event_ms(torch, lambda: torch.autograd.grad(
+                ys, xs + ws, list(dy.unbind(0)), retain_graph=True), n=5, warmup=1),
+            "shape": {"x": list(shape), "gamma": [K, d], "dy": list(shape), "dtype": dts},
+        }
+        out["device_share_of_bound"] = b_ms / out["device_ms"]
+        del xs, ws, ys, sets
+        torch.cuda.empty_cache()
+        return out
+
+    fwd_at = {shape: rms_at(shape) for shape in
+              (RMS_SHAPE, RMS_MAMBA_SHAPE, RMS_MOE_SHAPE, RMS_KV_NORM_SHAPE)}
+    bwd_at = {shape: rms_bwd_at(shape) for shape in fwd_at}
+    # each main path's RMSNorm backward a step, at the shapes its cell gives
+    # (lanes, batch * seq, each width of rms_widths): the kernel against the
+    # autograd backward that it replaced, eager and graph-replayed
+    per_step = {}
+    for path in PATHS:
+        calls = {(path["population"], path["batch"] * path["seq"], d): n
+                 for d, n in rms_widths(path_config(**path)).items()}
+        for shape in calls:
+            if shape not in bwd_at:
+                bwd_at[shape] = rms_bwd_at(shape)
+        per_step[path["arch"]] = {
+            "calls": {str(list(shape)): n for shape, n in calls.items()},
+            **{key: sum(n * bwd_at[shape][key] for shape, n in calls.items())
+               for key in ("plain_ms", "plain_device_ms", "ms", "device_ms")}}
     rows.append({
         "name": "rmsnorm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:19", **counts("rmsnorm"),
-        "max_abs_err": errs["rmsnorm"], **rms_at(RMS_SHAPE),
+        "max_abs_err": errs["rmsnorm"], **fwd_at[RMS_SHAPE],
+        # falcon-mamba-7b's call at d = 4096
+        "mamba_shape": dict(fwd_at[RMS_MAMBA_SHAPE], max_abs_err=errs["rmsnorm@mamba"]),
         # the MoE and MLA paths' call at d = 2048 (qwen3-moe-30b-a3b, deepseek-v2-lite-16b)
-        "moe_shape": dict(rms_at(RMS_MOE_SHAPE), max_abs_err=errs["rmsnorm@moe"]),
+        "moe_shape": dict(fwd_at[RMS_MOE_SHAPE], max_abs_err=errs["rmsnorm@moe"]),
         # MLA's kv_norm over the 512-wide latent (deepseek-v2-lite-16b)
-        "kv_norm_shape": dict(rms_at(RMS_KV_NORM_SHAPE), max_abs_err=errs["rmsnorm@kv_norm"]),
+        "kv_norm_shape": dict(fwd_at[RMS_KV_NORM_SHAPE], max_abs_err=errs["rmsnorm@kv_norm"]),
     })
+    rows.append({
+        "name": "rmsnorm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        # not a TPU kernel: the JAX package's custom VJP of the Pallas norm
+        # takes jax.vjp of the reference norm
+        "replaces": "src/repro/kernels/ops.py:60", "tpu_kernel": False,
+        **counts("rmsnorm_bwd"), "max_abs_err": errs["rmsnorm_bwd"], **bwd_at[RMS_SHAPE],
+        "mamba_shape": dict(bwd_at[RMS_MAMBA_SHAPE], max_abs_err=errs["rmsnorm_bwd@mamba"]),
+        "moe_shape": dict(bwd_at[RMS_MOE_SHAPE], max_abs_err=errs["rmsnorm_bwd@moe"]),
+        "kv_norm_shape": dict(bwd_at[RMS_KV_NORM_SHAPE],
+                              max_abs_err=errs["rmsnorm_bwd@kv_norm"]),
+        "per_step": per_step,
+    })
+    del fwd_at, bwd_at
 
     kw = dict(causal=True, window=None, softcap=None, scale=FLASH_Q[-1] ** -0.5)
 
@@ -2706,14 +2966,15 @@ def main() -> int:
           "sources": [s.name for s in build.sources()], "flags": build.NVCC_FLAGS,
           **{key: ptxas_summary(build.ptxas_report.get(src, ""), src)
              for key, src in (("flash_sm90_ptxas", "flash_attention_sm90.cu"),
-                              ("ssm_scan_ptxas", "ssm_scan.cu"))}})
+                              ("ssm_scan_ptxas", "ssm_scan.cu"),
+                              ("rmsnorm_ptxas", "rmsnorm.cu"))}})
 
     errs = check_kernels(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     lap("kernels")
     by_path, chunk_launches = {}, {}
-    for path in (MAIN, MAMBA, MOE, DEEPSEEK):
+    for path in PATHS:
         release_cublas_workspaces(torch)
         by_path[path["arch"]], out = main_path(torch, dev, **path)
         gc.collect()

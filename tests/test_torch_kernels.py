@@ -60,8 +60,9 @@ def test_rmsnorm_plain_matches_pallas(shape):
 
 
 def test_rmsnorm_grads_match_jax_reference_vjp():
-    """The autograd function's backward (plain version's autograd) against
-    ``jax.grad`` through the reference norm, per-lane gains, 5e-6."""
+    """The autograd function's backward (the closed-form plain backward on
+    the CPU) against ``jax.grad`` through the reference norm, per-lane
+    gains, 5e-6."""
     jax, jnp = _jax()
     from repro.kernels import ref as jref
 
@@ -220,11 +221,13 @@ def test_sm90_rounding_model_matches_pallas_bf16(B, Sq, H, Hkv, D, causal, windo
 
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers take the plain versions: no launch counted
-    (neither flash kernel's, in either dtype) and no library built."""
+    (neither flash kernel's, in either dtype; neither RMSNorm kernel's, forward
+    or backward) and no library built."""
     rn.reset_launches()
     fa.reset_launches()
-    x = torch.ones(1, 4, 32)
-    ops.rmsnorm(x, torch.zeros(1, 32))
+    x = torch.ones(1, 4, 32, requires_grad=True)
+    ops.rmsnorm(x, torch.zeros(1, 32, requires_grad=True)).sum().backward()
+    assert rn.launches_bwd == 0
     q = torch.ones(1, 8, 2, 16)
     ops.attention(q, q, q)
     ops.attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
@@ -259,10 +262,13 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,xdt,gdt", [
     ((2, 33, 64), torch.float32, torch.float32),
-    ((3, 17, 100), torch.float32, torch.float32),       # d not a vector multiple
+    ((3, 17, 100), torch.float32, torch.float32),
+    ((3, 17, 100), torch.bfloat16, torch.bfloat16),     # d not a vector multiple
     ((2, 40, 3072), torch.bfloat16, torch.bfloat16),
     ((1, 9, 384), torch.bfloat16, torch.float32),
     ((1, 9, 384), torch.float32, torch.bfloat16),
+    ((2, 2048, 8192), torch.bfloat16, torch.bfloat16),  # jamba's d_model
+    ((1, 4096, 6144), torch.bfloat16, torch.float32),
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, shape, xdt, gdt):
     gen = torch.Generator(device=cuda).manual_seed(0)
