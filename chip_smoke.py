@@ -8,13 +8,16 @@ Phases, each printing one JSON line:
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    for sm_90a and load them; the compiler's registers and spills of each
-   instance of the tensor-core flash kernel and of the selective scan;
+   instance of both flash kernels, the selective scan, RMSNorm and the
+   token synthesis kernel;
 3. kernels — each kernel against its plain PyTorch version on the card (the
    token synthesis kernel bit for bit, and against the numpy host path), at
    the main paths' shapes (the MoE path's, the MLA path's flash at q/k width
    192 and v width 128 and its ``kv_norm``, and hubert-xlarge's non-causal
    flash at head dim 80, too) in bf16 and fp32 and on small cases (window /
-   softcap / ragged attention at head dims 16 to 256, fully masked rows;
+   softcap / ragged attention at head dims 16 to 256, fully masked rows in
+   both dtypes, the CUDA-core kernel at every v band in its big and its
+   split grid; the synthesis kernel at order_mix 0, 0.85 and 1;
    for the selective scan the main shape with the chunk states, falcon-mamba's
    initial A and dt over 1,024 steps, N of 4, 12, 16 and 64, ragged L, Dm and
    chunk, unaligned rows, an initial state, per-lane A with 2 and 3 rows a
@@ -106,7 +109,12 @@ Phases, each printing one JSON line:
    and flash also at the MoE path's shapes (``moe_shape``), RMSNorm at
    falcon-mamba's (``mamba_shape``) and MLA's ``kv_norm``
    (``kv_norm_shape``), flash at the MLA path's and at hubert-xlarge's
-   shapes (``mla_shape``, ``hubert_shape``); the RMSNorm forward and
+   shapes (``mla_shape``, ``hubert_shape``), the CUDA-core flash kernel at
+   the main shape in fp32 beside SDPA in fp32 with TF32 off, as called and
+   with kv expanded to every q head (``fp32_kernel``, and its small MLA
+   case graph-replayed too), the synthesis kernel against the latency of
+   its longest independent rule chain (``serial_bound_ms`` beside it) and
+   graph-replayed (``device_ms``); the RMSNorm forward and
    backward also as ``device_ms``, launches captured in a CUDA graph over
    rotating inputs larger than the L2 and replayed, and the backward's
    ``per_step`` ms on each main path (its cell's shapes, the calls of
@@ -243,6 +251,10 @@ def nvidia_smi() -> str:
 # ------------------------------------------------------------------- phase 2
 PTXAS_INSTANCES = {  # source: (its kernel's instances in the mangled names, label)
     "flash_attention_sm90.cu": (r"flash_fwd_sm90_kernelILi(\d+)E", lambda m: f"width_{m[1]}"),
+    # <RM, NJ>: q rows a thread, v chunks of 4 columns a thread
+    "flash_attention.cu": (r"flash_fwd_kernel(?:ILi(\d+)ELi(\d+)ELi\d+E)?",
+                           lambda m: f"rows_{m[1]}_vchunks_{m[2]}" if m[1] else m[0]),
+    "synth_tokens.cu": (r"(synth_tokens_kernel)", lambda m: m[1]),
     # <G, S>: G states a thread, S threads a channel
     "ssm_scan.cu": (r"ssm_scan_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)",
                     lambda m: "{}<{}>".format("bf16" if m[1] != "f" else "fp32",
@@ -258,8 +270,10 @@ PTXAS_INSTANCES = {  # source: (its kernel's instances in the mangled names, lab
 
 def ptxas_summary(report: str, source: str) -> dict:
     """Registers, spills and stack of each instance of ``source``'s kernel
-    (the tensor-core flash kernel by head-dim width, the selective scan by
-    dtype and state split, RMSNorm by direction, dtypes and packs a thread), from nvcc's ``-Xptxas=-v`` report; empty when the
+    (the tensor-core flash kernel by head-dim width, the CUDA-core one by
+    rows and v chunks a thread, the selective scan by dtype and state split,
+    RMSNorm by direction, dtypes and packs a thread, the synthesis kernel),
+    from nvcc's ``-Xptxas=-v`` report; empty when the
     library was reused.  The flash kernel's registers are those the block
     launches with: ``setmaxnreg`` then moves them from the producer to the
     consumers."""
@@ -366,30 +380,34 @@ def rmsnorm_bwd_bits_cases(torch, dev, gen):
     return cases
 
 
-def flash_masked_rows_case(torch, dev, gen):
+def flash_masked_rows_case(torch, dev, gen, dtype):
     """Rows whose causal window ends before the last key (ragged Sk: window
-    32 < Sq - Sk) see no key: the tensor-core kernel must write lse =
-    NEG_INF and out = 0 there, and match the plain version everywhere."""
+    32 < Sq - Sk) see no key: the dtype's kernel (bf16: tensor cores, fp32:
+    CUDA cores) must write lse = NEG_INF and out = 0 there, and match the
+    plain version everywhere."""
     from repro_torch.kernels import flash_attention as fa
 
     Sq, Sk, window = 200, 130, 32
-    q = torch.randn((2, Sq, 4, 64), generator=gen, device=dev).bfloat16()
-    k = torch.randn((2, Sk, 2, 64), generator=gen, device=dev).bfloat16()
-    v = torch.randn((2, Sk, 2, 64), generator=gen, device=dev).bfloat16()
+    q = torch.randn((2, Sq, 4, 64), generator=gen, device=dev).to(dtype)
+    k = torch.randn((2, Sk, 2, 64), generator=gen, device=dev).to(dtype)
+    v = torch.randn((2, Sk, 2, 64), generator=gen, device=dev).to(dtype)
     kw = dict(causal=True, window=window, softcap=None, scale=0.125)
-    before = fa.launches_sm90
+    counter = "launches_sm90" if dtype == torch.bfloat16 else "launches_fp32"
+    before = getattr(fa, counter)
     o, l = fa.flash_fwd_cuda(q, k, v, **kw)
-    through = fa.launches_sm90 - before
+    through = getattr(fa, counter) - before
     po, pl = fa.flash_fwd_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     dead = Sk - 1 + window       # first row that no key reaches
+    dname = str(dtype).split(".")[-1]
+    tol = TOL["flash_attention"][dname]
     err = max(float((o.float() - po.float()).abs().max()), float((l - pl).abs().max()))
     ok = (through == 1 and bool((l[:, :, dead:] == fa.NEG_INF).all())
           and bool((o[:, dead:] == 0).all()) and bool((l[:, :, :dead] > fa.NEG_INF / 2).all())
-          and err <= TOL["flash_attention"]["bfloat16"])
-    return dict(kernel="flash_attention", case="fully-masked-rows", dtype="bfloat16",
-                masked_rows=Sq - dead, max_abs_err=err, tol=TOL["flash_attention"]["bfloat16"],
-                kernel_launches={"sm90": through}, ok=ok)
+          and err <= tol)
+    return dict(kernel="flash_attention", case="fully-masked-rows", dtype=dname,
+                masked_rows=Sq - dead, max_abs_err=err, tol=tol,
+                kernel_launches={counter[len("launches_"):]: through}, ok=ok)
 
 
 def flash_backward_case(torch, dev, gen):
@@ -429,21 +447,25 @@ def flash_backward_case(torch, dev, gen):
 def synth_cases(torch, dev):
     """The token synthesis kernel against its plain version on the card and
     against the numpy host path, bit for bit: both main paths' shapes with
-    real and sentinel streams and per-lane cursors, one shared stream, and a
-    row longer than one tile of the kernel."""
+    real and sentinel streams and per-lane cursors, one shared stream, a
+    row longer than one tile of the kernel, and order_mix 0 (no rule chain)
+    and 1 (one chain a tile, carried across tiles)."""
     import numpy as np
 
     from repro_torch.data.pipeline import SyntheticLM, split_streams
     from repro_torch.kernels import synth as sk
 
     cases = []
-    for case, (k, rows, seq, vocab), streams, steps in (
-            ("starcoder2-main", (4, MAIN["batch"], MAIN["seq"], 49152), [0, 1, -1, -3], [0, 3, 1, 7]),
+    for case, (k, rows, seq, vocab), streams, steps, mix in (
+            ("starcoder2-main", (4, MAIN["batch"], MAIN["seq"], 49152), [0, 1, -1, -3], [0, 3, 1, 7],
+             0.85),
             ("falcon-mamba-main", (4, MAMBA["batch"], MAMBA["seq"], 65024), [5, 12345, -2, -4],
-             [8, 8, 8, 8]),
-            ("shared-stream", (1, 4, 1024, 49152), [0], [6]),
-            ("seq-5000-three-tiles", (2, 3, 5000, 1000), [2, -1], [1 << 33, 4])):
-        data = SyntheticLM(vocab, seq, rows, seed=0)
+             [8, 8, 8, 8], 0.85),
+            ("shared-stream", (1, 4, 1024, 49152), [0], [6], 0.85),
+            ("seq-5000-three-tiles", (2, 3, 5000, 1000), [2, -1], [1 << 33, 4], 0.85),
+            ("order-mix-0", (4, 4, 1024, 49152), [0, 1, 2, 3], [0, 0, 5, 9], 0.0),
+            ("order-mix-1-three-tiles", (2, 2, 4100, 49152), [0, -1], [1, 1 << 35], 1.0)):
+        data = SyntheticLM(vocab, seq, rows, seed=0, order_mix=mix)
         lo, hi = (torch.from_numpy(w.astype(np.int64)).to(dev) for w in split_streams(streams))
         st = torch.tensor(steps, dtype=torch.int64, device=dev)
         before = sk.launches
@@ -457,7 +479,7 @@ def synth_cases(torch, dev):
               and bool(np.array_equal(got[..., :-1].cpu().numpy(), host["tokens"]))
               and bool(np.array_equal(got[..., 1:].cpu().numpy(), host["targets"])))
         cases.append(dict(kernel="synth_tokens", case=case, dtype="int32",
-                          shape=[k, rows, seq + 1], max_abs_err=err, tol=0,
+                          shape=[k, rows, seq + 1], order_mix=mix, max_abs_err=err, tol=0,
                           kernel_launches=through, ok=ok))
     return cases
 
@@ -517,7 +539,8 @@ def check_kernels(torch, dev):
     other_shapes = {("moe-main", "bfloat16"): "moe", ("mla-main", "bfloat16"): "mla",
                     ("mamba-main", "bfloat16"): "mamba",
                     ("hubert-main", "bfloat16"): "hubert", ("kv-norm", "bfloat16"): "kv_norm",
-                    ("mla-d192-dv128-ragged-300", "float32"): "mla_ragged"}
+                    ("mla-d192-dv128-ragged-300", "float32"): "mla_ragged",
+                    ("main", "float32"): "fp32_main"}
     runs = [
         ("rmsnorm", "main", "bfloat16", lambda: rms(RMS_SHAPE, torch.bfloat16)),
         ("rmsnorm", "mamba-main", "bfloat16", lambda: rms(RMS_MAMBA_SHAPE, torch.bfloat16)),
@@ -558,6 +581,23 @@ def check_kernels(torch, dev):
         ("flash_attention", "ragged-200", "float32",
          lambda: flash((2, 200, 4, 16), (2, 200, 2, 16), torch.float32, window=64,
                        softcap=50.0)),
+        # the CUDA-core kernel at every v band (chunks a thread 1, 2, 4, 8),
+        # each in its big and its small grid (half the rows a block)
+        ("flash_attention", "fp32-d16-big-grid", "float32",
+         lambda: flash((2, 1024, 16, 16), (2, 1024, 16, 16), torch.float32, causal=False)),
+        ("flash_attention", "fp32-d64-softcap-big-grid", "float32",
+         lambda: flash((4, 512, 8, 64), (4, 512, 2, 64), torch.float32, softcap=30.0)),
+        ("flash_attention", "fp32-d80-hubert-big-grid", "float32",
+         lambda: flash((8, 300, 16, 80), (8, 300, 16, 80), torch.float32, causal=False)),
+        ("flash_attention", "fp32-d256-big-grid", "float32",
+         lambda: flash((2, 512, 8, 256), (2, 512, 2, 256), torch.float32)),
+        ("flash_attention", "fp32-d256-window-softcap-sk200", "float32",
+         lambda: flash((1, 300, 4, 256), (1, 200, 2, 256), torch.float32, window=96,
+                       softcap=50.0)),
+        ("flash_attention", "fp32-d48-dv240-sq130-sk77", "float32",
+         lambda: flash((1, 130, 2, 48), (1, 77, 1, 48), torch.float32, dv=240, causal=False)),
+        ("flash_attention", "fp32-sq40-under-a-tile", "float32",
+         lambda: flash((2, 40, 4, 64), (2, 40, 2, 64), torch.float32)),
         ("flash_attention", "ragged-200", "bfloat16",
          lambda: flash((2, 200, 4, 16), (2, 200, 2, 16), torch.bfloat16)),
         ("flash_attention", "d96-ragged-200", "bfloat16",
@@ -635,7 +675,8 @@ def check_kernels(torch, dev):
         del got, want, d
     cases.extend(synth_cases(torch, dev))
     errs["synth_tokens"] = max(c["max_abs_err"] for c in cases if c["kernel"] == "synth_tokens")
-    cases.append(flash_masked_rows_case(torch, dev, gen))
+    cases.extend(flash_masked_rows_case(torch, dev, gen, dt)
+                 for dt in (torch.bfloat16, torch.float32))
     cases.append(flash_backward_case(torch, dev, gen))
     cases.append(ssm_backward_case(torch, dev, gen))
     cases.extend(rmsnorm_bwd_bits_cases(torch, dev, gen))
@@ -2628,33 +2669,16 @@ def ssm_fwd_bwd(torch, ss, *inputs):
     return torch.autograd.grad((y, h), leaves, (torch.ones_like(y), torch.zeros_like(h)))
 
 
-# csrc/synth_tokens.cu's rule step, counted from the code: two mix_word
-# rounds (4 and 3 dependent ops: the second word's multiply is off the
-# chain), the finalizer (8: three shift-xors of 2, two multiplies) and the
-# remainder by the vocabulary once its reciprocal is hoisted (6: a high
-# multiply, a multiply-add, two compare-and-adjust pairs); 21 dependent
-# integer operations of 4 cycles each, the ALU and FMA pipes' dependent-issue
-# latency since Volta
-RULE_STEP_CYCLES = 21 * 4
-
-
-def rule_steps_per_row(data, k: int, step: int = 0) -> int:
-    """Rule evaluations on the busiest row of a (k, batch) token block at
-    cursor ``step`` of streams 0..k-1: positions t >= 2 whose FOLLOW draw
-    falls below ``order_mix`` (the data decides how many)."""
-    import numpy as np
-
-    from repro_torch.data import pipeline as dp
-
-    lo, hi = dp.split_streams(list(range(k)))
-    n_pos, rows = int(data.seq_len) + 1, int(data.global_batch)
-    shape = (k, rows, n_pos - 2)
-    h = dp._hash_u32(shape, [dp._KIND_FOLLOW, int(data.seed), lo[:, None, None],
-                             hi[:, None, None], step, 0,
-                             np.arange(rows, dtype=np.uint32)[None, :, None],
-                             np.arange(2, n_pos, dtype=np.uint32)[None, None, :]])
-    follow = dp._u01(h) < np.float32(data.order_mix)
-    return int(follow.sum(-1).max())
+# csrc/synth_tokens.cu's rule step, its shortest dependent sequence counted
+# from the source (not the SASS): the word that carries the previous result
+# through mix_word (4: its multiply, the xor, the rotate, the multiply-add;
+# the first word's mix_word is formed a step ahead, off the chain), the
+# finalizer (8: three shift-xor pairs, two multiplies) and the remainder by
+# the vocabulary with its reciprocal hoisted (4: a high multiply, a
+# multiply-subtract, a subtract and a min); 16 dependent integer operations
+# of 4 cycles, the ALU and FMA pipes' dependent-issue latency since Volta.
+# A step after a fixed token (a gap) adds the other word's mix_word (4).
+RULE_STEP_CYCLES = 16 * 4
 
 
 def sm_clock_max_mhz() -> float:
@@ -2831,19 +2855,38 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
                  for kern in ("sm90", "fp32")}
     q32, k32, v32 = q.float(), k.float(), v.float()
     b32_ms, b32_by = bound_ms(2 * nb, n_ops, "float32")
+    fp32_ms = event_ms(torch, lambda: fa.flash_fwd_cuda(q32, k32, v32, **kw), n=5, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q32, k32, v32))
+    g = FLASH_Q[2] // FLASH_KV[2]
+    ke, ve = (t.repeat_interleave(g, dim=1) for t in (kt, vt))   # kv at every q head
     rows.append({
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",
         **counts("flash_attention_sm90"), "launches_by_kernel": by_kernel,
         "max_abs_err": errs["flash_attention"], **main_shape,
-        # the fp32 path's CUDA-core kernel (card-against-CPU phase), same shape in fp32
+        # the fp32 path's CUDA-core kernel (card-against-CPU phase), same shape
+        # in fp32; SDPA in fp32 with TF32 off as the main() sets it, as a user
+        # calls it (enable_gqa) and with kv expanded to every q head (so
+        # every backend may take it)
         "fp32_kernel": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "launches_card_vs_cpu": fp32_launches,
-            "ms": event_ms(torch, lambda: fa.flash_fwd_cuda(q32, k32, v32, **kw), n=3, warmup=1),
-            "bound_ms": b32_ms, "bound_by": b32_by},
+            "max_abs_err": errs["flash_attention@fp32_main"],
+            "ms": fp32_ms,
+            "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q32, k32, v32, **kw), n=3,
+                                 warmup=1),
+            "bound_ms": b32_ms, "bound_by": b32_by, "share_of_bound": b32_ms / fp32_ms,
+            "library_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), n=5, warmup=1),
+            "library_expanded_kv_ms": event_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ke, ve, is_causal=True), n=5, warmup=1),
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+            "shape": {"q": list(FLASH_Q), "k": list(FLASH_KV), "v": list(FLASH_KV),
+                      "causal": True, "dtype": "float32"}},
     })
+    del qt, kt, vt, ke, ve
     del q32, k32, v32, q, k, v
     # the MoE path's call: 32 q heads over 4 kv heads
     rows[-1]["moe_shape"] = dict(flash_at(FLASH_MOE_Q, FLASH_MOE_KV)[0],
@@ -2855,9 +2898,18 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     rows[-1]["hubert_shape"] = dict(flash_at(FLASH_HUBERT_Q, FLASH_HUBERT_Q, causal=False)[0],
                                     max_abs_err=errs["flash_attention@hubert"])
     # the CUDA-core kernel at q/k 192, v 128 over a ragged 300 rows (its check case)
+    ragged, (q, k, v, _, _) = flash_at((2, 300, 4, 192), (2, 300, 4, 192), dv=128,
+                                       dtype=torch.float32)
+    ragged["device_ms"] = graph_device_ms(torch, lambda: fa.flash_fwd_cuda(
+        q, k, v, **dict(kw, scale=192 ** -0.5)), [()])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ragged["library_device_ms"] = graph_device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), [()])
     rows[-1]["fp32_kernel"]["mla_ragged_shape"] = dict(
-        flash_at((2, 300, 4, 192), (2, 300, 4, 192), dv=128, dtype=torch.float32)[0],
+        ragged, share_of_bound=ragged["bound_ms"] / ragged["ms"],
+        device_share_of_bound=ragged["bound_ms"] / ragged["device_ms"],
         max_abs_err=errs["flash_attention@mla_ragged"])
+    del q, k, v, qt, kt, vt
 
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_X
@@ -2904,8 +2956,15 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
               for w in split_streams(list(range(K))))
     st = torch.zeros(K, dtype=torch.int64, device=dev)
     nb = K * rows_ * (seq + 1) * 4 + 3 * K * 8      # the tokens written, cursors and words read
-    rule_steps = rule_steps_per_row(data, K)
+    rule = sk.rule_positions(data, st.cpu().numpy(), lo.cpu().numpy(), hi.cpu().numpy())
+    chains = sk.chain_rule_steps(rule)                # the kernel's split, at its tile
+    longest, busiest = int(chains.max()), int(rule.sum(-1).max())
+    n_chains = (chains > 0).sum(-1)
     clock_mhz = sm_clock_max_mhz()
+    synth_ms = event_ms(torch, lambda: sk.synth_tokens_cuda(data, st, lo, hi))
+    # as a chunk graph runs it: host dispatch left out
+    synth_device_ms = graph_device_ms(torch, lambda: sk.synth_tokens_cuda(data, st, lo, hi), [()])
+    bound = longest * RULE_STEP_CYCLES / (clock_mhz * 1e3)
     rows.append({
         "name": "synth_tokens", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/synth_tokens.cu",
@@ -2914,15 +2973,20 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         "replaces": "src/repro/data/pipeline.py:147", "tpu_kernel": False,
         **counts("synth_tokens"), "launches_per_chunk": chunk_launches,
         "max_abs_err": errs["synth_tokens"],
-        "ms": event_ms(torch, lambda: sk.synth_tokens_cuda(data, st, lo, hi)),
+        "ms": synth_ms, "device_ms": synth_device_ms,
         "plain_ms": event_ms(torch, lambda: sk.synth_tokens_plain(data, st, lo, hi),
                              n=3, warmup=1),
-        # what binds it: one thread a row runs the bigram rule position after
-        # position, each a chain of dependent integer operations, so the
-        # bound is the latency of the longest row's chain at the top clock
-        "bound_ms": rule_steps * RULE_STEP_CYCLES / (clock_mhz * 1e3),
-        "bound_by": "operations", "bound_note": "latency of the serial rule chain",
-        "rule_steps_longest_row": rule_steps, "cycles_per_rule_step": RULE_STEP_CYCLES,
+        # what binds it: a row's independent rule chains run one a thread, each
+        # step a chain of dependent integer operations, so the bound is the
+        # latency of the longest chain at the top clock; the serial figure is
+        # the busiest row's rule steps run one after another (one thread a row)
+        "bound_ms": bound, "bound_by": "operations",
+        "bound_note": "latency of the longest independent rule chain",
+        "share_of_bound": bound / synth_ms, "device_share_of_bound": bound / synth_device_ms,
+        "serial_bound_ms": busiest * RULE_STEP_CYCLES / (clock_mhz * 1e3),
+        "longest_chain_rule_steps": longest, "rule_steps_busiest_row": busiest,
+        "chains_per_row": [int(n_chains.min()), int(n_chains.max())],
+        "cycles_per_rule_step": RULE_STEP_CYCLES, "cycles_counted_from": "source",
         "sm_clock_max_mhz": clock_mhz, "byte_bound_ms": nb / HBM_BYTES_PER_S * 1e3,
         "library_ms": None,   # no PyTorch call computes this generator
         "shape": {"tokens": [K, rows_, seq + 1], "dtype": "int32"},
@@ -2966,8 +3030,10 @@ def main() -> int:
           "sources": [s.name for s in build.sources()], "flags": build.NVCC_FLAGS,
           **{key: ptxas_summary(build.ptxas_report.get(src, ""), src)
              for key, src in (("flash_sm90_ptxas", "flash_attention_sm90.cu"),
+                              ("flash_fp32_ptxas", "flash_attention.cu"),
                               ("ssm_scan_ptxas", "ssm_scan.cu"),
-                              ("rmsnorm_ptxas", "rmsnorm.cu"))}})
+                              ("rmsnorm_ptxas", "rmsnorm.cu"),
+                              ("synth_tokens_ptxas", "synth_tokens.cu"))}})
 
     errs = check_kernels(torch, dev)
     gc.collect()

@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 # C signatures, one entry per exported launcher; each returns cudaError_t
 SIGNATURES = {
@@ -53,8 +54,9 @@ SIGNATURES = {
     "ssm_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
     # N, is_bf16, out: resident blocks an SM, threads a block (the instance N picks)
     "ssm_scan_occupancy": [_I, _I, _P, _P],
-    # steps, lo, hi, out, K, rows, n_pos, seed, shard, vocab, order_mix, offset, stream
-    "synth_tokens_fwd": [_P] * 4 + [_I] * 3 + [_L, _L, _I, _F, _L, _P],
+    # steps, lo, hi, out, K, rows, n_pos, seed, shard, vocab, the vocab's
+    # reciprocal (synth.vocab_reciprocal), order_mix, offset, stream
+    "synth_tokens_fwd": [_P] * 4 + [_I] * 3 + [_L, _L, _I, _U, _F, _L, _P],
 }
 
 

@@ -219,6 +219,139 @@ def test_sm90_rounding_model_matches_pallas_bf16(B, Sq, H, Hkv, D, causal, windo
     torch.testing.assert_close(lse, want_lse, atol=3e-2, rtol=3e-2)
 
 
+FP32_BK, FP32_CG, FP32_RG = 32, 8, 16   # csrc/flash_attention.cu: kv tile, threads a row, row groups
+H100_SMS, H100_SMEM_OPTIN = 132, 232448
+
+
+def _fma(a, b, c):
+    """fp32 ``fmaf(a, b, c)``: the product is exact in fp64, one rounding."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _fp32_instance(B, Sq, H, D, Dv, sms=H100_SMS):
+    """(q rows a block, kv groups a block) as ``csrc/flash_attention.cu``'s
+    launcher picks them on a card of ``sms`` SMs."""
+    rm = 2 if Dv > 128 else 4
+    nj = 1 if Dv <= 32 else 2 if Dv <= 64 else 4 if Dv <= 128 else 8
+    if -(-Sq // (FP32_RG * rm)) * H * B >= sms:
+        return FP32_RG * rm, 1
+    bq = FP32_RG * rm // 2
+    smem4 = 4 * (bq * (D + 4) + 4 * (FP32_BK * (D + 4) + FP32_BK * 32 * nj + bq * (FP32_BK + 4)))
+    return bq, 4 if smem4 <= H100_SMEM_OPTIN else 2
+
+
+def _fp32_model(q, k, v, *, causal, window, softcap, scale, sms=H100_SMS):
+    """The fp32 CUDA-core kernel's arithmetic (``csrc/flash_attention.cu``) in
+    PyTorch, block by block as its launcher tiles the rows: q pre-scaled in
+    fp32; each score one FMA a term over d in order; the softcap, the mask;
+    per block, its kv tiles of 32 rows from the window's first to the
+    diagonal, tile t to group t mod SPLIT, each group an online softmax with
+    ``exp``: the tile's row max, ``corr = exp(m - m_new)``, P, the row sum as
+    the kernel forms it (each of the 8 threads of a row sums its 4 keys ``cg
+    + 8 j`` in order, then a butterfly over the 8), ``l = l corr + sum``,
+    ``O = O corr`` and then one FMA a key in order; the groups' states merged
+    in order (``c = exp(m_g - m_new)``, ``l = l_g c_g + l c``, ``O = O_g c_g +
+    O c``); out = O / max(l, 1e-30), lse = m + log l (NEG_INF on dead rows)."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    g = H // Hkv
+    bq, split = _fp32_instance(B, Sq, H, D, Dv, sms)
+    qf = (q.float() * scale).reshape(B, Sq, Hkv, g, D).permute(0, 2, 3, 1, 4)  # b n g q d
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]                             # b n 1 k d
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.zeros((B, Hkv, g, Sq, Dv))
+    lse = torch.full((B, Hkv, g, Sq), fa.NEG_INF)
+    lanes = torch.arange(FP32_CG)
+    n_tiles = -(-Sk // FP32_BK)
+    live = lambda m: m > fa.NEG_INF / 2  # noqa: E731
+    for q0 in range(0, Sq, bq):
+        rows = min(bq, Sq - q0)
+        hi = min(n_tiles, (q0 + bq - 1) // FP32_BK + 1) if causal else n_tiles
+        lo = max(0, (q0 - window + 1) // FP32_BK) if window is not None else 0
+        q_pos = torch.arange(q0, q0 + rows)[:, None]
+        qt = qf[..., q0:q0 + rows, :]
+        states = [[torch.full((B, Hkv, g, rows), fa.NEG_INF), torch.zeros((B, Hkv, g, rows)),
+                   torch.zeros((B, Hkv, g, rows, Dv))] for _ in range(split)]
+        for kt in range(lo, hi):
+            m, l, o = states[(kt - lo) % split]
+            k0 = kt * FP32_BK
+            n = min(FP32_BK, Sk - k0)
+            kt_ = torch.zeros((B, Hkv, 1, FP32_BK, D))
+            vt = torch.zeros((B, Hkv, 1, FP32_BK, Dv))
+            kt_[..., :n, :], vt[..., :n, :] = kf[..., k0:k0 + n, :], vf[..., k0:k0 + n, :]
+            s = torch.zeros((B, Hkv, g, rows, FP32_BK))
+            for d in range(D):
+                s = _fma(qt[..., d, None], kt_[..., d][..., None, :], s)
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            k_pos = torch.arange(k0, k0 + FP32_BK)[None, :]
+            mask = k_pos < Sk
+            if causal:
+                mask = mask & (k_pos <= q_pos)
+            if window is not None:
+                mask = mask & (k_pos > q_pos - window)
+            s = torch.where(mask, s, fa.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(live(m_new), m_new, 0.0)
+            corr = torch.where(live(m), torch.exp(m - m_safe), 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            part = p.reshape(p.shape[:-1] + (FP32_BK // FP32_CG, FP32_CG))   # [.., j, cg]
+            t = part[..., 0, :]
+            for j in range(1, FP32_BK // FP32_CG):
+                t = t + part[..., j, :]
+            off = 1
+            while off < FP32_CG:
+                t = t + t[..., lanes ^ off]
+                off <<= 1
+            l = l * corr + t[..., 0]
+            o = o * corr[..., None]
+            for key in range(FP32_BK):
+                o = _fma(p[..., key, None], vt[..., key, :][..., None, :], o)
+            states[(kt - lo) % split] = [m_new, l, o]
+        m, l, o = states[0]
+        for mg, lg, og in states[1:]:
+            m_new = torch.maximum(m, mg)
+            m_safe = torch.where(live(m_new), m_new, 0.0)
+            c0 = torch.where(live(m), torch.exp(m - m_safe), 0.0)
+            c1 = torch.where(live(mg), torch.exp(mg - m_safe), 0.0)
+            l = _fma(lg, c1, l * c0)
+            o = _fma(og, c1[..., None], o * c0[..., None])
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        out[..., q0:q0 + rows, :] = o / l[..., None]
+        lse[..., q0:q0 + rows] = torch.where(live(m), m + torch.log(l), fa.NEG_INF)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv), lse.reshape(B, H, Sq))
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 1], ids=["h100-grid", "big-instance"])
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,softcap,Sk,Dv,scale", FLASH_CASES)
+def test_fp32_kernel_model_matches_pallas(B, Sq, H, Hkv, D, causal, window, softcap, Sk, Dv,
+                                          scale, sms, record_property):
+    """The fp32 CUDA-core kernel's arithmetic (its row blocks, its 32-row kv
+    tiles, its split of the walk over groups of warps where the grid is small
+    and their merge, its rescale and row-sum orders, ``exp``) against
+    ``_flash_fwd_pallas(interpret=True)`` on the same fp32 inputs, 3e-5 on out
+    and lse: the kernel's summation orders stay inside the fp32 gate.  On an
+    H100 these small cases take the split instance; ``sms=1`` takes the big
+    one.  The observed maxima are recorded as test properties."""
+    jax, jnp = _jax()
+    from repro.kernels.flash_attention import _flash_fwd_pallas
+
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, B, Sq, H, Hkv, D, Sk=Sk, Dv=Dv)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    scale = scale or D ** -0.5
+    want_out, want_lse = _flash_fwd_pallas(*(jnp.asarray(a) for a in (q, k, v)), scale=scale,
+                                           block_q=64, block_kv=64, interpret=True, **kw)
+    out, lse = _fp32_model(*(torch.from_numpy(a) for a in (q, k, v)), scale=scale, sms=sms,
+                           **kw)
+    want_out, want_lse = (torch.from_numpy(np.asarray(a)) for a in (want_out, want_lse))
+    record_property("max_abs_err_out", float((out - want_out).abs().max()))
+    record_property("max_abs_err_lse", float((lse - want_lse).abs().max()))
+    torch.testing.assert_close(out, want_out, atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(lse, want_lse, atol=3e-5, rtol=3e-5)
+
+
 def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers take the plain versions: no launch counted
     (neither flash kernel's, in either dtype; neither RMSNorm kernel's, forward
@@ -305,6 +438,16 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, xdt, gdt):
     # MLA (deepseek-v2-lite): q/k 192 wide (nope + rope), v 128 wide
     (2, 300, 16, 16, 192, True, None, None, None, torch.bfloat16, 128),
     (1, 200, 4, 4, 192, True, None, None, None, torch.float32, 128),
+    # fp32: the CUDA-core kernel at every v band and in both grid sizes
+    (2, 1024, 16, 16, 16, False, None, None, None, torch.float32, None),
+    (8, 300, 16, 16, 80, False, None, None, None, torch.float32, None),   # hubert
+    (1, 300, 4, 2, 256, True, 96, 50.0, 200, torch.float32, None),
+    (2, 40, 4, 2, 64, True, None, None, None, torch.float32, None),      # Sq under a tile
+    (1, 200, 4, 2, 64, True, 32, None, 130, torch.float32, None),        # dead rows
+    (2, 1024, 24, 2, 128, True, None, None, None, torch.float32, None),  # starcoder2's
+    (1, 130, 2, 1, 48, False, None, None, 77, torch.float32, 240),
+    (4, 512, 8, 2, 64, True, None, 30.0, None, torch.float32, None),
+    (2, 512, 8, 2, 256, True, None, None, None, torch.float32, None),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, H, Hkv, D, causal, window, softcap,
                                     Sk, dtype, Dv):
@@ -328,6 +471,27 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, H, Hkv, D, causal, window, soft
     tol = 3e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, want_lse, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 4), (16, 16)], ids=["small-grid", "big-grid"])
+def test_flash_fp32_fully_masked_rows(cuda, B, H):
+    """The CUDA-core kernel on rows that no key reaches (ragged Sk under a
+    window): lse = NEG_INF and out = 0 exactly, in both of its grid sizes."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    Sq, Sk, window = 200, 130, 32
+    q = torch.randn((B, Sq, H, 64), generator=gen, device=cuda)
+    k = torch.randn((B, Sk, 2, 64), generator=gen, device=cuda)
+    v = torch.randn((B, Sk, 2, 64), generator=gen, device=cuda)
+    before = fa.launches_fp32
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal=True, window=window, softcap=None,
+                                 scale=0.125)
+    torch.cuda.synchronize()
+    assert fa.launches_fp32 == before + 1
+    dead = Sk - 1 + window
+    assert bool((lse[:, :, dead:] == fa.NEG_INF).all())
+    assert bool((out[:, dead:] == 0).all())
+    assert bool((lse[:, :, :dead] > fa.NEG_INF / 2).all())
 
 
 @pytest.mark.cuda
