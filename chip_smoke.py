@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
    flash at head dim 80, too) in bf16 and fp32 and on small cases (window /
    softcap / ragged attention at head dims 16 to 256, fully masked rows in
    both dtypes, the CUDA-core kernel at every v band in its big and its
-   split grid; the synthesis kernel at order_mix 0, 0.85 and 1;
+   split grid; RMSNorm at the serve paths' decode calls, a few rows of one
+   lane at d 3072, 4096, 2048 and 512; the synthesis kernel at order_mix 0,
+   0.85 and 1;
    for the selective scan the main shape with the chunk states, falcon-mamba's
    initial A and dt over 1,024 steps, N of 4, 12, 16 and 64, ragged L, Dm and
    chunk, unaligned rows, an initial state, per-lane A with 2 and 3 rows a
@@ -100,6 +102,36 @@ Phases, each printing one JSON line:
    fp32 attention went through the CUDA-core flash kernel only; for the
    MoE configs, the count of top-k assignments the
    card routed differently (reported, not a gate beyond the 1e-4);
+5b. serving — ``launch/serve.py``'s continuous-batching loop (``serve_path``)
+   on starcoder2-3b (8 slots, 16 requests, prompts up to 64 tokens, 64 new
+   tokens, 256 positions), falcon-mamba-7b and deepseek-v2-lite-16b (4 slots,
+   4 requests, 16 and 16, 64 positions), each at its published widths and
+   full depth in bf16 with the reference's fp32 cache (a smoke load with no
+   published source), starcoder2 served at temperature 0 twice and at 0.8
+   twice with one seed, the other two at temperature 0 twice: every request
+   emits its tokens, the runs at one temperature give the same tokens, every
+   decode step launches the RMSNorm
+   forward kernel once a norm (61 / 65 / 82) and no other kernel of ours;
+   decode steps and tokens a second, the median host seconds a step beside
+   the least time of a step (every parameter byte read once at the card's
+   memory rate), three profiled decode steps by kernel group (idle share)
+   and by part (``record_function`` ranges: the reference attention, the
+   absorbed MLA, the SSM step, the FFNs, the unembedding), one decode step
+   captured in a CUDA graph and replayed (its device time without host
+   dispatch), peak memory and the cache's bytes; on deepseek the bytes of
+   only the experts the tokens routed to, and the step's shares of the bound
+   they give; on starcoder2 and falcon-mamba the prefill form
+   (``forward(last_only=True)``: the tensor-core flash kernel, the scan)
+   against decode at the prompt's last position (reported, not gated); on
+   falcon-mamba the same weights in fp32 at full depth, decode against
+   ``forward`` at every prompt position within 1e-3, and the bf16 prefill's
+   and decode's logits each against that fp32 forward's (reported);
+   serve_vs_forward — starcoder2-3b's published widths in fp32 (4 of 30
+   layers): a 64-token prompt decoded a token a step against ``forward``
+   (the CUDA-core flash kernel) at every position within 1e-3;
+   card_vs_cpu_decode — 8 decode steps of the starcoder2, gemma2, qwen3-moe,
+   deepseek-v2-lite, falcon-mamba and jamba smoke configs in fp32 on the
+   card and on the CPU: logits and every cache leaf within 1e-4;
 6. timing — each kernel, its plain version and the PyTorch library call
    that computes the same function (none for the selective scan), timed
    with CUDA events at the main paths' shapes (the scan as the main path
@@ -119,7 +151,9 @@ Phases, each printing one JSON line:
    rotating inputs larger than the L2 and replayed, and the backward's
    ``per_step`` ms on each main path (its cell's shapes, the calls of
    ``rms_widths``) against the autograd backward's that it replaced, both
-   eager and graph-replayed.
+   eager and graph-replayed; the RMSNorm forward at a starcoder2 decode
+   step's call (``decode_shape``, 8 rows).  Each row's launches count every
+   path, the serve paths (``+serve``) too.
 
 The ``total`` line holds the wall seconds of each phase.
 
@@ -156,8 +190,8 @@ SSM_STATE_TOL = 1e-4
 SSM_BWD_TOL = 5e-4
 FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 
-# the main paths, each at its published widths with depth cut to 4 layers:
-# starcoder2-3b (30 layers) and falcon-mamba-7b (64 layers)
+# the main paths, each at its published widths with depth cut: starcoder2-3b
+# to 4 of 30 layers, falcon-mamba-7b to 4 of 64
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
 MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
 # the MoE path: qwen3-moe-30b-a3b at its published widths, 1 of 48 layers and
@@ -175,6 +209,45 @@ PATHS = (MAIN, MAMBA, MOE, DEEPSEEK)
 # deepseek MLA (q/k wider than v), hubert non-causal attention
 CARD_VS_CPU = ("starcoder2-3b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
                "deepseek-v2-lite-16b", "hubert-xlarge", "pixtral-12b")
+# the serving paths: launch/serve.py's loop at published widths and full
+# depth, bf16, one lane, an fp32 cache (the reference's).  The traffic is a
+# smoke load with no published source: it drives every part of the loop
+# (slot refills, both samplers) and its times rank no optimisation.
+# starcoder2-3b with 8 slots (16 requests of prompts up to 64 tokens and 64
+# new tokens each over 256 positions: 241 decode steps, no cache flush),
+# served at temperature 0 twice and at SERVE_TEMPERATURE twice, the draws
+# seeded from the seed; falcon-mamba-7b and deepseek-v2-lite-16b with 4
+# (29 steps each), at temperature 0 twice (their sampling is starcoder2's code)
+SERVE_TEMPERATURE = 0.8
+SERVE = (dict(arch="starcoder2-3b", batch=8, requests=16, prompt_len=64, new_tokens=64,
+              max_seq=256, temperatures=(0.0, 0.0, SERVE_TEMPERATURE, SERVE_TEMPERATURE)),
+         dict(arch="falcon-mamba-7b", batch=4, requests=4, prompt_len=16, new_tokens=16,
+              max_seq=64, temperatures=(0.0, 0.0)),
+         dict(arch="deepseek-v2-lite-16b", batch=4, requests=4, prompt_len=16, new_tokens=16,
+              max_seq=64, temperatures=(0.0, 0.0)))
+PROFILED_DECODE_STEPS = 3
+# the bf16 serve paths whose prefill (forward(last_only=True): the tensor-core
+# flash kernel, the scan) is held against decode on one prompt a slot,
+# reported without a gate
+PREFILL_CHECKED = ("starcoder2-3b", "falcon-mamba-7b")
+# the bf16 serve paths whose weights are also run in fp32 at full depth: the
+# fp32 decode held against the fp32 forward at every prompt position, and
+# the bf16 prefill's and decode's logits each against the fp32 forward's
+# (falcon-mamba's bf16 decode computes its mixer in the fp32 cache's dtype,
+# its prefill in bf16)
+DTYPE_WITNESS = ("falcon-mamba-7b",)
+# the gated decode-against-forward check: starcoder2-3b's published widths in
+# fp32 (the CUDA-core flash kernel in forward), 4 of 30 layers, a 64-token
+# prompt, every position within 1e-3 (the smoke gate is 1e-4; this leaves
+# room for 3072-wide fp32 sums and a 49,152-way unembedding)
+SERVE_VS_FORWARD = dict(arch="starcoder2-3b", n_layers=4, prompt=64, tol=1e-3)
+# decode_step card against CPU, fp32 smoke configs: every mixer (GQA, a
+# window with softcaps, MLA, Mamba, the hybrid) and dropless MoE
+DECODE_CARD_VS_CPU = ("starcoder2-3b", "gemma2-9b", "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
+                      "falcon-mamba-7b", "jamba-1.5-large-398b")
+DECODE_STEPS, DECODE_BATCH = 8, 2
+RMS_DECODE_SHAPES = {"decode-starcoder2": (1, 8, 3072), "decode-falcon-mamba": (1, 4, 4096),
+                     "decode-d2048": (1, 4, 2048), "decode-kv-norm": (1, 4, 512)}
 RMS_SHAPE = (4, 4096, 3072)                        # (K, B*S, d), gain (K, d)
 RMS_MAMBA_SHAPE = (4, 2048, 4096)
 RMS_MOE_SHAPE = (2, 2048, 2048)                    # qwen3-moe's and deepseek's d = 2048
@@ -643,6 +716,12 @@ def check_kernels(torch, dev):
         ("rmsnorm_bwd", "d=6144", "bfloat16/float32",
          lambda: rms_bwd((1, 4096, 6144), torch.bfloat16, torch.float32)),
     ]
+    # the serve paths' calls: one lane, a few rows (the decode slots) a call
+    runs += [("rmsnorm", case, str(dtype).split(".")[-1],
+              lambda shape=shape, dtype=dtype: rms(shape, dtype))
+             for case, shape in RMS_DECODE_SHAPES.items()
+             for dtype in (torch.bfloat16, torch.float32)]
+    other_shapes[("decode-starcoder2", "bfloat16")] = "decode"
     for name, case, dtype, run in runs:
         got, want, *split = run()
         torch.cuda.synchronize()
@@ -2600,6 +2679,407 @@ def card_vs_cpu(torch, dev, arch):
 
 
 
+# ------------------------------------------------------------------- phase 5b
+def tree_bytes(tree) -> int:
+    from repro_torch.interop import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def decode_launches_per_step(cfg) -> dict:
+    """Kernel launches of one decode step: the RMSNorm forward once a norm
+    (``rms_widths``: the same norms as a population step's forward) and no
+    other kernel of ours: decode attention, the absorbed MLA and the SSM step
+    run plain, as in the JAX package."""
+    return {name: sum(rms_widths(cfg).values()) if name == "rmsnorm" else 0
+            for name in counters()}
+
+
+def decode_parts():
+    """(module, attribute, label) of the parts of a decode step whose device
+    time ``profile_parts`` reads: the labels nest (the GQA mixer holds its
+    reference attention, the MLA mixer its ``kv_norm``, counted under
+    RMSNorm too)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import mamba as Mm
+    from repro_torch.models import mlp, moe
+    from repro_torch.models import transformer as T
+
+    return ((A, "gqa_decode", "gqa_decode"),
+            (ops, "attention", "gqa_decode/reference attention"),
+            (A, "mla_decode", "mla_decode (absorbed, fp32)"),
+            (Mm, "mamba_decode", "mamba_decode"),
+            (moe, "moe_apply", "moe_ffn (dropless)"),
+            (mlp, "mlp_apply", "dense_ffn"),
+            (T, "apply_rmsnorm", "rmsnorm (ours)"),
+            (A, "apply_rmsnorm", "rmsnorm (ours)"),
+            (T, "unembed", "unembed"))
+
+
+def profile_parts(torch, fn, parts) -> dict:
+    """Device ms of each labelled part over one call of ``fn``, from the
+    kernels the profiler ties to a ``record_function`` range around the
+    part (the CPU range's; its GPU-side twin of the same name spans the
+    idle gaps too).  As in ``profile_step``, only the second of two traced
+    calls counts (the trace can miss the first kernels after it starts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def wrapped(f, label):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return f(*args, **kwargs)
+        return call
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in parts]
+    for (mod, attr, f), (_, _, label) in zip(saved, parts):
+        setattr(mod, attr, wrapped(f, label))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("chip_smoke:mark"):
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, f in saved:
+            setattr(mod, attr, f)
+    events = prof.events()
+    mark = max(e.time_range.end for e in events if e.name == "chip_smoke:mark")
+    labels = {label for *_, label in parts}
+    ms = {}
+    for e in events:
+        if e.name in labels and e.device_type == DeviceType.CPU and e.time_range.start > mark:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = e.cuda_time_total
+            ms[e.name] = ms.get(e.name, 0.0) + total / 1e3
+    return ms
+
+
+def decode_vs_forward(torch, dev, cfg, params, tokens, tol=None):
+    """Prompts ``tokens`` (1, B, P) decoded a token a step from a fresh fp32
+    cache, against ``forward`` on the whole prompts.  With ``tol``: the
+    logits at every position, each within ``tol`` (``ok`` says whether they
+    are); without: the prefill form, ``forward(last_only=True)``, at the last
+    position (reported only).  Either way the launches are held to one
+    forward and P decode steps (``launch_problems``).  Returns (the report,
+    forward's and decode's logits at the last position)."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+
+    B, P = tokens.shape[1:]
+    before = counters()
+    with torch.no_grad():
+        want, _ = T.forward(params, tokens, cfg, last_only=tol is None)
+    torch.cuda.synchronize()
+    mid = counters()
+    cache = T.init_cache(cfg, 1, B, P, dtype=torch.float32, device=dev)
+    errs = []
+    for pos in range(P):
+        got, _ = T.decode_step(params, cache, tokens[:, :, pos:pos + 1], pos, cfg)
+        if tol is not None:
+            errs.append(float((got[:, :, 0] - want[:, :, pos]).abs().max()))
+    torch.cuda.synchronize()
+    after = counters()
+    del cache
+    fwd_last, dec_last = want[:, :, -1], got[:, :, 0]
+    if tol is None:
+        errs = [float((dec_last - fwd_last).abs().max())]
+    fwd = {k: mid[k] - before[k] for k in mid}
+    dec = {k: after[k] - mid[k] for k in mid}
+    want_fwd = dict(launches_per_step(cfg), rmsnorm_bwd=0)
+    want_dec = {k: n * P for k, n in decode_launches_per_step(cfg).items()}
+    agree = int((fwd_last.argmax(-1) == dec_last.argmax(-1)).sum())
+    out = {"prompt": P, "rows": B, "dtype": cfg.param_dtype,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "positions": "last" if tol is None else "every", "max_abs_err": max(errs),
+           "top1_agrees": agree == B, "top1_agreeing_rows": agree,
+           "logit_abs_max": float(want.abs().max()), "forward_launches": fwd,
+           "decode_launches": dec, "launch_problems": []}
+    if tol is not None:
+        out.update(worst_position=int(np.argmax(errs)), tol=tol, ok=max(errs) <= tol)
+    if fwd != want_fwd or dec != want_dec:
+        out["launch_problems"].append(f"forward {fwd} (want {want_fwd}), decode {dec} "
+                                      f"(want {want_dec})")
+    return out, fwd_last, dec_last
+
+
+def dtype_witness(torch, dev, cfg, params, tokens, last_logits, tol):
+    """The bf16 model's weights in fp32 (TF32 off), decoded against
+    ``forward`` at every position of ``tokens`` within ``tol`` (a gate:
+    decode at full depth is the forward's function), and each of
+    ``last_logits`` (name: the bf16 prefill's or a bf16 decode's logits at
+    the last position) against the fp32 forward's: which of them the bf16
+    gap between prefill and decode comes from."""
+    from repro_torch.interop import tree_map
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    out, ref_last, _ = decode_vs_forward(torch, dev, cfg32, params32, tokens, tol=tol)
+    del params32
+    top1 = ref_last.argmax(-1)
+    for name, logits in last_logits.items():
+        out[name + "_vs_fp32_forward"] = {
+            "max_abs_err": float((logits - ref_last).abs().max()),
+            "top1_agreeing_rows": int((logits.argmax(-1) == top1).sum())}
+    return out
+
+
+def serve_path(torch, dev, arch, batch, requests, prompt_len, new_tokens, max_seq,
+               temperatures, seed=0):
+    """``launch/serve.py``'s loop on ``arch`` at its published widths and full
+    depth, bf16, one lane: served once at each of ``temperatures`` (the draws
+    seeded from ``seed``).  Gates: every request emits its tokens, the runs
+    at one temperature give the same tokens, every decode step launches the
+    RMSNorm forward once a norm and no other kernel of ours.  Reports steps
+    and tokens a second, the median host seconds a step of the second run
+    beside the least time of a step (every parameter byte read once), the
+    idle share and device ms by group and by part of profiled decode steps,
+    one decode step graph-replayed, peak memory and the cache's bytes; on
+    MoE models the bytes of only the experts the tokens routed to and the
+    bound they give.  On ``PREFILL_CHECKED`` archs, ``decode_vs_forward`` in
+    bf16 (reported), and on ``DTYPE_WITNESS`` archs ``dtype_witness`` (its
+    fp32 decode gated).  Returns the launches of the runs and the checks."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import add_lane_axis
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import population as P
+    from repro_torch.train.serve_step import make_serve_step
+
+    P.clear_population_cache()
+    release_cublas_workspaces(torch)
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = add_lane_axis(T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = tree_bytes(params)
+    bound_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    flags = dict(batch=batch, requests=requests, prompt_len=prompt_len, new_tokens=new_tokens,
+                 max_seq=max_seq, seed=seed, device=dev)
+    per_step = decode_launches_per_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    routed, plain_route = [], M.route
+
+    def recording(router, xt, k):
+        got = plain_route(router, xt, k)
+        routed.append(got[2])
+        return got
+
+    runs = []
+    for i, temperature in enumerate(temperatures):
+        before = counters()
+        if i == 0:
+            M.route = recording   # the first run's routing, for the routed experts' bytes
+        try:
+            outputs, steps, wall, seconds = serve_requests(cfg, params, temperature=temperature,
+                                                           **flags)
+        finally:
+            M.route = plain_route
+        runs.append(dict(temperature=temperature, outputs=outputs, steps=steps, wall_s=wall,
+                         seconds=seconds,
+                         launches={k: v - before[k] for k, v in counters().items()}))
+    peak = torch.cuda.max_memory_allocated()
+    cache = T.init_cache(cfg, 1, batch, max_seq, dtype=torch.float32, device=dev)
+    cache_bytes = tree_bytes(cache)
+    step = make_serve_step(cfg)
+    tok = (torch.arange(batch, device=dev) + 1).view(1, batch, 1)
+
+    def decode_steps():
+        for j in range(PROFILED_DECODE_STEPS):
+            step(params, cache, tok, max_seq // 2 + j)
+
+    prof = profile_step(torch, decode_steps)
+    parts = profile_parts(torch, lambda: step(params, cache, tok, max_seq // 2),
+                          decode_parts())
+    # one decode step captured in a CUDA graph and replayed: its device time
+    # without the host's dispatch (the step ROADMAP.md's lever K would give)
+    graph_ms = graph_device_ms(torch, lambda: step(params, cache, tok, max_seq // 2), [()],
+                               min_launches=2, replays=3)
+    del cache
+    timed = runs[1]
+    steady = np.asarray(timed["seconds"])
+    gen_tokens = sum(len(o) for o in timed["outputs"].values())
+    out = {
+        "phase": "serve_path", "arch": arch, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model,
+        "vocab_size": cfg.vocab_size, "param_dtype": cfg.param_dtype, "cache_dtype": "float32",
+        **{k: v for k, v in flags.items() if k != "device"},
+        "init_s": init_s, "param_bytes": param_bytes, "cache_bytes": cache_bytes,
+        "peak_memory_gib": peak / 2 ** 30, "card": card_memory(torch),
+        "runs": [{"temperature": r["temperature"], "decode_steps": r["steps"],
+                  "wall_s": r["wall_s"], "tokens_per_s_batched": r["steps"] * batch / r["wall_s"],
+                  "generated_tokens": sum(len(o) for o in r["outputs"].values()),
+                  "launches": r["launches"]} for r in runs],
+        "median_s_per_step": float(np.median(steady)),
+        "p10_p90_s_per_step": [float(np.percentile(steady, 10)),
+                               float(np.percentile(steady, 90))],
+        "first_step_s": runs[0]["seconds"][0],
+        "bound_ms_per_step": bound_ms, "bound_by": "bytes",
+        "share_of_bound": bound_ms / 1e3 / float(np.median(steady)),
+        "generated_tokens_per_s": gen_tokens / timed["wall_s"],
+        "decode_launches_per_step": per_step,
+        "profile": dict(prof, steps=PROFILED_DECODE_STEPS),
+        "graph_replayed_step_ms": graph_ms, "graph_share_of_bound": bound_ms / graph_ms,
+        "parts_device_ms": parts,
+        "outputs_head": {str(rid): o[:8] for rid, o in sorted(runs[0]["outputs"].items())[:4]},
+    }
+    device_ms = prof.get("device_ms")
+    if device_ms:   # of the profiled steps' device time, and of their wall time
+        step_device, step_wall = (device_ms / PROFILED_DECODE_STEPS,
+                                  prof["wall_ms"] / PROFILED_DECODE_STEPS)
+        out["parts_share_of_step_device"] = {k: v / step_device for k, v in parts.items()}
+        out["parts_share_of_step_wall"] = {k: v / step_wall for k, v in parts.items()}
+    if cfg.has_moe and routed:
+        wi, wo = params["blocks"]["l0"]["ffn"]["wi"], params["blocks"]["l0"]["ffn"]["wo"]
+        per_expert = (wi[0, 0, 0].numel() + wo[0, 0, 0].numel()) * wi.element_size()
+        layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
+        moe_layers = sum(f == "moe" for _, f in layers)
+        unique = [int(torch.unique(t).numel()) for t in routed]
+        all_experts = moe_layers * cfg.n_experts * per_expert
+        routed_step = sum(unique) / len(unique) * moe_layers * per_expert
+        # a decode step needs only the routed experts' bytes: the least time
+        # of this traffic's step, beside the all-weights bound above
+        routed_bound_ms = (param_bytes - all_experts + routed_step) / HBM_BYTES_PER_S * 1e3
+        out["moe"] = {"moe_layers": moe_layers, "expert_bytes": per_expert,
+                      "all_expert_bytes": all_experts,
+                      "routed_experts_per_layer_mean": sum(unique) / len(unique),
+                      "routed_experts_per_layer_max": max(unique),
+                      "routed_expert_bytes_per_step": routed_step,
+                      "bound_ms_routed_only": routed_bound_ms,
+                      "share_of_routed_bound": routed_bound_ms / 1e3 / float(np.median(steady)),
+                      "graph_share_of_routed_bound": routed_bound_ms / graph_ms}
+    launches = {k: sum(r["launches"][k] for r in runs) for k in per_step}
+    checks = []
+    if arch in PREFILL_CHECKED:
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, size=(1, batch, prompt_len))).to(dev)
+        res, fwd_last, dec_last = decode_vs_forward(torch, dev, cfg, params, prompt)
+        out["serve_vs_forward_bf16"] = res
+        checks.append(res)
+        if arch in DTYPE_WITNESS:
+            res = dtype_witness(torch, dev, cfg, params, prompt,
+                                {"bf16_forward": fwd_last, "bf16_decode": dec_last},
+                                SERVE_VS_FORWARD["tol"])
+            out["fp32_witness"] = res
+            checks.append(res)
+        for res in checks:
+            for k in launches:
+                launches[k] += res["forward_launches"][k] + res["decode_launches"][k]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    problems = []
+    for r in runs:
+        if sorted(r["outputs"]) != list(range(requests)) or any(
+                len(o) != new_tokens for o in r["outputs"].values()):
+            problems.append(f"a request did not finish at temperature {r['temperature']}")
+        if any(not 0 <= t < cfg.vocab_size for o in r["outputs"].values() for t in o):
+            problems.append("a token outside the vocabulary")
+        want = {k: n * r["steps"] for k, n in per_step.items()}
+        if r["launches"] != want:
+            problems.append(f"launches {r['launches']}, want {want}")
+    for t in set(temperatures):
+        if any(r["outputs"] != runs[temperatures.index(t)]["outputs"]
+               for r in runs if r["temperature"] == t):
+            problems.append(f"the runs at temperature {t} with one seed gave other tokens")
+    for res in checks:
+        problems += res["launch_problems"]
+        if not res.get("ok", True):
+            problems.append(f"fp32 decode and forward disagree: {res['max_abs_err']} > "
+                            f"{res['tol']}")
+    if prof["launches"] != {k: n * PROFILED_DECODE_STEPS for k, n in per_step.items()}:
+        problems.append(f"profiled decode steps launched {prof['launches']}")
+    if problems:
+        die(f"serve path {arch}: " + "; ".join(problems))
+    return launches
+
+
+def serve_vs_forward(torch, dev, arch, n_layers, prompt, tol, seed=0):
+    """``arch`` at its published widths in fp32 (TF32 off), depth cut to
+    ``n_layers``: ``decode_vs_forward`` gated at ``tol``; the forward goes
+    through the CUDA-core flash kernel, decode through none of ours but
+    RMSNorm."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import add_lane_axis
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, param_dtype="float32",
+                              compute_dtype="float32")
+    params = add_lane_axis(T.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, dev))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, size=(1, 1, prompt))).to(dev)
+    res, _, _ = decode_vs_forward(torch, dev, cfg, params, tokens, tol=tol)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_vs_forward", "arch": arch, "n_layers": n_layers,
+          "published_n_layers": get_config(arch).n_layers, "d_model": cfg.d_model,
+          "vocab_size": cfg.vocab_size, **res})
+    if not res["ok"]:
+        die(f"decode and forward disagree on {arch} in fp32: {res['max_abs_err']} > {tol}")
+    if res["launch_problems"]:
+        die("serve_vs_forward launches: " + "; ".join(res["launch_problems"]))
+    return {k: n + res["decode_launches"][k] for k, n in res["forward_launches"].items()}
+
+
+def card_vs_cpu_decode(torch, dev, arch, steps=DECODE_STEPS, batch=DECODE_BATCH):
+    """``arch``'s fp32 smoke config, one lane: ``steps`` decode steps on the
+    card and on the CPU from the same parameters and tokens; the logits and
+    every cache leaf within 1e-4, and the card's launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import add_lane_axis, tree_leaves, tree_map
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(arch)
+    cpu = add_lane_axis(T.init_params(torch.Generator().manual_seed(0), cfg, "cpu"))
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    cache_cpu = T.init_cache(cfg, 1, batch, steps, dtype=torch.float32, device="cpu")
+    cache_card = T.init_cache(cfg, 1, batch, steps, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    before = counters()
+    logit_err = 0.0
+    for pos in range(steps):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, batch, 1)))
+        want, _ = T.decode_step(cpu, cache_cpu, tok, pos, cfg)
+        got, _ = T.decode_step(card, cache_card, tok.to(dev), pos, cfg)
+        logit_err = max(logit_err, float((got.cpu() - want).abs().max()))
+    launches = {k: v - before[k] for k, v in counters().items()}
+    cache_err, worst = 0.0, None
+    ok = logit_err <= 1e-4
+    for name, a, b in zip(leaf_names(cache_cpu), tree_leaves(cache_card), tree_leaves(cache_cpu)):
+        a = a.cpu()
+        err = float((a - b).abs().max())
+        if err > cache_err:
+            cache_err, worst = err, name
+        ok = ok and bool(torch.allclose(a, b, atol=1e-4, rtol=1e-4))
+    want_launches = {k: n * steps for k, n in decode_launches_per_step(cfg).items()}
+    emit({"phase": "card_vs_cpu_decode", "config": cfg.name, "dtype": cfg.param_dtype,
+          "batch": batch, "steps": steps, "logits_max_abs_err": logit_err,
+          "cache_max_abs_err": cache_err, "cache_worst_leaf": worst, "tol": 1e-4,
+          "card_launches": launches})
+    if not ok:
+        die(f"decode on the card and the CPU disagree on {arch}: logits {logit_err}, "
+            f"cache {cache_err} at {worst}")
+    if launches != want_launches:
+        die(f"decode on {arch} launched {launches}, want {want_launches}")
+    return launches
+
+
 # ------------------------------------------------------------------- phase 6
 def event_ms(torch, fn, n=20, warmup=3) -> float:
     for _ in range(warmup):
@@ -2777,6 +3257,23 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         torch.cuda.empty_cache()
         return out
 
+    def rms_decode_at(shape):
+        """The forward at a decode shape (a few rows): eager ``ms`` and
+        ``device_ms`` of graph-replayed launches on one input set, which
+        stays in the L2 as a decode step's does between its norms."""
+        K, R, d = shape
+        x, g, _ = rms_inputs(shape, 1)[0]
+        w = (1.0 + g.float()).to(dt)
+        b_ms, b_by = bound_ms(2 * x.numel() * 2 + g.numel() * 2, 4 * x.numel(), "float32")
+        return {"ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
+                "device_ms": graph_device_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS), [()]),
+                "plain_ms": event_ms(torch, lambda: rn.rmsnorm_plain(x, g, EPS)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": event_ms(torch, lambda: F.rms_norm(x[0], (d,), weight=w[0],
+                                                                 eps=EPS)),
+                "shape": {"x": list(shape), "gamma": [K, d], "dtype": dts}}
+
+    decode_at = rms_decode_at(RMS_DECODE_SHAPES["decode-starcoder2"])
     fwd_at = {shape: rms_at(shape) for shape in
               (RMS_SHAPE, RMS_MAMBA_SHAPE, RMS_MOE_SHAPE, RMS_KV_NORM_SHAPE)}
     bwd_at = {shape: rms_bwd_at(shape) for shape in fwd_at}
@@ -2804,6 +3301,8 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         "moe_shape": dict(fwd_at[RMS_MOE_SHAPE], max_abs_err=errs["rmsnorm@moe"]),
         # MLA's kv_norm over the 512-wide latent (deepseek-v2-lite-16b)
         "kv_norm_shape": dict(fwd_at[RMS_KV_NORM_SHAPE], max_abs_err=errs["rmsnorm@kv_norm"]),
+        # a starcoder2-3b decode step's call: 8 slots of one lane at d = 3072
+        "decode_shape": dict(decode_at, max_abs_err=errs["rmsnorm@decode"]),
     })
     rows.append({
         "name": "rmsnorm_bwd", "route": "cuda",
@@ -3077,6 +3576,15 @@ def main() -> int:
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")
+    for path in SERVE:
+        by_path[path["arch"] + "+serve"] = serve_path(torch, dev, **path)
+        lap(path["arch"] + ":serve_path")
+    by_path[SERVE_VS_FORWARD["arch"] + "+serve_vs_forward"] = serve_vs_forward(
+        torch, dev, **SERVE_VS_FORWARD)
+    lap("serve_vs_forward")
+    for arch in DECODE_CARD_VS_CPU:
+        card_vs_cpu_decode(torch, dev, arch)
+    lap("card_vs_cpu_decode")
     emit({"kernels": time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches)})
     lap("timing")
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,

@@ -1,12 +1,20 @@
 """Attention mixers, lane-batched: GQA (global and sliding-window local)
-and MLA (DeepSeek's multi-head latent attention, train / prefill form).
+and MLA (DeepSeek's multi-head latent attention).
 
 The lanes and the batch fold into the kernel's batch dimension, so the flash
 kernel sees ``(K * B, S, heads, head_dim)`` and needs no vmap rule.  MLA
 decompresses K and V from its latent and runs the same kernel with a q/k
 head dim of ``head_dim + rope_head_dim`` (192 on deepseek-v2-lite) and a v
-head dim of ``head_dim`` (128).  Its absorbed decode form comes with the
-serving path (ROADMAP.md section 1, item 11.5).
+head dim of ``head_dim`` (128).
+
+Decode writes one position of a per-layer cache in place, at ``pos``:
+
+* GQA caches (k, v), each ``(K, B, max_seq, n_kv, head_dim)``, and attends
+  through the reference attention with ``q_offset=pos, kv_len=pos + 1``, as
+  the JAX package does (no flash kernel at decode);
+* MLA caches the compressed latent ``c (K, B, max_seq, r)`` and the shared
+  ``kr (K, B, max_seq, rope_head_dim)`` and runs the absorbed form: ``wk_b``
+  folded into q, scores against the latent, all in fp32.
 """
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..kernels import ops, ref
 from .layers import Params, apply_rmsnorm, dense_init, dtype_of, rmsnorm_init
 from .rope import apply_rope
 
@@ -56,6 +64,41 @@ def gqa_apply(
     )
     out = out.reshape((K, B) + out.shape[1:])
     return torch.einsum("kbshe,khed->kbsd", out, p["wo"])
+
+
+def gqa_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
+                   device) -> Params:
+    shape = (K, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg: ModelConfig, *,
+               local: bool = False):
+    """x (K, B, 1, d) at position ``pos`` -> (y (K, B, 1, d), cache): k and v
+    written into the cache at ``pos`` in place, the same tree returned."""
+    K, B = x.shape[:2]
+    q = torch.einsum("kbsd,kdhe->kbshe", x, p["wq"])
+    k = torch.einsum("kbsd,kdhe->kbshe", x, p["wk"])
+    v = torch.einsum("kbsd,kdhe->kbshe", x, p["wv"])
+    positions = torch.full((1,), pos, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    ck[:, :, pos] = k[:, :, 0]
+    cv[:, :, pos] = v[:, :, 0]
+    out = ops.attention(
+        q.reshape((K * B,) + q.shape[2:]),
+        ck.reshape((K * B,) + ck.shape[2:]),
+        cv.reshape((K * B,) + cv.shape[2:]),
+        causal=True,
+        window=cfg.sliding_window if local else None,
+        softcap=cfg.attn_softcap,
+        q_offset=pos,
+        kv_len=pos + 1,
+    )
+    out = out.reshape((K, B) + out.shape[1:])
+    return torch.einsum("kbshe,khed->kbsd", out, p["wo"]), cache
 
 
 # =============================== MLA ==============================================
@@ -108,3 +151,35 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     )
     out = out.reshape((K, B) + out.shape[1:])
     return torch.einsum("kbshe,khed->kbsd", out, p["wo"])
+
+
+def mla_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
+                   device) -> Params:
+    return {"c": torch.zeros((K, batch, max_seq, cfg.kv_lora_rank), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros((K, batch, max_seq, cfg.rope_head_dim), dtype=dtype,
+                              device=device)}
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg: ModelConfig):
+    """Absorbed MLA decode, x (K, B, 1, d) -> (y (K, B, 1, d), cache): the
+    latent and ``k_rope`` written at ``pos`` in place; q taken into the
+    latent space through ``wk_b``, scores against every cached latent plus
+    ``q_rope . kr``, masked to ``s <= pos``, and the softmax's latent mix
+    taken out through ``wv_b``, all in fp32; then ``wo``."""
+    positions = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_qkc(p, x, cfg, positions)
+    cc, ckr = cache["c"], cache["kr"]
+    cc[:, :, pos] = c_new[:, :, 0]
+    ckr[:, :, pos] = kr_new[:, :, 0]
+    scale = 1.0 / math.sqrt(cfg.resolved_head_dim + cfg.rope_head_dim)
+    ccf = cc.float()
+    q_lat = torch.einsum("kbqhe,krhe->kbqhr", q_nope.float(), p["wk_b"].float())
+    scores = (torch.einsum("kbqhr,kbsr->kbhqs", q_lat, ccf)
+              + torch.einsum("kbqhe,kbse->kbhqs", q_rope.float(), ckr.float())) * scale
+    mask = torch.arange(cc.shape[2], device=x.device) <= pos
+    scores = torch.where(mask, scores, ref.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("kbhqs,kbsr->kbqhr", probs, ccf)
+    out = torch.einsum("kbqhr,krhe->kbqhe", out_lat, p["wv_b"].float()).to(x.dtype)
+    return torch.einsum("kbshe,khed->kbsd", out, p["wo"]), cache

@@ -5,8 +5,15 @@ x -> in_proj -> (u, z); u -> causal depthwise conv -> silu -> selective scan
 out_proj.  Every weight carries the leading lane axis K, so each trial has
 its own ``A_log`` and ``D``; the scan takes them per lane.
 
-Decode (``mamba_cache_init`` / ``mamba_decode``) comes with ROADMAP.md
-section 1, item 11.
+Decode keeps two pieces of state a layer, both O(1) in the sequence: the
+last ``ssm_conv - 1`` conv inputs and the ``(K, B, d_inner, N)`` SSM state
+``h``, in fp32 whatever the cache dtype.  ``mamba_decode`` updates both in
+place, through the reference's single-token step (``ops.ssm_decode_step``),
+as the JAX package does.  The conv window takes the cache's dtype where it
+is the wider one (the JAX package's concatenation promotes), and the rest
+of the step follows it, as JAX's promoting einsums do: under the serving
+loop's fp32 cache a bf16 model's mixer computes in fp32, its weights cast
+each step.
 """
 from __future__ import annotations
 
@@ -69,3 +76,34 @@ def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y, _ = ops.ssm_scan(u, dt, A, Bc, Cc, p["D"].float())
     y = y * F.silu(z)
     return torch.einsum("kbsi,kid->kbsd", y, p["out_proj"])
+
+
+def mamba_cache_init(cfg: ModelConfig, K: int, batch: int, dtype, device) -> Params:
+    return {
+        "conv": torch.zeros((K, batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((K, batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                         device=device),
+    }
+
+
+def mamba_decode(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig):
+    """Single-token step, x (K, B, 1, d) -> (out (K, B, 1, d), cache): the conv
+    window and ``h`` advanced in place, the same tree returned."""
+    uz = torch.einsum("kbsd,kdci->kbsci", x, p["in_proj"])
+    u, z = uz[:, :, 0, 0], uz[:, :, 0, 1]                              # (K, B, di)
+    ct = torch.promote_types(u.dtype, cache["conv"].dtype)
+    window = torch.cat([cache["conv"].to(ct), u[:, :, None].to(ct)], dim=2)  # (K, B, Kc, di)
+    u_conv = F.silu(torch.einsum("kbci,kci->kbi", window, p["conv_w"].to(ct))
+                    + p["conv_b"].to(ct)[:, None])
+    dt_raw, Bc, Cc = _split_xproj(torch.einsum("kbi,kij->kbj", u_conv, p["x_proj"].to(ct)),
+                                  cfg)
+    dt = F.softplus(torch.einsum("kbr,kri->kbi", dt_raw, p["dt_proj"].to(ct))
+                    + p["dt_bias"].to(ct)[:, None])
+    A = -torch.exp(p["A_log"].float())
+    y, h = ops.ssm_decode_step(u_conv, dt, A, Bc, Cc, p["D"].float(), cache["h"])
+    y = y * F.silu(z)
+    out = torch.einsum("kbi,kid->kbd", y, p["out_proj"].to(y.dtype))[:, :, None]
+    cache["conv"].copy_(window[:, :, 1:])
+    cache["h"].copy_(h)
+    return out, cache

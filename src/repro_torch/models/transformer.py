@@ -16,6 +16,13 @@ residual, as falcon-mamba's); ``post_norm``, softcaps and ``scale_embed``.
 A model with a frontend (hubert's audio frames, pixtral's image patches)
 takes ``inputs_embeds`` in place of tokens; ``frontend.py`` makes synthetic
 ones, as the JAX package's stub does.
+
+Serving: ``init_cache`` builds the per-layer decode caches in the same
+layout (``blocks`` leaves ``(K, n_superblocks, B, ...)``), ``decode_step``
+runs one token a row at a position ``pos`` (a Python int) and writes each
+layer's cache row at ``pos`` in place, and ``forward(..., last_only=True)``
+is the prefill form that unembeds only the last position.  MoE layers
+decode dropless, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -112,11 +119,13 @@ def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelCo
 
 
 def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
-            inputs_embeds: Optional[torch.Tensor] = None
+            inputs_embeds: Optional[torch.Tensor] = None, last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (K, B, S), or ``inputs_embeds`` (K, B, S, d) in their place ->
     (logits fp32 (K, B, S, V), aux (K,)): each lane's MoE load-balancing loss
-    summed over its layers (zeros without MoE).
+    summed over its layers (zeros without MoE).  ``last_only``: the final
+    norm and the unembedding of the last position only, logits (K, B, 1, V)
+    (serving prefill).
 
     ``params`` is lane-batched: every leaf has the leading lane axis K."""
     if inputs_embeds is not None:
@@ -133,6 +142,82 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
         for i, (m, f) in enumerate(cfg.pattern):
             x, block_aux = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions, block_aux)
         aux = aux + block_aux
+    if last_only:
+        x = x[:, :, -1:]
     x = apply_rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embedding"], x, cfg)
     return logits, aux
+
+
+# ------------------------------ serving (decode) ---------------------------------------
+def _layer_cache_init(mixer: str, cfg: ModelConfig, K: int, batch: int, max_seq: int,
+                      dtype, device) -> Params:
+    if mixer == "mamba":
+        return mam.mamba_cache_init(cfg, K, batch, dtype, device)
+    if mixer == "attn_mla":
+        return attn.mla_cache_init(cfg, K, batch, max_seq, dtype, device)
+    return attn.gqa_cache_init(cfg, K, batch, max_seq, dtype, device)
+
+
+def init_cache(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
+               device) -> Params:
+    """Zeroed decode caches for K lanes of ``batch`` rows and ``max_seq``
+    positions: ``prefix`` a list of per-layer caches, ``blocks`` one
+    superblock's caches with ``n_superblocks`` after the lane axis."""
+    cache: Params = {}
+    if cfg.prefix_pattern:
+        cache["prefix"] = [_layer_cache_init(m, cfg, K, batch, max_seq, dtype, device)
+                           for m, _ in cfg.prefix_pattern]
+    one = {f"l{i}": _layer_cache_init(m, cfg, K, batch, max_seq, dtype, device)
+           for i, (m, _) in enumerate(cfg.pattern)}
+    cache["blocks"] = tree_map(
+        lambda a: a[:, None].repeat((1, cfg.n_superblocks) + (1,) * (a.dim() - 1)), one)
+    return cache
+
+
+def _layer_decode(lp: Params, x: torch.Tensor, cache: Params, pos: int, mixer: str,
+                  ffn: str, cfg: ModelConfig) -> torch.Tensor:
+    """One layer at one position; ``cache`` is written in place.  The mixer's
+    output joins the residual stream in the stream's dtype: a Mamba mixer
+    under a wider (fp32) cache computes in the cache's dtype, and the JAX
+    package's layer scan keeps the stream's dtype (it raises where the two
+    differ)."""
+    h = apply_rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    if mixer == "mamba":
+        h, _ = mam.mamba_decode(lp["mixer"], h, cache, cfg)
+    elif mixer == "attn_mla":
+        h, _ = attn.mla_decode(lp["mixer"], h, cache, pos, cfg)
+    else:
+        h, _ = attn.gqa_decode(lp["mixer"], h, cache, pos, cfg, local=(mixer == "attn_local"))
+    h = h.to(x.dtype)
+    if cfg.post_norm:
+        h = apply_rmsnorm(h, lp["norm1_post"], cfg.norm_eps)
+    x = x + h
+    if ffn == "none":
+        return x
+    h = apply_rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    if ffn == "moe":
+        h, _ = moem.moe_apply(lp["ffn"], h, cfg, dropless=True)   # decode never drops
+    else:
+        h = mlpm.mlp_apply(lp["ffn"], h, cfg)
+    if cfg.post_norm:
+        h = apply_rmsnorm(h, lp["norm2_post"], cfg.norm_eps)
+    return x + h
+
+
+@torch.no_grad()
+def decode_step(params: Params, cache: Params, tokens: torch.Tensor, pos: int,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+    """One serving step: tokens (K, B, 1) at position ``pos`` -> (logits fp32
+    (K, B, 1, V), cache): every layer's cache row ``pos`` written in place,
+    the same tree returned."""
+    x = embed_tokens(params["embedding"], tokens, cfg)
+    for i, (m, f) in enumerate(cfg.prefix_pattern):
+        x = _layer_decode(params["prefix"][i], x, cache["prefix"][i], pos, m, f, cfg)
+    for j in range(cfg.n_superblocks):
+        sp = tree_map(lambda a: a[:, j], params["blocks"])
+        sc = tree_map(lambda a: a[:, j], cache["blocks"])
+        for i, (m, f) in enumerate(cfg.pattern):
+            x = _layer_decode(sp[f"l{i}"], x, sc[f"l{i}"], pos, m, f, cfg)
+    x = apply_rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params["embedding"], x, cfg), cache
