@@ -49,8 +49,8 @@ Phases, each printing one JSON line:
    4 and 2 steps, graphs of 1 and 2 steps in the same pool) beside its
    per-step flight: per-step losses and per-leaf checksums of the final
    state's raw bits equal, one host dispatch a chunk, the wrapper calls at
-   capture and the kernels the profiler sees in one replayed chunk equal to
-   the launches a step makes times the chunk; capture seconds, the graph
+   capture and the kernel nodes of the replayed chunk's captured graph
+   equal to the launches a step makes times the chunk; capture seconds, the graph
    pool, peak memory, the replayed chunk's step time, idle share and device
    time by group;
    streaming_path — the same two trainers through the streaming engines
@@ -102,19 +102,40 @@ Phases, each printing one JSON line:
    fp32 attention went through the CUDA-core flash kernel only; for the
    MoE configs, the count of top-k assignments the
    card routed differently (reported, not a gate beyond the 1e-4);
+5a. train_path — the one-trial driver (``launch/train.py``'s ``build`` and
+   step) on starcoder2-3b at its published widths and full depth (30
+   layers), bf16, every superblock recomputed in the backward pass
+   (``remat="full"``), batch 4, seq 1024: one warm-up and four timed steps
+   with the plain kernel versions refused, then one profiled step: a finite
+   loss every step, 121 RMSNorm forwards, 61 backwards and 60 tensor-core
+   flash forwards a step; s a step, peak memory, device time by group;
+   train_checks — at the same widths and 2 layers: remat "full" and "dots"
+   bit-equal to "none" over 3 steps (losses, every state leaf), an fp32
+   master copy whose bf16 parameters are its cast bit for bit, and a run
+   killed by ``--fail-at 6`` (exit 17) and rerun through the CLI's ``main``
+   (``resumed from checkpoint at step 4``) whose final checkpoint and last
+   loss equal, bit for bit, the step fed batches 0..4 then 4..7 (the JAX
+   driver's resume), with every checkpoint write's and restore's seconds and
+   bytes; the ``--smoke`` driver (fp32, the CUDA-core flash kernel) card
+   against CPU within 1e-4 over 3 steps; ``--legacy-recompile``'s trial
+   (``make_trial``) scoring as the serial driver on the shared stream, bit
+   for bit; cnn_path — the paper's CNN (``train/cnn.py``) at
+   ``train_cnn``'s defaults, dropout 0, card against CPU from the same
+   weights: the forward within 1e-4 (cuDNN without TF32), the accuracy of
+   each, s an epoch;
 5b. serving — ``launch/serve.py``'s continuous-batching loop (``serve_path``)
    on starcoder2-3b (8 slots, 16 requests, prompts up to 64 tokens, 64 new
    tokens, 256 positions), falcon-mamba-7b and deepseek-v2-lite-16b (4 slots,
    4 requests, 16 and 16, 64 positions), each at its published widths and
    full depth in bf16 with the reference's fp32 cache (a smoke load with no
-   published source), starcoder2 served at temperature 0 twice and at 0.8
-   twice with one seed, the other two at temperature 0 twice: every request
+   published source), starcoder2 served at 0.8 once and at temperature 0
+   once, the other two at temperature 0 twice: every request
    emits its tokens, the runs at one temperature give the same tokens, every
    decode step launches the RMSNorm
    forward kernel once a norm (61 / 65 / 82) and no other kernel of ours;
    decode steps and tokens a second, the median host seconds a step beside
    the least time of a step (every parameter byte read once at the card's
-   memory rate), three profiled decode steps by kernel group (idle share)
+   memory rate), one profiled decode step by kernel group (idle share)
    and by part (``record_function`` ranges: the reference attention, the
    absorbed MLA, the SSM step, the FFNs, the unembedding), one decode step
    captured in a CUDA graph and replayed (its device time without host
@@ -155,7 +176,10 @@ Phases, each printing one JSON line:
    step's call (``decode_shape``, 8 rows).  Each row's launches count every
    path, the serve paths (``+serve``) too.
 
-The ``total`` line holds the wall seconds of each phase.
+The ``total`` line holds the wall seconds of each phase.  Every captured
+chunk graph keeps its nodes (``population.KEEP_GRAPH_NODES``): the launch
+gates of replayed chunks count our kernels among them, not in a profiler
+trace, which can drop kernels.
 
 The line before last repeats the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero.
@@ -209,23 +233,50 @@ PATHS = (MAIN, MAMBA, MOE, DEEPSEEK)
 # deepseek MLA (q/k wider than v), hubert non-causal attention
 CARD_VS_CPU = ("starcoder2-3b", "falcon-mamba-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
                "deepseek-v2-lite-16b", "hubert-xlarge", "pixtral-12b")
+# the one-trial driver (launch/train.py's build() and step): starcoder2-3b at
+# its published widths and full depth (30 layers), bf16, every superblock
+# recomputed in the backward pass; one warm-up step, then the timed ones
+TRAIN = dict(arch="starcoder2-3b", batch=4, seq=1024, remat="full", warmup=1, timed=4)
+# its checks at full width and 2 layers: remat "full" and "dots" against
+# "none" and the fp32 master over `steps`; a run killed by --fail-at and
+# resumed through the CLI's main
+TRAIN_CHECKS = dict(arch="starcoder2-3b", n_layers=2, batch=4, seq=1024, steps=3)
+TRAIN_CRASH = dict(steps=8, ckpt_every=4, fail_at=6)   # the checkpoint after step 4
+# the --smoke driver card against CPU (fp32: the CUDA-core flash kernel)
+TRAIN_SMOKE = dict(arch="starcoder2-3b", batch=2, seq=128, steps=3)
+# --legacy-recompile (make_trial) against the serial driver on the shared
+# stream at smoke size; warmup_frac x steps whole, as make_trial rounds it
+LEGACY = dict(arch="starcoder2-3b", steps=4, batch=2, seq=128)
+LEGACY_CONFIGS = (dict(learning_rate=3e-3, warmup_frac=0.5, weight_decay=0.1, b2=0.95,
+                       grad_clip=1.0),
+                  dict(learning_rate=1e-2, warmup_frac=0.25, weight_decay=0.0, b2=0.99,
+                       grad_clip=0.0, n_iterations=2))
+# the paper's CNN (train/cnn.py) at train_cnn's defaults (2,048 training and
+# 512 test images of 16 x 16, batch 128, conv 16 / 32, fc 64, 3 epochs), at
+# dropout 0 so the card and the CPU start from the same weights and draw
+# nothing
+CNN_CONFIG = dict(dropout=0.0)
+CNN_ARCH = {"conv": [[16, 3], [32, 3]], "fc": 64}
 # the serving paths: launch/serve.py's loop at published widths and full
 # depth, bf16, one lane, an fp32 cache (the reference's).  The traffic is a
 # smoke load with no published source: it drives every part of the loop
 # (slot refills, both samplers) and its times rank no optimisation.
 # starcoder2-3b with 8 slots (16 requests of prompts up to 64 tokens and 64
 # new tokens each over 256 positions: 241 decode steps, no cache flush),
-# served at temperature 0 twice and at SERVE_TEMPERATURE twice, the draws
-# seeded from the seed; falcon-mamba-7b and deepseek-v2-lite-16b with 4
-# (29 steps each), at temperature 0 twice (their sampling is starcoder2's code)
+# served once at SERVE_TEMPERATURE (the draws seeded from the seed), then once
+# at temperature 0, the run timed (its repeats went to make room for the
+# one-trial driver's phases; the CPU tests hold the seeded sampler);
+# falcon-mamba-7b and deepseek-v2-lite-16b with 4 (29 steps each), at
+# temperature 0 twice, so the repeat gate stays on them (their sampling
+# and decode loop are starcoder2's code)
 SERVE_TEMPERATURE = 0.8
 SERVE = (dict(arch="starcoder2-3b", batch=8, requests=16, prompt_len=64, new_tokens=64,
-              max_seq=256, temperatures=(0.0, 0.0, SERVE_TEMPERATURE, SERVE_TEMPERATURE)),
+              max_seq=256, temperatures=(SERVE_TEMPERATURE, 0.0)),
          dict(arch="falcon-mamba-7b", batch=4, requests=4, prompt_len=16, new_tokens=16,
               max_seq=64, temperatures=(0.0, 0.0)),
          dict(arch="deepseek-v2-lite-16b", batch=4, requests=4, prompt_len=16, new_tokens=16,
               max_seq=64, temperatures=(0.0, 0.0)))
-PROFILED_DECODE_STEPS = 3
+PROFILED_DECODE_STEPS = 1
 # the bf16 serve paths whose prefill (forward(last_only=True): the tensor-core
 # flash kernel, the scan) is held against decode on one prompt a slot,
 # reported without a gate
@@ -1015,6 +1066,22 @@ def profile_step(torch, fn, top=12):
                             for n, ms, c in rows[:top]]}
 
 
+def graph_kernels(P, kind, chunk, mode=None, shape=None) -> dict:
+    """Our kernels' launches in one replay of the captured chunk graph of
+    ``kind``, ``chunk`` (and rule ``mode``, rule or ring ``shape``), by
+    kernel: the graph's nodes whose text names the kernel (``KERNEL_NAMES``),
+    counted in the graph itself (``population.KEEP_GRAPH_NODES``), so a
+    profiler trace that drops kernels cannot change the count."""
+    found = [g for g in P.graph_stats(nodes=True)
+             if g["kind"] == kind and g["chunk"] == chunk and g["mode"] == mode
+             and (shape is None or g["shape"] == shape)]
+    if len(found) != 1 or not found[0]["nodes"]:
+        die(f"no single captured {kind} graph of {chunk} steps with its nodes kept: "
+            f"{[(g['kind'], g['mode'], g['chunk'], g['shape']) for g in found]}")
+    nodes = found[0]["nodes"]
+    return {name: sum(sub in node for node in nodes) for name, sub in KERNEL_NAMES.items()}
+
+
 # ---------------------------------------------------------- phase 4, chunked
 def state_checksums(torch, pstate) -> list:
     """Per leaf of a population state, the sum of its raw bits read as
@@ -1106,8 +1173,8 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     then one captured chunk called again for its step time and its profile.
     The per-step flights run first: beside the captured state and its pool
     a second falcon-mamba state does not fit.  Returns the kernels' launches
-    on the card in the chunked flights: the profiler's count in a replayed
-    chunk, per step, times the steps replayed, plus the eager warm-up step
+    on the card in the chunked flights: the kernel nodes of the replayed
+    chunk's graph, per step, times the steps replayed, plus the eager warm-up step
     before the first capture."""
     from repro_torch.data.pipeline import split_streams
     from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
@@ -1153,7 +1220,7 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
         torch.cuda.synchronize()
         replay_s = (time.perf_counter() - t0) / n_timed
         prof = profile_step(torch, dispatch)
-    seen = prof.pop("kernel_launches_seen")
+    seen = graph_kernels(P, "scan", chunk)
     prof.pop("launches")
     raw = lambda t: t.view(torch.int32)  # noqa: E731  (fp32 losses as raw bits)
     refs = {"per_step_again": "per_step", "chunked": "per_step",
@@ -1246,8 +1313,8 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
         if calls != want_calls:
             problems.append(f"{name}: wrapper calls at capture {calls}, want {want_calls}")
         if seen[name] != n * chunk:
-            problems.append(f"{name}: the profiler saw {seen[name]} launches in one replayed "
-                            f"chunk, want {n} x {chunk}")
+            problems.append(f"{name}: {seen[name]} launches in the replayed chunk's graph, "
+                            f"want {n} x {chunk}")
     P.clear_population_cache()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1922,7 +1989,8 @@ def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
         torch.cuda.synchronize()
         rule_chunk_s = (time.perf_counter() - t0) / 3
         prof = profile_step(torch, dispatch)
-    seen = prof.pop("kernel_launches_seen", {})
+    seen = graph_kernels(P, "rulescan", chunk, mode="staggered",
+                         shape={n: list(v.shape) for n, v in rules.items()})
     prof.pop("launches", None)
     recaptured = len(P.graph_stats()) != n_graphs
     ops = lane_op_timings(torch, dev, tc, data, population)
@@ -2020,8 +2088,8 @@ def streaming_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
         problems.append("the profiled rule chunk was captured anew")
     for k, v in per_step.items():
         if seen.get(k) != v * chunk:
-            problems.append(f"{k}: the profiler saw {seen.get(k)} launches in one replayed "
-                            f"rule chunk, want {v} x {chunk}")
+            problems.append(f"{k}: {seen.get(k)} launches in the replayed rule chunk's "
+                            f"graph, want {v} x {chunk}")
     if prof.get("device_ms") is None:
         problems.append("the profiled rule chunk shows no device time")
     for name, op in ops.items():
@@ -2070,8 +2138,8 @@ def calls_for(per_step: dict, graphs, warm_up: bool) -> dict:
 
 
 def flight_launches(seen: dict, in_chunk_steps: int, ring_steps: int, warm_up) -> dict:
-    """Kernel launches on the card of chunked flights: the profiler's count
-    in one replayed chunk (``seen["scan"]``: in-chunk synthesis,
+    """Kernel launches on the card of chunked flights: the kernel nodes of
+    the replayed chunk's graph (``seen["scan"]``: in-chunk synthesis,
     ``seen["ring"]``: ring-fed), per step, times the steps replayed that
     way, plus the eager warm-up step before the geometry's first capture
     (``warm_up``: a step's launches, or None)."""
@@ -2113,6 +2181,8 @@ def replayed_chunk_profile(torch, dev, tc, data, population, ring_capacity=None)
     if graph_keys(P) != keys:
         die(f"profiling the replayed {key[0]} chunk captured a graph")
     prof.pop("launches")
+    prof["graph_kernel_launches"] = graph_kernels(P, key[0], CHUNK,
+                                                  shape=json.loads(key[3]))
     return prof
 
 
@@ -2359,9 +2429,10 @@ def crash_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
     ``raise@step`` under the supervisor, its lanes restored from the
     in-memory store; (c) the same ring-fed; (b) and (c) against the
     unbroken flight; the snapshot slots the flights left.  Then the
-    profiler over one replayed in-chunk and one replayed ring-fed chunk.
-    Returns the kernels' launches on the card over the phase (the
-    profiler's counts a step times the steps replayed, plus the warm-up
+    profiler over one replayed in-chunk and one replayed ring-fed chunk,
+    and the kernel nodes of their graphs.  Returns the kernels' launches on
+    the card over the phase (the graphs' counts a step times the steps
+    replayed, plus the warm-up
     step) and the report, whose ``replayed_chunk_launches_seen`` holds the
     two counts."""
     from repro_torch.train import population as P
@@ -2385,11 +2456,11 @@ def crash_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
             ops = lane_snapshot_costs(torch, dev, tc, data, population)
     slots = P.lane_snapshot_slot_stats()
     # what a replayed chunk launches on the card, in-chunk synthesis and
-    # ring-fed, from the profiler; ring_path's flights replay these graphs
+    # ring-fed, from their graphs; ring_path's flights replay these graphs
     profiles = {"scan": replayed_chunk_profile(torch, dev, tc, data, population),
                 "ring": replayed_chunk_profile(torch, dev, tc, data, population,
                                                ring_capacity=RING_WINDOWS * CHUNK)}
-    seen = {k: prof.pop("kernel_launches_seen") for k, prof in profiles.items()}
+    seen = {k: prof.pop("graph_kernel_launches") for k, prof in profiles.items()}
     per_step = launches_per_step(tc.model, chunked=True)
     want_seen = {"scan": {k: v * CHUNK for k, v in per_step.items()},
                  "ring": {k: 0 if k == "synth_tokens" else v * CHUNK
@@ -2411,8 +2482,8 @@ def crash_path(torch, dev, arch, n_layers, population, batch, seq, seed=0):
     problems = []
     for kind, want in want_seen.items():
         if seen[kind] != want:
-            problems.append(f"the profiler saw {seen[kind]} launches in one replayed {kind} "
-                            f"chunk, want {want}")
+            problems.append(f"{seen[kind]} launches in the replayed {kind} chunk's graph, "
+                            f"want {want}")
         if profiles[kind].get("device_ms") is None:
             problems.append(f"the profiled {kind} chunk shows no device time")
     if len(slots) != 1 or slots[0]["slots"] > population + 1 or slots[0]["held"] \
@@ -2509,7 +2580,7 @@ def ring_path(torch, dev, arch, n_layers, population, batch, seq, seen, seed=0):
     the ring's telemetry and bytes.  Runs on the graphs ``crash_path``
     captured, which captures none: no flight here captures a graph.
     Returns the kernels' launches on the card over the phase, from the
-    profiler's counts in ``crash_path``'s replayed chunks (``seen``)."""
+    kernel nodes of ``crash_path``'s replayed chunk graphs (``seen``)."""
     from repro_torch.train import population as P
 
     geo = dict(arch=arch, n_layers=n_layers, population=population, batch=batch, seq=seq)
@@ -2677,6 +2748,396 @@ def card_vs_cpu(torch, dev, arch):
     return rec["card_launches"]
 
 
+
+
+# ------------------------------------------------------------------- phase 5a
+def train_launches_per_step(cfg, remat: str) -> dict:
+    """``launches_per_step`` of a one-trial step: with ``remat`` the
+    superblocks' forward runs again in the backward pass, so their RMSNorm
+    forwards, flash forwards and scans launch twice (the prefix layers and
+    the final norm once); the backwards once."""
+    per_step = launches_per_step(cfg)
+    if remat == "none":
+        return per_step
+    blocks = list(cfg.pattern) * cfg.n_superblocks
+    again = {"rmsnorm": sum((1 + (ffn != "none")) * (1 + bool(cfg.post_norm))
+                            + (m == "attn_mla") for m, ffn in blocks),
+             "ssm_scan": sum(m == "mamba" for m, _ in blocks)}
+    attn = sum(m.startswith("attn") for m, _ in blocks)
+    again["flash_attention_sm90" if cfg.compute_dtype == "bfloat16"
+          else "flash_attention_fp32"] = attn
+    return {k: v + again.get(k, 0) for k, v in per_step.items()}
+
+
+def train_args(dev, arch, batch, seq, steps, remat="none", extra=()):
+    from repro_torch.launch import train as TR
+
+    return TR.parser().parse_args(["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+                                   "--steps", str(steps), "--remat", remat,
+                                   "--device", dev.type, *extra])
+
+
+class plain_versions_raise:
+    """While open, the plain versions of the RMSNorm and flash forward
+    kernels (and of the RMSNorm backward) raise: a step on the card must run
+    the kernels only."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rmsnorm as rn
+
+        def refuse(*_, **__):
+            raise RuntimeError("a plain version ran on the card's path")
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (rn, "rmsnorm_plain"), (rn, "rmsnorm_bwd_plain"), (fa, "flash_fwd_plain"))]
+        for m, n, _ in self.saved:
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def train_path(torch, dev, arch, batch, seq, remat, warmup, timed, seed=0):
+    """The one-trial driver's model and step (``launch/train.py``'s
+    ``build``) on ``arch`` at its published widths and full depth: ``warmup``
+    steps, then ``timed`` steps on device-resident batches (host clock around
+    ``synchronize``), the plain kernel versions refused; then one step under
+    the profiler.  Gates: a finite loss every step; the kernels' launches a
+    step (``train_launches_per_step``: the recomputed superblocks' too) and
+    no plain version.  Returns the launches of the steps."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import train as TR
+    from repro_torch.train.train_step import init_train_state
+
+    release_cublas_workspaces(torch)
+    n = warmup + timed
+    tc, data, step, _ = TR.build(train_args(dev, arch, batch, seq, n, remat))
+    cfg = tc.model
+    per_step = train_launches_per_step(cfg, remat)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(torch.Generator(device=dev).manual_seed(seed), tc, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = tree_bytes(state)
+    batches = [to_device(data.make_batch(t), dev) for t in range(n)]
+    losses = []
+    with plain_versions_raise():
+        before = counters()
+        for t in range(warmup):
+            state, m = step(state, batches[t])
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(warmup, n):
+            state, m = step(state, batches[t])
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        s_per_step = (time.perf_counter() - t0) / timed
+        launches = {k: v - before[k] for k, v in counters().items()}
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_step(torch, lambda: step(state, batches[-1]))
+    losses = [float(x) for x in losses]
+    out = {"phase": "train_path", "arch": arch, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "param_dtype": cfg.param_dtype, "remat": remat,
+           "batch": batch, "seq": seq, "warmup_steps": warmup, "timed_steps": timed,
+           "init_s": init_s, "state_bytes": state_bytes,
+           "param_bytes": tree_bytes(state["params"]),
+           "s_per_step": s_per_step, "tokens_per_s": batch * seq / s_per_step,
+           "peak_memory_gib": peak / 2 ** 30, "losses": losses,
+           "launches": launches, "launches_per_step": per_step,
+           "profile_launches": prof.pop("launches"), "profile": prof,
+           "card": card_memory(torch)}
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    problems = []
+    if not all(np.isfinite(losses)):
+        problems.append(f"a loss is not finite: {losses}")
+    want = {k: v * n for k, v in per_step.items()}
+    if launches != want:
+        problems.append(f"launches {launches} over {n} steps, want {want}")
+    if out["profile_launches"] != per_step:
+        problems.append(f"the profiled step launched {out['profile_launches']}, want {per_step}")
+    if problems:
+        die(f"train path {arch}: " + "; ".join(problems))
+    return launches
+
+
+def train_run(torch, dev, tc, batches, seed=0, state=None):
+    """``make_train_step(tc)`` over ``batches`` from the seeded init (or from
+    ``state``): the final state and the losses (fp32, on the card)."""
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    if state is None:
+        state = init_train_state(torch.Generator(device=dev).manual_seed(seed), tc, dev)
+    step = make_train_step(tc)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    return state, torch.stack(losses)
+
+
+def train_checks(torch, dev, arch, n_layers, batch, seq, steps, seed=0):
+    """At ``arch``'s published widths, depth cut to ``n_layers``: ``steps``
+    steps with remat ``"full"`` and ``"dots"`` against ``"none"`` (losses and
+    every state leaf, raw bits); the same with an fp32 master copy (the
+    parameters its cast to their dtype, bit for bit; finite losses); a run killed by
+    ``--fail-at`` and resumed through the CLI's ``main`` against the step fed
+    the reference's batch order (``resume_check``).  Returns the launches."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import train as TR
+    from repro_torch.models.layers import dtype_of
+
+    release_cublas_workspaces(torch)
+    cfg = path_config(arch, n_layers)
+    before = counters()
+    tc, data, _, _ = TR.build(train_args(dev, arch, batch, seq, steps), model=cfg)
+    batches = [to_device(data.make_batch(t), dev) for t in range(steps)]
+    sums, losses = {}, {}
+    for remat in ("none", "full", "dots"):
+        tc_r = dataclasses.replace(tc, parallel=dataclasses.replace(tc.parallel, remat=remat))
+        state, loss = train_run(torch, dev, tc_r, batches, seed)
+        sums[remat], losses[remat] = state_checksums(torch, state), raw_bits(torch, loss)
+        del state
+    remat_equal = {r: sums[r] == sums["none"] and torch.equal(losses[r], losses["none"])
+                   for r in ("full", "dots")}
+    tc_m = dataclasses.replace(tc, parallel=dataclasses.replace(tc.parallel,
+                                                                master_dtype="float32"))
+    state, loss = train_run(torch, dev, tc_m, batches, seed)
+    pdt = dtype_of(cfg.param_dtype)
+    master_cast = all(
+        p.dtype == pdt and m.dtype == torch.float32
+        and torch.equal(raw_bits(torch, p), raw_bits(torch, m.to(pdt)))
+        for p, m in zip(tree_leaves(state["params"]), tree_leaves(state["opt"]["master"])))
+    master = {"losses": [float(x) for x in loss], "state_bytes": tree_bytes(state),
+              "params_equal_master_cast": master_cast}
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = resume_check(torch, dev, cfg, batch, seq, seed)
+    launches = {k: v - before[k] for k, v in counters().items()}
+    out = {"phase": "train_checks", "arch": arch, "n_layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "steps": steps,
+           "losses": {r: [float(x) for x in v.view(torch.float32)] for r, v in losses.items()},
+           "remat_bit_equal": remat_equal, "master": master, "resume": resume,
+           "launches": launches}
+    emit(out)
+    problems = []
+    if not all(remat_equal.values()):
+        problems.append(f"remat differs from no remat: {remat_equal}")
+    if not master_cast or not all(np.isfinite(master["losses"])):
+        problems.append(f"the fp32 master: {master}")
+    problems += resume.pop("problems")
+    if problems:
+        die(f"train checks {arch}: " + "; ".join(problems))
+    return launches
+
+
+def resume_check(torch, dev, cfg, batch, seq, seed=0):
+    """``launch/train.py``'s ``main`` on ``cfg`` with a checkpoint directory
+    under ``build/``: killed by ``--fail-at`` (exit 17), then rerun (resumed
+    from the checkpoint taken after step ``ckpt_every``, stored as that step,
+    the loop starting there as the JAX driver's does); its final checkpoint
+    and last loss against the step fed batches 0..ckpt_every and then
+    ckpt_every..steps-1 from the same init, raw bit for raw bit.  Reports
+    every checkpoint write's and the restores' seconds and bytes."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.interop import tree_map
+    from repro_torch.launch import train as TR
+
+    c = TRAIN_CRASH
+    argv = ["--batch", str(batch), "--seq", str(seq), "--steps", str(c["steps"]),
+            "--ckpt-every", str(c["ckpt_every"]), "--log-every", "1", "--seed", str(seed),
+            "--device", dev.type]
+    tc, data, _, _ = TR.build(TR.parser().parse_args(argv), model=cfg)
+    # the reference first: the same init fed the resumed run's batch order
+    resumed_at = c["ckpt_every"]
+    order = list(range(resumed_at + 1)) + list(range(resumed_at, c["steps"]))
+    state, loss = train_run(torch, dev, tc, [data.make_batch(t) for t in order], seed)
+    want, state_bytes = state_checksums(torch, state), tree_bytes(state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    free = shutil.disk_usage(root).free
+    need = 3 * state_bytes + (1 << 30)    # two checkpoints kept and one being written
+    if free < need:
+        return {"problems": [f"{free / 2 ** 30:.1f} GiB free under {root}, the checkpoints "
+                             f"need {need / 2 ** 30:.1f} GiB"]}
+    writes, restores = [], []
+    plain_write, plain_restore = Checkpointer._write, Checkpointer.restore
+
+    def timed_write(self, step_, flat, dtypes, extra):
+        t0 = time.perf_counter()
+        path = plain_write(self, step_, flat, dtypes, extra)
+        writes.append({"step": step_, "s": time.perf_counter() - t0,
+                       "bytes": sum(a.nbytes for a in flat.values())})
+        return path
+
+    def timed_restore(self, step_=None):
+        t0 = time.perf_counter()
+        got = plain_restore(self, step_)
+        restores.append({"step": got[1]["step"], "s": time.perf_counter() - t0,
+                         "bytes": tree_bytes(got[0])})
+        return got
+
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    runs = []
+    Checkpointer._write, Checkpointer.restore = timed_write, timed_restore
+    try:
+        for extra in (["--fail-at", str(c["fail_at"])], []):
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = TR.main(argv + ["--ckpt-dir", tmp] + extra, model=cfg)
+            runs.append({"rc": rc, "wall_s": time.perf_counter() - t0,
+                         "stdout": out.getvalue(), "stderr": err.getvalue()})
+            gc.collect()
+            torch.cuda.empty_cache()
+        got, manifest = Checkpointer(tmp).restore()
+    finally:
+        Checkpointer._write, Checkpointer.restore = plain_write, plain_restore
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = tree_map(lambda t: t.to(dev), got)
+    equal = state_checksums(torch, got) == want
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    final = json.loads(runs[1]["stdout"].strip().splitlines()[-1]) if runs[1]["rc"] == 0 else {}
+    rec = {"argv": argv, "fail_at": c["fail_at"], "rcs": [r["rc"] for r in runs],
+           "wall_s": [r["wall_s"] for r in runs], "state_bytes": state_bytes,
+           "disk_free_gib_before": free / 2 ** 30,
+           "resumed_line": f"resumed from checkpoint at step {resumed_at}" in runs[1]["stdout"],
+           "batch_order": order, "final_step": manifest["step"],
+           "final_loss": final.get("final_loss"), "reference_last_loss": float(loss[-1]),
+           "state_bit_equal": equal, "writes": writes, "restores": restores,
+           "write_gb_s": [w["bytes"] / 1e9 / w["s"] for w in writes],
+           "restore_gb_s": [r["bytes"] / 1e9 / r["s"] for r in restores],
+           "killed_stderr": runs[0]["stderr"][-200:]}
+    problems = []
+    if rec["rcs"] != [17, 0]:
+        problems.append(f"exit codes {rec['rcs']}, want [17, 0]: {runs[0]['stderr'][-300:]} "
+                        f"{runs[1]['stderr'][-300:]}")
+    if not rec["resumed_line"]:
+        problems.append(f"the rerun did not resume at step {resumed_at}")
+    if not equal or rec["final_loss"] != rec["reference_last_loss"]:
+        problems.append(f"the resumed run's state (bit-equal: {equal}) or last loss "
+                        f"{rec['final_loss']} is not the reference order's "
+                        f"({rec['reference_last_loss']})")
+    rec["problems"] = problems
+    return rec
+
+
+def train_smoke_card_vs_cpu(torch, dev, arch, batch, seq, steps, seed=0):
+    """The ``--smoke`` driver's model and step (fp32) on the card and on the
+    CPU from the same weights (the CPU's init copied) and batches: the loss
+    curve within 1e-4 (TF32 off), and the card's attention through the
+    CUDA-core flash kernel only.  Returns the card's launches."""
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.launch import train as TR
+    from repro_torch.train.train_step import init_train_state
+
+    tc, data, step, _ = TR.build(train_args(dev, arch, batch, seq, steps, extra=["--smoke"]))
+    cpu = init_train_state(torch.Generator().manual_seed(seed), tc, "cpu")
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    lc, lg = [], []
+    before = counters()
+    for t in range(steps):
+        b = data.make_batch(t)
+        cpu, mc = step(cpu, b)
+        card, mg = step(card, b)
+        lc.append(float(mc["loss"]))
+        lg.append(float(mg["loss"]))
+    launches = {k: v - before[k] for k, v in counters().items()}
+    loss_err = max(abs(a - b) for a, b in zip(lc, lg))
+    param_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree_leaves(card["params"]), tree_leaves(cpu["params"])))
+    want = {k: v * steps for k, v in launches_per_step(tc.model).items()}
+    rec = {"phase": "train_smoke_card_vs_cpu", "config": tc.model.name,
+           "dtype": tc.model.param_dtype, "batch": batch, "seq": seq, "steps": steps,
+           "card_losses": lg, "cpu_losses": lc, "loss_max_abs_err": loss_err,
+           "param_max_abs_err": param_err, "tol": 1e-4, "card_launches": launches}
+    emit(rec)
+    if loss_err > 1e-4 or launches != want:
+        die(f"the --smoke driver on the card: losses {lg} against the CPU's {lc} "
+            f"(tol 1e-4); launches {launches}, want {want}")
+    return launches
+
+
+def legacy_recompile_check(torch, dev, arch, steps, batch, seq, seed=0):
+    """``--legacy-recompile``'s trial (``make_trial``: a fresh train step a
+    trial) against the serial driver on the shared stream, on the card: the
+    same score for every config of ``LEGACY_CONFIGS``, bit for bit."""
+    from repro_torch.launch.hpo import PopulationTrial, make_trial
+
+    before = counters()
+    legacy = make_trial(arch, steps, batch, seq, seed, device=dev)
+    serial = PopulationTrial(arch, steps, batch, seq, seed, per_trial_streams=False, device=dev)
+    t0 = time.perf_counter()
+    got = [legacy(dict(c)) for c in LEGACY_CONFIGS]
+    legacy_s = time.perf_counter() - t0
+    want = [serial(dict(c)) for c in LEGACY_CONFIGS]
+    launches = {k: v - before[k] for k, v in counters().items()}
+    rec = {"phase": "legacy_recompile", "arch": arch, "steps": steps, "batch": batch,
+           "seq": seq, "configs": list(LEGACY_CONFIGS), "scores": got, "serial_scores": want,
+           "legacy_s": legacy_s, "launches": launches}
+    emit(rec)
+    if got != want or not all(abs(x) < 1e8 for x in got):
+        die(f"--legacy-recompile scored {got}, the serial driver {want}")
+    return launches
+
+
+def cnn_path(torch, dev, seed=0):
+    """The paper's CNN (``train/cnn.py``) at ``train_cnn``'s defaults, dropout
+    0, on the card and on the CPU from the same weights (the CPU's init
+    copied): ``cnn_forward`` of the test split card against CPU within 1e-4
+    (cuDNN without TF32), the test accuracy of each and the seconds an
+    epoch."""
+    from repro_torch.data.pipeline import SyntheticClassification
+    from repro_torch.interop import tree_map
+    from repro_torch.train import cnn
+
+    init = cnn.init_cnn(torch.Generator().manual_seed(seed), CNN_ARCH)
+    card_w = tree_map(lambda t: t.to(dev), init)
+    x = torch.from_numpy(SyntheticClassification().make_split(512, seed + 2)["x"])
+    with torch.no_grad():
+        err = float((cnn.cnn_forward(card_w, x.to(dev)).cpu() - cnn.cnn_forward(init, x))
+                    .abs().max())
+    epochs = 3   # train_cnn's default n_iterations
+    runs = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        acc = cnn.train_cnn(dict(CNN_CONFIG), device=where, init_params=init, seed=seed)
+        if where is dev:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs["card" if where is dev else "cpu"] = {"accuracy": acc, "wall_s": wall,
+                                                   "s_per_epoch": wall / epochs}
+    rec = {"phase": "cnn_path", "arch": CNN_ARCH, "config": CNN_CONFIG, "epochs": epochs,
+           "n_train": 2048, "n_test": 512, "batch": 128,
+           "forward_max_abs_err": err, "tol": 1e-4, **runs}
+    emit(rec)
+    if not err <= 1e-4:
+        die(f"cnn_forward on the card is {err} from the CPU's (tol 1e-4)")
+    if not 0.0 <= runs["card"]["accuracy"] <= 1.0:
+        die(f"the card's CNN scored {runs['card']['accuracy']}")
 
 
 # ------------------------------------------------------------------- phase 5b
@@ -3174,7 +3635,7 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     row's: the tensor-core kernel's, with both kernels' counts beside it).
     ``fp32_launches``: the CUDA-core flash kernel's launches in the
     card-against-CPU phase; ``chunk_launches``: the synthesis kernel's
-    launches the profiler saw in one replayed chunk, by chunked path."""
+    launches in one replayed chunk's graph, by chunked path."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3512,7 +3973,11 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     from repro_torch.kernels import build
+    from repro_torch.train import population as P
 
+    # every captured chunk graph keeps its nodes: the launch gates of
+    # replayed chunks count them in the graph
+    P.KEEP_GRAPH_NODES = True
     seconds = {}   # wall seconds by phase, for the total line
     clock = [time.perf_counter()]
 
@@ -3576,6 +4041,14 @@ def main() -> int:
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")
+    by_path[TRAIN["arch"] + "+train"] = train_path(torch, dev, **TRAIN)
+    lap("train_path")
+    by_path[TRAIN["arch"] + "+train_checks"] = train_checks(torch, dev, **TRAIN_CHECKS)
+    by_path[TRAIN["arch"] + "+train_smoke"] = train_smoke_card_vs_cpu(torch, dev, **TRAIN_SMOKE)
+    by_path[TRAIN["arch"] + "+legacy"] = legacy_recompile_check(torch, dev, **LEGACY)
+    lap("train_checks")
+    cnn_path(torch, dev)
+    lap("cnn_path")
     for path in SERVE:
         by_path[path["arch"] + "+serve"] = serve_path(torch, dev, **path)
         lap(path["arch"] + ":serve_path")

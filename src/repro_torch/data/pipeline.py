@@ -34,6 +34,10 @@ copied with ``non_blocking=True`` so the copy of batch ``s+1`` overlaps the
 device work of step ``s``.  ``HostDataset`` is what the prefetch ring
 (``repro_torch.data.ring``) reads: ``SynthHostDataset`` over this stream,
 ``ArrayHostDataset`` over a token array in host memory.
+
+Classification: ``SyntheticClassification``, the paper's §IV MNIST
+stand-in that ``train/cnn.py`` trains on, a numpy copy of the JAX
+package's, bit for bit.
 """
 from __future__ import annotations
 
@@ -460,3 +464,39 @@ class HostPrefetcher:
             return batch
         self._next = None
         return self._put(step)
+
+
+@dataclasses.dataclass
+class SyntheticClassification:
+    """Template-plus-noise image classification (paper §IV's MNIST stand-in).
+
+    Each class has a fixed random template; samples are template + Gaussian
+    noise.  Accuracy responds smoothly to model capacity / lr / dropout, so
+    HPO curves (paper Fig. 5) are meaningful.
+    """
+
+    n_classes: int = 10
+    image_size: int = 16
+    noise: float = 5.0
+    seed: int = 7
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # spatially smooth class templates (low-frequency random fields):
+        # conv + pooling layers can pick these up; white-noise templates would
+        # make the task adversarial to exactly the architectures being tuned
+        coarse = rng.standard_normal((self.n_classes, 4, 4)).astype(np.float32)
+        up = self.image_size // 4
+        smooth = np.kron(coarse, np.ones((1, up, up), np.float32))
+        # light blur across pixels to avoid blocky edges
+        smooth = (smooth + np.roll(smooth, 1, 1) + np.roll(smooth, 1, 2)
+                  + np.roll(smooth, -1, 1) + np.roll(smooth, -1, 2)) / 5.0
+        self.templates = (2.0 * smooth[..., None]).astype(np.float32)
+
+    def make_split(self, n: int, seed: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(seed)
+        labels = rng.integers(self.n_classes, size=n)
+        x = self.templates[labels] + self.noise * rng.standard_normal(
+            (n, self.image_size, self.image_size, 1)
+        ).astype(np.float32)
+        return {"x": x.astype(np.float32), "y": labels.astype(np.int32)}

@@ -67,8 +67,12 @@ from the tracking DB and the snapshots.  With ``--data-ring`` the chunks
 read a prefetch ring on the device, filled from the host a window ahead
 (``--ring-windows W``), instead of making their batches on the device.
 
-Engines of later slices (multi-device meshes, the throughput benchmark's
-baselines) are refused with the ROADMAP.md item that brings them.
+``--legacy-recompile`` is the serial baseline of the JAX package's
+throughput benchmark (``make_trial``): a fresh train step per trial with the
+proposal baked into its config, every trial on the same seeded stream.
+
+Engines of later slices (multi-device meshes) are refused with the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -108,6 +112,55 @@ def model_config(arch: str, overrides=None):
 
     cfg = get_smoke_config(arch)
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def make_trial(arch: str, steps: int, batch: int, seq: int, seed: int, device=None):
+    """Legacy trial callable: config dict -> score, with a fresh train step
+    per trial.
+
+    Bakes the proposal into the TrainConfig closure (``make_train_step``), as
+    the JAX package's baseline does, where every call pays a full compile;
+    kept as the ``--legacy-recompile`` baseline.  Every trial reads the
+    same seeded stream and starts from the same weights.  Use
+    ``PopulationTrial`` for real runs.
+    """
+    dev = resolve_device(device)
+
+    def trial(config: dict) -> float:
+        from ..configs.base import ParallelConfig, TrainConfig
+        from ..data.pipeline import HostPrefetcher, SyntheticLM
+        from ..train.train_step import init_train_state, make_train_step
+
+        cfg = model_config(arch)
+        n_steps = int(config.get("n_iterations", 1) * steps)
+        tc = TrainConfig(
+            model=cfg,
+            parallel=ParallelConfig(remat="none"),
+            learning_rate=float(config["learning_rate"]),
+            warmup_steps=max(1, int(config.get("warmup_frac", 0.1) * n_steps)),
+            total_steps=n_steps,
+            weight_decay=float(config.get("weight_decay", 0.1)),
+            b2=float(config.get("b2", 0.95)),
+            grad_clip=float(config.get("grad_clip", 1.0)),
+            seed=seed,
+        )
+        data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+        state = init_train_state(torch.Generator(device=dev).manual_seed(seed), tc, dev)
+        step_fn = make_train_step(tc)
+        # batch s+1 is built and sent while step s still runs, before the
+        # blocking loss read
+        feed = HostPrefetcher(data.make_batch, dev)
+        loss = float("inf")
+        for s in range(n_steps):
+            state, metrics = step_fn(state, feed.pop(s))
+            if s + 1 < n_steps:
+                feed.prefetch(s + 1)
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                return -1e9  # diverged
+        return -loss
+
+    return trial
 
 
 class PopulationTrial:
@@ -1266,8 +1319,6 @@ _LATER_FLAGS = (
     ("shard_population", "--shard-population", _ITEM.format("12 (multi-device engines)")),
     ("model_parallel", "--model-parallel", _ITEM.format("12 (multi-device engines)")),
     ("elastic_regrid", "--elastic-regrid", _ITEM.format("12 (multi-device engines)")),
-    ("legacy_recompile", "--legacy-recompile",
-     _ITEM.format("13 (tooling: the throughput benchmark's baselines)")),
 )
 
 
@@ -1373,6 +1424,10 @@ def main(argv=None) -> int:
     p.add_argument("--ring-windows", type=int, default=2, metavar="W",
                    help="with --data-ring: prefetch depth in chunk-windows (>= 2; "
                         "2 = double buffering, one window training, one filling)")
+    p.add_argument("--legacy-recompile", action="store_true",
+                   help="serial baseline: a fresh train step per trial with the "
+                        "proposal baked into its config, every trial on the same "
+                        "seeded stream and weights (make_trial)")
     p.add_argument("--chunk-steps", type=int, default=1, metavar="T",
                    help="with --vectorize K: advance each flight in fused chunks "
                         "of up to T steps between host events, batches made on "
@@ -1382,7 +1437,6 @@ def main(argv=None) -> int:
         ("--shard-population", dict(action="store_true")),
         ("--elastic-regrid", dict(action="store_true")),
         ("--model-parallel", dict(type=int, default=1, metavar="W")),
-        ("--legacy-recompile", dict(action="store_true")),
     ):
         p.add_argument(flag, help="not ported yet: refused with the ROADMAP.md "
                                   "item that brings it", **kw)
@@ -1447,6 +1501,11 @@ def main(argv=None) -> int:
             p.error("--device-rules needs an in-scan rule: --inflight-stop "
                     "(rung cuts) or --pbt-streaming with --pbt-async "
                     "(window-quantile verdicts)")
+    if args.legacy_recompile and (args.fused_rmsnorm or args.fused_attention
+                                  or args.fused_ssm):
+        p.error("--fused-rmsnorm/--fused-attention/--fused-ssm act on the "
+                "compile-once train step; the --legacy-recompile baseline "
+                "predates the kernel bank and would silently ignore them")
     if args.fused_attention or args.fused_ssm:
         from ..configs import get_smoke_config
 
@@ -1525,6 +1584,9 @@ def main(argv=None) -> int:
                                 snapshot_every=args.snapshot_every, snapshots=snap_store,
                                 data_ring=args.data_ring, ring_windows=args.ring_windows,
                                 **trial_kw)
+    elif args.legacy_recompile:
+        trial = make_trial(args.arch, args.steps, args.batch, args.seq, args.seed,
+                           device=args.device)
     else:
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 **trial_kw)
@@ -1532,7 +1594,8 @@ def main(argv=None) -> int:
     exp_cfg["cli"] = {k: getattr(args, k) for k in (
         "arch", "steps", "batch", "seq", "seed", "vectorize", "chunk_steps",
         "per_trial_init", "shared_stream", "lane_refill", "inflight_stop",
-        "snapshot_every", "snapshot_dir", "pbt_streaming", "pbt_async", "device_rules",
+        "snapshot_every", "snapshot_dir", "legacy_recompile", "pbt_streaming",
+        "pbt_async", "device_rules",
         "data_ring", "ring_windows", "fused_rmsnorm", "fused_attention", "fused_ssm",
         "device", "max_flight_restarts")}
     t0 = time.time()
@@ -1556,13 +1619,14 @@ def main(argv=None) -> int:
     out = {
         "proposer": args.proposer,
         "arch": args.arch,
-        "engine": ("serial" if args.vectorize == 0 else "vmapped")
+        "engine": ("legacy-recompile" if args.legacy_recompile else
+                   "serial" if args.vectorize == 0 else "vmapped")
                   + ("+refill" if args.lane_refill else "")
                   + ("+chunked" if args.chunk_steps > 1 else "")
                   + ("+ring" if args.data_ring else "")
                   + ("+devrules" if args.device_rules else ""),
         "vectorize": args.vectorize,
-        "device": str(trial.device),
+        "device": str(resolve_device(args.device)),
     }
     if args.device_rules:
         out["device_rules"] = True
@@ -1589,9 +1653,9 @@ def main(argv=None) -> int:
         out["fused_attention"] = True
     if args.fused_ssm:
         out["fused_ssm"] = True
-    if trial.per_rung_step_time_s:
+    if getattr(trial, "per_rung_step_time_s", None):   # make_trial's trials have none
         out["per_rung_step_time_s"] = trial.per_rung_step_time_s
-    if trial.early_stop is not None:
+    if getattr(trial, "early_stop", None) is not None:
         out["inflight_truncated_lanes"] = trial.early_stop.n_truncated
         out["inflight_reclaimed_diverged_lanes"] = trial.early_stop.n_reclaimed
     if args.lane_refill:

@@ -24,7 +24,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops, ref
-from .layers import Params, apply_rmsnorm, dense_init, dtype_of, rmsnorm_init
+from .layers import Params, apply_rmsnorm, dense_init, dtype_of, einsum, rmsnorm_init
 from .rope import apply_rope
 
 
@@ -49,9 +49,9 @@ def gqa_apply(
     local: bool = False,
 ) -> torch.Tensor:
     K, B, S, _ = x.shape
-    q = torch.einsum("kbsd,kdhe->kbshe", x, p["wq"])
-    k = torch.einsum("kbsd,kdhe->kbshe", x, p["wk"])
-    v = torch.einsum("kbsd,kdhe->kbshe", x, p["wv"])
+    q = einsum("kbsd,kdhe->kbshe", x, p["wq"])
+    k = einsum("kbsd,kdhe->kbshe", x, p["wk"])
+    v = einsum("kbsd,kdhe->kbshe", x, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.attention(
@@ -63,7 +63,7 @@ def gqa_apply(
         softcap=cfg.attn_softcap,
     )
     out = out.reshape((K, B) + out.shape[1:])
-    return torch.einsum("kbshe,khed->kbsd", out, p["wo"])
+    return einsum("kbshe,khed->kbsd", out, p["wo"])
 
 
 def gqa_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,

@@ -24,6 +24,16 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with the JAX package's dtype promotion: operands of
+    different float dtypes (bf16 parameters under an fp32 compute dtype) are
+    cast to the wider one; where they agree nothing is cast."""
+    dt = operands[0].dtype
+    for o in operands[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o if o.dtype == dt else o.to(dt) for o in operands))
+
+
 def _trunc_normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
                   dtype, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -80,9 +90,9 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final logits (K, B, S, V) in fp32, with the optional final softcap."""
     table = params.get("unembed")
     if table is None:
-        logits = torch.einsum("kbsd,kvd->kbsv", x, params["embed"]).float()
+        logits = einsum("kbsd,kvd->kbsv", x, params["embed"]).float()
     else:
-        logits = torch.einsum("kbsd,kdv->kbsv", x, table).float()
+        logits = einsum("kbsd,kdv->kbsv", x, table).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import Params, dense_init, dtype_of
+from .layers import Params, dense_init, dtype_of, einsum
 
 
 def mlp_init(gen, cfg: ModelConfig, device, d_ff: int = 0) -> Params:
@@ -21,10 +21,10 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: int = 0) -> Params:
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x (K, B, S, d); wi (K, d, c, ff); wo (K, ff, d)."""
-    h = torch.einsum("kbsd,kdcf->kbscf", x, p["wi"])
+    h = einsum("kbsd,kdcf->kbscf", x, p["wi"])
     if cfg.activation == "swiglu":
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h[..., 0, :], approximate="tanh")
-    return torch.einsum("kbsf,kfd->kbsd", h, p["wo"])
+    return einsum("kbsf,kfd->kbsd", h, p["wo"])

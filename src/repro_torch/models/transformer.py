@@ -26,12 +26,15 @@ decode dropless, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
-from ..interop import tree_map
+from ..interop import tree_leaves, tree_map, tree_unflatten
 from . import attention as attn
 from . import mamba as mam
 from . import mlp as mlpm
@@ -118,14 +121,41 @@ def _layer_apply(lp: Params, x: torch.Tensor, mixer: str, ffn: str, cfg: ModelCo
     return x + h, aux
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the matmuls'
+    outputs, recompute everything else (the JAX package's
+    ``dots_with_no_batch_dims_saveable``; the port's projections are
+    matmuls batched over the lane axis, so they count as dots)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default, aten.baddbmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass as
+    ``remat`` says: ``"none"`` keeps them, ``"full"`` recomputes the whole
+    call, ``"dots"`` keeps only the matmuls' outputs."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable))
+    raise ValueError(f"remat {remat!r}: 'none', 'full' or 'dots'")
+
+
 def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
-            inputs_embeds: Optional[torch.Tensor] = None, last_only: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            inputs_embeds: Optional[torch.Tensor] = None, remat: str = "full",
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (K, B, S), or ``inputs_embeds`` (K, B, S, d) in their place ->
     (logits fp32 (K, B, S, V), aux (K,)): each lane's MoE load-balancing loss
     summed over its layers (zeros without MoE).  ``last_only``: the final
     norm and the unembedding of the last position only, logits (K, B, 1, V)
-    (serving prefill).
+    (serving prefill).  ``remat`` (``"none" | "full" | "dots"``, as the JAX
+    package's) recomputes each superblock's activations in the backward
+    pass (``torch.utils.checkpoint``); the values are the same bits.
 
     ``params`` is lane-batched: every leaf has the leading lane axis K."""
     if inputs_embeds is not None:
@@ -136,11 +166,20 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     for i, (m, f) in enumerate(cfg.prefix_pattern):
         x, aux = _layer_apply(params["prefix"][i], x, m, f, cfg, positions, aux)
-    for j in range(cfg.n_superblocks):
-        sp = tree_map(lambda a: a[:, j], params["blocks"])
+
+    def superblock(x, sp):
         block_aux = torch.zeros_like(aux)   # summed as the reference's scan sums it
         for i, (m, f) in enumerate(cfg.pattern):
             x, block_aux = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions, block_aux)
+        return x, block_aux
+
+    # each stacked leaf split once along its superblock axis: the backward
+    # stacks the slices' gradients once, where a select per superblock would
+    # add n_superblocks zero-filled gradients of the whole leaf
+    split = [a.unbind(1) for a in tree_leaves(params["blocks"])]
+    for j in range(cfg.n_superblocks):
+        sp = tree_unflatten(params["blocks"], [u[j] for u in split])
+        x, block_aux = _remat(superblock, remat, x, sp)
         aux = aux + block_aux
     if last_only:
         x = x[:, :, -1:]

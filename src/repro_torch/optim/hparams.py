@@ -33,6 +33,19 @@ class HParams:
     total_steps: Any
 
 
+def hparams_from_config(tc: TrainConfig) -> HParams:
+    """Lift the tunable knobs of a TrainConfig into HParams (warmup at
+    least 1, as ``hparams_from_dict`` gives it)."""
+    return HParams(
+        learning_rate=float(tc.learning_rate),
+        weight_decay=float(tc.weight_decay),
+        b2=float(tc.b2),
+        grad_clip=float(tc.grad_clip),
+        warmup_steps=float(max(tc.warmup_steps, 1)),
+        total_steps=float(tc.total_steps),
+    )
+
+
 def hparams_from_dict(cfg: Dict[str, Any], tc: TrainConfig) -> HParams:
     """Build HParams from an HPO proposal dict, defaulting to ``tc``'s values.
 

@@ -53,6 +53,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import os
+import re
+import tempfile
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
@@ -755,12 +758,41 @@ def make_population_rule_scan_step(tc: TrainConfig, data, chunk: int, mode: str,
 # of the same geometry waits for it rather than write into the same tensors.
 
 
+# Set before a geometry's first capture, each captured graph keeps its nodes'
+# types and kernel names (``cudaGraphDebugDotPrint``), which
+# ``graph_stats(nodes=True)`` returns:
+# what one replay launches, read from the graph itself rather than from a
+# profiler trace that may drop kernels.
+KEEP_GRAPH_NODES = False
+
+
 @dataclasses.dataclass
 class _Captured:
     graph: Any
     outputs: Any          # what the captured call returned; a replay overwrites it
     capture_s: float
     pool_bytes: int
+    nodes: Optional[list] = None   # with KEEP_GRAPH_NODES: each node's DOT label head
+
+
+def _dot_nodes(graph) -> list:
+    """Each node of a graph captured with ``keep_graph`` in debug mode and
+    instantiated, as the head of its DOT label: its type and, for a kernel,
+    its function's name (``{KERNEL | {ID | 0 | name<<<...``).
+    Dumping frees the captured graph (its instantiated form stays and
+    replays)."""
+    fd, path = tempfile.mkstemp(suffix=".dot")
+    os.close(fd)
+    try:
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    finally:
+        os.remove(path)
+    # a node's declaration opens a line with its quoted name and "[";
+    # an edge's line goes on with " ->"
+    starts = [m.start() for m in re.finditer(r'(?m)^"graph_\d+_node_\d+"\[', text)]
+    return [text[a:text.find("}", a) + 1] for a in starts]
 
 
 def _rule_shapes(rules) -> Tuple:
@@ -880,7 +912,9 @@ class _FlightGraphs:
         torch.cuda.empty_cache()   # the eager blocks go back before the pool grows
         before = torch.cuda.memory_reserved(self.device)
         leaves = tree_leaves(self.state)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=KEEP_GRAPH_NODES)
+        if KEEP_GRAPH_NODES:
+            graph.enable_debug_mode()
         t0 = time.perf_counter()
         # thread_local: a prefetch ring's fill thread keeps copying on its own
         # stream while this thread captures; only this thread's calls are
@@ -888,13 +922,16 @@ class _FlightGraphs:
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                               capture_error_mode="thread_local"):
             outputs = call()
+        if KEEP_GRAPH_NODES:
+            graph.instantiate()   # a kept graph is not instantiated at the capture's end
         torch.cuda.synchronize(self.device)
         seconds = time.perf_counter() - t0
         if any(a is not b for a, b in zip(leaves, tree_leaves(self.state))):
             raise RuntimeError("population step rebound a state tensor under capture: "
                                "a captured graph only updates tensors in place")
         got = _Captured(graph, outputs, seconds,
-                        torch.cuda.memory_reserved(self.device) - before)
+                        torch.cuda.memory_reserved(self.device) - before,
+                        _dot_nodes(graph) if KEEP_GRAPH_NODES else None)
         self.graphs[key] = got
         return got
 
@@ -1126,16 +1163,18 @@ def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, 
         yield fg.state
 
 
-def graph_stats() -> list:
+def graph_stats(nodes: bool = False) -> list:
     """Per captured chunk graph: its kind (``scan``, ``rulescan`` or
     ``ringscan``), rule mode, chunk size and rule (or ring) shapes, its
     capture seconds and the bytes its capture added to the geometry's memory
-    pool."""
+    pool; with ``nodes``, also the head of each of its nodes' DOT labels
+    (None unless ``KEEP_GRAPH_NODES`` was set when it was captured)."""
     with _POP_CACHE_LOCK:
         groups = list(_GRAPHS.values())
-    return [{"kind": kind, "mode": mode or None, "chunk": c,
-             "shape": {n: list(sh) for n, sh in shapes} or None,
-             "capture_s": g.capture_s, "pool_bytes": g.pool_bytes}
+    return [dict({"kind": kind, "mode": mode or None, "chunk": c,
+                  "shape": {n: list(sh) for n, sh in shapes} or None,
+                  "capture_s": g.capture_s, "pool_bytes": g.pool_bytes},
+                 **({"nodes": g.nodes} if nodes else {}))
             for fg in groups
             for (kind, mode, c, shapes), g in sorted(fg.graphs.items())]
 

@@ -16,20 +16,32 @@ the global norm and AdamW, also in fp32 models; with
 gradients are summed in fp32 and averaged.  With MoE layers the loss adds
 ``aux_loss_weight`` times each lane's load-balancing loss, which the metrics
 report as ``aux_loss``.  A batch with ``embeds`` (K, B, S, d) feeds them
-to the model in place of ``tokens``, as the JAX step does.
+to the model in place of ``tokens``, as the JAX step does.  The forward
+pass recomputes its activations as ``parallel.remat`` says (``"none" |
+"full" | "dots"``); the values do not change.
+
+**One trial.**  ``make_train_step(tc)`` is the JAX package's ``(state,
+batch) -> (state, metrics)`` over one trial's state with no lane axis,
+``{"params", "opt": {"mu", "nu", "step"[, "master"]}}`` with ``step`` a 0-d
+int32, its hyperparameters from ``tc``; ``get_compiled_train_step(tc)`` is
+the ``(state, batch, hp)`` form, one object for every trial of one static
+config; ``make_eval_step(tc)`` gives a batch's metrics.  They run the
+lane-batched step on a population of one: the lane axis is a view, so the
+update lands in the caller's tensors.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import TrainConfig
-from ..interop import tree_leaves, tree_map, tree_unflatten
+from ..interop import add_lane_axis, tree_leaves, tree_map, tree_unflatten
 from ..models import transformer as T
 from ..models.layers import dtype_of
 from ..optim.adamw import adamw_update, init_opt_state
-from ..optim.hparams import HParams
+from ..optim.hparams import HParams, hparams_from_config, stack_hparams
 from ..optim.schedule import warmup_cosine
 from .loss import cross_entropy
 
@@ -54,7 +66,7 @@ def static_step_key(tc: TrainConfig) -> Tuple:
 def _loss_fn(params, batch, tc: TrainConfig):
     cfg = tc.model
     logits, aux = T.forward(params, batch.get("tokens"), cfg,
-                            inputs_embeds=batch.get("embeds"))
+                            inputs_embeds=batch.get("embeds"), remat=tc.parallel.remat)
     loss, metrics = cross_entropy(logits, batch["targets"], batch["mask"], z_loss=tc.z_loss)
     if cfg.has_moe:
         loss = loss + cfg.aux_loss_weight * aux
@@ -118,3 +130,79 @@ def make_hparam_train_step(tc: TrainConfig) -> Callable:
         return state, dict(metrics, **om, lr=lr)
 
     return train_step
+
+
+# -- one trial ------------------------------------------------------------------
+
+
+def _one_lane_batch(batch, device) -> Dict[str, torch.Tensor]:
+    """One trial's batch (numpy arrays or tensors) on ``device``, as a
+    population of one."""
+    return {k: torch.as_tensor(v, device=device)[None] for k, v in batch.items()}
+
+
+def _single_trial(lane_step: Callable) -> Callable:
+    """``(state, batch, hp) -> (state, metrics)`` over one trial's state
+    (no lane axis) through ``lane_step`` at K=1; ``hp``'s fields are floats
+    or 0-d tensors; the metrics are 0-d tensors."""
+
+    def train_step(state, batch, hp: HParams):
+        dev = state["opt"]["step"].device
+        _, metrics = lane_step(add_lane_axis(state), _one_lane_batch(batch, dev),
+                               stack_hparams([hp], dev))
+        return state, {k: v[0] for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_train_step(tc: TrainConfig) -> Callable:
+    """``(state, batch) -> (state, metrics)`` for one trial, its
+    hyperparameters from ``tc`` (the JAX package's back-compat form)."""
+    step = _single_trial(make_hparam_train_step(tc))
+    hp = hparams_from_config(tc)
+
+    def train_step(state, batch):
+        return step(state, batch, hp)
+
+    return train_step
+
+
+# -- the step cache -----------------------------------------------------------------
+#
+# Keyed on the static parts of TrainConfig only (frozen dataclasses hash by
+# value): distinct trials of one architecture share one step callable, their
+# knobs arriving as the ``hp`` argument.  There is no compilation behind it
+# in the port; the cache keeps the JAX package's contract.
+
+_STEP_CACHE: Dict[Tuple, Any] = {}
+_STEP_CACHE_LOCK = threading.Lock()
+
+
+def get_compiled_train_step(tc: TrainConfig) -> Callable:
+    """The memoized one-trial ``(state, batch, hp) -> (state, metrics)``:
+    the same object for every trial of one static config
+    (``static_step_key``).  Thread-safe; ``clear_step_cache()`` empties it."""
+    key = static_step_key(tc)
+    with _STEP_CACHE_LOCK:
+        fn = _STEP_CACHE.get(key)
+        if fn is None:
+            fn = _STEP_CACHE[key] = _single_trial(make_hparam_train_step(tc))
+    return fn
+
+
+def clear_step_cache() -> None:
+    with _STEP_CACHE_LOCK:
+        _STEP_CACHE.clear()
+
+
+def make_eval_step(tc: TrainConfig) -> Callable:
+    """``(params, batch) -> metrics`` for one trial's parameters (no lane
+    axis): the loss and its metrics, 0-d tensors, without a gradient."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        dev = tree_leaves(params)[0].device
+        _, metrics = _loss_fn(add_lane_axis(params), _one_lane_batch(batch, dev), tc)
+        return {k: v[0] for k, v in metrics.items()}
+
+    return eval_step

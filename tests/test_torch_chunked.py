@@ -597,3 +597,34 @@ def test_overlapping_chunked_flights_take_turns_on_the_captured_state(cuda):
     assert chunked.n_dispatches == 2 * 4 and chunked.n_train_steps == 2 * 9
     assert sorted(g["chunk"] for g in P.graph_stats()) == [1, 2, 4]
     P.clear_population_cache()
+
+
+class _DumpedGraph:
+    """Stands in for a captured graph in debug mode: ``debug_dump`` writes
+    the DOT text ``cudaGraphDebugDotPrint`` gives (two kernel nodes, a memset
+    and their edges)."""
+
+    DOT = ('digraph dot {\nsubgraph cluster_1 {\nlabel="graph_1" graph[style="dashed"];\n'
+           '"graph_1_node_0"[style="bold" shape="record" label="{KERNEL\n| {ID | 0 (topoId: 2)'
+           ' | _Z14rmsnorm_kernelIffLi2EEvPKT_\\<\\<\\<\\{4,2\\},512,1024\\>\\>\\>}\n'
+           '| {cooperative | 0}\n}"];\n\n'
+           '"graph_1_node_1"[style="solid" shape="record" label="{MEMSET\n| {ID | 1}\n}"];\n\n'
+           '"graph_1_node_2"[style="bold" shape="record" label="{KERNEL\n| {ID | 2 (topoId: 0)'
+           ' | _Z18rmsnorm_bwd_kernelIfEvPKT_\\<\\<\\<32,128,0\\>\\>\\>}\n}"];\n\n'
+           '"graph_1_node_0" -> "graph_1_node_1" [headlabel=0];\n'
+           '"graph_1_node_1" -> "graph_1_node_2" [headlabel=0];\n}\n}\n')
+
+    def debug_dump(self, path):
+        with open(path, "w") as f:
+            f.write(self.DOT)
+
+
+def test_graph_nodes_are_read_one_per_declaration():
+    """``population._dot_nodes`` keeps one entry a node declaration (not the
+    edges' lines), each naming its kernel once, so ``chip_smoke.py`` can
+    count a replayed chunk's launches in its graph."""
+    nodes = P._dot_nodes(_DumpedGraph())
+    assert len(nodes) == 3
+    assert [("rmsnorm_kernel" in n, "rmsnorm_bwd_kernel" in n) for n in nodes] == [
+        (True, False), (False, False), (False, True)]
+    assert all(n.count("graph_1_node_") == 1 for n in nodes)

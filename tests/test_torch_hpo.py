@@ -102,7 +102,10 @@ def _imports(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) >= 3
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + examples)
     assert len(files) > 30
     bad = []
     for f in files:
@@ -131,13 +134,13 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--fused-ssm"], "no SSM mixer"),   # ported: refused only on an arch without one
     (["--shard-population"], "item 12"),
     (["--model-parallel", "2"], "item 12"),
-    (["--legacy-recompile"], "item 13"),
+    (["--legacy-recompile", "--fused-rmsnorm"], "predates the kernel bank"),  # as the JAX CLI
 ])
 def test_later_slice_flags_are_refused_with_their_roadmap_item(capsys, argv, item):
     """Flags of later slices exit naming their ROADMAP.md item; ``--fused-ssm``
     on the default arch (starcoder2-3b) exits naming the missing SSM mixer,
-    and misuses of the streaming, crash-safety and ring flags exit with the
-    JAX CLI's words."""
+    and misuses of the streaming, crash-safety, ring and legacy-recompile
+    flags exit with the JAX CLI's words."""
     with pytest.raises(SystemExit):
         hpo.main(BASE + ["--vectorize", "2", "--device", "cpu"] + argv)
     err = capsys.readouterr().err
