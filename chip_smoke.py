@@ -30,8 +30,9 @@ Phases, each printing one JSON line:
    against autograd through its plain version; the RMSNorm backward kernel
    (dx and dgamma) against its closed-form plain version at the four main
    paths' shapes in bf16, in fp32, at d = 100 (the scalar kernels in bf16)
-   and in both mixes of x and gain dtypes, and its bits equal lane to lane
-   and run to run;
+   and in both mixes of x and gain dtypes, and its bits equal lane to lane,
+   run to run and whatever the lanes launched beside a lane (K lanes
+   against each half);
 4. main_path — the HPO population trainer: the port's Experiment
    with the random proposer and the vectorized resource manager, training
    K=4 trials as one lane-batched program, first of starcoder2-3b, then of
@@ -73,7 +74,9 @@ Phases, each printing one JSON line:
    flight (wrapper calls: captures and the warm-up step only; the profiler
    over one replayed rule chunk); lane ops timed against their byte
    bounds with the memory each allocates; active lane share, dispatches
-   per step, seconds per result, captures and peak reserved memory;
+   per step, seconds per result, captures and peak reserved memory
+   (falcon-mamba's streaming, crash and ring flights at 2 of 64 layers,
+   ``MAMBA_ENGINE_LAYERS``: those engines do not depend on depth);
    then the MoE path, qwen3-moe-30b-a3b at its published widths (1 of 48
    layers, K=2, batch 2, seq 1024), through main_path and chunked_path
    (not the streaming, crash or ring phases: those engines do not depend on
@@ -94,6 +97,24 @@ Phases, each printing one JSON line:
    wk_b / wv_b decompression; the flash forward at q/k width 192, v width
    128; the plain flash backward; wo) each under the profiler, the flash
    forward against its bound, peak memory, and the same determinism gate;
+4a. sharded_path — the population mesh (``--shard-population``): at world
+   1 over NCCL, made in process, starcoder2-3b as in main_path, three
+   flights under the rung rule (boundaries 1 and 3) through the Experiment
+   and the sharded resource manager — per step, chunked (``--chunk-steps
+   4``) and with the rule in the chunks (the 8-step ladder one dispatch) —
+   each beside the unsharded engine's flight: scores, cuts, per-step
+   losses and the final state's checksums bit-equal, no degraded or dead
+   flight, a step's launches the unsharded path's (the chunked flights' in
+   the graphs they captured), the rule chunk's graph holding the
+   collective's nodes; s a step against main_path's, the gather's ms; then
+   two gloo ranks sharing the card, spawned (starcoder2-3b at its published
+   widths, 2 layers, 2 lanes a rank): the streaming ladder with host rules
+   and a batch flight with the rule in chunks (eager under gloo: a gloo
+   collective cannot sit in a CUDA graph) against the unsharded engine
+   within 1e-6 with the same decisions (bit equality reported), a clone
+   whose donor is on rank 1 and target on rank 0 and a snapshot of a rank-1
+   lane restored into rank 0, each bit-equal to its source, timed against
+   the lane's 3.43 GB;
 5. card_vs_cpu — the same population step on the starcoder2, falcon-mamba,
    qwen3-moe, jamba, deepseek-v2-lite, hubert-xlarge and pixtral-12b smoke
    configs in fp32, once on the card (kernels) and
@@ -218,6 +239,7 @@ FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 # to 4 of 30 layers, falcon-mamba-7b to 4 of 64
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
 MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
+MAMBA_ENGINE_LAYERS = 2   # falcon-mamba's streaming, crash and ring flights: 2 of 64 layers
 # the MoE path: qwen3-moe-30b-a3b at its published widths, 1 of 48 layers and
 # two lanes (one lane's parameters and moments are 12.45 GB; the AdamW
 # temporaries of the stacked experts about 16 GB)
@@ -501,6 +523,32 @@ def rmsnorm_bwd_bits_cases(torch, dev, gen):
                           dtype=str(dtype).split(".")[-1], shape=[2, *one[1:]],
                           runs_bit_equal=runs, lanes_bit_equal=lanes, ok=runs and lanes))
         del x, dy, g, first, again
+        # a population mesh's rank trains K/N of K lanes and plans them as K
+        # (``lanes``): K lanes in one launch against each half planned for K
+        # (gated: the same bits), and each half planned as its own launch
+        # (reported: how far dgamma's order moves it)
+        x, dy = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+        g = (0.1 * torch.randn((shape[0], shape[2]), generator=gen, device=dev)).to(dtype)
+        whole = rn.rmsnorm_bwd_cuda(x, g, dy, EPS)
+        h = shape[0] // 2
+
+        def halves(lanes):
+            parts = [rn.rmsnorm_bwd_cuda(x[a:b].contiguous(), g[a:b].contiguous(),
+                                         dy[a:b].contiguous(), EPS, lanes=lanes)
+                     for a, b in ((0, h), (h, None))]
+            return [torch.cat([p[i] for p in parts]) for i in range(2)]
+
+        mesh_plan, own_plan = halves(shape[0]), halves(None)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(w, m) for w, m in zip(whole, mesh_plan))
+        cases.append(dict(kernel="rmsnorm_bwd", case=f"bits-{shape[0]}-lanes-vs-halves",
+                          dtype=str(dtype).split(".")[-1], shape=list(shape),
+                          lanes_bit_equal=equal,
+                          own_plan_dx_bit_equal=torch.equal(whole[0], own_plan[0]),
+                          own_plan_dgamma_max_abs_diff=float(
+                              (whole[1].float() - own_plan[1].float()).abs().max()),
+                          ok=equal))
+        del x, dy, g, whole, mesh_plan, own_plan
     return cases
 
 
@@ -1102,13 +1150,15 @@ def state_checksums(torch, pstate) -> list:
 
 
 def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_steps, seed=0,
-               rungs=False, data_ring=False):
+               rungs=False, data_ring=False, device_rules=False, sharded=False):
     """One flight of the Experiment (random proposer, vectorized resource
     manager) at ``chunk_steps``, recording its per-step losses and the
     checksums of its final state; with ``rungs`` under the in-flight rung
-    rule of ``RUNG_FLIGHT``; with ``data_ring`` fed from the prefetch ring
-    (``RING_WINDOWS`` windows).  The launch counters are set to 0 just
-    before it and read just after."""
+    rule of ``RUNG_FLIGHT`` (with ``device_rules`` carried in the chunks);
+    with ``data_ring`` fed from the prefetch ring (``RING_WINDOWS``
+    windows); with ``sharded`` through the sharded resource manager on the
+    population mesh this process made.  The launch counters are set to 0
+    just before it and read just after."""
     from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
     from repro_torch.configs import get_config
     from repro_torch.core.experiment import Experiment
@@ -1121,7 +1171,8 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
     overrides["n_layers"] = n_layers
     trial = PopulationTrial(arch, steps, batch, seq, seed, population=population,
                             model_overrides=overrides, device=dev, chunk_steps=chunk_steps,
-                            data_ring=data_ring, ring_windows=RING_WINDOWS)
+                            data_ring=data_ring, ring_windows=RING_WINDOWS,
+                            device_rules=device_rules)
     if rungs:
         trial.early_stop = InFlightSuccessiveHalving(
             eta=RUNG_FLIGHT["eta"], min_iter=RUNG_FLIGHT["min_iter"], max_iter=steps)
@@ -1129,7 +1180,8 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
     trial.record_flight = lambda ls, ps: record.append((ls, state_checksums(torch, ps)))
     exp = Experiment({"proposer": "random", "parameter_config": SPACE,
                       "n_samples": population, "n_parallel": population,
-                      "target": "max", "random_seed": seed, "resource": "vectorized"},
+                      "target": "max", "random_seed": seed,
+                      "resource": "sharded" if sharded else "vectorized"},
                      trial)
     jobs = []
     exp.add_result_callback(jobs.append)
@@ -1143,6 +1195,8 @@ def run_flight(torch, dev, arch, n_layers, population, batch, seq, steps, chunk_
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = {"chunk_steps": chunk_steps, "wall_s": wall, "launches": counters(),
+           "degraded_flights": getattr(exp.rm, "n_degraded_flights", 0),
+           "flight_deaths": exp.rm.n_flight_deaths,
            "dispatches": trial.n_dispatches, "train_steps": trial.n_train_steps,
            "dispatches_per_step": trial.n_dispatches / max(1, trial.n_train_steps),
            "flight_s_per_step": trial.per_rung_step_time_s[-1][2]
@@ -1320,6 +1374,393 @@ def chunked_path(torch, dev, arch, n_layers, population, batch, seq, steps=CHUNK
     torch.cuda.empty_cache()
     if problems:
         die(f"chunked path {arch}: " + "; ".join(problems))
+    return launches, out
+
+
+# ----------------------------------------------------- phase 4, sharded_path
+# the population mesh (--shard-population): at world 1 over NCCL, the three
+# flights of SHARDED_FLIGHTS under the rung rule (RUNG_FLIGHT: boundaries 1
+# and 3), each beside the unsharded engine's flight of the same trials;
+# then two gloo ranks sharing the card (SHARDED_GLOO: 2 lanes a rank)
+SHARDED_FLIGHTS = (("per_step", 1, False, RUNG_FLIGHT["steps"]),
+                   ("chunked", CHUNK, False, RUNG_FLIGHT["steps"]),
+                   # the whole 8-step ladder in one chunk: one dispatch
+                   ("device_rules", 8, True, 8))
+SHARDED_GLOO = dict(arch="starcoder2-3b", n_layers=2, population=4, batch=4, seq=1024,
+                    world=2, join_s=420.0, collective_s=300.0, chunk=4, device="cuda:0")
+
+
+def sharded_path(torch, dev, arch, n_layers, population, batch, seq, main_s_per_step=None,
+                 seed=0, **_):
+    """The sharded engine at world 1 over NCCL, in process, at ``MAIN``'s
+    published widths: per step, chunked and chunked with the rule in the
+    chunks, each through the Experiment and the sharded resource manager,
+    beside the unsharded engine's flight.  Gates: scores, cuts, per-step
+    losses and the final state's checksums bit-equal; no degraded or dead
+    flight; the launches of a step as the unsharded path's (counters for
+    the per-step flight, the nodes of the captured graphs for the chunked
+    ones, which run first and capture them); the device-rule ladder one
+    dispatch, its graph holding the rule's collective (nodes the unsharded
+    rule graph lacks).  Returns the launches of the sharded flights."""
+    from repro_torch.distributed.sharding import population_mesh
+    from repro_torch.train import population as P
+
+    P.clear_population_cache()
+    mesh = population_mesh(dev)
+    geo = dict(arch=arch, n_layers=n_layers, population=population, batch=batch, seq=seq)
+    flights, problems = {}, []
+    for name, chunk, device_rules, steps in SHARDED_FLIGHTS:
+        for engine in ("sharded", "unsharded"):
+            # the sharded flight first: it captures the graphs its launches
+            # are counted in
+            got, losses, sums, tc, data = run_flight(
+                torch, dev, **geo, steps=steps, chunk_steps=chunk, seed=seed, rungs=True,
+                device_rules=device_rules, sharded=engine == "sharded")
+            flights[(name, engine)] = (got, losses, sums)
+        if chunk > 1:
+            flights[(name, "graphs")] = P.graph_stats(nodes=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_step = launches_per_step(tc.model)
+    per_step_chunked = launches_per_step(tc.model, chunked=True)
+    raw = lambda t: t.view(torch.int32)  # noqa: E731  (fp32 losses as raw bits)
+    rows = {}
+    for name, chunk, device_rules, steps in SHARDED_FLIGHTS:
+        (a, la, sa), (b, lb, sb) = flights[(name, "sharded")], flights[(name, "unsharded")]
+        rows[name] = {
+            "chunk_steps": chunk, "device_rules": device_rules, "steps": steps,
+            "scores_bit_equal": a["scores"] == b["scores"],
+            "losses_bit_equal": bool(la is not None and lb is not None and la.shape == lb.shape
+                                     and torch.equal(raw(la), raw(lb))),
+            "state_checksums_equal": sa is not None and sa == sb,
+            "truncated_lanes": [a["truncated_lanes"], b["truncated_lanes"]],
+            "train_steps": [a["train_steps"], b["train_steps"]],
+            "dispatches": [a["dispatches"], b["dispatches"]],
+            "flight_s_per_step": [a["flight_s_per_step"], b["flight_s_per_step"]],
+            "wall_s": [a["wall_s"], b["wall_s"]],
+            "wrapper_calls": a["launches"],
+            "degraded_flights": a["degraded_flights"], "flight_deaths": a["flight_deaths"],
+            "finished": a["finished"] and b["finished"], "scores": a["scores"]}
+        r = rows[name]
+        if not (r["scores_bit_equal"] and r["losses_bit_equal"] and r["state_checksums_equal"]):
+            problems.append(f"{name}: the sharded flight is not the unsharded one bit for bit")
+        if r["truncated_lanes"][0] != r["truncated_lanes"][1] \
+                or r["train_steps"][0] != r["train_steps"][1] \
+                or r["dispatches"][0] != r["dispatches"][1]:
+            problems.append(f"{name}: cuts, steps or dispatches differ: {r}")
+        if not r["truncated_lanes"][0]:
+            problems.append(f"{name}: the rung rule cut no lane")
+        if r["degraded_flights"] or r["flight_deaths"] or not r["finished"]:
+            problems.append(f"{name}: a degraded, dead or unfinished flight")
+    # the per-step flight: every step through the kernels, counted
+    a = flights[("per_step", "sharded")][0]
+    n_steps = a["train_steps"]
+    for k, n in per_step.items():
+        if a["launches"][k] != n * n_steps:
+            problems.append(f"per_step: {k} {a['launches'][k]} launches, want {n} x {n_steps}")
+    launches = dict(a["launches"])
+    # the chunked flights: the kernels in the graphs they captured, a step's
+    # worth per step, times the steps replayed, plus the warm-up step
+    graphs = flights[("chunked", "graphs")]
+    rule_graphs = [g for g in flights[("device_rules", "graphs")] if g["kind"] == "rulescan"]
+    mode = f"cohort@nccl{mesh.world_size}"
+    sharded_rule = [g for g in rule_graphs if g["mode"] == mode]
+    plain_rule = [g for g in rule_graphs if g["mode"] == "cohort"]
+    for g in [g for g in graphs if g["kind"] == "scan"] + sharded_rule:
+        seen = {k: sum(sub in node for node in g["nodes"] or ())
+                for k, sub in KERNEL_NAMES.items()}
+        want = {k: n * g["chunk"] for k, n in per_step_chunked.items()}
+        if seen != want:
+            problems.append(f"{g['kind']} {g['mode']} graph of {g['chunk']}: kernels {seen}, "
+                            f"want {want}")
+    replayed = flights[("chunked", "sharded")][0]["train_steps"] + \
+        flights[("device_rules", "sharded")][0]["train_steps"]
+    for k, n in per_step_chunked.items():
+        launches[k] = launches.get(k, 0) + n * (replayed + 1)
+    calls = flights[("chunked", "sharded")][0]["launches"]
+    want_calls = {k: n * (1 + 1 + 2 + CHUNK) for k, n in per_step_chunked.items()}
+    if calls != want_calls:
+        problems.append(f"chunked: wrapper calls {calls}, want the warm-up and the captures "
+                        f"of 1, 2 and {CHUNK} steps {want_calls}")
+    extra_nodes = (len(sharded_rule[0]["nodes"]) - len(plain_rule[0]["nodes"])
+                   if len(sharded_rule) == 1 and len(plain_rule) == 1 else None)
+    def kinds(gs):   # each node's type (KERNEL, MEMCPY, ...) from its DOT label
+        found = {}
+        for node in (gs[0]["nodes"] or () if gs else ()):
+            m = re.search(r'label="\{(\w+)', node)
+            kind = m.group(1) if m else "?"
+            found[kind] = found.get(kind, 0) + 1
+        return found
+
+    k_sharded, k_plain = kinds(sharded_rule), kinds(plain_rule)
+    extra_kinds = {k: n - k_plain.get(k, 0) for k, n in k_sharded.items()
+                   if n != k_plain.get(k, 0)}
+    if not extra_nodes or extra_nodes <= 0:
+        problems.append(f"the sharded rule graph holds no node beyond the unsharded one's "
+                        f"({extra_nodes})")
+    if rows["device_rules"]["dispatches"][0] != 1:
+        problems.append("the device-rule ladder was not one dispatch")
+    # the collective alone: the rule chunk's per-step gather of the lanes'
+    # vectors (losses, latches, local steps, budgets, bases, cursors)
+    vec = {"losses": torch.zeros(population, device=dev),
+           "diverged": torch.zeros(population, dtype=torch.bool, device=dev),
+           "local": torch.zeros(population, dtype=torch.int32, device=dev),
+           "rules": {"budgets": torch.zeros(population, device=dev),
+                     "base": torch.zeros(population, device=dev),
+                     "local0": torch.zeros(population, dtype=torch.int32, device=dev)}}
+    gather_ms = event_ms(torch, lambda: mesh.all_gather_lanes(vec))
+    gather_prof = profile_step(torch, lambda: mesh.all_gather_lanes(vec), top=6)
+    gather_prof.pop("launches", None)
+    P.clear_population_cache()
+    mesh.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    s_per_step = rows["per_step"]["flight_s_per_step"][0]
+    out = {"phase": "sharded_path", "mesh": "world 1", "backend": mesh.backend,
+           "arch": arch, "n_layers": n_layers, "population": population, "batch": batch,
+           "seq": seq, "nvidia_smi": nvidia_smi(), "flights": rows,
+           "s_per_step": s_per_step, "main_path_s_per_step": main_s_per_step,
+           "ratio_to_main_path": (s_per_step / main_s_per_step
+                                  if s_per_step and main_s_per_step else None),
+           "rule_graph_extra_nodes": extra_nodes, "rule_graph_extra_node_kinds": extra_kinds,
+           "gather_ms": gather_ms, "gather_profile": gather_prof,
+           "launches_per_step": per_step, "launches": launches}
+    emit(out)
+    if problems:
+        die("sharded path (world 1, NCCL): " + "; ".join(problems))
+    return launches, out
+
+
+def _stream_grid(population):
+    """``STREAM_SPACE``'s grid as a fixed queue: 2K trials (2 steps, then 4),
+    each its own stream."""
+    import itertools
+
+    grid = itertools.product(*(p["range"] for p in STREAM_SPACE))
+    return [dict(zip((p["name"] for p in STREAM_SPACE), vals), stream=i)
+            for i, vals in enumerate(grid)][: 2 * population]
+
+
+def _gloo_trial(dev, cfg, chunk_steps=1, device_rules=False, seed=0):
+    from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
+    from repro_torch.launch.hpo import PopulationTrial
+
+    trial = PopulationTrial(cfg["arch"], STREAM["steps"], cfg["batch"], cfg["seq"], seed,
+                            population=cfg["population"],
+                            model_overrides=published_widths(cfg["arch"], cfg["n_layers"]),
+                            device=dev, chunk_steps=chunk_steps, device_rules=device_rules,
+                            refill_idle_grace_s=0.0)
+    trial.early_stop = InFlightSuccessiveHalving(
+        eta=STREAM["eta"], min_iter=STREAM["min_iter"], max_iter=STREAM["max_iter"])
+    return trial
+
+
+def _gloo_flights(torch, dev, cfg, mesh=None):
+    """The two flights of the gloo phase, on ``mesh`` or unsharded: the
+    streaming ladder (the grid, host rules, per step) and a batch flight of
+    its first K trials with the rule in chunks of ``cfg["chunk"]``."""
+    from repro_torch.core.resource.vectorized import QueueFeedScheduler
+
+    out = {}
+    grid = _stream_grid(cfg["population"])
+    trial = _gloo_trial(dev, cfg)
+    reset_counters()
+    t0 = time.perf_counter()
+    if mesh is not None and mesh.rank != 0:
+        trial.run_population([], mesh=mesh)
+    else:
+        feed = QueueFeedScheduler(grid)
+        trial.run_population([], mesh=mesh, scheduler=feed)
+        n = len(grid)
+        out["streaming"] = {
+            "scores": feed.ordered_scores(n), "order": list(feed.scores),
+            "steps": [feed.extras[i]["steps"] for i in range(n)],
+            "lanes": [feed.extras[i]["lane"] for i in range(n)],
+            "truncated": trial.early_stop.n_truncated, "dispatches": trial.n_dispatches,
+            "train_steps": trial.n_train_steps}
+    torch.cuda.synchronize()
+    out["streaming_s"] = time.perf_counter() - t0
+    out["streaming_launches"] = counters()
+    trial = _gloo_trial(dev, cfg, chunk_steps=cfg["chunk"], device_rules=True)
+    reset_counters()
+    t0 = time.perf_counter()
+    # K trials of 2 and 4 steps: the rung at step 3 cuts, the ladder is one chunk
+    scores = trial.run_population(grid[::2][: cfg["population"]], mesh=mesh)
+    torch.cuda.synchronize()
+    out["device_rules_s"] = time.perf_counter() - t0
+    out["device_rules_launches"] = counters()
+    out["device_rules"] = {"scores": scores, "truncated": trial.early_stop.n_truncated,
+                           "dispatches": trial.n_dispatches, "train_steps": trial.n_train_steps}
+    return out
+
+
+def _gloo_rank(rank, cfg, store, out_dir):
+    """One of ``SHARDED_GLOO``'s ranks on ``cuda:0`` (spawned by
+    ``sharded_gloo_path``): its flights, then lanes moved across ranks, each
+    held bit for bit against the lane it copies.  Rank 0 saves what it saw
+    to ``out_dir/rank0.json``; a rank that raises leaves its traceback in
+    ``rank{r}.err``."""
+    import os
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    try:
+        import torch
+
+        from repro_torch.distributed.sharding import population_mesh
+        from repro_torch.launch.flight import LaneFlight
+        from repro_torch.train import population as P
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dev = torch.device(cfg["device"])
+        mesh = population_mesh(dev, backend="gloo", init_method=f"file://{store}", rank=rank,
+                               world_size=cfg["world"], timeout_s=cfg["collective_s"])
+        out = _gloo_flights(torch, dev, cfg, mesh)
+        P.clear_population_cache()
+        torch.cuda.empty_cache()
+        # lanes across ranks: every lane its own init; lane 3 lives on rank
+        # 1 and lanes 0 and 1 on rank 0
+        trial = _gloo_trial(dev, cfg)
+        k = cfg["population"]
+        moved = {}
+        # every rank runs the same calls (SPMD), so no rank broadcasts them
+        fl = LaneFlight(trial, k, mesh=mesh)
+        try:
+            fl._init_state(list(range(100, 100 + k)), True)
+            st = fl.state
+            nbytes = P._lane_layout(st)[1]
+
+            def lane_bytes(lane):
+                """Global lane ``lane``'s bytes on rank 0 (sent by its owner)."""
+                owner, local = P._owner_of(mesh, st, lane)
+                if owner == 0:
+                    return P._pack_lane(st, local) if rank == 0 else None
+                buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+                if rank == owner:
+                    mesh.exchange([(P._pack_lane(st, local), 0)], [])
+                elif rank == 0:
+                    mesh.exchange([], [(buf, owner)])
+                return buf if rank == 0 else None
+
+            def timed_op(fn):
+                torch.cuda.synchronize()
+                mesh.barrier()
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                mesh.barrier()
+                return got, (time.perf_counter() - t0) * 1e3
+
+            donor = lane_bytes(3)
+            mask = [i == 0 for i in range(k)]
+            _, moved["clone_ms"] = timed_op(lambda: fl._clone(mask, [3] * k))
+            target = lane_bytes(0)
+            if rank == 0:
+                moved["clone_bit_equal"] = bool(torch.equal(donor, target))
+            snap, moved["snapshot_ms"] = timed_op(lambda: fl._snapshot(3))
+            _, moved["restore_ms"] = timed_op(lambda: fl._restore(1, snap))
+            restored = lane_bytes(1)
+            if rank == 0:
+                moved["snapshot_restore_bit_equal"] = bool(torch.equal(donor, restored))
+                moved["snapshot_pinned"] = bool(snap["last_loss"].is_pinned())
+            moved["lane_bytes"] = nbytes
+        finally:
+            fl._close()
+        mesh.destroy()
+        if rank == 0:
+            out["moved"] = moved
+            out["eager_rule_chunk"] = True
+            with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+                json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def sharded_gloo_path(torch, dev, seed=0):
+    """Two gloo ranks sharing the card (``SHARDED_GLOO``: starcoder2-3b at
+    its published widths, 2 layers, 2 lanes a rank), spawned from here: the
+    streaming ladder with host rules and a device-rule batch flight (under
+    gloo its rule chunk runs eagerly: a gloo collective cannot sit in a CUDA
+    graph) against the unsharded engine on the same trials (run first, here),
+    then a clone whose donor lives on rank 1 and target on rank 0, and a
+    snapshot of a rank-1 lane restored into a rank-0 lane, each bit-equal to
+    the lane it copies, timed against the lane's bytes.  Gates: scores within
+    1e-6 and the same decisions (bit equality reported), bit-equal lanes."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.train import population as P
+
+    cfg = SHARDED_GLOO
+    P.clear_population_cache()
+    ref = _gloo_flights(torch, dev, cfg)
+    P.clear_population_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_gloo_rank, args=(r, cfg, os.path.join(tmp, "store"), tmp))
+                 for r in range(cfg["world"])]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + cfg["join_s"]
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
+                for r in range(cfg["world"]) if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
+        if hung or errs or any(p.exitcode for p in procs):
+            die(f"sharded gloo path: ranks hung {hung}, exit codes "
+                f"{[p.exitcode for p in procs]}, errors {errs}")
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            got = json.load(f)
+    problems = []
+    cmp = {}
+    for flight in ("streaming", "device_rules"):
+        a, b = got[flight], ref[flight]
+        diff = float(max(abs(x - y) for x, y in zip(a["scores"], b["scores"])))
+        cmp[flight] = {"max_abs_diff": diff, "bit_equal": a["scores"] == b["scores"],
+                       "same_decisions": {n: a[n] == b[n] for n in a if n != "scores"}}
+        if diff > 1e-6:
+            problems.append(f"{flight}: scores differ from world 1 by {diff}")
+        if not all(cmp[flight]["same_decisions"].values()):
+            problems.append(f"{flight}: decisions differ from world 1: "
+                            f"{cmp[flight]['same_decisions']}")
+    moved = got["moved"]
+    gb = moved["lane_bytes"] / 1e9
+    if not (moved["clone_bit_equal"] and moved["snapshot_restore_bit_equal"]):
+        problems.append(f"a lane moved across ranks is not its source bit for bit: {moved}")
+    out = {"phase": "sharded_path", "mesh": "world 2", "backend": "gloo",
+           "ranks_on": cfg["device"], "nvidia_smi": nvidia_smi(),
+           **{k: cfg[k] for k in ("arch", "n_layers", "population", "batch", "seq")},
+           "device_rule_chunk": "eager (a gloo collective cannot be captured in a CUDA graph)",
+           "vs_world_1": cmp, "world_2": {n: got[n] for n in ("streaming", "device_rules")},
+           "world_1": {n: ref[n] for n in ("streaming", "device_rules")},
+           "flight_s": {"streaming": [got["streaming_s"], ref["streaming_s"]],
+                        "device_rules": [got["device_rules_s"], ref["device_rules_s"]]},
+           "rank0_launches": {"streaming": got["streaming_launches"],
+                              "device_rules": got["device_rules_launches"]},
+           "transfers": dict(moved, **{f"{k[:-3]}_gb_per_s": gb / (moved[k] / 1e3)
+                                       for k in ("clone_ms", "snapshot_ms", "restore_ms")}),
+           "spawn_wall_s": wall}
+    emit(out)
+    if problems:
+        die("sharded path (world 2, gloo): " + "; ".join(problems))
+    # the kernels line counts rank 0's launches (rank 1 makes as many)
+    launches = {k: got["streaming_launches"][k] + got["device_rules_launches"][k]
+                for k in got["streaming_launches"]}
     return launches, out
 
 
@@ -4003,10 +4444,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("kernels")
-    by_path, chunk_launches = {}, {}
+    by_path, chunk_launches, main_outs = {}, {}, {}
     for path in PATHS:
         release_cublas_workspaces(torch)
         by_path[path["arch"]], out = main_path(torch, dev, **path)
+        main_outs[path["arch"]] = out
         gc.collect()
         torch.cuda.empty_cache()
         lap(path["arch"] + ":main_path")
@@ -4027,6 +4469,10 @@ def main() -> int:
             # the streaming, crash and ring engines are arch-agnostic and run
             # on the two paths above
             continue
+        if path is MAMBA:
+            # the streaming, crash and ring engines do not depend on the
+            # model's depth: falcon-mamba's run at MAMBA_ENGINE_LAYERS
+            kw = dict(kw, n_layers=MAMBA_ENGINE_LAYERS)
         by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4038,6 +4484,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap(path["arch"] + ":ring_path")
+    release_cublas_workspaces(torch)
+    by_path[MAIN["arch"] + "+sharded"], _ = sharded_path(
+        torch, dev, main_s_per_step=main_outs[MAIN["arch"]]["flight_s_per_step"], **MAIN)
+    lap("sharded_path")
+    by_path[SHARDED_GLOO["arch"] + "+sharded_gloo"], _ = sharded_gloo_path(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("sharded_gloo_path")
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")

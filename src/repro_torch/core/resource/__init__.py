@@ -12,9 +12,9 @@ Implementations:
                    (EC2-autoscaling analogue + node-failure injection)
 * ``vectorized`` — K population slots; bound jobs are batched and executed as
                    ONE vmapped device program (compile-once HPO hot path)
-
-The multi-device managers (``mesh``, ``sharded``) are not part of this
-package yet: they serve the multi-device population engines.
+* ``mesh``       — trials on contiguous tiles of a device grid (mesh slices)
+* ``sharded``    — the vectorized manager's lanes split over the ranks of a
+                   population mesh (``--shard-population``)
 """
 from __future__ import annotations
 
@@ -110,4 +110,4 @@ class ResourceManager(abc.ABC):
         pass
 
 
-from . import local, subprocess_rm, elastic, vectorized  # noqa: E402,F401
+from . import local, subprocess_rm, elastic, vectorized, mesh_pool, sharded  # noqa: E402,F401

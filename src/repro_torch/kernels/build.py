@@ -40,12 +40,12 @@ _U = ctypes.c_uint
 SIGNATURES = {
     # x, gamma, out, K, rows, d, eps, x_is_bf16, g_is_bf16, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _L, _I, _F, _I, _I, _P],
-    # x, gamma, dy, dx, K, rows, d, x_is_bf16, g_is_bf16, out: the blocks a
-    # lane that rmsnorm_bwd launches for these
-    "rmsnorm_bwd_blocks": [_P] * 4 + [_I, _L, _I, _I, _I, _P],
-    # x, gamma, dy, dx, dgamma, partials, K, rows, d, eps, x_is_bf16,
+    # x, gamma, dy, dx, K, lanes (planned for), rows, d, x_is_bf16,
+    # g_is_bf16, out: the blocks a lane that rmsnorm_bwd launches for these
+    "rmsnorm_bwd_blocks": [_P] * 4 + [_I, _I, _L, _I, _I, _I, _P],
+    # x, gamma, dy, dx, dgamma, partials, K, lanes, rows, d, eps, x_is_bf16,
     # g_is_bf16, partial_rows (the partials' blocks a lane), stream
-    "rmsnorm_bwd": [_P] * 6 + [_I, _L, _I, _F, _I, _I, _I, _P],
+    "rmsnorm_bwd": [_P] * 6 + [_I, _I, _L, _I, _F, _I, _I, _I, _P],
     # q, k, v, out, lse, B, Sq, Sk, H, Hkv, D, Dv, scale, causal, window,
     # softcap, stream: fp32 on the CUDA cores, bf16 on the tensor cores
     "flash_attn_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _F, _P],

@@ -576,28 +576,32 @@ cudaError_t fwd(const void* x, const void* gamma, void* out, int K, long long ro
   return cudaGetLastError();
 }
 
-// The backward's launch for a shape, pointers' alignment included.  Vector
-// path: as many row groups as fill BWD_BLOCK_WARPS warps, fewer where the
-// rows are too few to give a block on each SM MIN_ROW_STEPS rows a group;
-// the shared memory holds the gain row and, with 2+ row groups, the fold of
-// their dgamma sums (48 KB and more from d 6144 in bf16).
+// The backward's launch for a shape, pointers' alignment included, its rows
+// planned as in a launch of ``lanes`` lanes (K, or more: a population
+// mesh's rank plans its K/N lanes as the whole population's K, so that a
+// lane's blocks and row groups, and so the order of dgamma's sum, are the
+// unsharded launch's).  Vector path: as many row groups as fill
+// BWD_BLOCK_WARPS warps, fewer where the rows are too few to give a block
+// on each SM MIN_ROW_STEPS rows a group; the shared memory holds the gain
+// row and, with 2+ row groups, the fold of their dgamma sums (48 KB and
+// more from d 6144 in bf16).
 template <typename T, typename G>
-cudaError_t plan_bwd(int K, long long rows, int d, bool aligned, Launch* L) {
+cudaError_t plan_bwd(int lanes, long long rows, int d, bool aligned, Launch* L) {
   const Shape s = pick<T, G>(d, aligned);
   if (s.P == 0) {
     int threads = ((d + 31) / 32) * 32;
     threads = threads > 1024 ? 1024 : threads;
-    return plan(bwd_kernel<T, G>(0), s, threads, 0, K, rows / MIN_ROW_STEPS, L);
+    return plan(bwd_kernel<T, G>(0), s, threads, 0, lanes, rows / MIN_ROW_STEPS, L);
   }
   int sms = 0;
   const cudaError_t err = card_sms(&sms);
   if (err != cudaSuccess) return err;
   int groups = groups_of(s.W, BWD_BLOCK_WARPS);
-  const long long fill = K * rows / (static_cast<long long>(sms) * MIN_ROW_STEPS);
+  const long long fill = lanes * rows / (static_cast<long long>(sms) * MIN_ROW_STEPS);
   groups = fill < groups ? (fill > 1 ? static_cast<int>(fill) : 1) : groups;
   const size_t smem = 4 * gain_words(d * sizeof(G)) +
                       (groups > 1 ? sizeof(float) * 32 * s.W * s.P * (16 / sizeof(T)) : 0);
-  return plan(bwd_kernel<T, G>(s.P), s, groups * 32 * s.W, smem, K,
+  return plan(bwd_kernel<T, G>(s.P), s, groups * 32 * s.W, smem, lanes,
               rows / (static_cast<long long>(groups) * MIN_ROW_STEPS), L);
 }
 
@@ -607,10 +611,10 @@ bool bwd_aligned(const void* x, const void* gamma, const void* dy, const void* d
 
 template <typename T, typename G>
 cudaError_t bwd(const void* x, const void* gamma, const void* dy, void* dx, void* dgamma,
-                float* partials, int K, long long rows, int d, float eps, int partial_rows,
-                cudaStream_t st) {
+                float* partials, int K, int lanes, long long rows, int d, float eps,
+                int partial_rows, cudaStream_t st) {
   Launch L;
-  cudaError_t err = plan_bwd<T, G>(K, rows, d, bwd_aligned(x, gamma, dy, dx), &L);
+  cudaError_t err = plan_bwd<T, G>(lanes, rows, d, bwd_aligned(x, gamma, dy, dx), &L);
   if (err != cudaSuccess) return err;
   if (L.blocks > partial_rows) return cudaErrorInvalidValue;
   const dim3 grid(L.blocks, K);
@@ -649,35 +653,39 @@ extern "C" int rmsnorm_fwd(const void* x, const void* gamma, void* out, int K,
   }));
 }
 
-// The blocks a lane that rmsnorm_bwd launches for this shape and these
-// pointers: the wrapper sizes the (K, blocks, d) fp32 partials from it.  The
-// launch reads the same cached plan.
+// The blocks a lane that rmsnorm_bwd launches for this shape, these
+// pointers and ``lanes`` (the lanes its rows are planned for, at least K):
+// the wrapper sizes the (K, blocks, d) fp32 partials from it.  The launch
+// reads the same cached plan.
 extern "C" int rmsnorm_bwd_blocks(const void* x, const void* gamma, const void* dy,
-                                  const void* dx, int K, long long rows, int d, int x_is_bf16,
-                                  int g_is_bf16, int* blocks) {
-  if (K < 1 || K > 65535 || rows < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                  const void* dx, int K, int lanes, long long rows, int d,
+                                  int x_is_bf16, int g_is_bf16, int* blocks) {
+  if (K < 1 || K > 65535 || lanes < K || rows < 1 || d < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_dtype(x_is_bf16, g_is_bf16, [&](auto t, auto g) {
     using T = decltype(t);
     using G = decltype(g);
     Launch L;
     const cudaError_t err =
-        plan_bwd<T, G>(K, rows, d, bwd_aligned(x, gamma, dy, dx), &L);
+        plan_bwd<T, G>(lanes, rows, d, bwd_aligned(x, gamma, dy, dx), &L);
     *blocks = L.blocks;
     return err;
   }));
 }
 
 // dx (x's dtype) and dgamma (gamma's dtype) from x, gamma and dy (x's
-// dtype); ``partials`` holds K * partial_rows * d floats of scratch, with
+// dtype), the rows planned for ``lanes`` lanes as in rmsnorm_bwd_blocks;
+// ``partials`` holds K * partial_rows * d floats of scratch, with
 // partial_rows at least rmsnorm_bwd_blocks's count.
 extern "C" int rmsnorm_bwd(const void* x, const void* gamma, const void* dy, void* dx,
-                           void* dgamma, void* partials, int K, long long rows, int d, float eps,
-                           int x_is_bf16, int g_is_bf16, int partial_rows, void* stream) {
-  if (K < 1 || K > 65535 || rows < 1 || d < 1 || partial_rows < 1)
+                           void* dgamma, void* partials, int K, int lanes, long long rows, int d,
+                           float eps, int x_is_bf16, int g_is_bf16, int partial_rows,
+                           void* stream) {
+  if (K < 1 || K > 65535 || lanes < K || rows < 1 || d < 1 || partial_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype(x_is_bf16, g_is_bf16, [&](auto t, auto g) {
     return bwd<decltype(t), decltype(g)>(x, gamma, dy, dx, dgamma, static_cast<float*>(partials),
-                                         K, rows, d, eps, partial_rows, st);
+                                         K, lanes, rows, d, eps, partial_rows, st);
   }));
 }

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import torch
 
@@ -23,6 +24,19 @@ _SUPPORTED = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 launches = 0      # forward kernel launches in this process (plain-version calls excluded)
 launches_bwd = 0  # backward kernel launches
+
+
+# The ranks of the population mesh this process is a rank of (1: none).  A
+# rank trains K of the population's K * mesh_ranks lanes, and the backward
+# plans their rows as the unsharded launch of all of them does, so a lane's
+# dgamma bits do not depend on the mesh (``distributed/sharding.py`` sets it
+# for the mesh's life).
+mesh_ranks = 1
+
+
+def plan_for_mesh(n: int) -> None:
+    global mesh_ranks
+    mesh_ranks = max(int(n), 1)
 
 
 def reset_launches() -> None:
@@ -84,10 +98,12 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tens
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
-                     eps: float) -> tuple:
-    """Launch the backward on the current stream: (dx, dgamma).  Its fp32
-    scratch, a partial dgamma row a block, comes from the torch allocator, so
-    the launch can be captured in a CUDA graph.  Raises on what it does not
+                     eps: float, lanes: Optional[int] = None) -> tuple:
+    """Launch the backward on the current stream: (dx, dgamma), each lane's
+    rows planned as in a launch of ``lanes`` lanes (default K times
+    ``mesh_ranks``; a lane's dgamma bits depend on it).  Its fp32 scratch, a
+    partial dgamma row a block, comes from the torch allocator, so the
+    launch can be captured in a CUDA graph.  Raises on what it does not
     take."""
     global launches_bwd
     _check(x, gamma, "rmsnorm_bwd")
@@ -97,6 +113,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     if not dy.is_contiguous():
         raise ValueError("rmsnorm_bwd: dy must be contiguous")
     K, rows, d = x.shape
+    lanes = K * mesh_ranks if lanes is None else int(lanes)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx, torch.zeros_like(gamma)
@@ -104,12 +121,12 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     flags = (int(x.dtype == torch.bfloat16), int(gamma.dtype == torch.bfloat16))
     ptrs = (x.data_ptr(), gamma.data_ptr(), dy.data_ptr(), dx.data_ptr())
     blocks = ctypes.c_int()
-    build.check(lib.rmsnorm_bwd_blocks(*ptrs, K, rows, d, *flags, ctypes.byref(blocks)),
-                "rmsnorm_bwd_blocks")
+    build.check(lib.rmsnorm_bwd_blocks(*ptrs, K, lanes, rows, d, *flags,
+                                       ctypes.byref(blocks)), "rmsnorm_bwd_blocks")
     dgamma = torch.empty_like(gamma)
     partials = torch.empty((K, blocks.value, d), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.rmsnorm_bwd(*ptrs, dgamma.data_ptr(), partials.data_ptr(), K, rows, d,
+    err = lib.rmsnorm_bwd(*ptrs, dgamma.data_ptr(), partials.data_ptr(), K, lanes, rows, d,
                           float(eps), *flags, blocks.value, stream)
     build.check(err, "rmsnorm_bwd")
     with _count_lock:

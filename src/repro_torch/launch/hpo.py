@@ -71,13 +71,24 @@ read a prefetch ring on the device, filled from the host a window ahead
 throughput benchmark (``make_trial``): a fresh train step per trial with the
 proposal baked into its config, every trial on the same seeded stream.
 
-Engines of later slices (multi-device meshes) are refused with the
-ROADMAP.md item that brings them.
+With ``--shard-population`` (and ``--vectorize K``) the K lanes split into
+blocks of K/N over the N ranks of a ``torch.distributed`` group
+(``ShardedPopulationResourceManager``): ``torchrun``'s ranks, else one rank
+per visible GPU (this process starts them), or a world of one with
+``--device cpu``.  Rank 0 runs the Experiment and every host decision; the
+other ranks train their blocks of each flight (``launch/flight.py``), and
+every score is the unsharded engine's.  NCCL joins CUDA ranks, gloo CPU
+ranks::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.hpo --device cpu \
+        --vectorize 4 --shard-population
+
+The two-level mesh (``--model-parallel``) and ``--elastic-regrid`` come
+with later parts of ROADMAP.md item 12 and are refused naming them.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import sys
@@ -394,7 +405,7 @@ class PopulationTrial:
                 return self.DIVERGED_SCORE
         return -loss
 
-    def run_population(self, configs, scheduler=None) -> list:
+    def run_population(self, configs, mesh=None, scheduler=None) -> list:
         """Batch protocol: K trials in one lane-batched program.  Partial
         batches are padded to the fixed population size with 0-budget lanes
         (they freeze at once) reading distinct negative sentinel streams.
@@ -405,36 +416,48 @@ class PopulationTrial:
         card a chunked flight holds its geometry's captured state for the
         whole flight.
 
+        With ``mesh`` (a ``distributed.sharding.PopulationMesh``) the K
+        lanes split into blocks of K/N over its ranks (K padded to a
+        multiple of N): rank 0 drives the flight and the other ranks apply
+        its operations to their blocks (``launch.flight``).  Every rank
+        calls this with the same arguments and gets the same global list;
+        rank 0's host decisions and scores are the unsharded engine's.
+
         With ``scheduler`` the call is the streaming protocol instead
         (``configs`` must be empty; see ``_run_streaming``)."""
-        from ..optim.hparams import stack_hparams
-        from ..train.population import flight_lease, pad_population
+        from ..train.population import pad_population
+        from .flight import LaneFlight, serve
 
+        if mesh is not None and mesh.rank != 0:
+            return serve(self, mesh, flights=1)
         if scheduler is not None:
             if configs:
                 raise ValueError(
                     "streaming mode: seed proposals through the scheduler, not configs")
-            return self._run_streaming(scheduler)
-        tc, data = self._setup()
-        dev = self.device
+            return self._run_streaming(scheduler, mesh)
         budgets = np.array([float(self._n_steps(c)) for c in configs])
         streams = [self._stream_of(c, i) for i, c in enumerate(configs)]
         hps = [self._hparams(c, int(n)) for c, n in zip(configs, budgets)]
-        k = pad_population(max(self.population, len(hps)))
+        k = pad_population(max(self.population, len(hps)), mesh)
         while len(hps) < k:
             hps.append(self._hparams({}, 0))
         streams += [-(i + 1) for i in range(len(streams), k)]
         budgets = np.concatenate([budgets, np.zeros(k - len(budgets))])
-        php = stack_hparams(hps, dev)
         spec = self._device_rule_spec()
-        if self._graphed(spec is not None):
-            # the state the chunk graphs captured is reused in place, not held
-            # twice, and by one flight at a time
-            with flight_lease(tc, k, data, self.per_trial_streams, dev) as out:
-                scores = self._flight(tc, data, k, streams, budgets, php, out, spec)
-        else:
-            scores = self._flight(tc, data, k, streams, budgets, php, None, spec)
-        return [float(x) for x in scores[: len(configs)]]
+        ring_on = self.data_ring and self.chunk_steps > 1 and spec is None
+        if ring_on and not self.per_trial_streams:
+            raise ValueError("--data-ring fills per-lane slabs; drop --shared-stream")
+        with LaneFlight.open(self, k, mesh, graphed=self._graphed(spec is not None),
+                             ptb=self.per_trial_streams, ring_on=ring_on) as fl:
+            fl.init_state(streams, per_lane=self.per_trial_init)
+            fl.set_hp(hps)
+            fl.set_streams(streams)
+            if spec is not None:
+                scores = self._flight_device_rules(fl, budgets, spec)
+            else:
+                scores = self._flight(fl, budgets, streams)
+            fl.result = [float(x) for x in scores[: len(configs)]]
+        return fl.result
 
     def _device_rule_spec(self):
         """The rung rule lowered for the chunks (``device_rules`` with a rung
@@ -449,30 +472,6 @@ class PopulationTrial:
         card, graph replays on the geometry's captured state."""
         return self.device.type == "cuda" and (self.chunk_steps > 1 or device_rule)
 
-    def _stream_words(self, streams):
-        from ..data.pipeline import split_stream, split_streams
-
-        words = split_streams(streams) if self.per_trial_streams else split_stream(0)
-        return tuple(torch.as_tensor(np.asarray(w, np.int64), device=self.device)
-                     for w in words)
-
-    def _make_ring(self, tc, data, k: int):
-        """A flight's prefetch ring (``--data-ring``): ``ring_windows``
-        chunk-windows filled from ``host_dataset`` (default: the synthetic
-        stream's host adapter, in-chunk synthesis's bit-equality oracle).
-        On the card it fills the geometry's ring tensor, the one the ring
-        chunks' graphs read."""
-        from ..data.pipeline import SynthHostDataset
-        from ..data.ring import PrefetchRing
-        from ..train.population import ring_buffer
-
-        ds = self.host_dataset if self.host_dataset is not None else SynthHostDataset(data)
-        capacity = self.ring_windows * self.chunk_steps
-        buf = (ring_buffer(tc, k, data, capacity, self.device)
-               if self.device.type == "cuda" else None)
-        return PrefetchRing(ds, population=k, win_steps=self.chunk_steps,
-                            windows=self.ring_windows, device=self.device, buffer=buf)
-
     def _absorb_ring(self, ring) -> None:
         """Stop a flight's ring and add its telemetry to the trial's."""
         ring.stop()
@@ -484,142 +483,91 @@ class PopulationTrial:
             self.ring_overlap_frac = max(0.0, min(
                 1.0, 1.0 - self.ring_fill_wait_s / self.ring_fill_busy_s))
 
-    def _ring_chunk(self, tc, data, k, ring, pstate, php, s: int, t: int):
-        """One ring-fed chunk of ``t`` steps from global step ``s``: wait
-        until the host has staged exactly these steps (a lagging fill costs
-        wait time, never another chunk split), dispatch, and free the
-        slots."""
-        from ..train.population import get_compiled_population_ring_scan_step
+    def _finish_flight(self, fl, acc, losses, s: int) -> np.ndarray:
+        """A flight's end: its scores (numpy (K,)), its counters, and the
+        ``record_flight`` hook with this rank's state."""
+        self.last_flight_steps = s
+        scores = fl.scores(self.DIVERGED_SCORE)
+        self.n_active_lane_steps += int(acc)
+        if losses is not None:
+            self.record_flight(torch.cat(losses) if losses else None, fl.state)
+        return scores
 
-        ring.wait_filled(s, t)
-        out = get_compiled_population_ring_scan_step(tc, k, data, t, ring.capacity)(
-            pstate, php, ring.slots, s % ring.capacity)
-        ring.consume_to(s + t)
-        return out
-
-    def _flight(self, tc, data, k, streams, budgets, php, out, spec=None):
-        """One flight of ``run_population`` from init to scores (numpy
-        (K,)); ``out``: a population state of this geometry to initialise
-        into; ``spec``: the rung rule lowered for the chunks."""
-        from ..data.pipeline import HostPrefetcher
-        from ..train.population import (
-            get_compiled_population_scan_step,
-            init_population_state,
-            init_population_state_from_keys,
-            make_population_train_step,
-            population_scores,
-        )
-
-        dev = self.device
+    def _flight(self, fl, budgets, streams):
+        """One batch flight from its first step to its scores (numpy (K,))."""
+        k = fl.k
         chunk = self.chunk_steps
-        ptb = self.per_trial_streams
-        if self.per_trial_init:
-            pstate = init_population_state_from_keys(
-                [self._generator(s) for s in streams], tc, dev, out=out)
-        else:
-            pstate = init_population_state(self._generator(0), tc, k, dev, out=out)
-        if spec is not None:
-            return self._flight_device_rules(tc, data, k, streams, budgets, php, pstate, spec)
-        if chunk > 1:
-            s_lo, s_hi = self._stream_words(streams)
-            if self.data_ring and not ptb:
-                raise ValueError("--data-ring fills per-lane slabs; drop --shared-stream")
-        else:
-            pstep = make_population_train_step(tc, per_trial_batch=ptb)
-            feed = HostPrefetcher(lambda t: self._batch(data, t, streams), dev)
-
+        ring = fl.ring is not None
         hook = self.early_stop
         planner = ChunkPlanner(chunk_steps=chunk,
                                boundaries=hook.boundaries if hook is not None else ())
         losses = [] if self.record_flight is not None else None
-        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        acc = torch.zeros((), dtype=torch.int64, device=fl.dev)
         s = 0
         seg_t0, seg_s0 = time.perf_counter(), 0
-        with self._ring_for(tc, data, k, self.data_ring and chunk > 1) as ring:
-            if ring is not None:
-                # every lane's data cursor is the global step in a batch
-                # flight: offsets 0, and the lanes never re-key
-                ring.set_lanes(streams, [0] * k, at_step=0)
-            while s < int(budgets.max()):
-                max_b = int(budgets.max())
-                t = planner.chunk_to(s, planner.next_cohort_event(s, max_b))
-                if ring is not None:
-                    pstate, metrics = self._ring_chunk(tc, data, k, ring, pstate, php, s, t)
-                elif chunk > 1:
-                    # every dispatch of a chunked flight, one step too, is a
-                    # chunk program: on the card a graph replay in the pool
-                    steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
-                    pstate, metrics = get_compiled_population_scan_step(
-                        tc, k, data, t, per_trial_batch=ptb)(pstate, php, steps0, s_lo, s_hi)
-                else:
-                    pstate, metrics = pstep(pstate, feed.pop(s), php)
-                    if s + 1 < max_b:
-                        feed.prefetch(s + 1)  # host synthesis overlaps the device step
-                self._count_active(acc, metrics, k, t)
-                if losses is not None:
-                    # cloned: a graph's metrics are overwritten by its next replay
-                    losses.append(metrics["loss"].detach().reshape(-1, k).clone())
-                self.n_dispatches += 1
-                self.n_train_steps += t
-                s += t
-                if hook is not None and s in hook.boundaries:
-                    new_budgets = hook(
-                        s,
-                        pstate["last_loss"].cpu().numpy(),
-                        budgets,
-                        pstate["diverged"].cpu().numpy(),
-                    )
-                    # the last_loss read above synced the device, so this
-                    # segment's wall-clock is honest
-                    self.per_rung_step_time_s.append(
-                        [int(s), int(s - seg_s0),
-                         round((time.perf_counter() - seg_t0) / max(1, s - seg_s0), 6)])
-                    seg_t0, seg_s0 = time.perf_counter(), s
-                    if (new_budgets != budgets).any():
-                        # truncating a lane's budget freezes it on the next
-                        # step; written in place, as a captured graph reads it
-                        budgets = new_budgets
-                        php.total_steps.copy_(torch.as_tensor(budgets, dtype=torch.float32))
-        self.last_flight_steps = s
-        scores = population_scores(pstate, self.DIVERGED_SCORE).cpu().numpy()
+        if ring:
+            # every lane's data cursor is the global step in a batch flight:
+            # offsets 0, and the lanes never re-key
+            fl.ring_lanes(streams, [0] * k, 0)
+        while s < int(budgets.max()):
+            max_b = int(budgets.max())
+            t = planner.chunk_to(s, planner.next_cohort_event(s, max_b))
+            if ring:
+                metrics = fl.ring_chunk(s, t)
+            elif chunk > 1:
+                # every dispatch of a chunked flight, one step too, is a chunk
+                # program: on the card a graph replay in the pool
+                metrics = fl.chunk(t, s)
+            else:
+                metrics = fl.step_at(s, s + 1 if s + 1 < max_b else None)
+            self._count_active(acc, metrics, k, t)
+            if losses is not None:
+                # cloned: a graph's metrics are overwritten by its next replay
+                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+            self.n_dispatches += 1
+            self.n_train_steps += t
+            s += t
+            if hook is not None and s in hook.boundaries:
+                last, diverged, _ = fl.lanes()
+                new_budgets = hook(s, last, budgets, diverged)
+                # the lane read above synced the device, so this segment's
+                # wall-clock is honest
+                self.per_rung_step_time_s.append(
+                    [int(s), int(s - seg_s0),
+                     round((time.perf_counter() - seg_t0) / max(1, s - seg_s0), 6)])
+                seg_t0, seg_s0 = time.perf_counter(), s
+                if (new_budgets != budgets).any():
+                    # truncating a lane's budget freezes it on the next
+                    # step; written in place, as a captured graph reads it
+                    budgets = new_budgets
+                    fl.set_budgets(budgets)
+        scores = self._finish_flight(fl, acc, losses, s)
         if s > seg_s0:  # the tail past the last rung boundary (scores synced)
             self.per_rung_step_time_s.append(
                 [int(s), int(s - seg_s0),
                  round((time.perf_counter() - seg_t0) / (s - seg_s0), 6)])
-        self.n_active_lane_steps += int(acc)
-        if losses is not None:
-            self.record_flight(torch.cat(losses) if losses else None, pstate)
         return scores
 
-    def _flight_device_rules(self, tc, data, k, streams, budgets, php, pstate, spec):
+    def _flight_device_rules(self, fl, budgets, spec):
         """A batch flight with the cohort rung rule carried in the chunks
         (``device_rules``): chunks no longer stop at rung boundaries, and no
         budget goes back to the device between them, so a ladder whose
         largest budget fits one chunk is one dispatch.  Only the budgets
         come back per dispatch (to bound the loop); the hook's counters are
         rebuilt from the budget change at the end."""
-        from ..train.population import (
-            cohort_rule_state,
-            get_compiled_population_rule_scan_step,
-            population_scores,
-        )
+        from ..train.population import cohort_rule_state
 
-        dev = self.device
-        ptb = self.per_trial_streams
+        k = fl.k
         planner = ChunkPlanner(chunk_steps=self.chunk_steps)   # boundaries ride in-chunk
         init_budgets = budgets.copy()
-        s_lo, s_hi = self._stream_words(streams)
         losses = [] if self.record_flight is not None else None
-        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        acc = torch.zeros((), dtype=torch.int64, device=fl.dev)
         s = 0
         while s < int(budgets.max()):
             t = planner.chunk_to(s, int(budgets.max()))
             rules = cohort_rule_state(budgets, np.zeros(k), np.full(k, s), spec.boundaries,
-                                      spec.eta, dev)
-            steps0 = torch.full((k,) if ptb else (), s, dtype=torch.int64, device=dev)
-            (pstate, rout), metrics = get_compiled_population_rule_scan_step(
-                tc, k, data, t, "cohort", per_trial_batch=ptb)(
-                    pstate, php, steps0, s_lo, s_hi, rules)
+                                      spec.eta)
+            rout, metrics = fl.rule_chunk(t, "cohort", rules, s)
             self._count_active(acc, metrics, k, t)
             if losses is not None:
                 losses.append(metrics["loss"].detach().reshape(-1, k).clone())
@@ -627,16 +575,12 @@ class PopulationTrial:
             self.n_dispatches += 1
             self.n_train_steps += t
             s += t
-        spec.absorb_cuts(init_budgets, budgets, pstate["diverged"].cpu().numpy())
-        self.last_flight_steps = s
-        scores = population_scores(pstate, self.DIVERGED_SCORE).cpu().numpy()
-        self.n_active_lane_steps += int(acc)
-        if losses is not None:
-            self.record_flight(torch.cat(losses) if losses else None, pstate)
-        return scores
+        _, diverged, _ = fl.lanes()
+        spec.absorb_cuts(init_budgets, budgets, diverged)
+        return self._finish_flight(fl, acc, losses, s)
 
     # -- the streaming protocol ---------------------------------------------------
-    def _run_streaming(self, scheduler) -> list:
+    def _run_streaming(self, scheduler, mesh=None) -> list:
         """A lane-refill flight: Algorithm 1's busy-resource rule inside one
         population.
 
@@ -672,62 +616,42 @@ class PopulationTrial:
         batch of results a dispatch).  ``core.resource.vectorized.LaneScheduler``
         is Algorithm 1's; ``QueueFeedScheduler`` a fixed queue.
 
+        With ``mesh`` the lanes split over its ranks as in the batch
+        protocol: the lane table, the leases and every decision stay on rank
+        0, and each lane op runs on the rank that owns the lane (a clone
+        whose donor lives on another rank has the donor lane sent over).
+
         On the card a flight whose dispatches are chunk programs holds the
         geometry's captured state (``flight_lease``) from its first init to
         its return: every lane op writes into that state, and every training
         dispatch replays a graph."""
-        from ..train.population import flight_lease, pad_population
+        from ..train.population import pad_population
+        from .flight import LaneFlight
 
         if not self.per_trial_streams:
             raise ValueError(
                 "lane refill requires per-trial data streams: a refilled lane "
                 "must replay its own stream from its own step 0 (drop "
                 "--shared-stream)")
-        tc, data = self._setup()
-        k = pad_population(max(self.population, 1))
-        lifecycle = self.lifecycle
+        k = pad_population(max(self.population, 1), mesh)
         spec = self._device_rule_spec()
-        device_pbt = bool(self.device_rules and lifecycle is not None
-                          and getattr(lifecycle, "device_rule_on", False))
+        device_pbt = bool(self.device_rules and self.lifecycle is not None
+                          and getattr(self.lifecycle, "device_rule_on", False))
         # a ring feeds the training chunks; a rule chunk makes its own batches
         ring_on = self.data_ring and self.chunk_steps > 1 and not (spec is not None or device_pbt)
-        if self._graphed(spec is not None or device_pbt):
-            with flight_lease(tc, k, data, True, self.device) as out, \
-                    self._ring_for(tc, data, k, ring_on) as ring:
-                return self._stream(tc, data, k, scheduler, spec, device_pbt, out, ring)
-        with self._ring_for(tc, data, k, ring_on) as ring:
-            return self._stream(tc, data, k, scheduler, spec, device_pbt, None, ring)
+        with LaneFlight.open(self, k, mesh, graphed=self._graphed(spec is not None or device_pbt),
+                             ptb=True, ring_on=ring_on) as fl:
+            fl.result = self._stream(fl, scheduler, spec, device_pbt)
+        return fl.result
 
-    @contextlib.contextmanager
-    def _ring_for(self, tc, data, k: int, on: bool):
-        """A flight's prefetch ring (None unless ``on``), stopped and its
-        telemetry absorbed however the flight ends."""
-        ring = self._make_ring(tc, data, k) if on else None
-        try:
-            yield ring
-        finally:
-            if ring is not None:
-                self._absorb_ring(ring)
-
-    def _stream(self, tc, data, k, scheduler, device_spec, device_pbt, out, ring) -> list:
-        """The body of ``_run_streaming``; ``out`` is the captured state to
-        initialise into (or None), ``ring`` the flight's prefetch ring (or
-        None)."""
+    def _stream(self, fl, scheduler, device_spec, device_pbt) -> list:
+        """The body of ``_run_streaming`` on the flight ``fl``
+        (``launch.flight.LaneFlight``)."""
         from ..core import faultinject
-        from ..data.pipeline import to_device
-        from ..optim.hparams import stack_hparams
-        from ..train.population import (
-            get_compiled_population_rule_scan_step,
-            get_compiled_population_scan_step,
-            get_lane_op,
-            init_population_state_from_keys,
-            make_population_train_step,
-            pbt_rule_state,
-            release_lane_snapshot,
-            staggered_rule_state,
-        )
+        from ..train.population import pbt_rule_state, release_lane_snapshot, staggered_rule_state
 
-        dev = self.device
+        k = fl.k
+        ring = fl.ring
         chunk = self.chunk_steps
         hook = self.early_stop
         lifecycle = self.lifecycle
@@ -738,17 +662,9 @@ class PopulationTrial:
         batch_complete = (getattr(scheduler, "complete_retirements", None)
                           if device_active else None)
         fault_plan = faultinject.get_plan()
-        splice_fn = get_lane_op(tc, k, "splice")
-        init_fn = get_lane_op(tc, k, "init")
-        clone_fn = get_lane_op(tc, k, "clone") if lifecycle is not None else None
         # crash safety: harvest a live lane to the host, restore a harvested
         # one into a lane of this flight
-        snap_fn = restore_fn = None
-        if self.snapshots is not None:
-            snap_fn = get_lane_op(tc, k, "snapshot")
-            restore_fn = get_lane_op(tc, k, "restore")
-        pstep = (make_population_train_step(tc, per_trial_batch=True)
-                 if chunk == 1 and not device_active else None)
+        snapshots = self.snapshots
         self._flight_epoch += 1
         epoch = self._flight_epoch
         dispatches0 = self.n_dispatches
@@ -768,10 +684,9 @@ class PopulationTrial:
         resumed_at = np.zeros(k, np.int64)   # lane-local step a restore resumed from
         streams = [-(i + 1) for i in range(k)]     # idle = sentinel stream
         hps = [self._hparams({}, 0) for _ in range(k)]
-        pstate = init_population_state_from_keys(
-            [self._generator(st) for st in streams], tc, dev, out=out)
-        php = stack_hparams(hps, dev)
-        s_lo, s_hi = self._stream_words(streams)
+        fl.init_state(streams, per_lane=True)
+        fl.set_hp(hps)
+        fl.set_streams(streams)
         # device rules only: while True the state is still its initial one,
         # so the first fill needs no counted dispatch and a whole ladder can
         # be one
@@ -789,12 +704,12 @@ class PopulationTrial:
         planner = ChunkPlanner(chunk_steps=chunk,
                                boundaries=hook.boundaries if hook is not None else ())
         next_event = 0
-        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        acc = torch.zeros((), dtype=torch.int64, device=fl.dev)
         losses = [] if self.record_flight is not None else None
 
         def note_op(op, lanes, donors=None):
             if self.record_lane_op is not None:
-                self.record_lane_op(op, pstate, list(lanes), donors)
+                self.record_lane_op(op, fl.state, list(lanes), donors)
 
         def next_event_step() -> int:
             live_now = [i for i in range(k) if handles[i] is not None]
@@ -814,20 +729,16 @@ class PopulationTrial:
                 fault_plan.check("flight-step", step=s)
                 poison = [i for i in fault_plan.poison_lanes(s) if i < k]
                 if poison:
-                    pmask = torch.zeros(k, dtype=torch.bool)
-                    pmask[poison] = True
-                    pstate["diverged"].logical_or_(pmask.to(dev))
+                    fl.poison(poison)
                     virgin = False
             # 1) at an event step: the rung rule, then retire the lanes whose
             # budget is spent (truncated ones too) or that diverged
             if live and s >= next_event:
                 self._event_seq += 1
-                diverged = pstate["diverged"].cpu().numpy()
-                last = pstate["last_loss"].cpu().numpy()
                 # the optimizer's step counter is the exact count of applied
                 # steps: a diverged lane froze there, however late it is seen
-                applied = pstate["inner"]["opt"]["step"].cpu().numpy().astype(np.int64)
-                if snap_fn is not None and self.snapshot_every \
+                last, diverged, applied = fl.lanes()
+                if snapshots is not None and self.snapshot_every \
                         and self._event_seq % self.snapshot_every == 0:
                     # before the retirements and leases below, so the store
                     # and the journal describe this boundary; diverged lanes
@@ -839,10 +750,10 @@ class PopulationTrial:
                         if (diverged[lane] or lineage[lane] is not None
                                 or local <= 0 or local >= budgets[lane]):
                             continue
-                        snap = snap_fn(pstate, lane)
+                        snap = fl.snapshot(lane)
                         self.n_dispatches += 1
                         self.n_snapshots += 1
-                        release_lane_snapshot(self.snapshots.put(streams[lane], snap, {
+                        release_lane_snapshot(snapshots.put(streams[lane], snap, {
                             "local": local,
                             "stream": int(streams[lane]),
                             "applied": int(applied[lane]),
@@ -894,9 +805,9 @@ class PopulationTrial:
                         self.journal.append("retire", lane=lane, step=local_s,
                                             detail={"stream": int(streams[lane]),
                                                     "score": score})
-                    if self.snapshots is not None and lineage[lane] is None:
+                    if snapshots is not None and lineage[lane] is None:
                         # the trial is done: its snapshots are dead weight
-                        release_lane_snapshot(self.snapshots.forget(streams[lane]))
+                        release_lane_snapshot(snapshots.forget(streams[lane]))
                     resumed_at[lane] = 0
                     handles[lane] = None
                     budgets[lane] = 0.0
@@ -1015,7 +926,7 @@ class PopulationTrial:
                         base_sched = int(lane_applied[donor_lane])
                         clone_jobs.append((lane, donor_lane, cfg))
                     else:
-                        stored = self.snapshots.get(sid) if restore_fn is not None else None
+                        stored = snapshots.get(sid) if snapshots is not None else None
                         if stored is not None:
                             # this stream died mid-lane in an earlier flight (a
                             # supervised restart or --resume): write its
@@ -1023,7 +934,7 @@ class PopulationTrial:
                             # snapshot's lane-local step, not step 0
                             snap, meta = stored
                             local = int(meta["local"])
-                            restore_fn(pstate, lane, snap)
+                            fl.restore(lane, snap)
                             virgin = False
                             self.n_dispatches += 1
                             self.n_lane_restores += 1
@@ -1060,7 +971,7 @@ class PopulationTrial:
                     for lane, donor_lane, _ in clone_jobs:
                         mask[lane] = True
                         donor_idx[lane] = donor_lane
-                    clone_fn(pstate, mask, donor_idx)
+                    fl.clone(mask, donor_idx)
                     virgin = False
                     self.n_clones += len(clone_jobs)
                     self.n_dispatches += 1
@@ -1068,11 +979,9 @@ class PopulationTrial:
                     for _, _, cfg in clone_jobs:
                         lifecycle.clone_done(cfg)
                 if splice_jobs:
-                    gens = [self._generator(streams[i]) if i in splice_jobs else None
-                            for i in range(k)]
                     if len(splice_jobs) == 1 and not (virgin and device_active):
                         lane = splice_jobs[0]
-                        splice_fn(pstate, lane, gens[lane])
+                        fl.splice(lane, streams[lane])
                         self.n_splices += 1
                         note_op("splice", splice_jobs)
                     else:
@@ -1080,7 +989,7 @@ class PopulationTrial:
                         # refill): one masked init
                         mask = np.zeros(k, bool)
                         mask[splice_jobs] = True
-                        init_fn(pstate, mask, gens)
+                        fl.init_lanes(mask, streams)
                         note_op("init", splice_jobs)
                     if not (virgin and device_active):
                         # the first fill of a device-rule flight is not a
@@ -1090,16 +999,16 @@ class PopulationTrial:
                 live = [i for i in range(k) if handles[i] is not None]
                 force_parked = False
             if php_dirty:
-                php = stack_hparams(hps, dev)
-                s_lo, s_hi = self._stream_words(streams)
+                fl.set_hp(hps)
+                fl.set_streams(streams)
                 if ring is not None:
                     # the lane table changed: re-key the ring so lane i's slab
                     # at global step s' is its own stream at base_data + s' -
                     # starts (idle lanes read their sentinel stream; their
                     # steps are never applied)
-                    ring.set_lanes(streams, [int(base_data[i] - starts[i])
-                                             if handles[i] is not None else 0
-                                             for i in range(k)], at_step=s)
+                    fl.ring_lanes(streams, [int(base_data[i] - starts[i])
+                                            if handles[i] is not None else 0
+                                            for i in range(k)], s)
             if not live:
                 # 3) the flight is idle: wait briefly for late proposals
                 # (Algorithm 1 may be mid-callback), then give the lanes back
@@ -1142,7 +1051,7 @@ class PopulationTrial:
                     hist, counts = device_spec.lower_history(self._hist_cap)
                     rules = staggered_rule_state(budgets, applied0, local0,
                                                  device_spec.boundaries, device_spec.eta,
-                                                 hist, counts, dev)
+                                                 hist, counts)
                     mode = "staggered"
                 else:
                     wentries = lifecycle.window_snapshot()
@@ -1150,11 +1059,9 @@ class PopulationTrial:
                     for j, (_, sc, _) in enumerate(wentries):
                         wscore[j] = sc
                     rules = pbt_rule_state(budgets, applied0, local0, lifecycle.quantile,
-                                           wscore, len(wentries), dev)
+                                           wscore, len(wentries))
                     mode = "pbt"
-                (pstate, rout), metrics = get_compiled_population_rule_scan_step(
-                    tc, k, data, t, mode)(pstate, php, torch.as_tensor(cursors, device=dev),
-                                          s_lo, s_hi, rules)
+                rout, metrics = fl.rule_chunk(t, mode, rules, cursors)
                 # read now: the graph's next replay overwrites its outputs
                 rout = {n: v.cpu().numpy().copy() for n, v in rout.items()}
                 virgin = False
@@ -1175,17 +1082,15 @@ class PopulationTrial:
             elif ring is not None:
                 # the slabs of steps [s, s + t) come from the ring; the lanes'
                 # cursors are in its contents, not in stream words
-                pstate, metrics = self._ring_chunk(tc, data, k, ring, pstate, php, s, t)
+                metrics = fl.ring_chunk(s, t)
             elif chunk > 1:
                 # every dispatch of a chunked flight, one step too, is a chunk
                 # program (on the card a graph replay); batches made on the device
-                pstate, metrics = get_compiled_population_scan_step(tc, k, data, t)(
-                    pstate, php, torch.as_tensor(cursors, device=dev), s_lo, s_hi)
+                metrics = fl.chunk(t, cursors)
             else:
                 # one host synthesis call for all K lanes (idle lanes read their
                 # sentinel stream at cursor 0; their steps are never applied)
-                batch = to_device(data.make_population_batch(cursors, streams), dev)
-                pstate, metrics = pstep(pstate, batch, php)
+                metrics = fl.step_cursors(cursors)
             self._count_active(acc, metrics, k, t)
             if losses is not None:
                 losses.append(metrics["loss"].detach().reshape(-1, k).clone())
@@ -1195,7 +1100,7 @@ class PopulationTrial:
         self.last_flight_steps = s
         self.n_active_lane_steps += int(acc)
         if losses is not None:
-            self.record_flight(torch.cat(losses) if losses else None, pstate)
+            self.record_flight(torch.cat(losses) if losses else None, fl.state)
         return []
 
     @staticmethod
@@ -1313,12 +1218,11 @@ SPACE = [
     {"name": "grad_clip", "type": "choice", "range": [0.5, 1.0, 2.0]},
 ]
 
-# flags of the JAX CLI whose engines come with a later slice of the port
+# flags of the JAX CLI whose engines come with a later part of the port
 _ITEM = "ROADMAP.md section 1, item {}"
 _LATER_FLAGS = (
-    ("shard_population", "--shard-population", _ITEM.format("12 (multi-device engines)")),
-    ("model_parallel", "--model-parallel", _ITEM.format("12 (multi-device engines)")),
-    ("elastic_regrid", "--elastic-regrid", _ITEM.format("12 (multi-device engines)")),
+    ("model_parallel", "--model-parallel", _ITEM.format("12(b) (the two-level (pop, model) mesh)")),
+    ("elastic_regrid", "--elastic-regrid", _ITEM.format("12(c) (elastic regrid)")),
 )
 
 
@@ -1433,8 +1337,13 @@ def main(argv=None) -> int:
                         "of up to T steps between host events, batches made on "
                         "the device (on the card one CUDA-graph replay a chunk); "
                         "1 = the per-step loop")
+    p.add_argument("--shard-population", action="store_true",
+                   help="with --vectorize K: split the population's lanes over "
+                        "the ranks of a torch.distributed group, K/N lanes a rank "
+                        "(K is padded to a multiple of N with 0-budget trials): "
+                        "torchrun's ranks, else one rank per visible GPU (--device "
+                        "cuda) or a world of one (--device cpu)")
     for flag, kw in (
-        ("--shard-population", dict(action="store_true")),
         ("--elastic-regrid", dict(action="store_true")),
         ("--model-parallel", dict(type=int, default=1, metavar="W")),
     ):
@@ -1465,6 +1374,8 @@ def main(argv=None) -> int:
         if _later(args, name):
             p.error(f"{flag} is not ported to the PyTorch package yet; it comes "
                     f"with {item}")
+    if args.model_parallel < 1:
+        p.error("--model-parallel must be >= 1")
     try:
         model_config(args.arch)
     except KeyError as e:
@@ -1481,7 +1392,7 @@ def main(argv=None) -> int:
     if args.vectorize <= 0 and args.inflight_stop:
         p.error("--inflight-stop requires --vectorize K (it acts on the "
                 "population engine)")
-    if args.vectorize <= 0 and args.lane_refill:
+    if args.vectorize <= 0 and (args.shard_population or args.lane_refill):
         p.error("--shard-population/--inflight-stop/--lane-refill require "
                 "--vectorize K (they act on the population engines)")
     if args.lane_refill and args.shared_stream:
@@ -1534,6 +1445,16 @@ def main(argv=None) -> int:
 
     if args.fault_spec:
         faultinject.arm(args.fault_spec)
+    mesh = None
+    if args.shard_population:
+        from ..distributed.sharding import population_mesh
+
+        n_local = _ranks_to_spawn(args.device)
+        if n_local > 1:
+            # one rank per visible GPU, as the JAX mesh takes every local
+            # device: this process starts them and waits
+            return _spawn_ranks(argv, n_local)
+        mesh = population_mesh(args.device)
 
     exp_cfg = {
         "proposer": args.proposer,
@@ -1574,7 +1495,7 @@ def main(argv=None) -> int:
         snap_store = LaneSnapshotStore(
             root=args.snapshot_dir or (args.db + ".lanes" if args.db else None))
     if args.vectorize > 0:
-        exp_cfg["resource"] = "vectorized"
+        exp_cfg["resource"] = "sharded" if args.shard_population else "vectorized"
         exp_cfg["n_parallel"] = args.vectorize
         if args.lane_refill:
             exp_cfg["lane_refill"] = True
@@ -1590,37 +1511,54 @@ def main(argv=None) -> int:
     else:
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 **trial_kw)
+    if mesh is not None and mesh.rank != 0:
+        # a rank above 0 trains its block of every flight rank 0 opens
+        from .flight import serve
+
+        try:
+            serve(trial, mesh)
+        finally:
+            mesh.destroy()
+        return 0
     # the stored CLI is what --resume rebuilds the trial from
     exp_cfg["cli"] = {k: getattr(args, k) for k in (
-        "arch", "steps", "batch", "seq", "seed", "vectorize", "chunk_steps",
+        "arch", "steps", "batch", "seq", "seed", "vectorize", "shard_population", "chunk_steps",
         "per_trial_init", "shared_stream", "lane_refill", "inflight_stop",
         "snapshot_every", "snapshot_dir", "legacy_recompile", "pbt_streaming",
         "pbt_async", "device_rules",
         "data_ring", "ring_windows", "fused_rmsnorm", "fused_attention", "fused_ssm",
         "device", "max_flight_restarts")}
     t0 = time.time()
-    if resume_db is not None:
-        exp = Experiment.resume(resume_db, trial, exp_id=resume_exp_id)
-    else:
-        exp = Experiment(exp_cfg, trial)
-    result_times: list = []
-    exp.add_result_callback(lambda job: result_times.append(time.time()))
-    if args.inflight_stop:
-        hook_factory = getattr(exp.proposer, "inflight_hook", None)
-        if hook_factory is None:
-            p.error(f"--inflight-stop needs a rung proposer (asha/hyperband/bohb), "
-                    f"got {args.proposer!r}")
-        trial.early_stop = hook_factory(steps_per_unit=args.steps)
-    if args.device_rules and args.pbt_streaming:
-        # decide() takes the window-quantile verdicts the chunks emit
-        exp.proposer.lifecycle_hook().enable_device_rule()
-    best = exp.run()
+    try:
+        if resume_db is not None:
+            exp = Experiment.resume(resume_db, trial, exp_id=resume_exp_id)
+        else:
+            exp = Experiment(exp_cfg, trial)
+        result_times: list = []
+        exp.add_result_callback(lambda job: result_times.append(time.time()))
+        if args.inflight_stop:
+            hook_factory = getattr(exp.proposer, "inflight_hook", None)
+            if hook_factory is None:
+                p.error(f"--inflight-stop needs a rung proposer (asha/hyperband/bohb), "
+                        f"got {args.proposer!r}")
+            trial.early_stop = hook_factory(steps_per_unit=args.steps)
+        if args.device_rules and args.pbt_streaming:
+            # decide() takes the window-quantile verdicts the chunks emit
+            exp.proposer.lifecycle_hook().enable_device_rule()
+        best = exp.run()
+    finally:
+        if mesh is not None:
+            from .flight import shutdown
+
+            shutdown(mesh)   # the other ranks leave their flight loop
+            mesh.destroy()
     dt = time.time() - t0
     out = {
         "proposer": args.proposer,
         "arch": args.arch,
         "engine": ("legacy-recompile" if args.legacy_recompile else
-                   "serial" if args.vectorize == 0 else "vmapped")
+                   "serial" if args.vectorize == 0 else
+                   "sharded" if args.shard_population else "vmapped")
                   + ("+refill" if args.lane_refill else "")
                   + ("+chunked" if args.chunk_steps > 1 else "")
                   + ("+ring" if args.data_ring else "")
@@ -1647,6 +1585,14 @@ def main(argv=None) -> int:
         out["ring_fill_wait_s"] = round(trial.ring_fill_wait_s, 4)
         out["ring_fill_busy_s"] = round(trial.ring_fill_busy_s, 4)
         out["overlap_frac"] = round(trial.ring_overlap_frac, 4)
+    if mesh is not None:
+        # width 1: a lane row is one rank, so the model axis carries no
+        # collective (the two-level mesh is ROADMAP.md section 1, item 12(b))
+        out["model_parallel"] = 1
+        out["model_axis_collectives"] = 0
+        out["mesh_ranks"] = mesh.world_size
+        out["mesh_backend"] = mesh.backend
+        out["n_degraded_flights"] = exp.rm.n_degraded_flights
     if args.fused_rmsnorm:
         out["fused_rmsnorm"] = True
     if args.fused_attention:
@@ -1696,6 +1642,45 @@ def main(argv=None) -> int:
         "n_jobs": best.get("n_jobs"),
         "seconds": round(dt, 1),
     }), default=float, indent=1))
+    return 0
+
+
+def _ranks_to_spawn(device: str) -> int:
+    """Ranks this process must start for ``--shard-population``: one per
+    visible GPU when nothing launched it as a rank (no process group, no
+    ``torchrun`` environment), else 1 (it is a rank itself)."""
+    import os
+
+    import torch.distributed as dist
+
+    if device != "cuda" or dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        return 1
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def _rank_main(rank: int, argv, world: int, port: int) -> None:
+    import os
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    code = main(argv)
+    if code:
+        raise SystemExit(code)
+
+
+def _spawn_ranks(argv, world: int) -> int:
+    """Run the CLI as ``world`` ranks on this host (``torchrun``'s
+    environment on localhost), rank 0 printing the result; returns when
+    every rank has exited."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    argv = list(sys.argv[1:] if argv is None else argv)
+    mp.spawn(_rank_main, args=(argv, world, port), nprocs=world, join=True)
     return 0
 
 

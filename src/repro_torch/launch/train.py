@@ -14,7 +14,7 @@ without it the published config is trained.  ``--fail-at N`` simulates a
 crash at step N (exit code 17), after the pending checkpoint write has
 finished.  The run goes on ``cuda`` unless ``--device cpu`` is given;
 without a GPU it raises rather than fall back.  One card only: ``--devices``
-above 1 is refused until the multi-device engines are ported.
+above 1 is refused until the trial mesh is ported (ROADMAP.md item 12(b)).
 
 Resume follows the JAX driver: the checkpoint taken after step ``s`` holds
 the state after ``s + 1`` updates and is stored as step ``s``, and the
@@ -90,7 +90,7 @@ def main(argv=None, model=None) -> int:
     args = p.parse_args(argv)
     if args.devices > 1:
         p.error("--devices above 1 is not ported to the PyTorch package yet; it "
-                "comes with ROADMAP.md section 1, item 12 (multi-device engines)")
+                "comes with ROADMAP.md section 1, item 12(b) (the trial mesh)")
 
     from ..checkpoint.checkpointer import Checkpointer
     from ..interop import tree_map

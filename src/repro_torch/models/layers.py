@@ -24,6 +24,21 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def per_lane(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to each lane of ``x`` (K, ...) alone, stacked.  A
+    reduction over the trailing dims of a (K, n) tensor splits n by the
+    count of its outputs on the card, so its bits would depend on how many
+    lanes share the tensor (a population mesh trains K/N of K lanes a
+    rank); a lane's own reduction depends on the lane alone."""
+    return torch.stack([fn(x[k]) for k in range(x.shape[0])])
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Each lane's sum of ``x`` (K, ...), as (K,): one reduction a lane
+    (``per_lane``)."""
+    return per_lane(torch.sum, x)
+
+
 def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with the JAX package's dtype promotion: operands of
     different float dtypes (bf16 parameters under an fp32 compute dtype) are

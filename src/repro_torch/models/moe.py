@@ -6,7 +6,7 @@ population ``vmap`` of ``repro.models.moe.moe_apply`` does: x is
 ``(K, B, S, d)``; the router is ``(K, d, E)`` in fp32, ``wi`` ``(K, E, d,
 n_in, ff)``, ``wo`` ``(K, E, ff, d)``, ``shared`` as in ``mlp.py``.  The
 grouped plain path is the only one: the expert-parallel ``shard_map`` path
-comes with the multi-device engines (ROADMAP.md section 1, item 12).
+comes with the two-level mesh (ROADMAP.md section 1, item 12(b)).
 
 The dispatch is built so that nothing accumulates into one element from
 several places, forward or backward, so a step's bits do not depend on the
@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import Params, dense_init, dtype_of
+from .layers import Params, dense_init, dtype_of, lane_sum, per_lane
 from .mlp import mlp_apply, mlp_init
 
 
@@ -152,12 +152,14 @@ def _flat_slots(slot: torch.Tensor, rows: int) -> torch.Tensor:
 def aux_loss(probs: torch.Tensor, top_e: torch.Tensor, E: int) -> torch.Tensor:
     """Each lane's Switch load-balancing loss ``E * sum_e f_e * P_e`` (K,):
     f the share of assignments an expert got, P its mean probability.  The
-    counts are whole numbers, so a count by ``scatter_add_`` is exact."""
+    counts are whole numbers, so a count by ``scatter_add_`` is exact; the
+    means and the sum are each lane's own reductions (``per_lane``)."""
     K = top_e.shape[0]
     flat = top_e.reshape(K, -1)
     f = torch.zeros((K, E), dtype=torch.float32, device=top_e.device).scatter_add_(
         1, flat, torch.ones(flat.shape, device=top_e.device))
-    return E * (f / flat.shape[1] * probs.mean(dim=(1, 2))).sum(-1)
+    mean_p = per_lane(lambda p: p.mean(dim=(0, 1)), probs)
+    return E * lane_sum(f / flat.shape[1] * mean_p)
 
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, dropless: bool = False

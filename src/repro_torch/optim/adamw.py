@@ -28,7 +28,7 @@ import torch
 
 from ..configs.base import TrainConfig
 from ..interop import tree_leaves, tree_map
-from ..models.layers import dtype_of
+from ..models.layers import dtype_of, lane_sum
 from .hparams import HParams
 
 OptState = Dict[str, Any]
@@ -72,10 +72,11 @@ def _slices(p: torch.Tensor) -> list:
 
 
 def global_norm(grads) -> torch.Tensor:
-    """Per-lane L2 norm (K,) over all leaves."""
+    """Per-lane L2 norm (K,) over all leaves, each lane's sums its own
+    reductions (``lane_sum``)."""
     total = None
     for g in tree_leaves(grads):
-        sq = torch.square(g.float()).sum(dim=tuple(range(1, g.dim())))
+        sq = lane_sum(torch.square(g.float()))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

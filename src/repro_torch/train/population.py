@@ -282,6 +282,11 @@ class _LaneSlots:
             self.held[id(slot[0])] = slot
             return slot[0]
 
+    def flat_of(self, snap: PopState) -> torch.Tensor:
+        """The flat host buffer a held slot's tree views."""
+        with self.lock:
+            return self.held[id(snap)][1]
+
     def release(self, snap: PopState) -> bool:
         with self.lock:
             slot = self.held.pop(id(snap), None)
@@ -307,16 +312,19 @@ class _LaneSlots:
 _SLOTS: Dict[Tuple, _LaneSlots] = {}
 
 
-def _lane_slots(pstate: PopState) -> _LaneSlots:
+def _lane_slots(pstate: PopState, count: Optional[int] = None) -> _LaneSlots:
     """The snapshot slots of this state's geometry: its device, K and the
-    shapes and dtypes of its leaves."""
+    shapes and dtypes of its leaves; ``count`` (default K + 1) bounds them
+    when the geometry's first slots are made (a mesh's rank 0 holds the
+    snapshots of every rank's lanes)."""
     leaves = tree_leaves(pstate)
     key = (_device_key(leaves[0].device),) + tuple((tuple(t.shape), str(t.dtype))
                                                    for t in leaves)
     with _POP_CACHE_LOCK:
         slots = _SLOTS.get(key)
         if slots is None:
-            slots = _SLOTS[key] = _LaneSlots(pstate, pstate["diverged"].shape[0] + 1)
+            slots = _SLOTS[key] = _LaneSlots(
+                pstate, pstate["diverged"].shape[0] + 1 if count is None else count)
     return slots
 
 
@@ -398,21 +406,25 @@ _LANE_OPS: Dict[str, Callable] = {
     "restore": make_lane_restore,
 }
 _LATER_LANE_OPS = {
-    "regrid": "ROADMAP.md section 1, item 12 (multi-device engines)",
+    "regrid": "ROADMAP.md section 1, item 12(c) (elastic regrid)",
 }
 
 
-def get_lane_op(tc: TrainConfig, population: int, kind: str) -> Callable:
+def get_lane_op(tc: TrainConfig, population: int, kind: str, mesh=None) -> Callable:
     """The lane op ``kind`` (``init`` / ``clone`` / ``splice`` / ``snapshot`` /
-    ``restore``) for a population of ``population`` lanes.  The ops are eager
-    in-place writes (or, for a snapshot, reads), so there is nothing to
-    compile or cache; regrid comes with a later item of the port and
-    raises."""
+    ``restore``) for a population of ``population`` lanes; with ``mesh`` its
+    sharded twin (``make_sharded_lane_*``), which every rank calls with
+    global lane ids.  The ops are eager in-place writes (or, for a snapshot,
+    reads), so there is nothing to compile or cache; regrid comes with a
+    later item of the port and raises."""
     if kind in _LATER_LANE_OPS:
         raise NotImplementedError(
             f"lane op {kind!r} is not ported yet; it comes with {_LATER_LANE_OPS[kind]}")
     if kind not in _LANE_OPS:
         raise KeyError(f"unknown lane op {kind!r}; available: {sorted(_LANE_OPS)}")
+    if mesh is not None:
+        _check_rows(population, mesh)
+        return _SHARDED_LANE_OPS[kind](tc, mesh)
     return _LANE_OPS[kind](tc)
 
 
@@ -709,7 +721,8 @@ def pbt_rule_state(budgets, base, local0, quantile, wscore, wcount,
 
 
 def make_population_rule_scan_step(tc: TrainConfig, data, chunk: int, mode: str,
-                                   per_trial_batch: bool = True) -> Callable:
+                                   per_trial_batch: bool = True,
+                                   rule_update: Optional[Callable] = None) -> Callable:
     """``(pstate, hp, steps0, stream_lo, stream_hi, rules)
     -> ((pstate, rules), metrics)``: the chunk with a decision rule.
 
@@ -721,9 +734,10 @@ def make_population_rule_scan_step(tc: TrainConfig, data, chunk: int, mode: str,
     would apply it.  ``metrics`` gain ``budgets`` (``(chunk, K)``), the log
     the host harvests retirements from; the rule state after the chunk comes
     back beside the population state (a new dict: the input rules are not
-    written)."""
+    written).  ``rule_update`` replaces ``mode``'s update (the population
+    mesh passes its gathering twin, ``_sharded_rule_update``)."""
     step = make_population_train_step(tc, per_trial_batch=per_trial_batch)
-    update = _RULE_UPDATES[mode]
+    update = rule_update if rule_update is not None else _RULE_UPDATES[mode]
 
     def scan_chunk(pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi, rules):
         per_step = []
@@ -884,14 +898,14 @@ class _FlightGraphs:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
 
-    def warm_up_rule(self, mode: str, rules) -> None:
+    def warm_up_rule(self, update: Callable, rules) -> None:
         """One eager call of the rule update on the capture stream, so its
-        first-launch set-up happens outside the capture (it writes no state:
-        the update returns a new rule state)."""
+        first-launch set-up (a mesh's collective among it) happens outside
+        the capture (it writes no state: the update returns a new rule
+        state)."""
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            _RULE_UPDATES[mode](rules, self.state["last_loss"], self.state["diverged"],
-                                rules["local0"] + 1)
+            update(rules, self.state["last_loss"], self.state["diverged"], rules["local0"] + 1)
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         torch.cuda.synchronize(self.device)
 
@@ -944,11 +958,13 @@ class _FlightGraphs:
             got.graph.replay()
             return self.state, got.outputs[1]
 
-    def run_rules(self, fn: Callable, mode: str, chunk: int, pstate, hp, steps0,
-                  stream_lo, stream_hi, rules):
-        """A rule chunk: as ``run``, the rule state bound too.  The rule
-        state and metrics it returns are the graph's outputs, which the next
-        replay of this graph overwrites."""
+    def run_rules(self, fn: Callable, mode: str, update: Callable, chunk: int, pstate, hp,
+                  steps0, stream_lo, stream_hi, rules):
+        """A rule chunk: as ``run``, the rule state bound too.  ``mode``
+        keys the graph (a mesh's rule chunk carries its tag), ``update`` is
+        the rule update the chunk runs.  The rule state and metrics it
+        returns are the graph's outputs, which the next replay of this graph
+        overwrites."""
         with self.lease:
             self.bind(pstate, hp, steps0, stream_lo, stream_hi)
             static = self.bind_rules(mode, rules)
@@ -956,7 +972,7 @@ class _FlightGraphs:
             got = self.graphs.get(key)
             if got is None:
                 self.ensure_stream()
-                self.warm_up_rule(mode, static)
+                self.warm_up_rule(update, static)
                 got = self.capture(key, lambda: fn(self.state, *self.inputs, static))
             got.graph.replay()
             (_, rules_out), metrics = got.outputs
@@ -1037,22 +1053,32 @@ class _ChunkProgram:
 class _RuleChunkProgram(_ChunkProgram):
     """A chunk program with the decision rule ``mode`` carried through it
     (``make_population_rule_scan_step``); called with the rule state as a
-    sixth argument, it returns ``((pstate, rules), metrics)``."""
+    sixth argument, it returns ``((pstate, rules), metrics)``.
+
+    With ``mesh`` it is one rank's block of a sharded rule chunk: the rule
+    update gathers the lanes' vectors every step (``_sharded_rule_update``).
+    Under NCCL that gather is captured in the chunk's graph; gloo's
+    collectives run on the host and cannot be captured, so a gloo rank on a
+    card runs the chunk eagerly (``eager`` is then True)."""
 
     def __init__(self, tc: TrainConfig, data, population: int, chunk: int, mode: str,
-                 per_trial_batch: bool):
+                 per_trial_batch: bool, mesh=None):
         super().__init__(tc, data, population, chunk, per_trial_batch)
-        self.fn = make_population_rule_scan_step(tc, data, chunk, mode, per_trial_batch)
-        self.mode = str(mode)
+        self.update = (_RULE_UPDATES[mode] if mesh is None
+                       else _sharded_rule_update(mode, mesh))
+        self.fn = make_population_rule_scan_step(tc, data, chunk, mode, per_trial_batch,
+                                                 rule_update=self.update)
+        self.mode = str(mode) if mesh is None else f"{mode}@{mesh.backend}{mesh.world_size}"
+        self.eager = mesh is not None and mesh.backend != "nccl"
 
     def __call__(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi, rules):
         dev = pstate["diverged"].device
-        if dev.type == "cpu":
+        if dev.type == "cpu" or (dev.type == "cuda" and self.eager):
             return self.fn(pstate, hp, steps0, stream_lo, stream_hi, rules)
         if dev.type == "cuda":
             return _flight_graphs(*self._geometry, dev).run_rules(
-                self.fn, self.mode, self.chunk, pstate, hp, steps0, stream_lo, stream_hi,
-                rules)
+                self.fn, self.mode, self.update, self.chunk, pstate, hp, steps0, stream_lo,
+                stream_hi, rules)
         raise ValueError(f"rule chunk program: no path for device {dev}")
 
 
@@ -1089,11 +1115,17 @@ _POP_CACHE_LOCK = threading.Lock()
 
 
 def get_compiled_population_scan_step(tc: TrainConfig, population: int, data, chunk: int,
-                                      per_trial_batch: bool = True) -> _ChunkProgram:
+                                      per_trial_batch: bool = True, mesh=None):
     """Memoized chunk program (see ``make_population_scan_step`` for its
     call).  Drivers dispatch power-of-two chunk sizes, so an experiment makes
     at most ``log2(chunk_steps) + 1`` programs per geometry.
-    ``clear_population_cache()`` drops them and their graphs."""
+    ``clear_population_cache()`` drops them and their graphs.  With ``mesh``
+    it is the sharded twin of JAX's ``make_sharded_population_scan_step``:
+    this rank's block program, its metrics gathered whole."""
+    if mesh is not None:
+        _check_rows(population, mesh)
+        return _ShardedProgram(get_compiled_population_scan_step(
+            tc, mesh.block_size(population), data, chunk, per_trial_batch), mesh)
     g = _geometry(tc, population, per_trial_batch, data)
     key = g[:-1] + (int(chunk), g[-1])
     with _POP_CACHE_LOCK:
@@ -1106,12 +1138,30 @@ def get_compiled_population_scan_step(tc: TrainConfig, population: int, data, ch
 
 def get_compiled_population_rule_scan_step(tc: TrainConfig, population: int, data,
                                            chunk: int, mode: str,
-                                           per_trial_batch: bool = True) -> _RuleChunkProgram:
+                                           per_trial_batch: bool = True, mesh=None):
     """Memoized rule chunk program (see ``make_population_rule_scan_step``
     for its call).  On the card its graphs join the geometry's chunk graphs:
     the same captured state and pool, one graph per (mode, chunk, rule
     shapes), so drivers keep the staggered history's capacity at a power of
-    two."""
+    two.  With ``mesh`` it is the sharded twin of JAX's
+    ``make_sharded_population_rule_scan_step``: training stays per block,
+    but each step gathers the K-length loss, latch and budget vectors and
+    every rank evaluates the same rule (``_sharded_rule_update``), so the
+    cut set is the vmapped engine's.  Called with this rank's block of the
+    rule state (``shard_rule_state``); the rule state's lane vectors and the
+    metrics come back whole."""
+    if mesh is not None:
+        _check_rows(population, mesh)
+        blk = mesh.block_size(population)
+        g = _geometry(tc, blk, per_trial_batch, data)
+        key = g[:3] + ("rulescan", str(mode), int(chunk), g[-1], mesh.key)
+        with _POP_CACHE_LOCK:
+            fn = _POP_CACHE.get(key)
+            if fn is None:
+                fn = _POP_CACHE[key] = _ShardedRuleProgram(
+                    _RuleChunkProgram(tc, data, blk, chunk, mode, per_trial_batch, mesh),
+                    mesh, mode)
+        return fn
     g = _geometry(tc, population, per_trial_batch, data)
     key = g[:3] + ("rulescan", str(mode), int(chunk), g[-1])
     with _POP_CACHE_LOCK:
@@ -1123,12 +1173,18 @@ def get_compiled_population_rule_scan_step(tc: TrainConfig, population: int, dat
 
 
 def get_compiled_population_ring_scan_step(tc: TrainConfig, population: int, data,
-                                           chunk: int, capacity: int) -> _RingChunkProgram:
+                                           chunk: int, capacity: int, mesh=None):
     """Memoized ring chunk program (see ``make_population_ring_scan_step``
     for its call), keyed like the chunk programs plus the ring's capacity
     (the slot modulus is part of the program).  On the card its graphs join
     the geometry's chunk graphs: the same captured state and pool, one graph
-    per (chunk, ring shape)."""
+    per (chunk, ring shape).  With ``mesh`` it is the sharded twin
+    of JAX's ``make_sharded_population_ring_scan_step``: this rank's block program
+    reads this rank's ring, which holds only its block's slabs."""
+    if mesh is not None:
+        _check_rows(population, mesh)
+        return _ShardedProgram(get_compiled_population_ring_scan_step(
+            tc, mesh.block_size(population), data, chunk, capacity), mesh)
     g = _geometry(tc, population, True, data)
     key = g[:3] + ("ringscan", int(chunk), int(capacity), g[-1])
     with _POP_CACHE_LOCK:
@@ -1191,13 +1247,352 @@ def clear_population_cache() -> None:
         slots.unregister()
 
 
-def pad_population(k: int, mesh: Optional[Any] = None) -> int:
-    """Smallest population size >= k that divides over the lane rows.  Only
-    the single-device engine is ported: ``mesh`` must be None."""
-    if mesh is not None:
+# -- the population mesh (``--shard-population``) ------------------------------------
+#
+# K lanes split into contiguous blocks of K/N over the N ranks of a
+# ``distributed.sharding.PopulationMesh``.  Each rank holds its block of the
+# population state and trains it with the lane-batched step; every sharded
+# function below is called by every rank (SPMD), each passing its own block
+# of every lane-axis argument, as the body of the JAX package's ``shard_map``
+# sees it.  What comes back whole is what the JAX twin returns partitioned
+# on the population axis: the per-lane metrics and the rule state's lane
+# vectors, gathered with one ``all_gather`` of their raw bytes (never of the
+# train state).  Lane ops take global lane ids: a lane's owner applies them,
+# and a clone whose donor lives on another rank has the donor lane sent to
+# the target's owner.  Width > 1 (a two-level ``(pop, model)`` mesh) and
+# regrid come with later parts of the port and raise.
+
+_RULE_LANE_KEYS: Dict[str, frozenset] = {
+    "cohort": frozenset({"budgets", "base", "local0"}),
+    "staggered": frozenset({"budgets", "base", "local0"}),
+    "pbt": frozenset({"budgets", "base", "local0", "vbottom", "vready", "vlo", "vhi"}),
+}
+
+
+def _no_width(width: Optional[int]) -> None:
+    if width is not None and int(width) > 1:
+        from ..distributed.sharding import PART_B
+
         raise NotImplementedError(
-            "multi-device population meshes come with ROADMAP.md section 1, item 12")
-    return max(k, 1)
+            f"a width-{width} population mesh is not ported yet; it comes with {PART_B}")
+
+
+def pad_population(k: int, mesh=None) -> int:
+    """Smallest population size >= k that divides evenly over ``mesh``'s
+    ranks (1 without a mesh)."""
+    n = 1 if mesh is None else int(mesh.world_size)
+    return ((max(int(k), 1) + n - 1) // n) * n
+
+
+def _check_rows(population: int, mesh) -> None:
+    if int(population) % mesh.world_size:
+        raise ValueError(
+            f"population {population} does not divide over {mesh.world_size} lane rows; "
+            f"pad to {pad_population(population, mesh)} with 0-budget trials")
+
+
+def shard_population_state(pstate: PopState, mesh) -> PopState:
+    """This rank's block of a global population state, copied onto its
+    device (the twin of placing the state on the mesh)."""
+    k = pstate["diverged"].shape[0]
+    _check_rows(k, mesh)
+    return tree_map(lambda x: mesh.block(x, k).to(mesh.device, copy=True), pstate)
+
+
+def rule_state_specs(rules: Dict[str, Any], mode: str) -> Dict[str, str]:
+    """Where each leaf of a ``mode`` rule state lives on the mesh: ``pop``
+    (its lane vectors, blocked) or ``rep`` (history, window and rule
+    constants, replicated)."""
+    return {n: "pop" if n in _RULE_LANE_KEYS[mode] else "rep" for n in rules}
+
+
+def shard_rule_state(rules: Dict[str, Any], mode: str, mesh, population: int) -> Dict[str, Any]:
+    """This rank's view of a global rule state: its block of the lane
+    vectors, the replicated leaves whole."""
+    specs = rule_state_specs(rules, mode)
+    return {n: (mesh.block(v, population) if specs[n] == "pop" else v)
+            for n, v in rules.items()}
+
+
+def _sharded_rule_update(mode: str, mesh) -> Callable:
+    """A rule update for a sharded chunk: gather the K-length lane vectors
+    (never the train state), evaluate the global rule identically on every
+    rank, and keep this rank's block of the new lane vectors.  History,
+    window and constant leaves are replicated, so the global evaluation
+    keeps them equal on every rank."""
+    update = _RULE_UPDATES[mode]
+    lane_keys = _RULE_LANE_KEYS[mode]
+
+    def upd(rules, losses, diverged, local):
+        blk = losses.shape[0]
+        g = mesh.all_gather_lanes({"rules": {n: rules[n] for n in lane_keys},
+                                   "losses": losses, "diverged": diverged, "local": local})
+        new = update(dict(rules, **g["rules"]), g["losses"], g["diverged"], g["local"])
+        lo = mesh.rank * blk
+        return {n: (v[lo:lo + blk] if n in lane_keys else v) for n, v in new.items()}
+
+    return upd
+
+
+def make_sharded_population_step(tc: TrainConfig, mesh, per_trial_batch: bool = False,
+                                 width: Optional[int] = None) -> Callable:
+    """``(pstate, batch, hp) -> (pstate, metrics)`` over this rank's block:
+    ``pstate``, ``hp`` and (``per_trial_batch``) the batch are the rank's
+    block, a shared batch is every rank's whole; the metrics come back for
+    all K lanes."""
+    _no_width(width)
+    return _ShardedProgram(make_population_train_step(tc, per_trial_batch=per_trial_batch),
+                           mesh, lane_dim=0)
+
+
+class _ShardedProgram:
+    """A block program (a step, a chunk or a ring chunk of this rank's K/N
+    lanes; a compiled chunk replays a graph on the card) whose metrics,
+    their lane axis at ``lane_dim``, come back whole."""
+
+    def __init__(self, inner, mesh, lane_dim: int = 1):
+        self.inner = inner
+        self.mesh = mesh
+        self.lane_dim = lane_dim
+
+    def __call__(self, *args):
+        pstate, metrics = self.inner(*args)
+        return pstate, self.mesh.all_gather_lanes(metrics, dim=self.lane_dim)
+
+
+class _ShardedRuleProgram:
+    """A block rule chunk whose rule state's lane vectors and ``(chunk,
+    K/N)`` metrics come back whole, in one gather (``eager``: a gloo rank
+    on a card, whose chunk is not a graph)."""
+
+    def __init__(self, inner, mesh, mode: str):
+        self.inner = inner
+        self.mesh = mesh
+        self.mode = str(mode)
+        self.eager = getattr(inner, "eager", False)
+
+    def __call__(self, pstate, hp, steps0, stream_lo, stream_hi, rules):
+        (pstate, rules), metrics = self.inner(pstate, hp, steps0, stream_lo, stream_hi, rules)
+        lane = {n: rules[n] for n in _RULE_LANE_KEYS[self.mode]}
+        g = self.mesh.all_gather_lanes(
+            {"rules": lane, "metrics": {n: v.movedim(1, 0) for n, v in metrics.items()}})
+        return ((pstate, dict(rules, **g["rules"])),
+                {n: v.movedim(0, 1) for n, v in g["metrics"].items()})
+
+
+# -- sharded lane ops ---------------------------------------------------------------
+#
+# A lane crosses ranks as one flat byte buffer in the snapshot slots' layout
+# (every leaf's lane row, in tree order, each at a 64-byte aligned offset),
+# so what arrives is the lane bit for bit and a snapshot lands straight in a
+# host slot.
+
+
+def _lane_layout(pstate: PopState):
+    """``[(offset, nbytes)]`` of each leaf's lane row in a lane's byte
+    buffer, and the buffer's size."""
+    out, off = [], 0
+    for leaf in tree_leaves(_lane_tree(pstate)):
+        n = leaf[0].numel() * leaf.element_size()
+        out.append((off, n))
+        off += -(-n // _LaneSlots._ALIGN) * _LaneSlots._ALIGN
+    return out, off
+
+
+def _pack_lane(pstate: PopState, lane: int) -> torch.Tensor:
+    """Lane ``lane``'s bytes, on the state's device."""
+    layout, size = _lane_layout(pstate)
+    buf = torch.zeros(size, dtype=torch.uint8, device=pstate["diverged"].device)
+    for (off, n), leaf in zip(layout, tree_leaves(_lane_tree(pstate))):
+        buf[off:off + n].copy_(leaf[lane].reshape(-1).view(torch.uint8))
+    return buf
+
+
+def _unpack_lane(pstate: PopState, lane: int, buf: torch.Tensor) -> None:
+    """Write a lane's bytes (on any device) into lane ``lane``."""
+    layout, _ = _lane_layout(pstate)
+    for (off, n), leaf in zip(layout, tree_leaves(_lane_tree(pstate))):
+        dst = leaf[lane]
+        dst.copy_(buf[off:off + n].view(leaf.dtype).view(dst.shape))
+
+
+def _snap_bytes(pstate: PopState, snap) -> torch.Tensor:
+    """A snapshot tree packed into a host lane buffer (each leaf cast to the
+    state's dtype, as a restore casts it)."""
+    layout, size = _lane_layout(pstate)
+    buf = torch.zeros(size, dtype=torch.uint8)
+    for (off, n), leaf, src in zip(layout, tree_leaves(_lane_tree(pstate)),
+                                   tree_leaves(snap)):
+        src = torch.as_tensor(src).to("cpu", leaf.dtype).reshape(-1)
+        buf[off:off + n].copy_(src.view(torch.uint8))
+    return buf
+
+
+def _owner_of(mesh, pstate: PopState, lane: int) -> Tuple[int, int]:
+    """(owning rank, lane within its block) of a global lane id."""
+    blk = pstate["diverged"].shape[0]
+    return int(lane) // blk, int(lane) % blk
+
+
+def make_sharded_lane_init(tc: TrainConfig, mesh) -> Callable:
+    """``(pstate, mask, gens) -> pstate`` over this rank's block: ``mask``
+    is bool[K] over the global lanes and ``gens`` one generator per global
+    lane (only this rank's masked lanes' are read); each rank re-inits the
+    masked lanes it owns."""
+
+    def init(pstate: PopState, mask, gens) -> PopState:
+        blk = pstate["diverged"].shape[0]
+        lo = mesh.rank * blk
+        lanes = [i - lo for i in _lanes_of(mask) if lo <= i < lo + blk]
+        return _reinit_lanes(pstate, lanes, [gens[i + lo] for i in lanes], tc)
+
+    return init
+
+
+def make_sharded_lane_splice(tc: TrainConfig, mesh) -> Callable:
+    """``(pstate, lane, gen) -> pstate``: the owner of global lane ``lane``
+    re-initialises it from ``gen``; the other ranks keep their blocks bit
+    for bit (their ``gen`` is not read)."""
+
+    def splice(pstate: PopState, lane, gen) -> PopState:
+        owner, local = _owner_of(mesh, pstate, lane)
+        if owner == mesh.rank:
+            _reinit_lanes(pstate, [local], [gen], tc)
+        return pstate
+
+    return splice
+
+
+def make_sharded_lane_clone(tc: TrainConfig, mesh) -> Callable:
+    """``(pstate, mask, donor_idx) -> pstate`` with global lane ids, so a
+    clone may cross ranks.
+
+    The donors are known on the host, so each donor lane that a target on
+    another rank needs is packed on its owner and sent to the target's
+    owner point to point; nothing is gathered, and the extra memory is the
+    lanes moved.  Every donor row is read before any target is written (a
+    chain 0<-1, 1<-2 reads the state from before the op), and the bytes
+    copied are the vmapped clone's, bit for bit."""
+
+    def clone(pstate: PopState, mask, donor_idx) -> PopState:
+        lanes = _lanes_of(mask)
+        if not lanes:
+            return pstate
+        if isinstance(donor_idx, torch.Tensor):
+            donor_idx = donor_idx.detach().cpu().numpy()
+        me = mesh.rank
+        dev = pstate["diverged"].device
+        local_t, local_d, sends, recvs, landing = [], [], [], [], []
+        for t in lanes:
+            d = int(donor_idx[t])
+            (ot, lt), (od, ld) = _owner_of(mesh, pstate, t), _owner_of(mesh, pstate, d)
+            if ot == me and od == me:
+                local_t.append(lt)
+                local_d.append(ld)
+            elif od == me:
+                sends.append((_pack_lane(pstate, ld), ot))   # read before any write
+            elif ot == me:
+                buf = torch.empty(_lane_layout(pstate)[1], dtype=torch.uint8, device=dev)
+                recvs.append((buf, od))
+                landing.append((lt, buf))
+        mesh.exchange(sends, recvs)
+        if local_t:
+            targets = torch.as_tensor(local_t, dtype=torch.long, device=dev)
+            donors = torch.as_tensor(local_d, dtype=torch.long, device=dev)
+            for leaf in tree_leaves(pstate):
+                leaf.index_copy_(0, targets, leaf.index_select(0, donors))
+        for lt, buf in landing:
+            _unpack_lane(pstate, lt, buf)
+        return pstate
+
+    return clone
+
+
+def make_sharded_lane_snapshot(tc: TrainConfig, mesh) -> Callable:
+    """``(pstate, lane) -> snap`` with a global lane id: the owner harvests
+    the lane and rank 0 gets it (a lane owned elsewhere is sent to rank 0,
+    which receives it straight into a host slot); the other ranks get None.
+    Rank 0's slots are bounded by K + 1 of the global population."""
+    snapshot = make_lane_snapshot(tc)
+
+    def sharded(pstate: PopState, lane):
+        owner, local = _owner_of(mesh, pstate, lane)
+        if owner == 0:
+            return snapshot(pstate, local) if mesh.rank == 0 else None
+        if mesh.rank == owner:
+            mesh.exchange([(_pack_lane(pstate, local), 0)], [])
+            return None
+        if mesh.rank != 0:
+            return None
+        k = pstate["diverged"].shape[0] * mesh.world_size
+        slots = _lane_slots(pstate, k + 1)
+        tree = slots.take(pstate)
+        if tree is None:
+            flat = torch.empty(_lane_layout(pstate)[1], dtype=torch.uint8)
+            layout, _ = _lane_layout(pstate)
+            views = iter(flat[o:o + n] for o, n in layout)
+            tree = tree_map(lambda leaf: next(views).view(leaf.dtype).view(leaf.shape[1:]),
+                            _lane_tree(pstate))
+        else:
+            flat = slots.flat_of(tree)
+        if mesh.backend == "nccl":
+            buf = torch.empty(flat.shape, dtype=torch.uint8, device=pstate["diverged"].device)
+            mesh.exchange([], [(buf, owner)])
+            flat.copy_(buf)
+        else:
+            mesh.exchange([], [(flat, owner)])
+        return tree
+
+    return sharded
+
+
+def make_sharded_lane_restore(tc: TrainConfig, mesh) -> Callable:
+    """``(pstate, lane, snap) -> pstate`` with a global lane id and the
+    snapshot on rank 0 (other ranks pass None): rank 0 sends it to the
+    lane's owner, which writes it into its block; every other block stays
+    bit for bit."""
+    restore = make_lane_restore(tc)
+
+    def sharded(pstate: PopState, lane, snap) -> PopState:
+        owner, local = _owner_of(mesh, pstate, lane)
+        if owner == 0:
+            return restore(pstate, local, snap) if mesh.rank == 0 else pstate
+        dev = pstate["diverged"].device
+        nccl = mesh.backend == "nccl"
+        if mesh.rank == 0:
+            buf = _snap_bytes(pstate, snap)
+            mesh.exchange([(buf.to(dev) if nccl else buf, owner)], [])
+        elif mesh.rank == owner:
+            buf = torch.empty(_lane_layout(pstate)[1], dtype=torch.uint8,
+                              device=dev if nccl else "cpu")
+            mesh.exchange([], [(buf, 0)])
+            _unpack_lane(pstate, local, buf)
+        return pstate
+
+    return sharded
+
+
+_SHARDED_LANE_OPS: Dict[str, Callable] = {
+    "init": make_sharded_lane_init,
+    "clone": make_sharded_lane_clone,
+    "splice": make_sharded_lane_splice,
+    "snapshot": make_sharded_lane_snapshot,
+    "restore": make_sharded_lane_restore,
+}
+
+
+def get_compiled_sharded_population_step(tc: TrainConfig, population: int, mesh,
+                                         per_trial_batch: bool = False) -> Callable:
+    """The sharded per-step program (``make_sharded_population_step``);
+    raises if K does not divide over the mesh (pad with ``pad_population``
+    first)."""
+    _check_rows(population, mesh)
+    key = (ts.static_step_key(tc), int(population), bool(per_trial_batch), "step", mesh.key)
+    with _POP_CACHE_LOCK:
+        fn = _POP_CACHE.get(key)
+        if fn is None:
+            fn = _POP_CACHE[key] = make_sharded_population_step(tc, mesh, per_trial_batch)
+    return fn
 
 
 def population_scores(pstate: PopState, diverged_score: float = -1e9) -> torch.Tensor:

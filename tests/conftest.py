@@ -30,6 +30,10 @@ _TEST_TIMEOUT_S = float(os.environ.get("PYTEST_TIMEOUT") or "600")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips elsewhere")
+    if not _HAVE_PYTEST_TIMEOUT:
+        config.addinivalue_line(
+            "markers", "timeout(seconds): pytest-timeout's per-test limit (without the "
+                       "plugin the watchdog below guards every test)")
     if not (_HAVE_PYTEST_TIMEOUT and _TEST_TIMEOUT_S > 0):
         return
     try:

@@ -132,7 +132,7 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--snapshot-every", "2"], "requires --lane-refill"),             # as the JAX CLI
     (["--data-ring"], "--chunk-steps T > 1"),                          # as the JAX CLI
     (["--fused-ssm"], "no SSM mixer"),   # ported: refused only on an arch without one
-    (["--shard-population"], "item 12"),
+    (["--shard-population", "--elastic-regrid"], "item 12"),
     (["--model-parallel", "2"], "item 12"),
     (["--legacy-recompile", "--fused-rmsnorm"], "predates the kernel bank"),  # as the JAX CLI
 ])

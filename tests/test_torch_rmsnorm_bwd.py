@@ -161,6 +161,26 @@ def test_rmsnorm_bwd_bits_repeat_and_agree_across_lanes(cuda, xdt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_rmsnorm_bwd_bits_of_a_mesh_rank_match_the_whole_launch(cuda, k):
+    """K lanes in one launch get the bits each lane gets alone and in every
+    split of them when each split is planned for K lanes, as a population
+    mesh's rank plans its K/N of K lanes (``mesh_ranks``)."""
+    x, g, dy = _card_inputs(cuda, (k, 4096, 3072), torch.bfloat16, torch.bfloat16)
+    whole = rn.rmsnorm_bwd_cuda(x, g, dy, EPS)
+    for lo, hi in ((0, 1), (0, k // 2), (k // 2, k)):
+        rn.plan_for_mesh(k // (hi - lo))
+        try:
+            part = rn.rmsnorm_bwd_cuda(x[lo:hi].contiguous(), g[lo:hi].contiguous(),
+                                       dy[lo:hi].contiguous(), EPS)
+        finally:
+            rn.plan_for_mesh(1)
+        torch.cuda.synchronize()
+        for w, p in zip(whole, part):
+            assert torch.equal(w[lo:hi], p)
+
+
+@pytest.mark.cuda
 def test_rmsnorm_forward_and_backward_replay_in_a_cuda_graph(cuda):
     """Forward and backward captured in a CUDA graph and replayed give the
     eager call's bits (the scratch comes from the graph's pool)."""

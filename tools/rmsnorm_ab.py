@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the RMSNorm kernels against variants of their source, on one GPU.
 
-    python3 tools/rmsnorm_ab.py [VARIANT.cu ...]
+    python3 tools/rmsnorm_ab.py [--lanes 1,2,4] [VARIANT.cu ...]
 
 Each VARIANT.cu is an edited copy of ``src/repro_torch/kernels/csrc/rmsnorm.cu``
 (it exports ``rmsnorm_fwd`` and, unless it predates the backward kernel,
@@ -16,7 +16,9 @@ over rotating inputs larger than the L2, captured in a CUDA graph and
 replayed under CUDA events), in the order A, B, ..., B, A, so that a drift of
 the card's clock shows.  Prints the card's name and power limit, then one
 JSON line per version's build and one per (version, direction, shape).
-Compare versions only within one run.
+Compare versions only within one run.  ``--lanes 1,2,4`` times the
+backward alone, at each shape's rows and width with K set to each count
+(the one-trial driver's K=1, a population mesh's K/N lanes a rank).
 """
 from __future__ import annotations
 
@@ -84,10 +86,10 @@ def backward(lib):
         dx, dg = torch.empty_like(x), torch.empty_like(g)
         ptrs = (x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr())
         n = ctypes.c_int()
-        build.check(lib.rmsnorm_bwd_blocks(*ptrs, K, R, d, 1, 1, ctypes.byref(n)),
+        build.check(lib.rmsnorm_bwd_blocks(*ptrs, K, K, R, d, 1, 1, ctypes.byref(n)),
                     "rmsnorm_bwd_blocks")
         part = torch.empty((K, n.value, d), dtype=torch.float32, device=x.device)
-        build.check(lib.rmsnorm_bwd(*ptrs, dg.data_ptr(), part.data_ptr(), K, R, d, EPS, 1, 1,
+        build.check(lib.rmsnorm_bwd(*ptrs, dg.data_ptr(), part.data_ptr(), K, K, R, d, EPS, 1, 1,
                                     n.value, torch.cuda.current_stream().cuda_stream),
                     "rmsnorm_bwd")
         return dx, dg
@@ -98,9 +100,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("rmsnorm_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    srcs = [build.CSRC / "rmsnorm.cu"] + [Path(p).resolve() for p in sys.argv[1:]]
+    args = sys.argv[1:]
+    lanes = None
+    if args[:1] == ["--lanes"]:
+        lanes, args = [int(k) for k in args[1].split(",")], args[2:]
+    srcs = [build.CSRC / "rmsnorm.cu"] + [Path(p).resolve() for p in args]
     libs = build_variants(srcs)
-    names = ["tree"] + [Path(p).stem for p in sys.argv[1:]]
+    names = ["tree"] + [Path(p).stem for p in args]
     libs["tree"] = libs.pop("rmsnorm")
     print(nvidia_smi(), flush=True)
     for name in names:
@@ -110,10 +116,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     plain = {"fwd": lambda x, g, dy: (rn.rmsnorm_plain(x, g, EPS),),
              "bwd": lambda x, g, dy: rn.rmsnorm_bwd_plain(x, g, dy, EPS)}
-    for shape in SHAPES:
+    kinds = {"fwd": (forward, 1), "bwd": (backward, 2)}   # the wrapper, x-sized reads
+    cases = ([(s, ("fwd", "bwd")) for s in SHAPES] if lanes is None else
+             [((k, R, d), ("bwd",)) for _, R, d in SHAPES for k in lanes])
+    for shape, directions in cases:
         K, R, d = shape
         x_bytes = K * R * d * 2
-        for direction, make, reads in (("fwd", forward, 1), ("bwd", backward, 2)):
+        for direction in directions:
+            make, reads = kinds[direction]
             n_sets = max(2, -(-int(2 * L2_BYTES) // (reads * x_bytes)))
             sets = [tuple(t.bfloat16() for t in (
                 torch.randn(shape, generator=gen, device=dev),
