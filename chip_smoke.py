@@ -75,8 +75,9 @@ Phases, each printing one JSON line:
    over one replayed rule chunk); lane ops timed against their byte
    bounds with the memory each allocates; active lane share, dispatches
    per step, seconds per result, captures and peak reserved memory
-   (falcon-mamba's streaming, crash and ring flights at 2 of 64 layers,
-   ``MAMBA_ENGINE_LAYERS``: those engines do not depend on depth);
+   (the streaming, crash and ring flights at 2 layers, starcoder2-3b's of
+   30 and falcon-mamba's of 64, ``ENGINE_LAYERS``: those engines do not
+   depend on depth);
    then the MoE path, qwen3-moe-30b-a3b at its published widths (1 of 48
    layers, K=2, batch 2, seq 1024), through main_path and chunked_path
    (not the streaming, crash or ring phases: those engines do not depend on
@@ -239,7 +240,7 @@ FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 # to 4 of 30 layers, falcon-mamba-7b to 4 of 64
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
 MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
-MAMBA_ENGINE_LAYERS = 2   # falcon-mamba's streaming, crash and ring flights: 2 of 64 layers
+ENGINE_LAYERS = 2   # the streaming, crash and ring flights: 2 of 30 (64) layers
 # the MoE path: qwen3-moe-30b-a3b at its published widths, 1 of 48 layers and
 # two lanes (one lane's parameters and moments are 12.45 GB; the AdamW
 # temporaries of the stacked experts about 16 GB)
@@ -331,6 +332,13 @@ FLASH_MOE_Q, FLASH_MOE_KV = (4, 1024, 32, 128), (4, 1024, 4, 128)   # a group of
 FLASH_MLA_Q, FLASH_MLA_DV = (4, 1024, 16, 192), 128   # q, k 128 + 64 wide; v 128
 FLASH_HUBERT_Q = (8, 1024, 16, 80)                 # hubert-xlarge, non-causal, MHA
 SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (K, d_inner, N)
+# the width-local shapes of the two-level mesh at width 2: starcoder2's 24
+# heads over 2 kv heads become 12 over 1 (tp_path's 4 lanes of batch 4),
+# deepseek's 16 MLA heads 8 (its one lane of batch 2), falcon-mamba's 8192
+# inner channels 4096
+FLASH_TP_Q, FLASH_TP_KV = (16, 1024, 12, 128), (16, 1024, 1, 128)
+FLASH_MLA_TP_Q = (2, 1024, 8, 192)
+SSM_TP_X = (8, 1024, 4096)
 SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
 CHUNK, CHUNK_FLIGHT_STEPS = 4, 8                   # the chunked paths: two chunks of 4 a flight
@@ -712,7 +720,11 @@ def check_kernels(torch, dev):
                     ("mamba-main", "bfloat16"): "mamba",
                     ("hubert-main", "bfloat16"): "hubert", ("kv-norm", "bfloat16"): "kv_norm",
                     ("mla-d192-dv128-ragged-300", "float32"): "mla_ragged",
-                    ("main", "float32"): "fp32_main"}
+                    ("main", "float32"): "fp32_main",
+                    ("tp2-12x1", "bfloat16"): "tp", ("tp2-12x1", "float32"): "tp_fp32",
+                    ("tp2-mla-8", "bfloat16"): "tp_mla",
+                    ("tp2-4096-chunk-states-128", "bfloat16"): "tp",
+                    ("tp2-4096-chunk-states-128", "float32"): "tp_fp32"}
     runs = [
         ("rmsnorm", "main", "bfloat16", lambda: rms(RMS_SHAPE, torch.bfloat16)),
         ("rmsnorm", "mamba-main", "bfloat16", lambda: rms(RMS_MAMBA_SHAPE, torch.bfloat16)),
@@ -780,6 +792,17 @@ def check_kernels(torch, dev):
         ("flash_attention", "dv64-d128-sq200-sk130", "bfloat16",
          lambda: flash((1, 200, 4, 128), (1, 130, 2, 128), torch.bfloat16, dv=64,
                        causal=False)),
+        # the width-local shapes of the two-level mesh (width 2)
+        ("flash_attention", "tp2-12x1", "bfloat16",
+         lambda: flash(FLASH_TP_Q, FLASH_TP_KV, torch.bfloat16)),
+        ("flash_attention", "tp2-12x1", "float32",
+         lambda: flash(FLASH_TP_Q, FLASH_TP_KV, torch.float32)),
+        ("flash_attention", "tp2-mla-8", "bfloat16",
+         lambda: flash(FLASH_MLA_TP_Q, FLASH_MLA_TP_Q, torch.bfloat16, dv=FLASH_MLA_DV)),
+        ("ssm_scan", "tp2-4096-chunk-states-128", "bfloat16",
+         lambda: ssm(SSM_TP_X, SSM_N, SSM_K, torch.bfloat16, chunk=SSM_CHUNK)),
+        ("ssm_scan", "tp2-4096-chunk-states-128", "float32",
+         lambda: ssm(SSM_TP_X, SSM_N, SSM_K, torch.float32, chunk=SSM_CHUNK)),
         ("ssm_scan", "main", "bfloat16",
          lambda: ssm(SSM_X, SSM_N, SSM_K, torch.bfloat16)),
         ("ssm_scan", "main", "float32",
@@ -1388,6 +1411,15 @@ SHARDED_FLIGHTS = (("per_step", 1, False, RUNG_FLIGHT["steps"]),
                    ("device_rules", 8, True, 8))
 SHARDED_GLOO = dict(arch="starcoder2-3b", n_layers=2, population=4, batch=4, seq=1024,
                     world=2, join_s=420.0, collective_s=300.0, chunk=4, device="cuda:0")
+# the two-level (pop, model) mesh (tp_path): SHARDED_GLOO's two gloo ranks on
+# cuda:0 as one lane row of width 2; starcoder2's flights as SHARDED_GLOO's,
+# its fp32 (TF32 off) per-step twin at 2 lanes, and deepseek-v2-lite at 2 of
+# 27 layers (MLA heads sharded, experts replicated), one lane: two ranks
+# each hold nearly a whole deepseek lane (its experts), 10.7 GB of state
+TP = dict(SHARDED_GLOO, width=2)
+TP_FP32 = dict(TP, population=2, dtype="float32")
+TP_DEEPSEEK = dict(TP, arch="deepseek-v2-lite-16b", population=1, batch=2)
+TP_TOL = {"bfloat16": 3e-2, "float32": 1e-5}   # scores at width 2 against width 1
 
 
 def sharded_path(torch, dev, arch, n_layers, population, batch, seq, main_s_per_step=None,
@@ -1545,9 +1577,11 @@ def _gloo_trial(dev, cfg, chunk_steps=1, device_rules=False, seed=0):
     from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
     from repro_torch.launch.hpo import PopulationTrial
 
+    overrides = published_widths(cfg["arch"], cfg["n_layers"])
+    if cfg.get("dtype"):
+        overrides.update(param_dtype=cfg["dtype"], compute_dtype=cfg["dtype"])
     trial = PopulationTrial(cfg["arch"], STREAM["steps"], cfg["batch"], cfg["seq"], seed,
-                            population=cfg["population"],
-                            model_overrides=published_widths(cfg["arch"], cfg["n_layers"]),
+                            population=cfg["population"], model_overrides=overrides,
                             device=dev, chunk_steps=chunk_steps, device_rules=device_rules,
                             refill_idle_grace_s=0.0)
     trial.early_stop = InFlightSuccessiveHalving(
@@ -1581,6 +1615,7 @@ def _gloo_flights(torch, dev, cfg, mesh=None):
     torch.cuda.synchronize()
     out["streaming_s"] = time.perf_counter() - t0
     out["streaming_launches"] = counters()
+    out["streaming_collectives"] = trial.model_axis_collectives
     trial = _gloo_trial(dev, cfg, chunk_steps=cfg["chunk"], device_rules=True)
     reset_counters()
     t0 = time.perf_counter()
@@ -1589,6 +1624,7 @@ def _gloo_flights(torch, dev, cfg, mesh=None):
     torch.cuda.synchronize()
     out["device_rules_s"] = time.perf_counter() - t0
     out["device_rules_launches"] = counters()
+    out["device_rules_collectives"] = trial.model_axis_collectives
     out["device_rules"] = {"scores": scores, "truncated": trial.early_stop.n_truncated,
                            "dispatches": trial.n_dispatches, "train_steps": trial.n_train_steps}
     return out
@@ -1762,6 +1798,288 @@ def sharded_gloo_path(torch, dev, seed=0):
     launches = {k: got["streaming_launches"][k] + got["device_rules_launches"][k]
                 for k in got["streaming_launches"]}
     return launches, out
+
+
+# --------------------------------------------- the two-level (pop, model) mesh
+def _per_step_flight(torch, dev, cfg, mesh=None):
+    """A per-step batch flight of ``cfg``'s first K grid trials (host rung
+    rule), on ``mesh`` or unsharded: its decisions, and its seconds, a
+    step's seconds, this rank's launches and the model-group collectives a
+    step issued."""
+    trial = _gloo_trial(dev, cfg)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = trial.run_population(_stream_grid(cfg["population"])[::2][: cfg["population"]],
+                                  mesh=mesh)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return {"scores": scores, "truncated": trial.early_stop.n_truncated,
+            "dispatches": trial.n_dispatches, "train_steps": trial.n_train_steps}, {
+        "s": s, "s_per_step": s / max(trial.n_train_steps, 1), "launches": counters(),
+        "collectives": trial.model_axis_collectives}
+
+
+def tp_reckoned(cfg) -> int:
+    """The model-group collectives a step issues at ``cfg``'s width, from the
+    seams: per layer GQA 2 (``tp_enter``'s backward all-reduce,
+    ``tp_reduce``'s forward one) when attention shards, MLA 4 (f on x, on the
+    latent and on k_rope, g), a dense MLP 2 when ``ff`` shards, Mamba 4;
+    one more for the gradient norm's sharded sum."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.distributed.sharding import tp_module_flags
+
+    m = ModelConfig(name=cfg["arch"], **published_widths(cfg["arch"], cfg["n_layers"]))
+    flags = tp_module_flags(m, cfg["width"])
+    n = 1
+    for mixer, ffn in list(m.prefix_pattern) + list(m.pattern) * m.n_superblocks:
+        n += {"mamba": 4 * flags["mamba"], "attn_mla": 4 * flags["attn"]}.get(
+            mixer, 2 * flags["attn"])
+        n += 2 * flags["mlp"] if ffn == "dense" else 0
+    return n
+
+
+def _tp_rank(rank, store, out_dir):
+    """One of ``TP``'s two ranks on ``cuda:0``, one lane row of width 2
+    (spawned by ``tp_path``): starcoder2's flights, its fp32 per-step twin
+    and deepseek's per-step flight, each with the replicated leaves'
+    checksums at every flight's end; then a clone and a snapshot restored
+    on a width-2 state, and the all-reduce timed.  Each rank saves what it
+    saw to ``out_dir/rank{r}.json``; a rank that raises leaves its
+    traceback in ``rank{r}.err``."""
+    import os
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    try:
+        import torch
+
+        from repro_torch.distributed import sharding as S
+        from repro_torch.interop import tree_leaves
+        from repro_torch.kernels import rmsnorm
+        from repro_torch.launch.flight import LaneFlight
+        from repro_torch.train import population as P
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        cfg = TP
+        dev = torch.device(cfg["device"])
+        mesh = S.population_mesh(dev, backend="gloo", init_method=f"file://{store}",
+                                 rank=rank, world_size=cfg["world"],
+                                 timeout_s=cfg["collective_s"], width=cfg["width"])
+        replicated = []
+        close = LaneFlight._close
+
+        def recording(fl):
+            """At a flight's end, the checksums of the leaves no width rule
+            shards (bit-equal across the row, or the copies drift)."""
+            if fl.layout is not None and fl.state is not None:
+                leaves = [t for t, d in zip(tree_leaves(fl.state), tree_leaves(fl.layout.dims))
+                          if d is None]
+                replicated.append(state_checksums(torch, leaves))
+            close(fl)
+
+        LaneFlight._close = recording
+        out = {"rank": rank, "rmsnorm_mesh_ranks": rmsnorm.mesh_ranks}
+        b0 = S.tp_collective_bytes()
+        out["main"] = _gloo_flights(torch, dev, cfg, mesh)
+        if rank == 0:   # the host driver, and so the steps, are rank 0's
+            out["main_bytes_per_step"] = (S.tp_collective_bytes() - b0) / (
+                out["main"]["streaming"]["train_steps"]
+                + out["main"]["device_rules"]["train_steps"])
+        P.clear_population_cache()
+        torch.cuda.empty_cache()
+        for name, c in (("fp32", TP_FP32), ("deepseek", TP_DEEPSEEK)):
+            b0 = S.tp_collective_bytes()
+            out[name], out[name + "_run"] = _per_step_flight(torch, dev, c, mesh)
+            out[name + "_run"]["bytes_per_step"] = (S.tp_collective_bytes() - b0) / max(
+                out[name]["train_steps"], 1)
+            P.clear_population_cache()
+            torch.cuda.empty_cache()
+        # lanes on a width-2 state: each rank holds its shard of all K
+        # lanes; lane 3 cloned into lane 0 (each rank its shard), lane 3
+        # snapshotted (rank 1's shard sent to rank 0, joined to the host
+        # layout) and restored into lane 1 (cut again, shard 1 sent back)
+        trial = _gloo_trial(dev, cfg)
+        k = cfg["population"]
+        moved = {}
+        fl = LaneFlight(trial, k, mesh=mesh)
+        try:
+            fl._init_state(list(range(100, 100 + k)), True)
+            st = fl.state
+
+            def timed_op(fn):
+                torch.cuda.synchronize()
+                mesh.barrier()
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                mesh.barrier()
+                return got, (time.perf_counter() - t0) * 1e3
+
+            donor = P._pack_lane(st, 3)
+            _, moved["clone_ms"] = timed_op(lambda: fl._clone([i == 0 for i in range(k)],
+                                                              [3] * k))
+            moved["clone_bit_equal"] = bool(torch.equal(P._pack_lane(st, 0), donor))
+            snap, moved["snapshot_ms"] = timed_op(lambda: fl._snapshot(3))
+            _, moved["restore_ms"] = timed_op(lambda: fl._restore(1, snap))
+            moved["snapshot_restore_bit_equal"] = bool(torch.equal(P._pack_lane(st, 1), donor))
+            if rank == 0:
+                # the snapshot is the whole lane: its shard 0 is rank 0's lane 3
+                moved["snapshot_shard_bit_equal"] = bool(torch.equal(
+                    P._snap_bytes(st, fl.layout.lane(snap, 0)).to(dev), donor))
+                moved["snapshot_bytes"] = sum(t.numel() * t.element_size()
+                                              for t in tree_leaves(snap))
+            moved["shard_bytes"] = P._lane_layout(st)[1]
+        finally:
+            fl._close()
+        del st, snap, fl
+        P.clear_population_cache()
+        torch.cuda.empty_cache()
+        # the seam's all-reduce at the activation a step reduces: (K/rows,
+        # batch, seq, d) bf16 on the card, through gloo
+        d = published_widths(cfg["arch"], cfg["n_layers"])["d_model"]
+        act = torch.randn((k, cfg["batch"], cfg["seq"], d), device=dev).to(torch.bfloat16)
+        mesh.barrier()
+        out["all_reduce_ms"] = event_ms(torch, lambda: mesh.model_all_reduce(act), n=10)
+        out["all_reduce_bytes"] = act.numel() * act.element_size()
+        out["moved"] = moved
+        out["replicated"] = replicated
+        mesh.destroy()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def tp_path(torch, dev, main_ref, main_ref_s):
+    """The two-level mesh (``TP``): two gloo ranks sharing the card as one
+    lane row of width 2 (``--shard-population --model-parallel 2``), spawned
+    from here, each lane's heads, MLP ``ff`` and (deepseek) MLA heads split
+    over the row, the experts replicated.  Held against width 1 (the
+    unsharded engine on the same trials: ``main_ref``, the gloo phase's,
+    for starcoder2's streaming ladder and device-rule batch flight; the fp32
+    twin and deepseek's flight run here first): the same decisions, scores
+    within 3e-2 in bf16 and 1e-5 in fp32 (TF32 off); a lane cloned and one
+    snapshotted and restored on the width-2 state bit-equal; every
+    replicated leaf bit-equal across the row after every flight; the
+    model-group collectives a step the reckoned count.  Under gloo the rule
+    chunks run eagerly (a gloo collective cannot sit in a CUDA graph).
+    Reports s a step against width 1, the all-reduce's ms (CUDA events) and
+    bytes a step over the model group."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.train import population as P
+
+    ref, ref_run = {}, {}
+    for name, c in (("fp32", TP_FP32), ("deepseek", TP_DEEPSEEK)):
+        P.clear_population_cache()
+        ref[name], ref_run[name] = _per_step_flight(torch, dev, c)
+    P.clear_population_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = TP
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_tp_rank, args=(r, os.path.join(tmp, "store"), tmp))
+                 for r in range(cfg["world"])]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + cfg["join_s"]
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
+                for r in range(cfg["world"]) if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
+        if hung or errs or any(p.exitcode for p in procs):
+            die(f"tp path: ranks hung {hung}, exit codes {[p.exitcode for p in procs]}, "
+                f"errors {errs}")
+        got = []
+        for r in range(cfg["world"]):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+    g0 = got[0]
+    problems, cmp = [], {}
+    flights = (("streaming", g0["main"]["streaming"], main_ref["streaming"], "bfloat16"),
+               ("device_rules", g0["main"]["device_rules"], main_ref["device_rules"], "bfloat16"),
+               ("fp32_per_step", g0["fp32"], ref["fp32"], "float32"),
+               ("deepseek_per_step", g0["deepseek"], ref["deepseek"], "bfloat16"))
+    for name, a, b, dt in flights:
+        diff = float(max(abs(x - y) for x, y in zip(a["scores"], b["scores"])))
+        cmp[name] = {"max_abs_diff": diff, "tol": TP_TOL[dt],
+                     "bit_equal": a["scores"] == b["scores"],
+                     "same_decisions": {n: a[n] == b[n] for n in a if n != "scores"}}
+        if diff > TP_TOL[dt]:
+            problems.append(f"{name}: scores differ from width 1 by {diff} > {TP_TOL[dt]}")
+        if not all(cmp[name]["same_decisions"].values()):
+            problems.append(f"{name}: decisions differ from width 1: "
+                            f"{cmp[name]['same_decisions']}")
+    collectives = {"streaming": g0["main"]["streaming_collectives"],
+                   "device_rules": g0["main"]["device_rules_collectives"],
+                   "fp32_per_step": g0["fp32_run"]["collectives"],
+                   "deepseek_per_step": g0["deepseek_run"]["collectives"]}
+    reckoned = {"starcoder2-3b": tp_reckoned(TP), "deepseek-v2-lite-16b": tp_reckoned(TP_DEEPSEEK)}
+    for name, n in collectives.items():
+        want = reckoned["deepseek-v2-lite-16b" if name.startswith("deepseek")
+                        else "starcoder2-3b"]
+        if n != want:
+            problems.append(f"{name}: {n} model-group collectives a step, reckoned {want}")
+    if any(r["replicated"] != g0["replicated"] for r in got[1:]) or not g0["replicated"]:
+        problems.append("a replicated leaf differs across the row after a flight")
+    moved = [r["moved"] for r in got]
+    if not all(m["clone_bit_equal"] and m["snapshot_restore_bit_equal"] for m in moved) or \
+            not moved[0]["snapshot_shard_bit_equal"]:
+        problems.append(f"a lane op on the width-2 state is not its source bit for bit: {moved}")
+    if [r["rmsnorm_mesh_ranks"] for r in got] != [1] * cfg["world"]:
+        problems.append("a rank did not plan the RMSNorm backward for its one lane row")
+    w1_s = {"streaming": main_ref_s["streaming"], "device_rules": main_ref_s["device_rules"],
+            "fp32_per_step": ref_run["fp32"]["s"], "deepseek_per_step": ref_run["deepseek"]["s"]}
+    w2_s = {"streaming": g0["main"]["streaming_s"], "device_rules": g0["main"]["device_rules_s"],
+            "fp32_per_step": g0["fp32_run"]["s"], "deepseek_per_step": g0["deepseek_run"]["s"]}
+    out = {"phase": "tp_path", "mesh": "one lane row of width 2", "backend": "gloo",
+           "ranks_on": cfg["device"], "nvidia_smi": nvidia_smi(),
+           "cells": {n: {k: c[k] for k in ("arch", "n_layers", "population", "batch", "seq")}
+                     for n, c in (("starcoder2", TP), ("fp32", TP_FP32),
+                                  ("deepseek", TP_DEEPSEEK))},
+           "rule_chunk": "eager (a gloo collective cannot be captured in a CUDA graph)",
+           "vs_width_1": cmp,
+           "width_2": {n: a for n, a, _, _ in flights}, "width_1": {n: b for n, _, b, _ in flights},
+           "flight_s": {n: [w2_s[n], w1_s[n]] for n in w2_s},
+           "s_per_step": {"width_2": {"fp32_per_step": g0["fp32_run"]["s_per_step"],
+                                      "deepseek_per_step": g0["deepseek_run"]["s_per_step"]},
+                          "width_1": {"fp32_per_step": ref_run["fp32"]["s_per_step"],
+                                      "deepseek_per_step": ref_run["deepseek"]["s_per_step"]}},
+           "model_axis_collectives": collectives, "reckoned": reckoned,
+           "bytes_per_step": {"starcoder2_bf16": g0["main_bytes_per_step"],
+                              "fp32": g0["fp32_run"]["bytes_per_step"],
+                              "deepseek": g0["deepseek_run"]["bytes_per_step"]},
+           "all_reduce": {"ms": g0["all_reduce_ms"], "bytes": g0["all_reduce_bytes"],
+                          "gb_per_s": g0["all_reduce_bytes"] / 1e9 / (g0["all_reduce_ms"] / 1e3),
+                          "timed_by": "CUDA events, 10 calls after 3"},
+           "rank0_launches": {"streaming": g0["main"]["streaming_launches"],
+                              "device_rules": g0["main"]["device_rules_launches"],
+                              "fp32_per_step": g0["fp32_run"]["launches"],
+                              "deepseek_per_step": g0["deepseek_run"]["launches"]},
+           "replicated_checksums_per_flight": len(g0["replicated"]),
+           "transfers": moved[0], "spawn_wall_s": wall}
+    emit(out)
+    if problems:
+        die("tp path (width 2, gloo): " + "; ".join(problems))
+    # the kernels line counts rank 0's launches (rank 1 makes as many)
+    runs = out["rank0_launches"].values()
+    return {k: sum(r[k] for r in runs) for k in g0["main"]["streaming_launches"]}, out
 
 
 # -------------------------------------------------------------- phase 4, MoE
@@ -4298,6 +4616,17 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     # hubert-xlarge's encoder: non-causal, head dim 80 (padded to 128)
     rows[-1]["hubert_shape"] = dict(flash_at(FLASH_HUBERT_Q, FLASH_HUBERT_Q, causal=False)[0],
                                     max_abs_err=errs["flash_attention@hubert"])
+    # the two-level mesh's width-local calls (width 2): starcoder2's 12 q
+    # heads over 1 kv head, deepseek's 8 MLA heads; launches on tp_path's
+    # rank 0 (rank 1 makes as many)
+    tp_launches = by_path.get(TP["arch"] + "+tp", {}).get("flash_attention_sm90", 0)
+    rows[-1]["tp_shape"] = dict(flash_at(FLASH_TP_Q, FLASH_TP_KV)[0],
+                                max_abs_err=errs["flash_attention@tp"],
+                                max_abs_err_fp32=errs["flash_attention@tp_fp32"],
+                                launches_tp_path_rank0=tp_launches)
+    rows[-1]["tp_mla_shape"] = dict(flash_at(FLASH_MLA_TP_Q, FLASH_MLA_TP_Q,
+                                             dv=FLASH_MLA_DV)[0],
+                                    max_abs_err=errs["flash_attention@tp_mla"])
     # the CUDA-core kernel at q/k 192, v 128 over a ragged 300 rows (its check case)
     ragged, (q, k, v, _, _) = flash_at((2, 300, 4, 192), (2, 300, 4, 192), dv=128,
                                        dtype=torch.float32)
@@ -4346,6 +4675,29 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         "shape": {"x": list(SSM_X), "A": [SSM_K, Dm, SSM_N], "D": [SSM_K, Dm],
                   "dtype": dts, "A_D_dtype": "float32", "chunk_states_chunk": SSM_CHUNK},
     })
+    del x, dtt, A, Bc, Cc, Dk
+    # falcon-mamba's width-local call at width 2: 4096 of its 8192 channels
+    # (the card's tp_path runs no Mamba model: 0 launches there)
+    x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_TP_X, SSM_N, SSM_K, dt)
+    R, L, Dm = SSM_TP_X
+    updates = R * L * Dm * SSM_N
+    nb = (3 * x.numel() * x.element_size() + 2 * Bc.numel() * Bc.element_size()
+          + A.numel() * 4 + Dk.numel() * 4 + R * Dm * SSM_N * 4
+          + R * -(-L // SSM_CHUNK) * Dm * SSM_N * 4)
+    tp_bounds = {"bytes": nb / HBM_BYTES_PER_S * 1e3,
+                 "fp32": 6 * updates / PEAK_OPS["float32"] * 1e3,
+                 "sfu": updates / (PEAK_OPS["float32"] / SFU_PER_FP32_FLOPS) * 1e3}
+    tp_binding = max(tp_bounds, key=tp_bounds.get)
+    rows[-1]["tp_shape"] = {
+        "max_abs_err": errs["ssm_scan@tp"], "max_abs_err_fp32": errs["ssm_scan@tp_fp32"],
+        "ms": event_ms(torch, lambda: ss.ssm_scan_cuda(x, dtt, A, Bc, Cc, Dk, **main_call)),
+        "plain_ms": event_ms(torch, lambda: ss.ssm_scan_plain(x, dtt, A, Bc, Cc, Dk,
+                                                              **main_call), n=3, warmup=1),
+        "bound_ms": tp_bounds[tp_binding],
+        "bound_by": "bytes" if tp_binding == "bytes" else "operations",
+        "sfu_ms": tp_bounds["sfu"], "bytes_ms": tp_bounds["bytes"], "library_ms": None,
+        "launches_tp_path_rank0": by_path.get(TP["arch"] + "+tp", {}).get("ssm_scan", 0),
+        "shape": {"x": list(SSM_TP_X), "A": [SSM_K, Dm, SSM_N], "dtype": dts}}
     del x, dtt, A, Bc, Cc, Dk
 
     from repro_torch.data.pipeline import SyntheticLM, split_streams
@@ -4469,10 +4821,9 @@ def main() -> int:
             # the streaming, crash and ring engines are arch-agnostic and run
             # on the two paths above
             continue
-        if path is MAMBA:
-            # the streaming, crash and ring engines do not depend on the
-            # model's depth: falcon-mamba's run at MAMBA_ENGINE_LAYERS
-            kw = dict(kw, n_layers=MAMBA_ENGINE_LAYERS)
+        # the streaming, crash and ring engines do not depend on the model's
+        # depth: they run at ENGINE_LAYERS
+        kw = dict(kw, n_layers=ENGINE_LAYERS)
         by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4488,10 +4839,16 @@ def main() -> int:
     by_path[MAIN["arch"] + "+sharded"], _ = sharded_path(
         torch, dev, main_s_per_step=main_outs[MAIN["arch"]]["flight_s_per_step"], **MAIN)
     lap("sharded_path")
-    by_path[SHARDED_GLOO["arch"] + "+sharded_gloo"], _ = sharded_gloo_path(torch, dev)
+    by_path[SHARDED_GLOO["arch"] + "+sharded_gloo"], gloo_out = sharded_gloo_path(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     lap("sharded_gloo_path")
+    by_path[TP["arch"] + "+tp"], tp_out = tp_path(
+        torch, dev, gloo_out["world_1"],
+        {n: s[1] for n, s in gloo_out["flight_s"].items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("tp_path")
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")

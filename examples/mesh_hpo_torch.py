@@ -11,7 +11,13 @@ Part 2 (real device): the card (or, with ``--device cpu``, the CPU) forms a
 1x1 slice; each trial trains a tiny LM (the starcoder2-3b smoke config) on
 the device its slice hands out.
 
-    PYTHONPATH=src python examples/mesh_hpo_torch.py [--device cpu]
+Part 3 (with ``--model-parallel W``): W gloo ranks on that device form one
+lane row of a two-level ``(pop, model)`` population mesh, and a population
+of the same tiny LM trains with every lane's heads and MLP split over the
+row (``--shard-population --model-parallel W``); it prints the best final
+loss beside the unsharded engine's and the model-group collectives a step.
+
+    PYTHONPATH=src python examples/mesh_hpo_torch.py [--device cpu] [--model-parallel 2]
 """
 import argparse
 import os
@@ -104,11 +110,72 @@ def part2_real_device(device: str):
     print(f"best final loss {-best['score']:.3f} at lr={best['config']['learning_rate']:.2e}")
 
 
+PART3_TRIALS = [{"learning_rate": lr, "warmup_frac": 0.25} for lr in (3e-3, 1e-3, 3e-4, 1e-4)]
+
+
+def _part3_trial(device):
+    from repro_torch.launch.hpo import PopulationTrial
+
+    return PopulationTrial("starcoder2-3b", steps=4, batch=2, seq=32, seed=0,
+                           population=len(PART3_TRIALS), device=device)
+
+
+def _part3_rank(rank, width, device, store, out):
+    import torch
+
+    from repro_torch.distributed.sharding import population_mesh
+
+    torch.set_num_threads(1)
+    mesh = population_mesh(device, backend="gloo", init_method=f"file://{store}", rank=rank,
+                           world_size=width, width=width)
+    try:
+        trial = _part3_trial(mesh.device)
+        scores = trial.run_population(PART3_TRIALS, mesh=mesh)
+        if rank == 0:
+            out.put((scores, trial.model_axis_collectives))
+    finally:
+        mesh.destroy()
+
+
+def part3_model_parallel(device: str, width: int):
+    print(f"=== part 3: one lane row of width {width}, each lane tensor-parallel ===")
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch.hpo import resolve_device
+
+    dev = str(resolve_device(device))
+    if dev == "cuda":
+        dev = "cuda:0"   # the ranks share the card: gloo, not NCCL
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_part3_rank,
+                             args=(r, width, dev, os.path.join(tmp, "store"), out))
+                 for r in range(width)]
+        for p in procs:
+            p.start()
+        scores, collectives = out.get(timeout=600)
+        for p in procs:
+            p.join(60)
+    if any(p.exitcode for p in procs):
+        raise SystemExit(f"part 3: a rank failed (exit codes {[p.exitcode for p in procs]})")
+    ref = _part3_trial(dev).run_population(PART3_TRIALS)
+    print(f"best final loss {-max(scores):.4f} at width {width} (unsharded: {-max(ref):.4f}); "
+          f"{collectives} model-group collectives a step")
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="part 2's device (default cuda; without a GPU it raises "
                          "unless cpu is asked for)")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="W",
+                    help="also run part 3: a population on one lane row of W ranks, "
+                         "each lane split W ways")
     args = ap.parse_args()
     part1_virtual_pod()
     part2_real_device(args.device)
+    if args.model_parallel > 1:
+        part3_model_parallel(args.device, args.model_parallel)

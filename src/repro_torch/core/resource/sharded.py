@@ -25,8 +25,9 @@ vectorized engine, journaled as ``mesh_degrade``: a wedged collective or a
 sick rank should not take the whole experiment down.  That is the one path
 from a mesh flight to the vectorized engine.
 
-The two-level ``(pop, model)`` mesh (``model_parallel > 1``) and elastic
-regrid come with later parts of the port and raise.
+The two-level ``(pop, model)`` mesh (``model_parallel > 1``) folds the
+ranks into lane rows of W, each lane a width-W program over its row.
+Elastic regrid comes with a later part of the port and raises.
 """
 from __future__ import annotations
 
@@ -49,24 +50,29 @@ class ShardedPopulationResourceManager(VectorizedResourceManager):
         model_parallel: int = 1,
         **kwargs,
     ):
-        from ...distributed.sharding import PART_B, PART_C, population_mesh
+        from ...distributed.sharding import PART_C, population_mesh
         from ...train.population import pad_population
 
-        if int(model_parallel) > 1:
-            raise NotImplementedError(
-                f"model_parallel={model_parallel} (a two-level (pop, model) mesh) is not "
-                f"ported yet; it comes with {PART_B}")
         if elastic_regrid:
             raise NotImplementedError(f"elastic regrid is not ported yet; it comes with {PART_C}")
-        self.mesh = mesh if mesh is not None else population_mesh(device, axis=axis)
+        # --model-parallel W: the ranks fold into a two-level (pop, model)
+        # mesh, N/W lane rows of W ranks.  Lane slots (and the padded K)
+        # count rows, not ranks: each lane's tensors split over its row.
+        width = max(1, int(model_parallel))
+        self.model_parallel = width
+        self.mesh = (mesh if mesh is not None
+                     else population_mesh(device, axis=axis, width=width))
+        if self.mesh.width != width:
+            raise ValueError(f"model_parallel={width} on a mesh of width {self.mesh.width}")
         n = self.mesh.world_size
-        # population axis must divide over the mesh: round lanes up (same rule
-        # the trial applies to its batch, so slot count and padded K agree)
+        # population axis must divide over the mesh's rows: round lanes up
+        # (same rule the trial applies to its batch, so slot count and padded
+        # K agree)
         n_slots = pad_population(int(n_parallel), self.mesh)
-        self.lanes_per_device = n_slots // n
-        # resource ids name 1-rank slices: slot j of rank i is
-        # "slice[0:1,i:i+1]/lane{j}"
-        self.slices = {s.slice_id: s for s in tile_pod((1, n), (1, 1),
+        self.lanes_per_device = n_slots // self.mesh.rows
+        # resource ids name width-wide rank slices: slot j of row i is
+        # "slice[0:1,i*W:(i+1)*W]/lane{j}"
+        self.slices = {s.slice_id: s for s in tile_pod((1, n), (1, width),
                                                        devices=self.mesh.devices)}
         super().__init__(n_parallel=0, **kwargs)  # resources added below
         self.n_slots = n_slots

@@ -12,8 +12,14 @@ Without a mesh a method is the plain call on the whole population.  With a
 ``distributed.sharding.PopulationMesh`` the flight is SPMD: rank 0's driver
 calls a method, which broadcasts its name and host arguments to the other
 ranks (``serve``) before running it; every rank then runs the same method on
-its own block of K/N lanes, so the collectives inside (the ``all_gather`` of
-the per-lane vectors, a lane sent between ranks) pair up.  Host decisions,
+its row's block of K/rows lanes, so the collectives inside (the
+``all_gather`` of the per-lane vectors over the rows, a lane sent between
+ranks, the seams' all-reduces over a row) pair up.  On a two-level mesh
+(``--model-parallel W``) a rank holds its shards of its row's lanes
+(``train.population.TPLayout``), a lane moved across rows goes as W sends,
+shard j to shard j, and over gloo the chunk programs run eagerly on the
+card (a gloo collective cannot sit in a captured graph; ``graphed`` is then
+off).  Host decisions,
 the Experiment, the proposer, the tracking DB, the lane scheduler and the
 fault injector all stay on rank 0; the other ranks only ever apply what it
 broadcasts.  A flight that dies on rank 0 ends on every rank (its ``end``
@@ -40,17 +46,25 @@ class LaneFlight:
 
     def __init__(self, trial, k: int, mesh=None, graphed: bool = False, ptb: bool = True,
                  ring_on: bool = False):
-        from ..train.population import flight_lease
+        from ..kernels import rmsnorm
+        from ..train.population import flight_lease, tp_layout
 
         self.trial = trial
         self.mesh = mesh
         self.k = int(k)
         self.tc, self.data = trial._setup()
+        if mesh is not None:
+            # the RMSNorm backward plans a rank's lanes as the whole
+            # population's (a process may hold meshes of two widths)
+            rmsnorm.plan_for_mesh(mesh.rows)
         self.dev = trial.device if mesh is None else mesh.device
         self.blk = self.k if mesh is None else mesh.block_size(self.k)
-        self.lo = 0 if mesh is None else mesh.rank * self.blk
+        self.lo = 0 if mesh is None else mesh.row * self.blk
         self.ptb = bool(ptb)
-        self.graphed = bool(graphed)
+        # a model rank of a two-level mesh: its programs run under the seams
+        self.tp = mesh if mesh is not None and mesh.width > 1 else None
+        self.layout = tp_layout(self.tc, mesh)
+        self.graphed = bool(graphed) and (self.tp is None or self.tp.backend == "nccl")
         self.state = None
         self.hp = None
         self.streams: list = []
@@ -64,7 +78,7 @@ class LaneFlight:
             # the state the chunk graphs captured is reused in place, not
             # held twice, and by one flight at a time
             self.out = self._stack.enter_context(
-                flight_lease(self.tc, self.blk, self.data, self.ptb, self.dev))
+                flight_lease(self.tc, self.blk, self.data, self.ptb, self.dev, self.tp))
         self.ring = self._make_ring() if ring_on else None
 
     # -- opening, closing and the worker side ------------------------------------
@@ -137,7 +151,7 @@ class LaneFlight:
         t = self.trial
         ds = t.host_dataset if t.host_dataset is not None else SynthHostDataset(self.data)
         capacity = t.ring_windows * t.chunk_steps
-        buf = (ring_buffer(self.tc, self.blk, self.data, capacity, self.dev)
+        buf = (ring_buffer(self.tc, self.blk, self.data, capacity, self.dev, self.tp)
                if self.dev.type == "cuda" else None)
         return PrefetchRing(ds, population=self.blk, win_steps=t.chunk_steps,
                             windows=t.ring_windows, device=self.dev, buffer=buf)
@@ -154,10 +168,11 @@ class LaneFlight:
         t = self.trial
         if per_lane:
             self.state = init_population_state_from_keys(
-                [t._generator(s) for s in self._block(streams)], self.tc, self.dev, out=self.out)
+                [t._generator(s) for s in self._block(streams)], self.tc, self.dev, out=self.out,
+                layout=self.layout)
         else:
             self.state = init_population_state(t._generator(0), self.tc, self.blk, self.dev,
-                                               out=self.out)
+                                               out=self.out, layout=self.layout)
         return self.state
 
     def set_hp(self, hps) -> None:
@@ -209,7 +224,8 @@ class LaneFlight:
         if self.feed is None:
             self.feed = HostPrefetcher(
                 lambda t: self.trial._batch(self.data, t, self.streams), self.dev)
-        _, metrics = self._pstep()(self.state, self.feed.pop(s), self.hp)
+        batch = self.feed.pop(s)
+        metrics = self._counted(1, lambda: self._pstep()(self.state, batch, self.hp))[1]
         if prefetch is not None:
             self.feed.prefetch(prefetch)  # host synthesis overlaps the device step
         return metrics
@@ -223,8 +239,7 @@ class LaneFlight:
 
         batch = to_device(self.data.make_population_batch(self._block(cursors), self.streams),
                           self.dev)
-        _, metrics = self._pstep()(self.state, batch, self.hp)
-        return metrics
+        return self._counted(1, lambda: self._pstep()(self.state, batch, self.hp))[1]
 
     def _pstep(self):
         from ..train.population import (
@@ -238,6 +253,19 @@ class LaneFlight:
                 if self.mesh is None else
                 get_compiled_sharded_population_step(self.tc, self.k, self.mesh, self.ptb))
         return self.step_fn
+
+    def _counted(self, steps: int, call):
+        """``call()`` (``steps`` population steps); on a two-level mesh the
+        model-group collectives a step issued are kept on the trial
+        (``model_axis_collectives``)."""
+        if self.tp is None:
+            return call()
+        from ..train.population import count_model_axis_collectives
+
+        out = []
+        n = count_model_axis_collectives(lambda: out.append(call()), steps)
+        self.trial.model_axis_collectives = max(self.trial.model_axis_collectives, n)
+        return out[0]
 
     def _steps0(self, cursors):
         if np.isscalar(cursors):
@@ -255,8 +283,9 @@ class LaneFlight:
 
         prog = get_compiled_population_scan_step(self.tc, self.k, self.data, t,
                                                  per_trial_batch=self.ptb, mesh=self.mesh)
-        _, metrics = prog(self.state, self.hp, self._steps0(cursors), self.s_lo, self.s_hi)
-        return metrics
+        steps0 = self._steps0(cursors)
+        return self._counted(t, lambda: prog(self.state, self.hp, steps0, self.s_lo,
+                                             self.s_hi))[1]
 
     def rule_chunk(self, t: int, mode: str, rules, cursors):
         """A chunk carrying ``mode``'s rule (``rules``: the global rule state
@@ -271,8 +300,9 @@ class LaneFlight:
             rules = shard_rule_state(rules, mode, self.mesh, self.k)
         prog = get_compiled_population_rule_scan_step(self.tc, self.k, self.data, t, mode,
                                                       per_trial_batch=self.ptb, mesh=self.mesh)
-        (_, rout), metrics = prog(self.state, self.hp, self._steps0(cursors), self.s_lo,
-                                  self.s_hi, rules)
+        steps0 = self._steps0(cursors)
+        (_, rout), metrics = self._counted(t, lambda: prog(self.state, self.hp, steps0,
+                                                           self.s_lo, self.s_hi, rules))
         return rout, metrics
 
     def ring_chunk(self, s: int, t: int):
@@ -286,9 +316,10 @@ class LaneFlight:
 
         ring = self.ring
         ring.wait_filled(s, t)
-        _, metrics = get_compiled_population_ring_scan_step(
-            self.tc, self.k, self.data, t, ring.capacity, mesh=self.mesh)(
-                self.state, self.hp, ring.slots, s % ring.capacity)
+        prog = get_compiled_population_ring_scan_step(self.tc, self.k, self.data, t,
+                                                      ring.capacity, mesh=self.mesh)
+        _, metrics = self._counted(t, lambda: prog(self.state, self.hp, ring.slots,
+                                                   s % ring.capacity))
         ring.consume_to(s + t)
         return metrics
 

@@ -83,8 +83,14 @@ ranks::
     torchrun --nproc-per-node 2 -m repro_torch.launch.hpo --device cpu \
         --vectorize 4 --shard-population
 
-The two-level mesh (``--model-parallel``) and ``--elastic-regrid`` come
-with later parts of ROADMAP.md item 12 and are refused naming them.
+With ``--model-parallel W`` as well the mesh is two-level: its N ranks
+form N/W lane rows of W ranks, K/(N/W) lanes a row, and each lane is a
+width-W tensor-parallel program over its row (attention heads, MLP ``ff``
+and Mamba channels split as the width rules say, the all-reduces at the
+model's seams); the JSON gains ``model_parallel`` and
+``model_axis_collectives`` (the model-group collectives a step issues) and
+the engine ``+tp{W}``.  ``--elastic-regrid`` comes with a later part of
+ROADMAP.md item 12 and is refused naming it.
 """
 from __future__ import annotations
 
@@ -248,6 +254,7 @@ class PopulationTrial:
         self.record_lane_op = None  # callable(op, pstate, lanes, donors) after a lane op
         # [[boundary_step, steps, s_per_step], ...] between rung boundaries
         self.per_rung_step_time_s: list = []
+        self.model_axis_collectives = 0   # model-group collectives a step (two-level mesh)
         self.n_dispatches = 0       # device calls issued (steps, chunks, lane ops)
         self.n_train_steps = 0      # population steps those calls advanced
         self.n_lane_steps = 0       # lane-steps computed: K a population step
@@ -1221,16 +1228,12 @@ SPACE = [
 # flags of the JAX CLI whose engines come with a later part of the port
 _ITEM = "ROADMAP.md section 1, item {}"
 _LATER_FLAGS = (
-    ("model_parallel", "--model-parallel", _ITEM.format("12(b) (the two-level (pop, model) mesh)")),
     ("elastic_regrid", "--elastic-regrid", _ITEM.format("12(c) (elastic regrid)")),
 )
 
 
 def _later(args, name: str) -> bool:
-    val = getattr(args, name)
-    if name == "model_parallel":
-        return val > 1
-    return bool(val)
+    return bool(getattr(args, name))
 
 
 def main(argv=None) -> int:
@@ -1343,12 +1346,12 @@ def main(argv=None) -> int:
                         "(K is padded to a multiple of N with 0-budget trials): "
                         "torchrun's ranks, else one rank per visible GPU (--device "
                         "cuda) or a world of one (--device cpu)")
-    for flag, kw in (
-        ("--elastic-regrid", dict(action="store_true")),
-        ("--model-parallel", dict(type=int, default=1, metavar="W")),
-    ):
-        p.add_argument(flag, help="not ported yet: refused with the ROADMAP.md "
-                                  "item that brings it", **kw)
+    p.add_argument("--model-parallel", type=int, default=1, metavar="W",
+                   help="with --shard-population: fold the ranks into lane rows of W, "
+                        "each lane a width-W tensor-parallel program over its row "
+                        "(heads, ff and Mamba channels split; 1 = width 1)")
+    p.add_argument("--elastic-regrid", action="store_true",
+                   help="not ported yet: refused with the ROADMAP.md item that brings it")
     args = p.parse_args(argv)
 
     from ..core.tracking.database import TrackingDB
@@ -1370,12 +1373,20 @@ def main(argv=None) -> int:
         for key, val in (row["exp_config"].get("cli") or {}).items():
             setattr(args, key, val)
 
+    if args.model_parallel < 1:
+        p.error("--model-parallel must be >= 1")
+    if args.model_parallel > 1:
+        if not args.shard_population:
+            p.error("--model-parallel W splits each lane's tensors over a W-rank row of "
+                    "the population mesh; it requires --vectorize K with "
+                    "--shard-population")
+        if args.elastic_regrid:
+            p.error("--model-parallel is incompatible with --elastic-regrid: elastic "
+                    "flights lease their own lane widths (the regrid is the width change)")
     for name, flag, item in _LATER_FLAGS:
         if _later(args, name):
             p.error(f"{flag} is not ported to the PyTorch package yet; it comes "
                     f"with {item}")
-    if args.model_parallel < 1:
-        p.error("--model-parallel must be >= 1")
     try:
         model_config(args.arch)
     except KeyError as e:
@@ -1454,7 +1465,19 @@ def main(argv=None) -> int:
             # one rank per visible GPU, as the JAX mesh takes every local
             # device: this process starts them and waits
             return _spawn_ranks(argv, n_local)
-        mesh = population_mesh(args.device)
+        if args.model_parallel > 1:
+            from ..distributed.sharding import tp_width_rules
+
+            cfg = model_config(args.arch)
+            if not tp_width_rules(cfg, args.model_parallel):
+                p.error(f"--model-parallel {args.model_parallel} shards nothing of "
+                        f"{args.arch} (heads={cfg.n_heads}, kv={cfg.n_kv_heads}, "
+                        f"ff={cfg.d_ff}, moe={cfg.has_moe}): pick a width dividing the "
+                        f"module dims")
+        try:
+            mesh = population_mesh(args.device, width=args.model_parallel)
+        except ValueError as e:   # a width that does not tile the ranks
+            p.error(str(e))
 
     exp_cfg = {
         "proposer": args.proposer,
@@ -1499,6 +1522,8 @@ def main(argv=None) -> int:
         exp_cfg["n_parallel"] = args.vectorize
         if args.lane_refill:
             exp_cfg["lane_refill"] = True
+        if args.model_parallel > 1:
+            exp_cfg["model_parallel"] = args.model_parallel
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
                                 population=args.vectorize, chunk_steps=args.chunk_steps,
                                 device_rules=args.device_rules,
@@ -1527,7 +1552,7 @@ def main(argv=None) -> int:
         "snapshot_every", "snapshot_dir", "legacy_recompile", "pbt_streaming",
         "pbt_async", "device_rules",
         "data_ring", "ring_windows", "fused_rmsnorm", "fused_attention", "fused_ssm",
-        "device", "max_flight_restarts")}
+        "device", "max_flight_restarts", "model_parallel")}
     t0 = time.time()
     try:
         if resume_db is not None:
@@ -1559,6 +1584,7 @@ def main(argv=None) -> int:
         "engine": ("legacy-recompile" if args.legacy_recompile else
                    "serial" if args.vectorize == 0 else
                    "sharded" if args.shard_population else "vmapped")
+                  + (f"+tp{args.model_parallel}" if args.model_parallel > 1 else "")
                   + ("+refill" if args.lane_refill else "")
                   + ("+chunked" if args.chunk_steps > 1 else "")
                   + ("+ring" if args.data_ring else "")
@@ -1586,10 +1612,10 @@ def main(argv=None) -> int:
         out["ring_fill_busy_s"] = round(trial.ring_fill_busy_s, 4)
         out["overlap_frac"] = round(trial.ring_overlap_frac, 4)
     if mesh is not None:
-        # width 1: a lane row is one rank, so the model axis carries no
-        # collective (the two-level mesh is ROADMAP.md section 1, item 12(b))
-        out["model_parallel"] = 1
-        out["model_axis_collectives"] = 0
+        # the model-group collectives a step issued (the seams' and the
+        # gradient norm's): 0 at width 1, where a lane row is one rank
+        out["model_parallel"] = mesh.width
+        out["model_axis_collectives"] = int(trial.model_axis_collectives)
         out["mesh_ranks"] = mesh.world_size
         out["mesh_backend"] = mesh.backend
         out["n_degraded_flights"] = exp.rm.n_degraded_flights

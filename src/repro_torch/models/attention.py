@@ -23,8 +23,9 @@ import math
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import tp_enter, tp_reduce
 from ..kernels import ops, ref
-from .layers import Params, apply_rmsnorm, dense_init, dtype_of, einsum, rmsnorm_init
+from .layers import Params, Specs, apply_rmsnorm, dense_init, dtype_of, einsum, rmsnorm_init
 from .rope import apply_rope
 
 
@@ -40,6 +41,11 @@ def gqa_init(gen, cfg: ModelConfig, device) -> Params:
     }
 
 
+def gqa_specs(cfg: ModelConfig) -> Specs:
+    return {"wq": ("embed", "heads", "head"), "wk": ("embed", "kv_heads", "head"),
+            "wv": ("embed", "kv_heads", "head"), "wo": ("heads", "head", "embed")}
+
+
 def gqa_apply(
     p: Params,
     x: torch.Tensor,                     # (K, B, S, d)
@@ -48,10 +54,13 @@ def gqa_apply(
     *,
     local: bool = False,
 ) -> torch.Tensor:
+    # on a two-level mesh the heads shard over the row: q, k, v are
+    # column-parallel (their input through tp_enter), wo row-parallel
     K, B, S, _ = x.shape
-    q = einsum("kbsd,kdhe->kbshe", x, p["wq"])
-    k = einsum("kbsd,kdhe->kbshe", x, p["wk"])
-    v = einsum("kbsd,kdhe->kbshe", x, p["wv"])
+    xs = tp_enter(x, "attn")
+    q = einsum("kbsd,kdhe->kbshe", xs, p["wq"])
+    k = einsum("kbsd,kdhe->kbshe", xs, p["wk"])
+    v = einsum("kbsd,kdhe->kbshe", xs, p["wv"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.attention(
@@ -63,7 +72,7 @@ def gqa_apply(
         softcap=cfg.attn_softcap,
     )
     out = out.reshape((K, B) + out.shape[1:])
-    return einsum("kbshe,khed->kbsd", out, p["wo"])
+    return tp_reduce(einsum("kbshe,khed->kbsd", out, p["wo"]), "attn")
 
 
 def gqa_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
@@ -73,14 +82,19 @@ def gqa_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def gqa_cache_specs(cfg: ModelConfig) -> Specs:
+    return {"k": ("batch", "cache_seq", "kv_heads", "head"),
+            "v": ("batch", "cache_seq", "kv_heads", "head")}
+
+
 def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg: ModelConfig, *,
                local: bool = False):
     """x (K, B, 1, d) at position ``pos`` -> (y (K, B, 1, d), cache): k and v
     written into the cache at ``pos`` in place, the same tree returned."""
     K, B = x.shape[:2]
-    q = torch.einsum("kbsd,kdhe->kbshe", x, p["wq"])
-    k = torch.einsum("kbsd,kdhe->kbshe", x, p["wk"])
-    v = torch.einsum("kbsd,kdhe->kbshe", x, p["wv"])
+    q = einsum("kbsd,kdhe->kbshe", x, p["wq"])
+    k = einsum("kbsd,kdhe->kbshe", x, p["wk"])
+    v = einsum("kbsd,kdhe->kbshe", x, p["wv"])
     positions = torch.full((1,), pos, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -98,7 +112,7 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg: ModelCo
         kv_len=pos + 1,
     )
     out = out.reshape((K, B) + out.shape[1:])
-    return torch.einsum("kbshe,khed->kbsd", out, p["wo"]), cache
+    return einsum("kbshe,khed->kbsd", out, p["wo"]), cache
 
 
 # =============================== MLA ==============================================
@@ -116,14 +130,23 @@ def mla_init(gen, cfg: ModelConfig, device) -> Params:
     }
 
 
+def mla_specs(cfg: ModelConfig) -> Specs:
+    return {"wq": ("embed", "heads", "head"), "wkv_a": ("embed", None), "kv_norm": (None,),
+            "wk_b": (None, "heads", "head"), "wv_b": (None, "heads", "head"),
+            "wo": ("heads", "head", "embed")}
+
+
 def _mla_qkc(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     """x (K, B, S, d) -> (q_nope (K,B,S,H,Dh), q_rope (K,B,S,H,rr), c (K,B,S,r)
     normed by the per-lane ``kv_norm`` (K, r), k_rope (K,B,S,rr))."""
     Dh, r = cfg.resolved_head_dim, cfg.kv_lora_rank
-    q = torch.einsum("kbsd,kdhe->kbshe", x, p["wq"])
+    # wq is head-sharded on a two-level mesh, so its input enters through
+    # the seam; wkv_a and kv_norm are replicated and take the raw x (through
+    # the seam their gradient would be counted width times)
+    q = einsum("kbsd,kdhe->kbshe", tp_enter(x, "attn"), p["wq"])
     q_nope, q_rope = q[..., :Dh], q[..., Dh:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    ckv = torch.einsum("kbsd,kdr->kbsr", x, p["wkv_a"])
+    ckv = einsum("kbsd,kdr->kbsr", x, p["wkv_a"])
     c, k_rope = ckv[..., :r], ckv[..., r:]
     c = apply_rmsnorm(c, p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta, heads=False)
@@ -137,8 +160,13 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     K, B, S, _ = x.shape
     rr = cfg.rope_head_dim
     q_nope, q_rope, c, k_rope = _mla_qkc(p, x, cfg, positions)
-    k_nope = torch.einsum("kbsr,krhe->kbshe", c, p["wk_b"])
-    v = torch.einsum("kbsr,krhe->kbshe", c, p["wv_b"])
+    # replicated activations feeding head-sharded consumers: their
+    # head-local partial gradients sum over the row before the replicated
+    # wkv_a / kv_norm branch takes them
+    c = tp_enter(c, "attn")
+    k_rope = tp_enter(k_rope, "attn")
+    k_nope = einsum("kbsr,krhe->kbshe", c, p["wk_b"])
+    v = einsum("kbsr,krhe->kbshe", c, p["wv_b"])
     k_rope_h = k_rope[:, :, :, None, :].expand(k_nope.shape[:4] + (rr,))
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope_h], dim=-1)
@@ -150,7 +178,7 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         scale=1.0 / math.sqrt(cfg.resolved_head_dim + rr),
     )
     out = out.reshape((K, B) + out.shape[1:])
-    return torch.einsum("kbshe,khed->kbsd", out, p["wo"])
+    return tp_reduce(einsum("kbshe,khed->kbsd", out, p["wo"]), "attn")
 
 
 def mla_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
@@ -159,6 +187,10 @@ def mla_cache_init(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
                              device=device),
             "kr": torch.zeros((K, batch, max_seq, cfg.rope_head_dim), dtype=dtype,
                               device=device)}
+
+
+def mla_cache_specs(cfg: ModelConfig) -> Specs:
+    return {"c": ("batch", "cache_seq", None), "kr": ("batch", "cache_seq", None)}
 
 
 def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg: ModelConfig):
@@ -182,4 +214,4 @@ def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: int, cfg: ModelCo
     probs = torch.softmax(scores, dim=-1)
     out_lat = torch.einsum("kbhqs,kbsr->kbqhr", probs, ccf)
     out = torch.einsum("kbqhr,krhe->kbqhe", out_lat, p["wv_b"].float()).to(x.dtype)
-    return torch.einsum("kbshe,khed->kbsd", out, p["wo"]), cache
+    return einsum("kbshe,khed->kbsd", out, p["wo"]), cache

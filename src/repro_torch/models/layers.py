@@ -1,6 +1,8 @@
 """Shared primitives: initializers, norms, embeddings, dtype plumbing.
 
-Parameters are plain nested dicts of tensors in the JAX package's layout.
+Parameters are plain nested dicts of tensors in the JAX package's layout;
+a ``*_specs`` function gives a tree's logical axis names, per leaf a tuple
+(without the lane axis), as the JAX package's do.
 ``*_init`` functions build one trial's tree (no lane axis) from a
 ``torch.Generator``; the apply functions take a lane-batched tree, every leaf
 with a leading lane axis K, and activations shaped ``(K, B, S, ...)``.
@@ -17,6 +19,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 
 Params = Dict[str, Any]
+Specs = Dict[str, Any]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -49,6 +52,12 @@ def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *(o if o.dtype == dt else o.to(dt) for o in operands))
 
 
+def bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` with ``einsum``'s dtype promotion."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.bmm(a if a.dtype == dt else a.to(dt), b if b.dtype == dt else b.to(dt))
+
+
 def _trunc_normal(gen: torch.Generator, shape: Tuple[int, ...], std: float,
                   dtype, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -74,6 +83,10 @@ def rmsnorm_init(d: int, dtype, device) -> torch.Tensor:
     return torch.zeros((d,), dtype=dtype, device=device)  # stored as (gamma - 1)
 
 
+def rmsnorm_specs() -> Tuple:
+    return (None,)
+
+
 def apply_rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     """x (K, ..., d), gamma (K, d)."""
     return ops.rmsnorm(x, gamma, eps=eps)
@@ -86,6 +99,13 @@ def embedding_init(gen, cfg: ModelConfig, device) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), pdt, device)
     return p
+
+
+def embedding_specs(cfg: ModelConfig) -> Specs:
+    s = {"embed": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = ("embed", "vocab")
+    return s
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import tp_enter, tp_reduce
 from ..kernels import ops
-from .layers import Params, dense_init, dtype_of
+from .layers import Params, Specs, dense_init, dtype_of, einsum
 
 
 def mamba_init(gen, cfg: ModelConfig, device) -> Params:
@@ -47,6 +48,13 @@ def mamba_init(gen, cfg: ModelConfig, device) -> Params:
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> Specs:
+    return {"in_proj": ("embed", None, "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None), "dt_proj": (None, "inner"),
+            "dt_bias": ("inner",), "A_log": ("inner", None), "D": ("inner",),
+            "out_proj": ("inner", "embed")}
+
+
 def _split_xproj(h: torch.Tensor, cfg: ModelConfig):
     """x_proj output -> (dt_raw, B, C), in that order."""
     dr, N = cfg.dt_rank, cfg.ssm_state
@@ -65,17 +73,22 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (K, B, S, d) -> (K, B, S, d)."""
-    uz = torch.einsum("kbsd,kdci->kbsci", x, p["in_proj"])
+    """x (K, B, S, d) -> (K, B, S, d).  On a two-level mesh the whole mixer
+    runs on the row's share of the ``d_inner`` channels: ``in_proj``
+    column-parallel, ``out_proj`` row-parallel; ``x_proj``'s output (dt_raw,
+    B, C: every channel reads them) is closed by ``tp_reduce`` and enters
+    the width-sharded consumers again through ``tp_enter``."""
+    uz = einsum("kbsd,kdci->kbsci", tp_enter(x, "mamba"), p["in_proj"])
     u, z = uz[..., 0, :], uz[..., 1, :]
     u = F.silu(_causal_conv(u, p["conv_w"], p["conv_b"]))
-    dt_raw, Bc, Cc = _split_xproj(torch.einsum("kbsi,kij->kbsj", u, p["x_proj"]), cfg)
-    dt = F.softplus(torch.einsum("kbsr,kri->kbsi", dt_raw, p["dt_proj"])
+    h = tp_enter(tp_reduce(einsum("kbsi,kij->kbsj", u, p["x_proj"]), "mamba"), "mamba")
+    dt_raw, Bc, Cc = _split_xproj(h, cfg)
+    dt = F.softplus(einsum("kbsr,kri->kbsi", dt_raw, p["dt_proj"])
                     + p["dt_bias"][:, None, None])
     A = -torch.exp(p["A_log"].float())
     y, _ = ops.ssm_scan(u, dt, A, Bc, Cc, p["D"].float())
     y = y * F.silu(z)
-    return torch.einsum("kbsi,kid->kbsd", y, p["out_proj"])
+    return tp_reduce(einsum("kbsi,kid->kbsd", y, p["out_proj"]), "mamba")
 
 
 def mamba_cache_init(cfg: ModelConfig, K: int, batch: int, dtype, device) -> Params:
@@ -87,10 +100,14 @@ def mamba_cache_init(cfg: ModelConfig, K: int, batch: int, dtype, device) -> Par
     }
 
 
+def mamba_cache_specs(cfg: ModelConfig) -> Specs:
+    return {"conv": ("batch", None, "inner"), "h": ("batch", "inner", None)}
+
+
 def mamba_decode(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig):
     """Single-token step, x (K, B, 1, d) -> (out (K, B, 1, d), cache): the conv
     window and ``h`` advanced in place, the same tree returned."""
-    uz = torch.einsum("kbsd,kdci->kbsci", x, p["in_proj"])
+    uz = einsum("kbsd,kdci->kbsci", x, p["in_proj"])
     u, z = uz[:, :, 0, 0], uz[:, :, 0, 1]                              # (K, B, di)
     ct = torch.promote_types(u.dtype, cache["conv"].dtype)
     window = torch.cat([cache["conv"].to(ct), u[:, :, None].to(ct)], dim=2)  # (K, B, Kc, di)

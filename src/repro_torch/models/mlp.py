@@ -1,11 +1,16 @@
-"""Dense FFN: SwiGLU (llama/gemma family) or GeLU (starcoder2), lane-batched."""
+"""Dense FFN: SwiGLU (llama/gemma family) or GeLU (starcoder2), lane-batched.
+
+On a two-level population mesh ``wi`` is column-parallel over ``ff`` and
+``wo`` row-parallel: one all-reduce a forward and one a backward, through
+the seams (no-ops elsewhere)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import Params, dense_init, dtype_of, einsum
+from ..distributed.sharding import tp_enter, tp_reduce
+from .layers import Params, Specs, dense_init, dtype_of, einsum
 
 
 def mlp_init(gen, cfg: ModelConfig, device, d_ff: int = 0) -> Params:
@@ -19,12 +24,16 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: int = 0) -> Params:
     }
 
 
+def mlp_specs(cfg: ModelConfig) -> Specs:
+    return {"wi": ("embed", None, "ff"), "wo": ("ff", "embed")}
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x (K, B, S, d); wi (K, d, c, ff); wo (K, ff, d)."""
-    h = einsum("kbsd,kdcf->kbscf", x, p["wi"])
+    h = einsum("kbsd,kdcf->kbscf", tp_enter(x, "mlp"), p["wi"])
     if cfg.activation == "swiglu":
         h = F.silu(h[..., 0, :]) * h[..., 1, :]
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h[..., 0, :], approximate="tanh")
-    return einsum("kbsf,kfd->kbsd", h, p["wo"])
+    return tp_reduce(einsum("kbsf,kfd->kbsd", h, p["wo"]), "mlp")

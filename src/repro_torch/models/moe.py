@@ -5,8 +5,10 @@ Every lane routes its own tokens with its own capacity, as the JAX package's
 population ``vmap`` of ``repro.models.moe.moe_apply`` does: x is
 ``(K, B, S, d)``; the router is ``(K, d, E)`` in fp32, ``wi`` ``(K, E, d,
 n_in, ff)``, ``wo`` ``(K, E, ff, d)``, ``shared`` as in ``mlp.py``.  The
-grouped plain path is the only one: the expert-parallel ``shard_map`` path
-comes with the two-level mesh (ROADMAP.md section 1, item 12(b)).
+grouped plain path is the only one: the experts stay replicated on the
+population engines' two-level mesh, and the expert-parallel ``shard_map``
+path of a single trial's mesh comes with ROADMAP.md section 1, item 12(b)
+part two.
 
 The dispatch is built so that nothing accumulates into one element from
 several places, forward or backward, so a step's bits do not depend on the
@@ -38,8 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .layers import Params, dense_init, dtype_of, lane_sum, per_lane
-from .mlp import mlp_apply, mlp_init
+from .layers import Params, Specs, bmm, dense_init, dtype_of, lane_sum, per_lane
+from .mlp import mlp_apply, mlp_init, mlp_specs
 
 
 def moe_init(gen, cfg: ModelConfig, device) -> Params:
@@ -56,6 +58,14 @@ def moe_init(gen, cfg: ModelConfig, device) -> Params:
     if cfg.n_shared_experts:
         p["shared"] = mlp_init(gen, cfg, device, d_ff=cfg.n_shared_experts * cfg.moe_d_ff)
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> Specs:
+    s = {"router": ("embed", None), "wi": ("expert", "embed", None, "moe_ff"),
+         "wo": ("expert", "moe_ff", "embed")}
+    if cfg.n_shared_experts:
+        s["shared"] = mlp_specs(cfg)
+    return s
 
 
 def dispatch_groups(T: int, cfg: ModelConfig, dropless: bool = False) -> int:
@@ -77,7 +87,7 @@ def route(router: torch.Tensor, xt: torch.Tensor, k: int):
     """Softmax router and top ``k``: xt (K, G, Tg, d), router (K, d, E) ->
     probs (K, G, Tg, E), top_p renormalised and top_e (K, G, Tg, k)."""
     K, G, Tg, d = xt.shape
-    logits = torch.bmm(xt.float().reshape(K, G * Tg, d), router).reshape(K, G, Tg, -1)
+    logits = bmm(xt.float().reshape(K, G * Tg, d), router).reshape(K, G, Tg, -1)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[..., :k], top_e[..., :k]
@@ -122,12 +132,12 @@ def experts(buf: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     K, G, E, C, d = buf.shape
     n_in, ff = p["wi"].shape[-2:]
     xe = buf.transpose(1, 2).reshape(K * E, G * C, d)
-    h = torch.bmm(xe, p["wi"].reshape(K * E, d, n_in * ff)).view(K * E, G * C, n_in, ff)
+    h = bmm(xe, p["wi"].reshape(K * E, d, n_in * ff)).view(K * E, G * C, n_in, ff)
     if cfg.activation == "swiglu":
         h = F.silu(h[:, :, 0]) * h[:, :, 1]
     else:
         h = F.gelu(h[:, :, 0], approximate="tanh")   # jax.nn.gelu's default
-    out = torch.bmm(h, p["wo"].reshape(K * E, ff, d))
+    out = bmm(h, p["wo"].reshape(K * E, ff, d))
     return out.view(K, E, G, C, d).transpose(1, 2).reshape(K, G, E * C, d)
 
 

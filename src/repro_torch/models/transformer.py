@@ -41,11 +41,14 @@ from . import mlp as mlpm
 from . import moe as moem
 from .layers import (
     Params,
+    Specs,
     apply_rmsnorm,
     dtype_of,
     embed_tokens,
     embedding_init,
+    embedding_specs,
     rmsnorm_init,
+    rmsnorm_specs,
     unembed,
 )
 
@@ -91,6 +94,48 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     params["blocks"] = blocks
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype_of(cfg.param_dtype), device)
     return params
+
+
+_MIXER_SPECS = {"attn": attn.gqa_specs, "attn_local": attn.gqa_specs,
+                "attn_mla": attn.mla_specs, "mamba": mam.mamba_specs}
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(i is None or isinstance(i, str) for i in x)
+
+
+def _stacked(specs: Specs) -> Specs:
+    """Each spec of a superblock's tree with the leading ``n_superblocks``
+    axis (unnamed) in front."""
+    if _is_spec(specs):
+        return (None,) + specs
+    if isinstance(specs, dict):
+        return {k: _stacked(v) for k, v in specs.items()}
+    return [_stacked(v) for v in specs]
+
+
+def _layer_specs(mixer: str, ffn: str, cfg: ModelConfig) -> Specs:
+    s: Specs = {"norm1": rmsnorm_specs(), "mixer": _MIXER_SPECS[mixer](cfg)}
+    if cfg.post_norm:
+        s["norm1_post"] = rmsnorm_specs()
+    if ffn != "none":
+        s["norm2"] = rmsnorm_specs()
+        s["ffn"] = moem.moe_specs(cfg) if ffn == "moe" else mlpm.mlp_specs(cfg)
+        if cfg.post_norm:
+            s["norm2_post"] = rmsnorm_specs()
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> Specs:
+    """The parameter tree's logical axis names (per trial, no lane axis),
+    the JAX package's ``param_specs``."""
+    specs: Specs = {"embedding": embedding_specs(cfg)}
+    if cfg.prefix_pattern:
+        specs["prefix"] = [_layer_specs(m, f, cfg) for m, f in cfg.prefix_pattern]
+    specs["blocks"] = _stacked({f"l{i}": _layer_specs(m, f, cfg)
+                                for i, (m, f) in enumerate(cfg.pattern)})
+    specs["final_norm"] = rmsnorm_specs()
+    return specs
 
 
 # ------------------------------ forward (train / prefill) ------------------------------
@@ -212,6 +257,25 @@ def init_cache(cfg: ModelConfig, K: int, batch: int, max_seq: int, dtype,
     cache["blocks"] = tree_map(
         lambda a: a[:, None].repeat((1, cfg.n_superblocks) + (1,) * (a.dim() - 1)), one)
     return cache
+
+
+def _layer_cache_specs(mixer: str, cfg: ModelConfig) -> Specs:
+    if mixer == "mamba":
+        return mam.mamba_cache_specs(cfg)
+    if mixer == "attn_mla":
+        return attn.mla_cache_specs(cfg)
+    return attn.gqa_cache_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig) -> Specs:
+    """The decode cache tree's logical axis names (per trial), the JAX
+    package's ``cache_specs``."""
+    specs: Specs = {}
+    if cfg.prefix_pattern:
+        specs["prefix"] = [_layer_cache_specs(m, cfg) for m, _ in cfg.prefix_pattern]
+    specs["blocks"] = _stacked({f"l{i}": _layer_cache_specs(m, cfg)
+                                for i, (m, _) in enumerate(cfg.pattern)})
+    return specs
 
 
 def _layer_decode(lp: Params, x: torch.Tensor, cache: Params, pos: int, mixer: str,

@@ -73,10 +73,19 @@ def _slices(p: torch.Tensor) -> list:
 
 def global_norm(grads) -> torch.Tensor:
     """Per-lane L2 norm (K,) over all leaves, each lane's sums its own
-    reductions (``lane_sum``)."""
+    reductions (``lane_sum``).  Under the two-level mesh's seams
+    (``distributed.sharding.tp_shard_context``) a width-sharded leaf holds
+    only its shard, so those leaves' sums are all-reduced over the lane row
+    and the replicated leaves' counted once: every rank of the row clips
+    with the same, whole norm."""
+    from ..distributed.sharding import tp_gnorm_sumsq
+
+    sqs = [lane_sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    tp_total = tp_gnorm_sumsq(sqs, grads)
+    if tp_total is not None:
+        return torch.sqrt(tp_total)
     total = None
-    for g in tree_leaves(grads):
-        sq = lane_sum(torch.square(g.float()))
+    for sq in sqs:
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 

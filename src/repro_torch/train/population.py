@@ -79,14 +79,18 @@ def _wrap(inner, k: int, device) -> PopState:
     }
 
 
-def _init_into(out: PopState, gens, tc: TrainConfig, device) -> PopState:
+def _init_into(out: PopState, gens, tc: TrainConfig, device, layout=None) -> PopState:
     """Write a fresh population state into ``out``'s tensors: lane ``i``'s
     parameters from ``gens[i]`` (one generator: every lane), a zero optimizer
     state, as ``train_step.init_train_state`` makes them.  Only one lane's
-    parameters are allocated beside ``out``."""
+    parameters are allocated beside ``out``.  With ``layout`` (a
+    ``TPLayout``) ``out`` holds a model rank's shards, and each lane's
+    parameters are drawn whole and sliced to them."""
     if len(gens) > 1:
-        return _reinit_lanes(out, range(len(gens)), gens, tc)
+        return _reinit_lanes(out, range(len(gens)), gens, tc, layout)
     params = ts.init_params(gens[0], tc, device)
+    if layout is not None:
+        params = layout.params(params)
     tree_map(lambda dst, x: dst.copy_(x[None].expand_as(dst)), out["inner"]["params"], params)
     del params
     for leaf in tree_leaves(out["inner"]["opt"]):
@@ -97,21 +101,26 @@ def _init_into(out: PopState, gens, tc: TrainConfig, device) -> PopState:
 
 
 def init_population_state(gen: torch.Generator, tc: TrainConfig, population: int,
-                          device, out: Optional[PopState] = None) -> PopState:
+                          device, out: Optional[PopState] = None,
+                          layout=None) -> PopState:
     """K identical trials from one generator: every lane starts from the same
     weights (the serial driver inits every trial from the same seed); only
     their hyperparameters differ.  With ``out`` (a population state of the
     same geometry) the new state is written into its tensors, so only one
-    lane's parameters are allocated beside it."""
+    lane's parameters are allocated beside it.  With ``layout`` the state is
+    a model rank's shards of it (``TPLayout``)."""
     if out is not None:
-        return _init_into(out, [gen], tc, device)
+        return _init_into(out, [gen], tc, device, layout)
     one = ts.init_train_state(gen, tc, device)
+    if layout is not None:
+        one = layout.inner(one)
     inner = tree_map(lambda x: x[None].repeat((population,) + (1,) * x.dim()), one)
     return _wrap(inner, population, device)
 
 
 def init_population_state_from_keys(gens, tc: TrainConfig, device,
-                                    out: Optional[PopState] = None) -> PopState:
+                                    out: Optional[PopState] = None,
+                                    layout=None) -> PopState:
     """One trial per generator (per-trial init weights); ``out`` as in
     ``init_population_state``.  Without ``out``, lane 0's state is made
     for every lane and the other lanes then draw their parameters in place,
@@ -119,9 +128,9 @@ def init_population_state_from_keys(gens, tc: TrainConfig, device,
     and their stack."""
     gens = list(gens)
     if out is not None:
-        return _init_into(out, gens, tc, device)
-    out = init_population_state(gens[0], tc, len(gens), device)
-    return _reinit_lanes(out, range(1, len(gens)), gens[1:], tc)
+        return _init_into(out, gens, tc, device, layout)
+    out = init_population_state(gens[0], tc, len(gens), device, layout=layout)
+    return _reinit_lanes(out, range(1, len(gens)), gens[1:], tc, layout)
 
 
 # -- lane ops ------------------------------------------------------------------
@@ -149,15 +158,19 @@ def _lanes_of(mask) -> list:
     return [int(i) for i in np.flatnonzero(np.asarray(mask, bool))]
 
 
-def _reinit_lanes(pstate: PopState, lanes: Sequence[int], gens, tc: TrainConfig) -> PopState:
+def _reinit_lanes(pstate: PopState, lanes: Sequence[int], gens, tc: TrainConfig,
+                  layout=None) -> PopState:
     """Lane ``lanes[j]`` takes fresh parameters from ``gens[j]`` (through
-    ``train_step.init_params``), a zero optimizer state, a cleared
-    divergence latch and the ``last_loss`` sentinel."""
+    ``train_step.init_params``; with ``layout`` sliced to the rank's
+    shards), a zero optimizer state, a cleared divergence latch and the
+    ``last_loss`` sentinel."""
     if not lanes:
         return pstate
     dev = pstate["diverged"].device
     for lane, g in zip(lanes, gens):
         params = ts.init_params(g, tc, dev)
+        if layout is not None:
+            params = layout.params(params)
         tree_map(lambda dst, x: dst[lane].copy_(x), pstate["inner"]["params"], params)
         del params
     idx = torch.as_tensor(list(lanes), dtype=torch.long, device=dev)
@@ -820,10 +833,12 @@ def _scan_key(chunk: int) -> Tuple:
 class _FlightGraphs:
     """The captured state and the graphs of one flight geometry on one card."""
 
-    def __init__(self, tc: TrainConfig, data, per_trial_batch: bool, device):
+    def __init__(self, tc: TrainConfig, data, per_trial_batch: bool, device, tp=None):
         self.device = device
         self.per_trial_batch = bool(per_trial_batch)
         self.warm_up_step = make_population_scan_step(tc, data, 1, per_trial_batch)
+        if tp is not None:
+            self.warm_up_step = _tp_body(self.warm_up_step, tc, tp)
         self.state: Optional[PopState] = None
         self.inputs: Optional[Tuple] = None     # (hp, steps0, stream_lo, stream_hi)
         self.rule_inputs: Dict[Tuple, Dict[str, torch.Tensor]] = {}   # (mode, shapes)
@@ -1020,33 +1035,55 @@ def _geometry(tc: TrainConfig, population: int, per_trial_batch: bool, data) -> 
 
 
 def _flight_graphs(tc: TrainConfig, population: int, per_trial_batch: bool, data,
-                   device) -> _FlightGraphs:
-    key = _geometry(tc, population, per_trial_batch, data) + (_device_key(device),)
+                   device, tp=None) -> _FlightGraphs:
+    """The graphs of a geometry on ``device``; ``tp`` (a two-level mesh)
+    keys a model rank's shards apart from a whole lane's."""
+    key = _geometry(tc, population, per_trial_batch, data) + (_device_key(device),) + (
+        () if tp is None else tp.key)
     with _POP_CACHE_LOCK:
         fg = _GRAPHS.get(key)
         if fg is None:
-            fg = _GRAPHS[key] = _FlightGraphs(tc, data, bool(per_trial_batch), device)
+            fg = _GRAPHS[key] = _FlightGraphs(tc, data, bool(per_trial_batch), device, tp)
     return fg
 
 
 class _ChunkProgram:
     """One entry of the chunk-program cache: ``chunk`` population steps for
     one flight geometry.  A CPU state runs the plain T-step loop; a CUDA
-    state replays the chunk's captured graph."""
+    state replays the chunk's captured graph.
+
+    With ``tp`` (a two-level mesh) the chunk is a model rank's: its steps
+    run under the seams (``_tp_body``).  gloo's collectives run on the host
+    and cannot sit in a captured graph, so over gloo such a chunk runs
+    eagerly on the card (``eager``); over NCCL it is captured."""
 
     def __init__(self, tc: TrainConfig, data, population: int, chunk: int,
-                 per_trial_batch: bool):
+                 per_trial_batch: bool, tp=None):
         self.fn = make_population_scan_step(tc, data, chunk, per_trial_batch)
         self.chunk = int(chunk)
         self._geometry = (tc, int(population), bool(per_trial_batch), data)
+        self.tp = tp
+        self.eager = tp is not None and tp.backend != "nccl"
+        self._armed_fn = None
+
+    def _armed(self) -> Callable:
+        """``fn``, under the seams for a model rank."""
+        if self.tp is None:
+            return self.fn
+        if self._armed_fn is None:
+            self._armed_fn = _tp_body(self.fn, self._geometry[0], self.tp)
+        return self._armed_fn
+
+    def _graphs(self, dev) -> _FlightGraphs:
+        return _flight_graphs(*self._geometry, dev, self.tp)
 
     def __call__(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi):
         dev = pstate["diverged"].device
-        if dev.type == "cpu":
-            return self.fn(pstate, hp, steps0, stream_lo, stream_hi)
+        if dev.type == "cpu" or (dev.type == "cuda" and self.eager):
+            return self._armed()(pstate, hp, steps0, stream_lo, stream_hi)
         if dev.type == "cuda":
-            return _flight_graphs(*self._geometry, dev).run(
-                self.fn, self.chunk, pstate, hp, steps0, stream_lo, stream_hi)
+            return self._graphs(dev).run(
+                self._armed(), self.chunk, pstate, hp, steps0, stream_lo, stream_hi)
         raise ValueError(f"chunk program: no path for device {dev}")
 
 
@@ -1056,29 +1093,33 @@ class _RuleChunkProgram(_ChunkProgram):
     sixth argument, it returns ``((pstate, rules), metrics)``.
 
     With ``mesh`` it is one rank's block of a sharded rule chunk: the rule
-    update gathers the lanes' vectors every step (``_sharded_rule_update``).
-    Under NCCL that gather is captured in the chunk's graph; gloo's
-    collectives run on the host and cannot be captured, so a gloo rank on a
-    card runs the chunk eagerly (``eager`` is then True)."""
+    update gathers the lanes' vectors every step (``_sharded_rule_update``),
+    and on a two-level mesh the steps run under the seams.  Under NCCL the
+    collectives are captured in the chunk's graph; gloo's run on the host
+    and cannot be captured, so a gloo rank on a card runs the chunk eagerly
+    (``eager`` is then True)."""
 
     def __init__(self, tc: TrainConfig, data, population: int, chunk: int, mode: str,
                  per_trial_batch: bool, mesh=None):
-        super().__init__(tc, data, population, chunk, per_trial_batch)
+        super().__init__(tc, data, population, chunk, per_trial_batch,
+                         tp=mesh if mesh is not None and mesh.width > 1 else None)
         self.update = (_RULE_UPDATES[mode] if mesh is None
                        else _sharded_rule_update(mode, mesh))
         self.fn = make_population_rule_scan_step(tc, data, chunk, mode, per_trial_batch,
                                                  rule_update=self.update)
-        self.mode = str(mode) if mesh is None else f"{mode}@{mesh.backend}{mesh.world_size}"
+        self.mode = str(mode) if mesh is None else (
+            f"{mode}@{mesh.backend}{mesh.world_size}"
+            + (f"x{mesh.width}" if mesh.width > 1 else ""))
         self.eager = mesh is not None and mesh.backend != "nccl"
 
     def __call__(self, pstate: PopState, hp: HParams, steps0, stream_lo, stream_hi, rules):
         dev = pstate["diverged"].device
         if dev.type == "cpu" or (dev.type == "cuda" and self.eager):
-            return self.fn(pstate, hp, steps0, stream_lo, stream_hi, rules)
+            return self._armed()(pstate, hp, steps0, stream_lo, stream_hi, rules)
         if dev.type == "cuda":
-            return _flight_graphs(*self._geometry, dev).run_rules(
-                self.fn, self.mode, self.update, self.chunk, pstate, hp, steps0, stream_lo,
-                stream_hi, rules)
+            return self._graphs(dev).run_rules(
+                self._armed(), self.mode, self.update, self.chunk, pstate, hp, steps0,
+                stream_lo, stream_hi, rules)
         raise ValueError(f"rule chunk program: no path for device {dev}")
 
 
@@ -1088,17 +1129,18 @@ class _RingChunkProgram(_ChunkProgram):
     slot0)``.  On the card ``ring`` must be the geometry's ring tensor
     (``ring_buffer``), the one its graphs read."""
 
-    def __init__(self, tc: TrainConfig, data, population: int, chunk: int, capacity: int):
-        super().__init__(tc, data, population, chunk, True)
+    def __init__(self, tc: TrainConfig, data, population: int, chunk: int, capacity: int,
+                 tp=None):
+        super().__init__(tc, data, population, chunk, True, tp=tp)
         self.fn = make_population_ring_scan_step(tc, data, chunk, capacity)
 
     def __call__(self, pstate: PopState, hp: HParams, ring, slot0):
         dev = pstate["diverged"].device
-        if dev.type == "cpu":
-            return self.fn(pstate, hp, ring, int(slot0))
+        if dev.type == "cpu" or (dev.type == "cuda" and self.eager):
+            return self._armed()(pstate, hp, ring, int(slot0))
         if dev.type == "cuda":
-            return _flight_graphs(*self._geometry, dev).run_ring(
-                self.fn, self.chunk, pstate, hp, ring, slot0)
+            return self._graphs(dev).run_ring(
+                self._armed(), self.chunk, pstate, hp, ring, slot0)
         raise ValueError(f"ring chunk program: no path for device {dev}")
 
 
@@ -1124,8 +1166,17 @@ def get_compiled_population_scan_step(tc: TrainConfig, population: int, data, ch
     this rank's block program, its metrics gathered whole."""
     if mesh is not None:
         _check_rows(population, mesh)
-        return _ShardedProgram(get_compiled_population_scan_step(
-            tc, mesh.block_size(population), data, chunk, per_trial_batch), mesh)
+        blk = mesh.block_size(population)
+        if mesh.width == 1:
+            return _ShardedProgram(get_compiled_population_scan_step(
+                tc, blk, data, chunk, per_trial_batch), mesh)
+        key = _geometry(tc, blk, per_trial_batch, data) + (int(chunk), "tp", mesh.key)
+        with _POP_CACHE_LOCK:
+            fn = _POP_CACHE.get(key)
+            if fn is None:
+                fn = _POP_CACHE[key] = _ShardedProgram(
+                    _ChunkProgram(tc, data, blk, chunk, per_trial_batch, tp=mesh), mesh)
+        return fn
     g = _geometry(tc, population, per_trial_batch, data)
     key = g[:-1] + (int(chunk), g[-1])
     with _POP_CACHE_LOCK:
@@ -1183,8 +1234,18 @@ def get_compiled_population_ring_scan_step(tc: TrainConfig, population: int, dat
     reads this rank's ring, which holds only its block's slabs."""
     if mesh is not None:
         _check_rows(population, mesh)
-        return _ShardedProgram(get_compiled_population_ring_scan_step(
-            tc, mesh.block_size(population), data, chunk, capacity), mesh)
+        blk = mesh.block_size(population)
+        if mesh.width == 1:
+            return _ShardedProgram(get_compiled_population_ring_scan_step(
+                tc, blk, data, chunk, capacity), mesh)
+        key = _geometry(tc, blk, True, data) + ("ringscan", int(chunk), int(capacity), "tp",
+                                                 mesh.key)
+        with _POP_CACHE_LOCK:
+            fn = _POP_CACHE.get(key)
+            if fn is None:
+                fn = _POP_CACHE[key] = _ShardedProgram(
+                    _RingChunkProgram(tc, data, blk, chunk, capacity, tp=mesh), mesh)
+        return fn
     g = _geometry(tc, population, True, data)
     key = g[:3] + ("ringscan", int(chunk), int(capacity), g[-1])
     with _POP_CACHE_LOCK:
@@ -1195,17 +1256,18 @@ def get_compiled_population_ring_scan_step(tc: TrainConfig, population: int, dat
 
 
 def ring_buffer(tc: TrainConfig, population: int, data, capacity: int,
-                device) -> torch.Tensor:
+                device, tp=None) -> torch.Tensor:
     """The ``(capacity, K, batch, seq_len+1)`` int32 ring tensor of this
     geometry on the card, allocated once beside the captured state: a ring
     chunk's graph reads it at a fixed address, so a ring-fed flight fills
     this tensor (``PrefetchRing(..., buffer=)``) while it holds the lease."""
     shape = (int(capacity), int(population), int(data.global_batch), int(data.seq_len) + 1)
-    return _flight_graphs(tc, population, True, data, device).ring(shape)
+    return _flight_graphs(tc, population, True, data, device, tp).ring(shape)
 
 
 @contextlib.contextmanager
-def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, device):
+def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, device,
+                 tp=None):
     """Own this geometry's captured state on ``device`` for one flight.
 
     Yields the state the chunk graphs captured, or None before the first
@@ -1214,7 +1276,7 @@ def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, 
     out=)``) instead of holding a second copy beside it.  A second flight of
     the same geometry waits here until the first has left; a call of the
     geometry's chunk programs from another thread waits too."""
-    fg = _flight_graphs(tc, population, per_trial_batch, data, device)
+    fg = _flight_graphs(tc, population, per_trial_batch, data, device, tp)
     with fg.lease:
         yield fg.state
 
@@ -1249,18 +1311,24 @@ def clear_population_cache() -> None:
 
 # -- the population mesh (``--shard-population``) ------------------------------------
 #
-# K lanes split into contiguous blocks of K/N over the N ranks of a
-# ``distributed.sharding.PopulationMesh``.  Each rank holds its block of the
-# population state and trains it with the lane-batched step; every sharded
-# function below is called by every rank (SPMD), each passing its own block
-# of every lane-axis argument, as the body of the JAX package's ``shard_map``
-# sees it.  What comes back whole is what the JAX twin returns partitioned
-# on the population axis: the per-lane metrics and the rule state's lane
-# vectors, gathered with one ``all_gather`` of their raw bytes (never of the
-# train state).  Lane ops take global lane ids: a lane's owner applies them,
-# and a clone whose donor lives on another rank has the donor lane sent to
-# the target's owner.  Width > 1 (a two-level ``(pop, model)`` mesh) and
-# regrid come with later parts of the port and raise.
+# K lanes split into contiguous blocks of K/rows over the lane rows of a
+# ``distributed.sharding.PopulationMesh``.  Each rank holds its row's block
+# of the population state and trains it with the lane-batched step; every
+# sharded function below is called by every rank (SPMD), each passing its
+# own block of every lane-axis argument, as the body of the JAX package's
+# ``shard_map`` sees it.  What comes back whole is what the JAX twin returns
+# partitioned on the population axis: the per-lane metrics and the rule
+# state's lane vectors, gathered over the pop group with one ``all_gather``
+# of their raw bytes (never of the train state).  Lane ops take global lane
+# ids: a lane's row applies them, and a clone whose donor lives on another
+# row has the donor lane sent to the target's row.
+#
+# On a two-level mesh (width W > 1) each rank of a row holds only its model
+# position's shard of the leaves the width rules shard (``TPLayout``), its
+# steps run under the seams (``_tp_body``), and a lane crosses rows as W
+# point-to-point sends, shard j to shard j.  A snapshot gathers a lane's W
+# shards to the whole host layout, so it restores onto any width.  Regrid
+# comes with a later part of the port and raises.
 
 _RULE_LANE_KEYS: Dict[str, frozenset] = {
     "cohort": frozenset({"budgets", "base", "local0"}),
@@ -1269,31 +1337,128 @@ _RULE_LANE_KEYS: Dict[str, frozenset] = {
 }
 
 
-def _no_width(width: Optional[int]) -> None:
-    if width is not None and int(width) > 1:
-        from ..distributed.sharding import PART_B
+def _state_logical_specs(tc: TrainConfig) -> Dict[str, Any]:
+    return {"inner": ts.train_state_specs(tc), "diverged": (), "last_loss": ()}
 
-        raise NotImplementedError(
-            f"a width-{width} population mesh is not ported yet; it comes with {PART_B}")
+
+def _tp_rules_or_raise(tc: TrainConfig, width: int):
+    from ..distributed.sharding import tp_width_rules
+
+    rules = tp_width_rules(tc.model, width)
+    if not rules:
+        m = tc.model
+        raise ValueError(
+            f"model-parallel width {width} shards nothing of {m.name} (heads={m.n_heads}, "
+            f"kv={m.n_kv_heads}, ff={m.d_ff}, moe={m.has_moe}) — pure replication "
+            f"contradicts --model-parallel; pick a width dividing the module dims")
+    return rules
+
+
+def _tp_body(fn: Callable, tc: TrainConfig, mesh) -> Callable:
+    """``fn`` (a block program of a model rank) run with the seams armed:
+    the module flags pick which seams fire, and the gradient-norm mask tells
+    ``optim.adamw.global_norm`` which leaves are width-sharded."""
+    from ..distributed.sharding import tp_gnorm_mask, tp_module_flags, tp_shard_context
+
+    flags = tp_module_flags(tc.model, mesh.width)
+    mask = tp_gnorm_mask(ts.train_state_specs(tc)["params"],
+                         _tp_rules_or_raise(tc, mesh.width))
+
+    def wrapped(*args):
+        with tp_shard_context(mesh, flags, gnorm_mask=mask):
+            return fn(*args)
+
+    return wrapped
+
+
+class TPLayout:
+    """Where a population state's leaves split over a two-level mesh's lane
+    row: ``dims`` mirrors the state, holding per leaf the axis (the lane
+    axis counted) that ``tp_width_rules`` shards, or None (replicated);
+    ``index`` is the model position whose shard this rank holds."""
+
+    def __init__(self, tc: TrainConfig, width: int, index: int):
+        from ..distributed.sharding import map_specs
+
+        rules = _tp_rules_or_raise(tc, int(width))
+        specs = _state_logical_specs(tc)
+        self.width, self.index = int(width), int(index)
+        self.dims = map_specs(specs, specs, lambda _, logical: next(
+            (1 + i for i, n in enumerate(logical) if n in rules), None))
+
+    def _take(self, x: torch.Tensor, dim: Optional[int], index: Optional[int] = None):
+        if dim is None:
+            return x
+        n = x.shape[dim] // self.width
+        return x.narrow(dim, (self.index if index is None else int(index)) * n, n)
+
+    def state(self, pstate: PopState) -> PopState:
+        """Views of this rank's shard of a whole population state."""
+        return tree_map(self._take, pstate, self.dims)
+
+    def lane(self, tree: PopState, index: Optional[int] = None) -> PopState:
+        """A lane tree's (a snapshot's, no lane axis) shard ``index``."""
+        return tree_map(lambda x, d: self._take(x, None if d is None else d - 1, index),
+                        tree, self.dims)
+
+    def inner(self, one) -> Any:
+        """One trial's train state (no lane axis), sliced to this shard."""
+        return tree_map(lambda x, d: self._take(x, None if d is None else d - 1),
+                        one, self.dims["inner"])
+
+    def params(self, params) -> Any:
+        """One trial's parameters (no lane axis), sliced to this shard."""
+        return tree_map(lambda x, d: self._take(x, None if d is None else d - 1),
+                        params, self.dims["inner"]["params"])
+
+    def join(self, shards: Sequence[PopState]) -> PopState:
+        """A lane tree whole from its W shards, in model order."""
+        return tree_map(lambda d, *xs: xs[0] if d is None else torch.cat(xs, d - 1),
+                        self.dims, *shards)
+
+
+def tp_layout(tc: TrainConfig, mesh) -> Optional[TPLayout]:
+    """This rank's ``TPLayout`` on a two-level mesh, None at width 1."""
+    if mesh is None or mesh.width == 1:
+        return None
+    return TPLayout(tc, mesh.width, mesh.model_rank)
 
 
 def pad_population(k: int, mesh=None) -> int:
     """Smallest population size >= k that divides evenly over ``mesh``'s
-    ranks (1 without a mesh)."""
-    n = 1 if mesh is None else int(mesh.world_size)
+    lane rows (1 without a mesh; on a two-level mesh the rows, not the
+    ranks: a row of W ranks serves one lane block)."""
+    n = 1 if mesh is None else mesh.rows
     return ((max(int(k), 1) + n - 1) // n) * n
 
 
 def _check_rows(population: int, mesh) -> None:
-    if int(population) % mesh.world_size:
+    if int(population) % mesh.rows:
         raise ValueError(
-            f"population {population} does not divide over {mesh.world_size} lane rows; "
+            f"population {population} does not divide over {mesh.rows} lane rows; "
             f"pad to {pad_population(population, mesh)} with 0-budget trials")
 
 
-def shard_population_state(pstate: PopState, mesh) -> PopState:
+def place_two_level(pstate: PopState, tc: TrainConfig, mesh) -> PopState:
+    """This rank's part of a whole population state on a two-level mesh:
+    its row's block of lanes, and of each leaf the width rules shard its
+    model position's shard, copied onto its device."""
+    k = pstate["diverged"].shape[0]
+    _check_rows(k, mesh)
+    block = tree_map(lambda x: mesh.block(x, k), pstate)
+    return tree_map(lambda x: x.to(mesh.device, copy=True).contiguous(),
+                    tp_layout(tc, mesh).state(block))
+
+
+def shard_population_state(pstate: PopState, mesh, tc: Optional[TrainConfig] = None
+                           ) -> PopState:
     """This rank's block of a global population state, copied onto its
-    device (the twin of placing the state on the mesh)."""
+    device (the twin of placing the state on the mesh); on a two-level mesh
+    pass ``tc``, and the block holds the rank's shards (``place_two_level``)."""
+    if mesh.width > 1:
+        if tc is None:
+            raise ValueError("a two-level mesh places a state by its width rules: pass tc")
+        return place_two_level(pstate, tc, mesh)
     k = pstate["diverged"].shape[0]
     _check_rows(k, mesh)
     return tree_map(lambda x: mesh.block(x, k).to(mesh.device, copy=True), pstate)
@@ -1316,10 +1481,11 @@ def shard_rule_state(rules: Dict[str, Any], mode: str, mesh, population: int) ->
 
 def _sharded_rule_update(mode: str, mesh) -> Callable:
     """A rule update for a sharded chunk: gather the K-length lane vectors
-    (never the train state), evaluate the global rule identically on every
-    rank, and keep this rank's block of the new lane vectors.  History,
-    window and constant leaves are replicated, so the global evaluation
-    keeps them equal on every rank."""
+    (never the train state) over the rows, evaluate the global rule
+    identically on every rank, and keep this row's block of the new lane
+    vectors.  History, window and constant leaves are replicated, so the
+    global evaluation keeps them equal on every rank (a row's ranks hold
+    the same losses, so the cut set does not depend on the width)."""
     update = _RULE_UPDATES[mode]
     lane_keys = _RULE_LANE_KEYS[mode]
 
@@ -1328,27 +1494,30 @@ def _sharded_rule_update(mode: str, mesh) -> Callable:
         g = mesh.all_gather_lanes({"rules": {n: rules[n] for n in lane_keys},
                                    "losses": losses, "diverged": diverged, "local": local})
         new = update(dict(rules, **g["rules"]), g["losses"], g["diverged"], g["local"])
-        lo = mesh.rank * blk
+        lo = mesh.row * blk
         return {n: (v[lo:lo + blk] if n in lane_keys else v) for n, v in new.items()}
 
     return upd
 
 
-def make_sharded_population_step(tc: TrainConfig, mesh, per_trial_batch: bool = False,
-                                 width: Optional[int] = None) -> Callable:
+def make_sharded_population_step(tc: TrainConfig, mesh, per_trial_batch: bool = False
+                                 ) -> Callable:
     """``(pstate, batch, hp) -> (pstate, metrics)`` over this rank's block:
-    ``pstate``, ``hp`` and (``per_trial_batch``) the batch are the rank's
+    ``pstate``, ``hp`` and (``per_trial_batch``) the batch are the row's
     block, a shared batch is every rank's whole; the metrics come back for
-    all K lanes."""
-    _no_width(width)
-    return _ShardedProgram(make_population_train_step(tc, per_trial_batch=per_trial_batch),
-                           mesh, lane_dim=0)
+    all K lanes.  On a two-level mesh the state holds the rank's shards and
+    the step runs under the seams: each lane row is a width-W
+    tensor-parallel program."""
+    step = make_population_train_step(tc, per_trial_batch=per_trial_batch)
+    if mesh.width > 1:
+        step = _tp_body(step, tc, mesh)
+    return _ShardedProgram(step, mesh, lane_dim=0)
 
 
 class _ShardedProgram:
-    """A block program (a step, a chunk or a ring chunk of this rank's K/N
-    lanes; a compiled chunk replays a graph on the card) whose metrics,
-    their lane axis at ``lane_dim``, come back whole."""
+    """A block program (a step, a chunk or a ring chunk of this row's
+    K/rows lanes; a compiled chunk replays a graph on the card) whose
+    metrics, their lane axis at ``lane_dim``, come back whole."""
 
     def __init__(self, inner, mesh, lane_dim: int = 1):
         self.inner = inner
@@ -1362,8 +1531,8 @@ class _ShardedProgram:
 
 class _ShardedRuleProgram:
     """A block rule chunk whose rule state's lane vectors and ``(chunk,
-    K/N)`` metrics come back whole, in one gather (``eager``: a gloo rank
-    on a card, whose chunk is not a graph)."""
+    K/rows)`` metrics come back whole, in one gather (``eager``: a gloo
+    rank on a card, whose chunk is not a graph)."""
 
     def __init__(self, inner, mesh, mode: str):
         self.inner = inner
@@ -1380,12 +1549,26 @@ class _ShardedRuleProgram:
                 {n: v.movedim(0, 1) for n, v in g["metrics"].items()})
 
 
+def count_model_axis_collectives(call: Callable[[], Any], steps: int = 1) -> int:
+    """The model-group collectives one step issues: the count the seams and
+    the gradient norm add while ``call()`` runs ``steps`` population steps,
+    over ``steps``.  0 at width 1 (nothing is armed), and at width W the
+    model's seams (GQA and MLP 2 a layer, MLA and Mamba 4) plus one for the
+    norm."""
+    from ..distributed.sharding import tp_collectives
+
+    before = tp_collectives()
+    call()
+    return (tp_collectives() - before) // max(int(steps), 1)
+
+
 # -- sharded lane ops ---------------------------------------------------------------
 #
 # A lane crosses ranks as one flat byte buffer in the snapshot slots' layout
 # (every leaf's lane row, in tree order, each at a 64-byte aligned offset),
 # so what arrives is the lane bit for bit and a snapshot lands straight in a
-# host slot.
+# host slot.  On a two-level mesh a rank's buffer holds its shard of the
+# lane, and it goes to the rank at the same model position of the other row.
 
 
 def _lane_layout(pstate: PopState):
@@ -1416,6 +1599,14 @@ def _unpack_lane(pstate: PopState, lane: int, buf: torch.Tensor) -> None:
         dst.copy_(buf[off:off + n].view(leaf.dtype).view(dst.shape))
 
 
+def _lane_views(pstate: PopState, flat: torch.Tensor) -> PopState:
+    """A lane tree viewing a lane's byte buffer (host or device)."""
+    layout, _ = _lane_layout(pstate)
+    views = iter(flat[o:o + n] for o, n in layout)
+    return tree_map(lambda leaf: next(views).view(leaf.dtype).view(leaf.shape[1:]),
+                    _lane_tree(pstate))
+
+
 def _snap_bytes(pstate: PopState, snap) -> torch.Tensor:
     """A snapshot tree packed into a host lane buffer (each leaf cast to the
     state's dtype, as a restore casts it)."""
@@ -1423,13 +1614,13 @@ def _snap_bytes(pstate: PopState, snap) -> torch.Tensor:
     buf = torch.zeros(size, dtype=torch.uint8)
     for (off, n), leaf, src in zip(layout, tree_leaves(_lane_tree(pstate)),
                                    tree_leaves(snap)):
-        src = torch.as_tensor(src).to("cpu", leaf.dtype).reshape(-1)
+        src = torch.as_tensor(src).to("cpu", leaf.dtype).contiguous().reshape(-1)
         buf[off:off + n].copy_(src.view(torch.uint8))
     return buf
 
 
 def _owner_of(mesh, pstate: PopState, lane: int) -> Tuple[int, int]:
-    """(owning rank, lane within its block) of a global lane id."""
+    """(owning row, lane within its block) of a global lane id."""
     blk = pstate["diverged"].shape[0]
     return int(lane) // blk, int(lane) % blk
 
@@ -1437,27 +1628,29 @@ def _owner_of(mesh, pstate: PopState, lane: int) -> Tuple[int, int]:
 def make_sharded_lane_init(tc: TrainConfig, mesh) -> Callable:
     """``(pstate, mask, gens) -> pstate`` over this rank's block: ``mask``
     is bool[K] over the global lanes and ``gens`` one generator per global
-    lane (only this rank's masked lanes' are read); each rank re-inits the
-    masked lanes it owns."""
+    lane (only this row's masked lanes' are read); each row re-inits the
+    masked lanes it owns (on a two-level mesh each rank its shards)."""
+    layout = tp_layout(tc, mesh)
 
     def init(pstate: PopState, mask, gens) -> PopState:
         blk = pstate["diverged"].shape[0]
-        lo = mesh.rank * blk
+        lo = mesh.row * blk
         lanes = [i - lo for i in _lanes_of(mask) if lo <= i < lo + blk]
-        return _reinit_lanes(pstate, lanes, [gens[i + lo] for i in lanes], tc)
+        return _reinit_lanes(pstate, lanes, [gens[i + lo] for i in lanes], tc, layout)
 
     return init
 
 
 def make_sharded_lane_splice(tc: TrainConfig, mesh) -> Callable:
-    """``(pstate, lane, gen) -> pstate``: the owner of global lane ``lane``
-    re-initialises it from ``gen``; the other ranks keep their blocks bit
-    for bit (their ``gen`` is not read)."""
+    """``(pstate, lane, gen) -> pstate``: the row owning global lane
+    ``lane`` re-initialises it from ``gen``; the other rows keep their
+    blocks bit for bit (their ``gen`` is not read)."""
+    layout = tp_layout(tc, mesh)
 
     def splice(pstate: PopState, lane, gen) -> PopState:
         owner, local = _owner_of(mesh, pstate, lane)
-        if owner == mesh.rank:
-            _reinit_lanes(pstate, [local], [gen], tc)
+        if owner == mesh.row:
+            _reinit_lanes(pstate, [local], [gen], tc, layout)
         return pstate
 
     return splice
@@ -1465,14 +1658,15 @@ def make_sharded_lane_splice(tc: TrainConfig, mesh) -> Callable:
 
 def make_sharded_lane_clone(tc: TrainConfig, mesh) -> Callable:
     """``(pstate, mask, donor_idx) -> pstate`` with global lane ids, so a
-    clone may cross ranks.
+    clone may cross rows.
 
     The donors are known on the host, so each donor lane that a target on
-    another rank needs is packed on its owner and sent to the target's
-    owner point to point; nothing is gathered, and the extra memory is the
-    lanes moved.  Every donor row is read before any target is written (a
-    chain 0<-1, 1<-2 reads the state from before the op), and the bytes
-    copied are the vmapped clone's, bit for bit."""
+    another row needs is packed on its row and sent to the target's row
+    point to point (on a two-level mesh shard j to shard j: W sends);
+    nothing is gathered, and the extra memory is the lanes moved.  Every
+    donor row is read before any target is written (a chain 0<-1, 1<-2 reads
+    the state from before the op), and the bytes copied are the vmapped
+    clone's, bit for bit."""
 
     def clone(pstate: PopState, mask, donor_idx) -> PopState:
         lanes = _lanes_of(mask)
@@ -1480,7 +1674,7 @@ def make_sharded_lane_clone(tc: TrainConfig, mesh) -> Callable:
             return pstate
         if isinstance(donor_idx, torch.Tensor):
             donor_idx = donor_idx.detach().cpu().numpy()
-        me = mesh.rank
+        me = mesh.row
         dev = pstate["diverged"].device
         local_t, local_d, sends, recvs, landing = [], [], [], [], []
         for t in lanes:
@@ -1489,11 +1683,11 @@ def make_sharded_lane_clone(tc: TrainConfig, mesh) -> Callable:
             if ot == me and od == me:
                 local_t.append(lt)
                 local_d.append(ld)
-            elif od == me:
-                sends.append((_pack_lane(pstate, ld), ot))   # read before any write
+            elif od == me:   # read before any write
+                sends.append((_pack_lane(pstate, ld), mesh.rank_at(ot)))
             elif ot == me:
                 buf = torch.empty(_lane_layout(pstate)[1], dtype=torch.uint8, device=dev)
-                recvs.append((buf, od))
+                recvs.append((buf, mesh.rank_at(od)))
                 landing.append((lt, buf))
         mesh.exchange(sends, recvs)
         if local_t:
@@ -1512,11 +1706,18 @@ def make_sharded_lane_snapshot(tc: TrainConfig, mesh) -> Callable:
     """``(pstate, lane) -> snap`` with a global lane id: the owner harvests
     the lane and rank 0 gets it (a lane owned elsewhere is sent to rank 0,
     which receives it straight into a host slot); the other ranks get None.
-    Rank 0's slots are bounded by K + 1 of the global population."""
+    Rank 0's slots are bounded by K + 1 of the global population.
+
+    On a two-level mesh each of the owning row's W ranks sends its shard to
+    rank 0, which joins them into the lane's whole host layout (fresh host
+    tensors), so the snapshot restores onto a flight of any width."""
     snapshot = make_lane_snapshot(tc)
+    layout = tp_layout(tc, mesh)
 
     def sharded(pstate: PopState, lane):
         owner, local = _owner_of(mesh, pstate, lane)
+        if layout is not None:
+            return _snapshot_shards(pstate, owner, local)
         if owner == 0:
             return snapshot(pstate, local) if mesh.rank == 0 else None
         if mesh.rank == owner:
@@ -1529,10 +1730,7 @@ def make_sharded_lane_snapshot(tc: TrainConfig, mesh) -> Callable:
         tree = slots.take(pstate)
         if tree is None:
             flat = torch.empty(_lane_layout(pstate)[1], dtype=torch.uint8)
-            layout, _ = _lane_layout(pstate)
-            views = iter(flat[o:o + n] for o, n in layout)
-            tree = tree_map(lambda leaf: next(views).view(leaf.dtype).view(leaf.shape[1:]),
-                            _lane_tree(pstate))
+            tree = _lane_views(pstate, flat)
         else:
             flat = slots.flat_of(tree)
         if mesh.backend == "nccl":
@@ -1543,6 +1741,28 @@ def make_sharded_lane_snapshot(tc: TrainConfig, mesh) -> Callable:
             mesh.exchange([], [(flat, owner)])
         return tree
 
+    def _snapshot_shards(pstate: PopState, owner: int, local: int):
+        if mesh.row == owner and mesh.rank != 0:
+            mesh.exchange([(_pack_lane(pstate, local), 0)], [])
+            return None
+        if mesh.rank != 0:
+            return None
+        dev = pstate["diverged"].device
+        size = _lane_layout(pstate)[1]
+        nccl = mesh.backend == "nccl"
+        bufs = [torch.empty(size, dtype=torch.uint8, device=dev if nccl else "cpu")
+                for _ in range(mesh.width)]
+        recvs = []
+        for j, buf in enumerate(bufs):
+            if owner == 0 and j == 0:
+                buf.copy_(_pack_lane(pstate, local))
+            else:
+                recvs.append((buf, mesh.rank_at(owner, j)))
+        mesh.exchange([], recvs)
+        shards = [tree_map(lambda x: x.to("cpu", copy=True), _lane_views(pstate, b))
+                  for b in bufs]
+        return layout.join(shards)
+
     return sharded
 
 
@@ -1550,15 +1770,33 @@ def make_sharded_lane_restore(tc: TrainConfig, mesh) -> Callable:
     """``(pstate, lane, snap) -> pstate`` with a global lane id and the
     snapshot on rank 0 (other ranks pass None): rank 0 sends it to the
     lane's owner, which writes it into its block; every other block stays
-    bit for bit."""
+    bit for bit.  On a two-level mesh the snapshot (whole host layout) is
+    cut into the owning row's W shards, shard j sent to model rank j."""
     restore = make_lane_restore(tc)
+    layout = tp_layout(tc, mesh)
 
     def sharded(pstate: PopState, lane, snap) -> PopState:
         owner, local = _owner_of(mesh, pstate, lane)
-        if owner == 0:
-            return restore(pstate, local, snap) if mesh.rank == 0 else pstate
         dev = pstate["diverged"].device
         nccl = mesh.backend == "nccl"
+        if layout is not None:
+            if mesh.rank == 0:
+                sends = []
+                for j in range(mesh.width):
+                    buf = _snap_bytes(pstate, layout.lane(snap, j))
+                    if owner == 0 and j == 0:
+                        _unpack_lane(pstate, local, buf)
+                    else:
+                        sends.append((buf.to(dev) if nccl else buf, mesh.rank_at(owner, j)))
+                mesh.exchange(sends, [])
+            elif mesh.row == owner:
+                buf = torch.empty(_lane_layout(pstate)[1], dtype=torch.uint8,
+                                  device=dev if nccl else "cpu")
+                mesh.exchange([], [(buf, 0)])
+                _unpack_lane(pstate, local, buf)
+            return pstate
+        if owner == 0:
+            return restore(pstate, local, snap) if mesh.rank == 0 else pstate
         if mesh.rank == 0:
             buf = _snap_bytes(pstate, snap)
             mesh.exchange([(buf.to(dev) if nccl else buf, owner)], [])
@@ -1584,8 +1822,8 @@ _SHARDED_LANE_OPS: Dict[str, Callable] = {
 def get_compiled_sharded_population_step(tc: TrainConfig, population: int, mesh,
                                          per_trial_batch: bool = False) -> Callable:
     """The sharded per-step program (``make_sharded_population_step``);
-    raises if K does not divide over the mesh (pad with ``pad_population``
-    first)."""
+    raises if K does not divide over the mesh's rows (pad with
+    ``pad_population`` first)."""
     _check_rows(population, mesh)
     key = (ts.static_step_key(tc), int(population), bool(per_trial_batch), "step", mesh.key)
     with _POP_CACHE_LOCK:

@@ -58,6 +58,16 @@ def init_train_state(gen: torch.Generator, tc: TrainConfig, device) -> Dict[str,
     return {"params": params, "opt": init_opt_state(params, tc)}
 
 
+def train_state_specs(tc: TrainConfig) -> Dict[str, Any]:
+    """The train state's logical axis names (per trial): the optimizer's
+    moments and master copy take the parameters' (the JAX package's)."""
+    p = T.param_specs(tc.model)
+    opt: Dict[str, Any] = {"mu": p, "nu": p, "step": ()}
+    if tc.parallel.master_dtype is not None:
+        opt["master"] = p
+    return {"params": p, "opt": opt}
+
+
 def static_step_key(tc: TrainConfig) -> Tuple:
     """The program-cache key: everything a trial may NOT vary per proposal."""
     return (tc.model, tc.parallel, tc.b1, tc.eps, tc.z_loss)

@@ -198,6 +198,29 @@ def test_decode_step_matches_jax(arch):
         _assert_tree_close(tc, jax.device_get(jc), 1e-4, f"{arch} cache at pos {pos}")
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "falcon-mamba-7b"])
+def test_bf16_params_under_fp32_compute_decode_like_jax(arch):
+    """bf16 parameters under the fp32 compute dtype: ``decode_step``'s
+    logits and cache within 1e-4 of JAX's at each of 8 positions (the MLA
+    and Mamba decode products promote as JAX's einsums do)."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), param_dtype="bfloat16")
+    tcfg = dataclasses.replace(get_smoke_config(arch), param_dtype="bfloat16")
+    params = jax.device_get(JT.init_params(jax.random.PRNGKey(0), jcfg))
+    tparams = _lane(params)
+    assert any(t.dtype == torch.bfloat16 for t in interop.tree_leaves(tparams))
+    step = _jax_decode(jcfg)
+    jc = JT.init_cache(jcfg, B, STEPS, dtype=jnp.float32)
+    tc = T.init_cache(tcfg, 1, B, STEPS, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(5)
+    for pos in range(STEPS):
+        tok = rng.integers(0, jcfg.vocab_size, size=(B, 1)).astype(np.int32)
+        jl, jc = step(params, jc, jnp.asarray(tok), pos)
+        tl, _ = T.decode_step(tparams, tc, torch.from_numpy(tok)[None], pos, tcfg)
+        np.testing.assert_allclose(tl[0].float().numpy(), np.asarray(jl, np.float32),
+                                   atol=1e-4, rtol=1e-4, err_msg=f"{arch} logits at pos {pos}")
+        _assert_tree_close(tc, jax.device_get(jc), 1e-4, f"{arch} cache at pos {pos}")
+
+
 def _port_config(arch):
     """The smoke config; MoE layers at a capacity no token overflows, so the
     full forward routes as dropless decode does (as tests/test_models.py)."""

@@ -24,8 +24,9 @@ Held here:
   ``make_lane_*``, bit for bit;
 * ``pad_population`` and ``_check_rows`` against JAX's;
 * ``ShardedPopulationResourceManager``'s slots and flush;
-* that a rank dying mid-flight makes rank 0 raise, and the refusals of the
-  two-level mesh and of elastic regrid.
+* that a rank dying mid-flight makes rank 0 raise, the refusals of a
+  two-level mesh whose width does not tile the ranks, and of elastic
+  regrid.
 """
 import os
 import time
@@ -473,18 +474,22 @@ def test_a_dying_rank_makes_rank_0_raise(tmp_path):
 
 @pytest.mark.parametrize("what", ["width", "rm-model-parallel", "rm-elastic", "regrid"])
 def test_two_level_mesh_and_regrid_are_refused_naming_their_part(what):
-    """Part (b) (a two-level mesh, ``model_parallel`` > 1) and part (c)
-    (elastic regrid, the regrid lane op) raise naming their ROADMAP.md
-    item."""
+    """A two-level mesh whose width does not tile the ranks (a world of one
+    at width 2; a manager asked for width 2 on a width-1 mesh) is refused
+    as JAX's ``population_mesh`` refuses it; part (c) (elastic regrid, the
+    regrid lane op) raises naming its ROADMAP.md item."""
+    if what in ("width", "rm-model-parallel"):
+        with pytest.raises(ValueError, match="width"):
+            if what == "width":
+                population_mesh("cpu", width=2)
+            else:
+                ShardedPopulationResourceManager(n_parallel=2, mesh=_fake_mesh(2),
+                                                 model_parallel=2)
+        return
     with pytest.raises(NotImplementedError) as exc:
-        if what == "width":
-            population_mesh("cpu", width=2)
-        elif what == "rm-model-parallel":
-            ShardedPopulationResourceManager(n_parallel=2, mesh=_fake_mesh(2), model_parallel=2)
-        elif what == "rm-elastic":
+        if what == "rm-elastic":
             ShardedPopulationResourceManager(n_parallel=2, mesh=_fake_mesh(2),
                                              elastic_regrid=True)
         else:
             P.get_lane_op(_tc(), 2, "regrid", mesh=_fake_mesh(2))
-    part = "12(b)" if what in ("width", "rm-model-parallel") else "12(c)"
-    assert f"item {part}" in str(exc.value) and "ROADMAP.md" in str(exc.value)
+    assert "item 12(c)" in str(exc.value) and "ROADMAP.md" in str(exc.value)

@@ -141,6 +141,41 @@ def test_master_copy_matches_jax_and_params_are_its_cast():
     assert interop.tree_leaves(own["opt"]["master"])[0].dtype == torch.float32
 
 
+MIXED_ARCHS = ["deepseek-v2-lite-16b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+               "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("arch", MIXED_ARCHS)
+def test_master_copy_matches_jax_and_params_are_its_cast_on_mla_mamba_moe(arch):
+    """The same check on the MLA, Mamba and MoE paths, whose products take
+    bf16 parameters under the fp32 compute dtype as JAX's promoting einsums
+    do: after each of three steps (the first at the warm-up's zero rate)
+    the loss and, at the end, the master within 1e-4 of JAX's, the
+    parameters its bf16 cast bit for bit."""
+    model = dict(param_dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **model)
+    cfg = dataclasses.replace(get_smoke_config(arch), **model)
+    jtc = JaxTrainConfig(model=jcfg, parallel=JaxParallelConfig(remat="none",
+                                                                 master_dtype="float32"),
+                         **TC_KW)
+    tc = TrainConfig(model=cfg, parallel=ParallelConfig(remat="none", master_dtype="float32"),
+                     **TC_KW)
+    jstate = _jax_state(jtc)
+    state = interop.to_torch(jstate)
+    data = JaxSyntheticLM(jcfg.vocab_size, S, B, seed=0)
+    jstep, step = jax.jit(jts.make_train_step(jtc)), ts.make_train_step(tc)
+    for t in range(STEPS):
+        batch = data.make_batch(t)
+        jstate, jm = jstep(jstate, batch)
+        state, m = step(state, batch)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), atol=1e-4, rtol=1e-4)
+    _assert_tree_close(state["opt"]["master"], jax.device_get(jstate)["opt"]["master"], 1e-4)
+    for p, mst in zip(interop.tree_leaves(state["params"]),
+                      interop.tree_leaves(state["opt"]["master"])):
+        assert p.dtype == mst.to(p.dtype).dtype
+        assert torch.equal(_bits(p), _bits(mst.to(p.dtype)))
+
+
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_is_bit_equal_to_no_remat(remat):
     """Three steps with ``remat`` give the losses and every state leaf of

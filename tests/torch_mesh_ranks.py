@@ -1,5 +1,7 @@
-"""The ranks of ``tests/test_torch_sharded.py``'s population meshes, and
-the CLI rank of ``tests/test_torch_mesh_pool.py``'s ``torchrun`` case.
+"""The ranks of ``tests/test_torch_sharded.py``'s and
+``tests/test_torch_model_parallel.py``'s population meshes, and the CLI rank
+of the ``torchrun`` cases (``tests/test_torch_mesh_pool.py``,
+``tests/test_torch_model_parallel_cli.py``).
 
 Each function here is the body of one spawned rank: it joins a gloo group
 through a ``file://`` store, runs its part of the experiment on the CPU and
@@ -86,12 +88,12 @@ def patch_init(state):
                                                       state["params"])
 
 
-def _join(rank, world, store, timeout_s):
+def _join(rank, world, store, timeout_s, width=None):
     from repro_torch.distributed.sharding import population_mesh
 
     torch.set_num_threads(1)
     return population_mesh("cpu", init_method=f"file://{store}", rank=rank,
-                           world_size=world, timeout_s=timeout_s)
+                           world_size=world, timeout_s=timeout_s, width=width)
 
 
 def _run(body, rank, out_dir, *args):
@@ -164,7 +166,7 @@ def lane_ops(mesh, spec):
     tc = TrainConfig(model=get_smoke_config(ARCH), parallel=ParallelConfig(remat="none"),
                      total_steps=8)
     k = spec["state"]["diverged"].shape[0]
-    st = P.shard_population_state(spec["state"], mesh)
+    st = P.shard_population_state(spec["state"], mesh, tc)
     op = {kind: P.get_lane_op(tc, k, kind, mesh=mesh) for kind in
           ("clone", "splice", "init", "snapshot", "restore")}
     states, snap = [], None
@@ -181,7 +183,177 @@ def lane_ops(mesh, spec):
             if snap is not None:
                 snap = tree_map(lambda t: torch.as_tensor(t).clone(), snap)
         states.append(tree_map(lambda t: t.clone(), mesh.all_gather_lanes(st)))
-    return {"states": states if mesh.rank == 0 else None, "snapshot": snap}
+    # at width 1 rank 0's gathered states are the whole population's; on a
+    # two-level mesh every rank keeps its model position's shards of them
+    keep = mesh.rank == 0 or mesh.width > 1
+    return {"states": states if keep else None, "snapshot": snap}
+
+
+# -- the two-level (pop, model) mesh ----------------------------------------------------
+
+# (cell name, chunk_steps, device_rules, width): the tensor-parallel cells of
+# the JAX package's engine matrix (tests/test_engine_matrix.py::TP_CELLS)
+TP_CELLS = [
+    ("tp2-perstep-host", 1, False, 2),
+    ("tp2-chunked-host", 8, False, 2),
+    ("tp2-chunked-device", 8, True, 2),
+    ("tp4-perstep-host", 1, False, 4),
+]
+
+
+def _record_replicated(log):
+    """Make every flight's close (on every rank) append, per leaf of its
+    state that no width rule shards, the digest of its raw bytes."""
+    import hashlib
+
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import flight
+
+    close = flight.LaneFlight._close
+
+    def recording(fl):
+        if fl.layout is not None and fl.state is not None:
+            log.append([hashlib.sha1(t.detach().contiguous().view(torch.uint8).numpy()
+                                     .tobytes()).hexdigest()
+                        for t, d in zip(tree_leaves(fl.state), tree_leaves(fl.layout.dims))
+                        if d is None])
+        close(fl)
+
+    flight.LaneFlight._close = recording
+
+
+def tp_cells(arch, widths, meshes):
+    """``TP_CELLS`` of the given widths in both protocols on the
+    ``ladder(6)`` workload, each on ``meshes[width]``; with the model-group
+    collectives a step issued."""
+    cfgs = ladder(6)
+    out = {"batch": {}, "streaming": {}, "collectives": {}}
+    for name, chunk, device, width in TP_CELLS:
+        if width not in widths:
+            continue
+        mesh = meshes[width]
+        t = trial(chunk, device, False, arch)
+        out["batch"][name] = dict(_batch(t, cfgs, mesh), collectives=t.model_axis_collectives)
+        out["streaming"][name] = streaming_cell(cfgs, chunk, device, False, mesh, arch)
+    return out
+
+
+def _batch(t, cfgs, mesh):
+    scores = t.run_population(list(cfgs), mesh=mesh)
+    return {"scores": scores, "n_truncated": t.early_stop.n_truncated,
+            "n_reclaimed": t.early_stop.n_reclaimed, "train_steps": t.n_train_steps}
+
+
+def tp_rank(rank, world, store, out_dir, arch, widths, init_path, lane_path, timeout_s):
+    """The tensor-parallel cells of ``widths`` for ``arch`` (every trial
+    from the state at ``init_path``, or the port's init of the seed), the
+    replicated leaves' digests after every flight, the RMSNorm backward's
+    planned rows and, with ``lane_path``, the lane-op sequence at the first
+    width."""
+    _run(_tp, rank, out_dir, world, store, arch, widths, init_path, lane_path, timeout_s)
+
+
+def _tp(rank, out_dir, world, store, arch, widths, init_path, lane_path, timeout_s):
+    from repro_torch.distributed.sharding import population_mesh
+    from repro_torch.kernels import rmsnorm
+
+    meshes = {widths[0]: _join(rank, world, store, timeout_s, widths[0])}
+    rows = {widths[0]: rmsnorm.mesh_ranks}
+    for w in widths[1:]:
+        meshes[w] = population_mesh("cpu", width=w, timeout_s=timeout_s)
+        rows[w] = rmsnorm.mesh_ranks
+    try:
+        if init_path is not None:
+            patch_init(torch.load(init_path))
+        log = []
+        _record_replicated(log)
+        out = tp_cells(arch, widths, meshes)
+        out["replicated"] = log
+        out["rmsnorm_mesh_ranks"] = rows
+        if lane_path is not None:
+            out["lane_ops"] = lane_ops(meshes[widths[0]], torch.load(lane_path))
+        return out
+    finally:
+        for w in widths[::-1]:
+            meshes[w].destroy()
+
+
+# the four kinds of seams: (name, arch, mixer or ffn kind)
+SEAM_LAYERS = [("mlp", "starcoder2-3b"), ("gqa", "starcoder2-3b"),
+               ("mla", "deepseek-v2-lite-16b"), ("mamba", "falcon-mamba-7b")]
+
+
+def seam_layer(kind, cfg, params, x, positions):
+    """One layer of ``kind`` on lane-batched ``params`` and ``x``."""
+    from repro_torch.models import attention, mamba, mlp
+
+    if kind == "mlp":
+        return mlp.mlp_apply(params, x, cfg)
+    if kind == "gqa":
+        return attention.gqa_apply(params, x, cfg, positions)
+    if kind == "mla":
+        return attention.mla_apply(params, x, cfg, positions)
+    return mamba.mamba_apply(params, x, cfg)
+
+
+def layer_specs(kind, cfg):
+    from repro_torch.models import attention, mamba, mlp
+
+    return {"mlp": mlp.mlp_specs, "gqa": attention.gqa_specs, "mla": attention.mla_specs,
+            "mamba": mamba.mamba_specs}[kind](cfg)
+
+
+def shard_dims(kind, cfg, width):
+    """Per parameter of the layer, the axis (lane axis counted) the width
+    rules shard, or None."""
+    from repro_torch.distributed.sharding import map_specs, tp_width_rules
+
+    rules = tp_width_rules(cfg, width)
+    specs = layer_specs(kind, cfg)
+    return map_specs(specs, specs, lambda _, logical: next(
+        (1 + i for i, n in enumerate(logical) if n in rules), None))
+
+
+def seam_rank(rank, world, store, out_dir, layers_path, timeout_s):
+    """Each layer of ``SEAM_LAYERS`` on this rank's shards of the weights at
+    ``layers_path``, under the seams: its output, its input's gradient and
+    its parameters' gradients (the rank's shards), for an upstream gradient
+    given with the inputs."""
+    _run(_seams, rank, out_dir, world, store, layers_path, timeout_s)
+
+
+def _seams(rank, out_dir, world, store, layers_path, timeout_s):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.sharding import tp_module_flags, tp_shard_context
+    from repro_torch.interop import tree_leaves, tree_map
+
+    mesh = _join(rank, world, store, timeout_s, world)
+    try:
+        spec = torch.load(layers_path)
+        out = {}
+        for kind, arch in SEAM_LAYERS:
+            cfg = get_smoke_config(arch)
+            case = spec[kind]
+            dims = shard_dims(kind, cfg, world)
+
+            def take(t, d):
+                if d is None:
+                    return t.clone()
+                n = t.shape[d] // world
+                return t.narrow(d, rank * n, n).clone()
+
+            params = tree_map(take, case["params"], dims)
+            for t in tree_leaves(params):
+                t.requires_grad_(True)
+            x = case["x"].clone().requires_grad_(True)
+            with tp_shard_context(mesh, tp_module_flags(cfg, world)):
+                y = seam_layer(kind, cfg, params, x, case["positions"])
+                (y * case["dy"]).sum().backward()
+            out[kind] = {"y": y.detach(), "dx": x.grad,
+                         "grads": tree_map(lambda t: t.grad, params)}
+        return out
+    finally:
+        mesh.destroy()
 
 
 def concurrent_rank(rank, world, store, out_dir, timeout_s):

@@ -3,23 +3,25 @@
 
     python3 tools/gloo_cuda_probe.py
 
-For each of ``all_gather``, ``broadcast``, ``batch_isend_irecv`` and
-``send`` / ``recv``, starts two gloo ranks on ``cuda:0`` (through a
+For each of ``all_gather``, ``broadcast``, ``all_reduce`` (fp32 and
+bf16), ``batch_isend_irecv`` and ``send`` / ``recv``, starts two gloo ranks on ``cuda:0`` (through a
 ``file://`` store in a temporary directory) that run that op on CUDA
 tensors and check the values they got.  A pair per op, because gloo may
 abort the process (not raise) on a device pointer.  Prints one JSON line:
 torch's version and, per op, ``ok``, ``wrong values``, the error raised, or
 the ranks' exit codes.  The population mesh
-(``repro_torch.distributed.sharding``) stages every gloo op through
-page-locked host memory whatever this reports; the probe says which of
-them would need it.
+(``repro_torch.distributed.sharding``) stages a gloo op through
+page-locked host memory where this reports that it aborts on a CUDA
+tensor: the point-to-point sends.  The two-level mesh's seams hand gloo
+their CUDA tensors in ``all_reduce``.
 """
 import json
 import os
 import sys
 import tempfile
 
-OPS = ("all_gather", "broadcast", "batch_isend_irecv", "send_recv")
+OPS = ("all_gather", "broadcast", "all_reduce", "all_reduce_bf16", "batch_isend_irecv",
+       "send_recv")
 
 
 def _rank(rank, op, store, out):
@@ -42,6 +44,11 @@ def _rank(rank, op, store, out):
         y.copy_(x)
         dist.broadcast(y, src=0)
         ok = torch.equal(y.cpu(), torch.arange(8.))
+    elif op in ("all_reduce", "all_reduce_bf16"):
+        dt = torch.bfloat16 if op == "all_reduce_bf16" else torch.float32
+        y = x.to(dt)
+        dist.all_reduce(y)
+        ok = torch.equal(y.cpu().float(), 2 * torch.arange(8.) + 10)
     elif op == "batch_isend_irecv":
         for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
                                            dist.P2POp(dist.irecv, y, 1 - rank)]):
