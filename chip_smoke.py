@@ -240,7 +240,7 @@ FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 # to 4 of 30 layers, falcon-mamba-7b to 4 of 64
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
 MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
-ENGINE_LAYERS = 2   # the streaming, crash and ring flights: 2 of 30 (64) layers
+ENGINE_LAYERS = 2   # the chunked, streaming, crash and ring flights: 2 of 30 (64) layers
 # the MoE path: qwen3-moe-30b-a3b at its published widths, 1 of 48 layers and
 # two lanes (one lane's parameters and moments are 12.45 GB; the AdamW
 # temporaries of the stacked experts about 16 GB)
@@ -1630,7 +1630,7 @@ def _gloo_flights(torch, dev, cfg, mesh=None):
     return out
 
 
-def _gloo_rank(rank, cfg, store, out_dir):
+def _gloo_rank(rank, store, out_dir, cfg):
     """One of ``SHARDED_GLOO``'s ranks on ``cuda:0`` (spawned by
     ``sharded_gloo_path``): its flights, then lanes moved across ranks, each
     held bit for bit against the lane it copies.  Rank 0 saves what it saw
@@ -1726,11 +1726,6 @@ def sharded_gloo_path(torch, dev, seed=0):
     snapshot of a rank-1 lane restored into a rank-0 lane, each bit-equal to
     the lane it copies, timed against the lane's bytes.  Gates: scores within
     1e-6 and the same decisions (bit equality reported), bit-equal lanes."""
-    import os
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     from repro_torch.train import population as P
 
     cfg = SHARDED_GLOO
@@ -1739,29 +1734,7 @@ def sharded_gloo_path(torch, dev, seed=0):
     P.clear_population_cache()
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_gloo_rank, args=(r, cfg, os.path.join(tmp, "store"), tmp))
-                 for r in range(cfg["world"])]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        end = time.monotonic() + cfg["join_s"]
-        for p in procs:
-            p.join(max(0.0, end - time.monotonic()))
-        wall = time.perf_counter() - t0
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
-                for r in range(cfg["world"]) if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
-        if hung or errs or any(p.exitcode for p in procs):
-            die(f"sharded gloo path: ranks hung {hung}, exit codes "
-                f"{[p.exitcode for p in procs]}, errors {errs}")
-        with open(os.path.join(tmp, "rank0.json")) as f:
-            got = json.load(f)
+    (got, *_), wall = spawn_on_card(_gloo_rank, cfg["world"], cfg["join_s"], cfg)
     problems = []
     cmp = {}
     for flight in ("streaming", "device_rules"):
@@ -1970,11 +1943,6 @@ def tp_path(torch, dev, main_ref, main_ref_s):
     chunks run eagerly (a gloo collective cannot sit in a CUDA graph).
     Reports s a step against width 1, the all-reduce's ms (CUDA events) and
     bytes a step over the model group."""
-    import os
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     from repro_torch.train import population as P
 
     ref, ref_run = {}, {}
@@ -1985,31 +1953,7 @@ def tp_path(torch, dev, main_ref, main_ref_s):
     gc.collect()
     torch.cuda.empty_cache()
     cfg = TP
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_tp_rank, args=(r, os.path.join(tmp, "store"), tmp))
-                 for r in range(cfg["world"])]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        end = time.monotonic() + cfg["join_s"]
-        for p in procs:
-            p.join(max(0.0, end - time.monotonic()))
-        wall = time.perf_counter() - t0
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
-                for r in range(cfg["world"]) if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
-        if hung or errs or any(p.exitcode for p in procs):
-            die(f"tp path: ranks hung {hung}, exit codes {[p.exitcode for p in procs]}, "
-                f"errors {errs}")
-        got = []
-        for r in range(cfg["world"]):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                got.append(json.load(f))
+    got, wall = spawn_on_card(_tp_rank, cfg["world"], cfg["join_s"])
     g0 = got[0]
     problems, cmp = [], {}
     flights = (("streaming", g0["main"]["streaming"], main_ref["streaming"], "bfloat16"),
@@ -2080,6 +2024,357 @@ def tp_path(torch, dev, main_ref, main_ref_s):
     # the kernels line counts rank 0's launches (rank 1 makes as many)
     runs = out["rank0_launches"].values()
     return {k: sum(r[k] for r in runs) for k in g0["main"]["streaming_launches"]}, out
+
+
+# ------------------------------------------------- the trial mesh (--devices N)
+# launch/train.py --devices N: one trial over a (data, model) grid of gloo
+# ranks sharing cuda:0, as tp_path's.  (a) starcoder2-3b whole (30 layers,
+# bf16, remat full) at (1, 2) on train_path's seed and batches, its fp32 twin
+# at ENGINE_LAYERS; (b) (2, 2) (FSDP and the data split) at ENGINE_LAYERS,
+# bf16 and fp32; (c) deepseek-v2-lite at (1, 2), 2 layers: the
+# expert-parallel MoE, 32 of 64 experts a rank, bf16 and fp32; (d) the CLI's
+# main on two ranks at the smoke config, killed and resumed at --devices 1.
+TRIAL_MESH = dict(join_s=600.0, collective_s=300.0, device="cuda:0", steps=3)
+TRIAL_JOBS = {   # name: (world, shape, arch, n_layers (None: full depth), dtype)
+    "a_bf16": (2, (1, 2), "starcoder2-3b", None, "bfloat16"),
+    "a_fp32": (2, (1, 2), "starcoder2-3b", ENGINE_LAYERS, "float32"),
+    "c_bf16": (2, (1, 2), "deepseek-v2-lite-16b", 2, "bfloat16"),
+    "c_fp32": (2, (1, 2), "deepseek-v2-lite-16b", 2, "float32"),
+    "b_bf16": (4, (2, 2), "starcoder2-3b", ENGINE_LAYERS, "bfloat16"),
+    "b_fp32": (4, (2, 2), "starcoder2-3b", ENGINE_LAYERS, "float32"),
+}
+TRIAL_TOL = {"bfloat16": TP_TOL["bfloat16"], "float32": 1e-4}   # losses against --devices 1
+TRIAL_CLI = ["--arch", "starcoder2-3b", "--smoke", "--steps", "8", "--batch", "4", "--seq",
+             "16", "--log-every", "1", "--ckpt-every", "4", "--device", "cuda"]
+TRIAL_FAIL_AT = 6
+
+
+def trial_job_config(name):
+    """A trial-mesh job's model: the published widths, its depth (``TRAIN``'s
+    whole model for (a)), in its dtype."""
+    from repro_torch.configs import get_config
+
+    _, _, arch, n_layers, dtype = TRIAL_JOBS[name]
+    cfg = get_config(arch) if n_layers is None else path_config(arch, n_layers)
+    return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
+def trial_job_steps(name) -> int:
+    return TRAIN["warmup"] + TRAIN["timed"] if name == "a_bf16" else TRIAL_MESH["steps"]
+
+
+def trial_reckoned(cfg, shape) -> dict:
+    """The model-group collectives a step of ``cfg`` makes on a ``shape``
+    mesh with one data rank and remat ``full``, from the code: per layer the
+    seams' all-reduces (``tp_reckoned``'s 2 a module: f's backward, g's
+    forward), and the attention's g once more in the superblock's
+    recompute (the recompute stops once the last tensor the backward saved
+    is made again, before the MLP's g: nothing saved reads its output); the
+    gradient norm's one; one all-gather a leaf the model axis stores split
+    and its module computes whole, here the vocab-split embedding (gathered
+    once, outside the superblocks).  Bytes: an all-reduce's tensor, an
+    all-gather's output."""
+    from repro_torch.distributed.sharding import tp_module_flags
+
+    d, m = shape
+    if d != 1 or cfg.has_moe or cfg.prefix_pattern or len(cfg.pattern) != 1:
+        raise ValueError("reckoned only for case (a): dense, one layer a superblock, "
+                         "one data rank")
+    flags = tp_module_flags(cfg, m)
+    act = TRAIN["batch"] * TRAIN["seq"] * cfg.d_model * (2 if cfg.compute_dtype == "bfloat16"
+                                                           else 4)
+    per_layer = 3 * flags["attn"] + 2 * flags["mlp"]
+    n_layers = cfg.n_superblocks
+    embed = cfg.vocab_size * cfg.d_model * (2 if cfg.param_dtype == "bfloat16" else 4)
+    return {"all_reduce": {"calls": per_layer * n_layers + 1,
+                           "bytes": per_layer * n_layers * act + 4},
+            "all_gather": {"calls": 1, "bytes": embed}}
+
+
+def _trial_mesh_rank(rank, store, out_dir, world, names, cli):
+    """One of the trial mesh's gloo ranks on ``cuda:0`` (spawned by
+    ``trial_mesh_path``): each job of ``names`` through ``launch/train.py``'s
+    ``build`` on a trial mesh (the plain kernel versions refused), its losses,
+    s a step (host clock around ``synchronize`` and a barrier, after one
+    step), state bytes, peak memory, launches and collectives a step; then,
+    with ``cli``, the CLI's ``main`` at ``--devices 2`` killed by
+    ``--fail-at``.  Saves ``out_dir/rank{r}.json`` (``rank{r}.err`` if it
+    raised)."""
+    import contextlib
+    import datetime
+    import io
+    import os
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.data.pipeline import to_device
+        from repro_torch.distributed import sharding as S
+        from repro_torch.launch import train as TR
+        from repro_torch.launch.mesh import make_trial_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dev = torch.device(TRIAL_MESH["device"])
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(
+                                    seconds=TRIAL_MESH["collective_s"]))
+        out = {"rank": rank}
+        for name in names:
+            _, shape, arch, _, dtype = TRIAL_JOBS[name]
+            n = trial_job_steps(name)
+            mesh = make_trial_mesh(world, shape=shape, device=dev)
+            cfg = trial_job_config(name)
+            tc, data, step, _ = TR.build(train_args(dev, arch, TRAIN["batch"], TRAIN["seq"], n,
+                                                    TRAIN["remat"]), model=cfg, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            state = step.layout.init_state(torch.Generator(device=dev).manual_seed(0))
+            batches = [to_device(data.make_batch(t), dev) for t in range(n)]
+            losses = []
+            with plain_versions_raise():
+                before = counters()
+                state, m = step(state, batches[0])
+                losses.append(m["loss"])
+                torch.cuda.synchronize()
+                mesh.barrier()
+                c0, t0 = S.mesh_collectives(), time.perf_counter()
+                for t in range(1, n):
+                    state, m = step(state, batches[t])
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+                mesh.barrier()
+                s_per_step = (time.perf_counter() - t0) / (n - 1)
+                c1 = S.mesh_collectives()
+                launches = {k: v - before[k] for k, v in counters().items()}
+            per_step = {k: {f: (v[f] - c0.get(k, {}).get(f, 0)) / (n - 1) for f in v}
+                        for k, v in c1.items()}
+            out[name] = {"losses": [float(x) for x in losses], "s_per_step": s_per_step,
+                         "state_bytes": tree_bytes(state),
+                         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "launches": launches, "collectives_per_step": per_step}
+            del state, batches, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        if cli:
+            got_out, got_err = io.StringIO(), io.StringIO()
+            with plain_versions_raise(), contextlib.redirect_stdout(got_out), \
+                    contextlib.redirect_stderr(got_err):
+                before = counters()
+                code = TR.main([*TRIAL_CLI, "--devices", str(world), "--ckpt-dir", cli,
+                                "--fail-at", str(TRIAL_FAIL_AT)])
+                launches = {k: v - before[k] for k, v in counters().items()}
+            out["cli"] = {"code": code, "out": got_out.getvalue(),
+                          "err": got_err.getvalue()[-2000:], "launches": launches}
+        dist.destroy_process_group()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_on_card(target, world, join_s, *args):
+    """``world`` spawned ranks of ``target(rank, store, out_dir, *args)`` (a
+    ``file://`` store and a directory for their results), joined within
+    ``join_s``: each rank's saved ``rank{r}.json`` (None where a rank saved
+    none) and the wall seconds; dies if a rank hung, raised (leaving
+    ``rank{r}.err``) or exited non-zero."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=target, args=(r, os.path.join(tmp, "store"), tmp) + args)
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        end = time.monotonic() + join_s
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        wall = time.perf_counter() - t0
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()[-3000:]
+                for r in range(world) if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
+        if hung or errs or any(p.exitcode for p in procs):
+            die(f"{target.__name__}: ranks hung {hung}, exit codes "
+                f"{[p.exitcode for p in procs]}, errors {errs}")
+        got = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            got.append(json.load(open(path)) if os.path.exists(path) else None)
+    return got, wall
+
+
+def _cli_losses(text) -> dict:
+    """step -> loss of the driver's printed step lines."""
+    return {int(ln.split()[1]): float(ln.split()[3])
+            for ln in text.splitlines() if ln.startswith("step ")}
+
+
+def trial_mesh_path(torch, dev, train_out):
+    """The trial mesh (``launch/train.py --devices N``): gloo ranks sharing
+    the card, each storing its blocks of one trial's state, against
+    ``--devices 1`` (``make_train_step``) on the same seed and batches:
+    (a)'s bf16 losses against ``train_out``'s (``train_path``, 30 layers),
+    the other jobs' against a run here first.  Gates: each step's loss
+    within 3e-2 (bf16) / 1e-4 (fp32, TF32 off) and finite; rank 0's kernel
+    launches ``train_launches_per_step`` a step, no plain version; at (1, 2)
+    a rank's state at most 60% of ``train_path``'s and its peak below it;
+    (a)'s model-group collectives a step the reckoned ones; the CLI killed
+    at ``--fail-at`` on both ranks (17) and resumed at ``--devices 1``
+    following the reference's resume (batches 0..4, then 4..7) within 1e-4.
+    Reports s a step, each rank's state bytes, peak memory and collectives
+    a step.  Returns rank 0's launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.interop import tree_map
+    from repro_torch.launch import train as TR
+    from repro_torch.train.train_step import init_train_state
+
+    ref = {}
+    for name in TRIAL_JOBS:
+        if name == "a_bf16":
+            ref[name] = {"losses": train_out["losses"], "s_per_step": train_out["s_per_step"]}
+            continue
+        same = [n for n in ref if TRIAL_JOBS[n][2:] == TRIAL_JOBS[name][2:]]
+        if same:   # the same model on one device: one reference
+            ref[name] = ref[same[0]]
+            continue
+        n = trial_job_steps(name)
+        tc, data, step, _ = TR.build(train_args(dev, TRIAL_JOBS[name][2], TRAIN["batch"],
+                                                TRAIN["seq"], n, TRAIN["remat"]),
+                                     model=trial_job_config(name))
+        state = init_train_state(torch.Generator(device=dev).manual_seed(0), tc, dev)
+        losses = []
+        for t in range(n):
+            if t == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, to_device(data.make_batch(t), dev))
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ref[name] = {"losses": [float(x) for x in losses],
+                     "s_per_step": (time.perf_counter() - t0) / (n - 1)}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d)'s references: the smoke step fed batches 0..5 (the run killed at
+    # step 6) and, from the state after 0..4, 4..7 (the reference's resume
+    # from the checkpoint taken after step 4)
+    args = TR.parser().parse_args(TRIAL_CLI)
+    tc, data, step, _ = TR.build(args)
+    state = init_train_state(torch.Generator(device=dev).manual_seed(0), tc, dev)
+    cli_ref = {"killed": {}, "resumed": {}}
+    for t in range(5):
+        state, m = step(state, to_device(data.make_batch(t), dev))
+        cli_ref["killed"][t] = float(m["loss"])
+    saved = tree_map(lambda x: x.clone(), state)
+    cli_ref["killed"][5] = float(step(state, to_device(data.make_batch(5), dev))[1]["loss"])
+    for t in range(4, 8):
+        saved, m = step(saved, to_device(data.make_batch(t), dev))
+        cli_ref["resumed"][t] = float(m["loss"])
+    del state, saved, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    got, wall = {}, {}
+    with tempfile.TemporaryDirectory() as ck:
+        for world in (4, 2):
+            names = [n for n, j in TRIAL_JOBS.items() if j[0] == world]
+            got[world], wall[world] = spawn_on_card(
+                _trial_mesh_rank, world, TRIAL_MESH["join_s"], world, names,
+                ck if world == 2 else None)
+        resumed = io.StringIO()
+        with plain_versions_raise(), contextlib.redirect_stdout(resumed):
+            code = TR.main([*TRIAL_CLI, "--devices", "1", "--ckpt-dir", ck])
+    problems = []
+    jobs = {}
+    for name, (world, shape, arch, n_layers, dtype) in TRIAL_JOBS.items():
+        ranks = [g[name] for g in got[world]]
+        r0 = ranks[0]
+        diff = float(np.max(np.abs(np.subtract(r0["losses"], ref[name]["losses"]))))
+        cfg = trial_job_config(name)
+        want = {k: v * trial_job_steps(name)
+                for k, v in train_launches_per_step(cfg, TRAIN["remat"]).items()}
+        jobs[name] = {"shape": shape, "arch": arch, "n_layers": cfg.n_layers, "dtype": dtype,
+                      "losses": r0["losses"], "reference_losses": ref[name]["losses"],
+                      "max_abs_diff": diff, "tol": TRIAL_TOL[dtype],
+                      "s_per_step": r0["s_per_step"],
+                      "devices_1_s_per_step": ref[name]["s_per_step"],
+                      "state_bytes": [r["state_bytes"] for r in ranks],
+                      "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
+                      "collectives_per_step": r0["collectives_per_step"],
+                      "rank0_launches": r0["launches"], "launches_want": want}
+        if not np.all(np.isfinite(r0["losses"])):
+            problems.append(f"{name}: a loss is not finite: {r0['losses']}")
+        if diff > TRIAL_TOL[dtype]:
+            problems.append(f"{name}: losses {diff} from --devices 1 > {TRIAL_TOL[dtype]}")
+        if any(r["losses"] != r0["losses"] for r in ranks[1:]):
+            problems.append(f"{name}: the ranks report other losses")
+        if {k: r0["launches"][k] for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention_sm90",
+                                            "flash_attention_fp32")} != \
+                {k: want[k] for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention_sm90",
+                                      "flash_attention_fp32")}:
+            problems.append(f"{name}: rank 0 launched {r0['launches']}, want {want}")
+    a = jobs["a_bf16"]
+    a["reckoned_model_collectives"] = trial_reckoned(trial_job_config("a_bf16"), (1, 2))
+    a["state_share_of_devices_1"] = [b / train_out["state_bytes"] for b in a["state_bytes"]]
+    a["devices_1_peak_memory_gib"] = train_out["peak_memory_gib"]
+    seen = {k.split("/")[1]: v for k, v in a["collectives_per_step"].items()
+            if k.startswith("model/")}
+    if seen != a["reckoned_model_collectives"]:
+        problems.append(f"a_bf16: model-group collectives a step {seen}, reckoned "
+                        f"{a['reckoned_model_collectives']}")
+    if max(a["state_share_of_devices_1"]) > 0.6:
+        problems.append(f"a_bf16: a rank holds {a['state_share_of_devices_1']} of the state")
+    if max(a["peak_memory_gib"]) >= train_out["peak_memory_gib"]:
+        problems.append(f"a_bf16: rank peak {a['peak_memory_gib']} GiB, --devices 1 "
+                        f"{train_out['peak_memory_gib']}")
+    killed = [g["cli"] for g in got[2]]
+    lines = _cli_losses(killed[0]["out"])
+    after = _cli_losses(resumed.getvalue())
+    cli_diff = max([abs(lines.get(t, np.inf) - v) for t, v in cli_ref["killed"].items()]
+                   + [abs(after.get(t, np.inf) - v) for t, v in cli_ref["resumed"].items()])
+    cli = {"codes": [k["code"] for k in killed], "resumed_code": code,
+           "killed_losses": lines, "resumed_losses": after, "reference_losses": cli_ref,
+           "max_abs_diff": cli_diff, "rank1_printed": killed[1]["out"],
+           "resumed_line": "resumed from checkpoint at step 4" in resumed.getvalue()}
+    if cli["codes"] != [17, 17] or code != 0 or not cli["resumed_line"] or \
+            sorted(lines) != list(range(TRIAL_FAIL_AT)) or killed[1]["out"]:
+        problems.append(f"cli: {cli}")
+    if cli_diff > 1e-4 + 5e-5:   # printed to 4 places
+        problems.append(f"cli: losses {cli_diff} from the reference's resume")
+    cli_want = {k: v * TRIAL_FAIL_AT for k, v in train_launches_per_step(
+        tc.model, args.remat).items()}
+    if any(killed[0]["launches"][k] != cli_want[k] for k in ("rmsnorm", "rmsnorm_bwd",
+                                                               "flash_attention_fp32")):
+        problems.append(f"cli: rank 0 launched {killed[0]['launches']}, want {cli_want}")
+    out = {"phase": "trial_mesh_path", "backend": "gloo", "ranks_on": TRIAL_MESH["device"],
+           "nvidia_smi": nvidia_smi(), "jobs": jobs, "cli": cli, "spawn_wall_s": wall}
+    emit(out)
+    if problems:
+        die("trial mesh path: " + "; ".join(problems))
+    return {k: killed[0]["launches"][k] + sum(got[job[0]][0][name]["launches"][k]
+                                              for name, job in TRIAL_JOBS.items())
+            for k in counters()}, out
 
 
 # -------------------------------------------------------------- phase 4, MoE
@@ -3566,7 +3861,7 @@ def train_path(torch, dev, arch, batch, seq, remat, warmup, timed, seed=0):
     ``synchronize``), the plain kernel versions refused; then one step under
     the profiler.  Gates: a finite loss every step; the kernels' launches a
     step (``train_launches_per_step``: the recomputed superblocks' too) and
-    no plain version.  Returns the launches of the steps."""
+    no plain version.  Returns the launches of the steps and the phase's line."""
     import numpy as np
 
     from repro_torch.data.pipeline import to_device
@@ -3626,7 +3921,7 @@ def train_path(torch, dev, arch, batch, seq, remat, warmup, timed, seed=0):
         problems.append(f"the profiled step launched {out['profile_launches']}, want {per_step}")
     if problems:
         die(f"train path {arch}: " + "; ".join(problems))
-    return launches
+    return launches, out
 
 
 def train_run(torch, dev, tc, batches, seed=0, state=None):
@@ -4810,7 +5105,13 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
             lap(path["arch"] + (":moe" if path is MOE else ":mla"))
-        launches, out = chunked_path(torch, dev, per_step_steady=out["steady_s_per_step"], **kw)
+        # the chunked engine does not depend on the model's depth either: its
+        # flights run at ENGINE_LAYERS at most (the main path's steady step
+        # stands beside them only at the same depth)
+        depth = min(kw["n_layers"], ENGINE_LAYERS)
+        launches, out = chunked_path(
+            torch, dev, **dict(kw, n_layers=depth),
+            per_step_steady=out["steady_s_per_step"] if depth == kw["n_layers"] else None)
         by_path[path["arch"] + "+chunked"] = launches
         chunk_launches[path["arch"]] = out["kernel_launches_per_step_seen"][
             "synth_tokens"] * out["chunk"]
@@ -4852,8 +5153,12 @@ def main() -> int:
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")
-    by_path[TRAIN["arch"] + "+train"] = train_path(torch, dev, **TRAIN)
+    by_path[TRAIN["arch"] + "+train"], train_out = train_path(torch, dev, **TRAIN)
     lap("train_path")
+    by_path[TRAIN["arch"] + "+trial_mesh"], _ = trial_mesh_path(torch, dev, train_out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("trial_mesh_path")
     by_path[TRAIN["arch"] + "+train_checks"] = train_checks(torch, dev, **TRAIN_CHECKS)
     by_path[TRAIN["arch"] + "+train_smoke"] = train_smoke_card_vs_cpu(torch, dev, **TRAIN_SMOKE)
     by_path[TRAIN["arch"] + "+legacy"] = legacy_recompile_check(torch, dev, **LEGACY)

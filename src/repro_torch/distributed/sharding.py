@@ -37,6 +37,25 @@ so the seams hand it the device tensors.
 While a mesh lives, the RMSNorm backward plans a rank's K/rows lanes as the
 whole population's K (``kernels/rmsnorm.py::plan_for_mesh(rows)``), so a
 lane's gain gradient takes the unsharded launch's bits.
+
+**The trial mesh** (``launch/mesh.py::make_trial_mesh``, ``launch/train.py
+--devices N``) is the same grid read as one trial's ``(data, model)`` axes:
+the pop group is the data axis, a row's model group the model axis.  The
+JAX package's logical-axis rules place each leaf (``make_rules``,
+``build_pspec``, ``build_sharding``: the weights' ``embed`` dim over
+``data``, FSDP; heads, ``ff``, ``inner``, ``vocab`` and ``expert`` over
+``model``); a placement is, per dim, the mesh axis its blocks split over or
+None.  A rank stores only its block of each leaf (``shard_tree``;
+``gather_tree`` joins them).  Where a module computes on whole weights, a
+leaf is gathered at use (``at_use``, read by ``models/transformer.py``
+inside each checkpointed superblock): ``DataGather`` (all-gather forward;
+backward the gradients summed over the data ranks, each keeping its block)
+and ``ModelGather`` (all-gather forward; backward the rank's own slice, for
+every model rank computed the same full gradient).  JAX's ``constrain`` has
+no twin: each of its call sites is a layout hint to GSPMD, and the port's
+explicit gathers and seams are the layout.  ``sharding_context`` /
+``ctx_mesh`` carry the mesh to the code that reads it (``moe_apply``'s
+expert-parallel path, the step), as JAX's ``_CTX`` does.
 """
 from __future__ import annotations
 
@@ -52,7 +71,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..interop import tree_leaves, tree_unflatten
+from ..interop import tree_leaves, tree_map, tree_unflatten
 from ..kernels import rmsnorm
 
 DEFAULT_TIMEOUT_S = 300.0
@@ -208,12 +227,58 @@ class PopulationMesh:
 
     def model_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over this rank's row, in place (the seams' and the
-        gradient norm's collective; counted in ``tp_collectives``)."""
-        global _TP_COLLECTIVES, _TP_BYTES
+        gradient norm's collective; counted in ``tp_collectives`` and
+        ``mesh_collectives``)."""
         dist.all_reduce(t, group=self.model_group)
-        _TP_COLLECTIVES += 1
-        _TP_BYTES += t.numel() * t.element_size()
+        _count("model", "all_reduce", t.numel() * t.element_size())
         return t
+
+    # -- the trial mesh's axes (``axis`` the data axis, then ``model``) --------
+    @property
+    def axis_names(self) -> tuple:
+        return (self.axis, "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Each axis's size, as a JAX mesh's ``shape``."""
+        return {self.axis: self.rows, "model": self.width}
+
+    def axis_index(self, axis: str) -> int:
+        return self.model_rank if axis == "model" else self.row
+
+    def _axis_group(self, axis: str):
+        if axis == "model":
+            return self.model_group
+        return self.pop_group if self.width > 1 else self.group
+
+    def axis_all_gather(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """Every rank's ``t`` along ``axis``, joined along ``dim`` in axis
+        order, bit for bit: the bytes are gathered (gloo gathers bytes of
+        every dtype), then read back (counted in ``mesh_collectives``)."""
+        n = self.shape[axis]
+        raw = t.contiguous().view(torch.uint8)
+        parts = [torch.empty_like(raw) for _ in range(n)]
+        dist.all_gather(parts, raw, group=self._axis_group(axis))
+        _count(axis, "all_gather", raw.numel() * n)
+        return torch.cat(parts, dim).view(t.dtype)
+
+    def axis_all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum ``t`` over ``axis``, in place (counted in ``mesh_collectives``;
+        the model axis's through ``model_all_reduce``)."""
+        if axis == "model":
+            return self.model_all_reduce(t)
+        dist.all_reduce(t, group=self._axis_group(axis))
+        _count(axis, "all_reduce", t.numel() * t.element_size())
+        return t
+
+    def axis_reduce_scatter(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """This rank's block along ``dim`` of ``t`` summed over ``axis``
+        (counted in ``mesh_collectives``)."""
+        parts = [p.contiguous() for p in t.chunk(self.shape[axis], dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=self._axis_group(axis))
+        _count(axis, "reduce_scatter", t.numel() * t.element_size())
+        return out
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
@@ -257,7 +322,7 @@ def population_mesh(device=None, axis: str = "pop", width: Optional[int] = None,
     one, made in this process.  ``device`` is ``cpu`` or ``cuda`` (a CUDA
     rank takes ``cuda:LOCAL_RANK``) or an explicit ``cuda:i``; the backend
     is NCCL for CUDA and gloo for the CPU unless ``backend`` names one.
-    Called again (``device`` None, or the same, and the same width), it
+    Called again (``device`` None, or the same, the same width and axis), it
     returns the mesh this process already made or joined.  ``width`` W > 1
     makes the mesh two-level: ``N / W`` lane rows of W ranks (it must
     divide N); every rank makes every row's and every model position's
@@ -266,9 +331,9 @@ def population_mesh(device=None, axis: str = "pop", width: Optional[int] = None,
     w = 1 if width is None else int(width)
     if w < 1:
         raise ValueError(f"population mesh width {width} must be at least 1")
-    if _CURRENT is not None and dist.is_initialized() and _CURRENT.width == w and (
-            device is None or _rank_device(device, _CURRENT.device.index or 0)
-            == _CURRENT.device):
+    if _CURRENT is not None and dist.is_initialized() and _CURRENT.width == w and \
+            _CURRENT.axis == axis and (device is None or _rank_device(
+                device, _CURRENT.device.index or 0) == _CURRENT.device):
         return _CURRENT
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
@@ -331,8 +396,6 @@ def population_specs(tree: Any, mesh: PopulationMesh) -> Any:
     all of it).  Rank-0 leaves, and leaves whose leading dim does not divide
     over the ranks (scalar rule state, history rings, window counters), are
     replicated, as the JAX package's ``population_specs`` places them."""
-    from ..interop import tree_map
-
     def one(leaf):
         shape = tuple(getattr(leaf, "shape", np.shape(leaf)))
         return "rep" if len(shape) < 1 or shape[0] % mesh.rows else "pop"
@@ -357,6 +420,237 @@ def _is_spec_leaf(x: Any) -> bool:
     return isinstance(x, tuple) and all(i is None or isinstance(i, str) for i in x)
 
 
+# -- the trial mesh: logical-axis rules and placements ------------------------------------
+
+def make_rules(mesh_axes: Sequence[str], *, shard_cache_seq: bool = False) -> Rules:
+    """The JAX package's ``make_rules``: logical axis name -> mesh axes.
+    ``embed`` goes over the data axes (FSDP), ``vocab``, the heads, ``ff``,
+    ``moe_ff``, ``expert`` and ``inner`` over ``model``; ``act_seq_attn``
+    is the Ulysses fallback for heads that do not divide ``model``."""
+    dp: Tuple[str, ...] = ("pod", "data") if "pod" in mesh_axes else ("data",)
+    rules: Rules = {
+        "batch": dp, "embed": dp, "vocab": ("model",), "heads": ("model",),
+        "kv_heads": ("model",), "head": (), "ff": ("model",), "moe_ff": ("model",),
+        "expert": ("model",), "inner": ("model",),
+        "cache_seq": ("data", "model") if shard_cache_seq else ("model",),
+        "act_embed": (), "act_seq": (), "act_seq_attn": ("model",),
+    }
+    return {k: tuple(a for a in v if a in mesh_axes) for k, v in rules.items()}
+
+
+# lower claims mesh axes first: head / ff / expert dims take the model axis
+# when they divide it; act_seq_attn only as a fallback
+_PRIORITY = {
+    "vocab": 0, "heads": 0, "kv_heads": 0, "ff": 0, "moe_ff": 0,
+    "expert": 0, "inner": 0, "cache_seq": 0,
+    "embed": 1, "batch": 1,
+    "act_seq_attn": 2, "act_seq": 3, "act_embed": 3, "head": 3,
+}
+
+
+def build_pspec(shape: Sequence[int], logical: Sequence[Optional[str]], rules: Rules,
+                mesh) -> tuple:
+    """A leaf's placement: per dim of ``shape``, the mesh axis (a tuple for
+    several) its blocks split over, or None; the JAX package's
+    ``build_pspec`` (``mesh`` needs only ``.shape``, axis -> size).  Dims
+    claim axes in ``_PRIORITY`` order, a mesh axis at most once a leaf, each
+    dim keeping the prefix of its axes whose sizes divide it."""
+    if len(shape) != len(logical):
+        raise ValueError(f"shape {tuple(shape)} and logical axes {tuple(logical)} differ in rank")
+    used: set = set()
+    spec: list = [None] * len(shape)
+    for i in sorted(range(len(shape)), key=lambda i: _PRIORITY.get(logical[i], 1)):
+        if logical[i] is None:
+            continue
+        keep, prod = [], 1
+        for a in (a for a in rules.get(logical[i], ()) if a not in used):
+            if shape[i] % (prod * mesh.shape[a]) == 0:
+                keep.append(a)
+                prod *= mesh.shape[a]
+        if keep:
+            used.update(keep)
+            spec[i] = tuple(keep) if len(keep) > 1 else keep[0]
+    return tuple(spec)
+
+
+def build_sharding(tree_shapes: Any, tree_specs: Any, rules: Rules, mesh) -> Any:
+    """The placement of every leaf of ``tree_shapes`` (tensors, or anything
+    with ``.shape``), walked with its specs tree (``map_specs``)."""
+    return map_specs(tree_shapes, tree_specs,
+                     lambda leaf, logical: build_pspec(tuple(leaf.shape), logical, rules, mesh))
+
+
+def sharded_dims(placement: tuple, mesh) -> list:
+    """(dim, axis) of each dim a placement splits over an axis of more than
+    one rank of ``mesh``."""
+    return [(i, a) for i, a in enumerate(placement) if a is not None and mesh.shape[a] > 1]
+
+
+def shard_tree(tree: Any, placements: Any, mesh: PopulationMesh) -> Any:
+    """This rank's block of every leaf of a whole ``tree``, copied onto its
+    device and freed of the rest."""
+    def one(x, placement):
+        for i, a in sharded_dims(placement, mesh):
+            n = x.shape[i] // mesh.shape[a]
+            x = x.narrow(i, mesh.axis_index(a) * n, n)
+        return x.to(mesh.device, copy=True).contiguous()
+
+    return map_specs(tree, placements, one)
+
+
+def gather_tree(tree: Any, placements: Any, mesh: PopulationMesh, to_host: bool = False,
+                keep: bool = True) -> Any:
+    """Every leaf whole from the ranks' blocks (a collective: every rank
+    calls it), leaf by leaf; ``to_host`` copies each to host memory as it
+    is joined, so a rank holds one whole leaf on its device at a time; a
+    rank that does not ``keep`` the result gets None leaves."""
+    def one(x, placement):
+        for i, a in sharded_dims(placement, mesh)[::-1]:
+            x = mesh.axis_all_gather(x, i, a)
+        if not keep:
+            return None
+        return x.to("cpu", copy=True) if to_host else x
+
+    return map_specs(tree, placements, one)
+
+
+_MESH_COUNTS: Dict[Tuple[str, str], list] = {}   # (axis, op) -> [calls, bytes]
+
+
+def _count(axis: str, op: str, nbytes: int) -> None:
+    c = _MESH_COUNTS.setdefault((axis, op), [0, 0])
+    c[0] += 1
+    c[1] += int(nbytes)
+
+
+def mesh_collectives() -> Dict[str, Dict[str, int]]:
+    """The collectives this process made over a mesh's axes, by
+    ``"axis/op"``: calls and bytes (an all-gather's bytes are its output's, a
+    reduce-scatter's its input's)."""
+    return {f"{a}/{op}": {"calls": c[0], "bytes": c[1]}
+            for (a, op), c in sorted(_MESH_COUNTS.items())}
+
+
+class DataGather(torch.autograd.Function):
+    """A leaf stored in blocks over the data axis (``dim``; None: stored
+    whole) computed whole: all-gather forward.  Backward, when the data
+    ranks trained on their own rows (``split``), the gradients summed over
+    them, each rank getting its block (a reduce-scatter; an all-reduce for
+    a leaf stored whole), since the batch's rows are the only thing the
+    ranks split, so the sum is the unsharded gradient; else each rank's
+    own block of its (whole, the same) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, split):
+        ctx.mesh, ctx.dim, ctx.split = mesh, dim, split
+        return x.view_as(x) if dim is None else mesh.axis_all_gather(x, dim, mesh.axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.mesh, ctx.dim
+        if ctx.split and dim is not None:
+            g = mesh.axis_reduce_scatter(g, dim, mesh.axis)
+        elif ctx.split:
+            g = mesh.axis_all_reduce(g.contiguous().clone(), mesh.axis)
+        elif dim is not None:
+            n = g.shape[dim] // mesh.rows
+            g = g.narrow(dim, mesh.row * n, n)
+        return g, None, None, None
+
+
+class ModelGather(torch.autograd.Function):
+    """A leaf stored in blocks over the model axis (``dim``) that its module
+    computes whole: all-gather forward; backward the rank's own slice of
+    the gradient (every model rank computed the same whole gradient, so a
+    sum would count it ``width`` times)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.axis_all_gather(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.mesh, ctx.dim
+        n = g.shape[dim] // mesh.width
+        return g.narrow(dim, mesh.model_rank * n, n), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class UsePlan:
+    """How a stored leaf becomes the tensor its module computes on:
+    ``model`` the dims gathered over the model axis, ``data`` the dim
+    gathered over the data axis (None: stored whole over it), dims counted
+    as the tensor at use has them."""
+
+    model: Tuple[int, ...] = ()
+    data: Optional[int] = None
+
+    def apply(self, x: torch.Tensor, mesh: PopulationMesh, split: bool) -> torch.Tensor:
+        for d in self.model:
+            x = ModelGather.apply(x, mesh, d)
+        if self.data is not None or (split and mesh.rows > 1):
+            x = DataGather.apply(x, mesh, self.data, split)
+        return x
+
+
+_CTX: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "sharding_ctx", default=None)
+
+
+@contextlib.contextmanager
+def sharding_context(mesh: PopulationMesh, uses: Any = None, split: bool = False):
+    """Run a trial's step on ``mesh``: ``uses`` (a tree of
+    ``UsePlan`` by part of the parameter tree: ``embedding``, ``prefix``,
+    ``blocks`` (one superblock), ``final_norm``) tells ``at_use`` how to
+    gather each stored leaf; ``split`` whether the data ranks train on
+    their own rows of the batch."""
+    tok = _CTX.set((mesh, uses, bool(split)))
+    try:
+        yield
+    finally:
+        _CTX.reset(tok)
+
+
+def ctx_mesh() -> Optional[PopulationMesh]:
+    """The active sharding context's mesh (None outside a context)."""
+    ctx = _CTX.get()
+    return ctx[0] if ctx is not None else None
+
+
+def at_use(tree: Any, *part) -> Any:
+    """``tree`` (stored blocks of the parameter tree's ``part``) as its
+    modules compute on it, gathered by the context's ``UsePlan``s; the tree
+    itself outside a trial's sharding context."""
+    ctx = _CTX.get()
+    if ctx is None or ctx[1] is None:
+        return tree
+    mesh, uses, split = ctx
+    plans = uses
+    for k in part:
+        plans = plans[k]
+    return tree_map(lambda x, plan: plan.apply(x, mesh, split), tree, plans)
+
+
+def reentry():
+    """A context manager factory that sets the sharding and seam contexts
+    active now.  A superblock recomputed in the backward pass runs on the
+    autograd engine's thread, which does not see this thread's context
+    variables: it re-enters the ones its forward saw."""
+    saved = (_CTX.get(), _TP_CTX.get())
+
+    @contextlib.contextmanager
+    def enter():
+        toks = (_CTX.set(saved[0]), _TP_CTX.set(saved[1]))
+        try:
+            yield
+        finally:
+            _TP_CTX.reset(toks[1])
+            _CTX.reset(toks[0])
+
+    return enter
+
+
 # -- the tensor-parallel seams of the two-level mesh -----------------------------------
 #
 # The width rules decide which weight families shard over a lane row's model
@@ -375,19 +669,15 @@ def _is_spec_leaf(x: Any) -> bool:
 
 _TP_CTX: contextvars.ContextVar[Optional[Dict[str, Any]]] = contextvars.ContextVar(
     "tp_ctx", default=None)
-_TP_COLLECTIVES = 0   # model-group all-reduces this process has issued
-_TP_BYTES = 0         # and the bytes of the tensors they reduced
-
-
 def tp_collectives() -> int:
     """The model-group all-reduces this process has issued (the seams' and
     the gradient norm's)."""
-    return _TP_COLLECTIVES
+    return _MESH_COUNTS.get(("model", "all_reduce"), [0, 0])[0]
 
 
 def tp_collective_bytes() -> int:
     """The bytes of the tensors those all-reduces summed."""
-    return _TP_BYTES
+    return _MESH_COUNTS.get(("model", "all_reduce"), [0, 0])[1]
 
 
 def tp_width_rules(cfg, width: int, model_axis: str = "model") -> Rules:
@@ -496,22 +786,27 @@ def tp_reduce(x: torch.Tensor, module: str) -> torch.Tensor:
 def tp_gnorm_sumsq(leaf_sumsqs: Sequence[torch.Tensor], tree: Any) -> Optional[torch.Tensor]:
     """Each lane's sum of squares over a gradient tree under the seams
     (``leaf_sumsqs``: per leaf of ``tree``, in ``tree_leaves`` order, each
-    lane's own sum, (K,)): the replicated leaves' sums once, plus the
-    width-sharded leaves' sums all-reduced over the row.  None when the
-    seams are not armed (the caller keeps its plain sum)."""
+    lane's own sum, (K,)): the replicated leaves' sums once, plus the sharded
+    leaves' sums, each all-reduced over the axes its leaf is stored sharded
+    on.  A mask leaf is True (sharded over the model axis: the two-level
+    mesh), False, or the frozenset of the axes (the trial mesh).  None when
+    the seams are not armed (the caller keeps its plain sum)."""
     ctx = _TP_CTX.get()
     if ctx is None or ctx.get("gnorm_mask") is None:
         return None
     mask = tree_leaves(ctx["gnorm_mask"])
     if len(mask) != len(leaf_sumsqs):
         return None
-    total = shard = None
+    total, groups = None, {}
     for sq, m in zip(leaf_sumsqs, mask):
-        if m:
-            shard = sq if shard is None else shard + sq
+        axes = (("model",) if m else ()) if isinstance(m, bool) else tuple(sorted(m))
+        if axes:
+            groups[axes] = sq if axes not in groups else groups[axes] + sq
         else:
             total = sq if total is None else total + sq
-    if shard is not None:
-        shard = ctx["mesh"].model_all_reduce(shard)
-        total = shard if total is None else total + shard
+    for axes in sorted(groups):
+        part = groups[axes]
+        for a in axes:
+            part = ctx["mesh"].axis_all_reduce(part, a)
+        total = part if total is None else total + part
     return total

@@ -1684,20 +1684,21 @@ def _ranks_to_spawn(device: str) -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
 
-def _rank_main(rank: int, argv, world: int, port: int) -> None:
+def _rank_main(rank: int, argv, world: int, port: int, target=None) -> None:
     import os
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    code = main(argv)
+    code = (target or main)(argv)
     if code:
         raise SystemExit(code)
 
 
-def _spawn_ranks(argv, world: int) -> int:
-    """Run the CLI as ``world`` ranks on this host (``torchrun``'s
-    environment on localhost), rank 0 printing the result; returns when
-    every rank has exited."""
+def _spawn_ranks(argv, world: int, target=None) -> int:
+    """Run the CLI (``target``, default this module's ``main``: a function
+    of ``argv`` a spawned process can import) as ``world`` ranks on this
+    host (``torchrun``'s environment on localhost), rank 0 printing the
+    result; returns when every rank has exited."""
     import socket
 
     import torch.multiprocessing as mp
@@ -1706,7 +1707,7 @@ def _spawn_ranks(argv, world: int) -> int:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     argv = list(sys.argv[1:] if argv is None else argv)
-    mp.spawn(_rank_main, args=(argv, world, port), nprocs=world, join=True)
+    mp.spawn(_rank_main, args=(argv, world, port, target), nprocs=world, join=True)
     return 0
 
 

@@ -5,10 +5,23 @@ Every lane routes its own tokens with its own capacity, as the JAX package's
 population ``vmap`` of ``repro.models.moe.moe_apply`` does: x is
 ``(K, B, S, d)``; the router is ``(K, d, E)`` in fp32, ``wi`` ``(K, E, d,
 n_in, ff)``, ``wo`` ``(K, E, ff, d)``, ``shared`` as in ``mlp.py``.  The
-grouped plain path is the only one: the experts stay replicated on the
-population engines' two-level mesh, and the expert-parallel ``shard_map``
-path of a single trial's mesh comes with ROADMAP.md section 1, item 12(b)
-part two.
+grouped path serves the population engines (their two-level mesh keeps the
+experts replicated) and one device.
+
+**Expert parallelism** (a trial mesh, ``launch/train.py --devices N``): the
+twin of the JAX package's ``_moe_shard_map``, taken on its condition
+(``moe_apply``: a sharding context whose model axis divides the experts,
+and not dropless).  The activations enter whole over the model axis; each
+model rank routes its data rows' tokens in one dispatch group whose
+capacity comes from those local tokens, computes only its ``E / width``
+experts (an assignment to another rank's expert goes to the dump row) and
+combines them in fp32; one all-reduce of that fp32 ``y`` over the model
+axis joins the experts.  Backward, the dispatched tokens' and the routing
+weights' partial gradients (each rank's from its own experts) are summed
+over the model axis as they enter (``sharding._SeamF``), so the router and
+the input get whole gradients on every rank.  The load-balancing loss is
+the rank's rows'; the step averages it over the data ranks.  The shared
+experts run whole through ``mlp_apply``, as in JAX.
 
 The dispatch is built so that nothing accumulates into one element from
 several places, forward or backward, so a step's bits do not depend on the
@@ -141,15 +154,17 @@ def experts(buf: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
     return out.view(K, E, G, C, d).transpose(1, 2).reshape(K, G, E * C, d)
 
 
-def combine(out: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+def combine(out: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
+            dtype=None) -> torch.Tensor:
     """out (K, G, E * C, d), slot (K, G, Tg * k), top_p (K, G, Tg, k) -> y
-    (K, G, Tg, d): each assignment's expert output read by its slot (a
-    dropped one reads a zero row), weighted in fp32 and summed over k."""
+    (K, G, Tg, d) in ``dtype`` (default ``out``'s): each assignment's expert
+    output read by its slot (a dropped one reads a zero row), weighted in
+    fp32 and summed over k."""
     K, G, EC, d = out.shape
     Tg, k = top_p.shape[2:]
     out = torch.cat([out, out.new_zeros((K, G, 1, d))], dim=2).reshape(-1, d)
     got = out.index_select(0, _flat_slots(slot, EC + 1)).view(K, G, Tg, k, d)
-    return (got.float() * top_p.unsqueeze(-1)).sum(3).to(out.dtype)
+    return (got.float() * top_p.unsqueeze(-1)).sum(3).to(dtype or out.dtype)
 
 
 def _flat_slots(slot: torch.Tensor, rows: int) -> torch.Tensor:
@@ -172,11 +187,43 @@ def aux_loss(probs: torch.Tensor, top_e: torch.Tensor, E: int) -> torch.Tensor:
     return E * lane_sum(f / flat.shape[1] * mean_p)
 
 
+def _expert_parallel(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel layer on a trial mesh's rank (module docstring):
+    ``p["wi"]`` / ``p["wo"]`` hold the rank's ``E / width`` experts."""
+    from ..distributed.sharding import _SeamF, _SeamG
+
+    K, B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    El = E // mesh.width
+    T = B * S
+    C = capacity(cfg, T)
+    xt = x.reshape(K, 1, T, d)
+    probs, top_p, top_e = route(p["router"], xt, k)
+    slot = dispatch_slots(top_e, E, C) - mesh.model_rank * El * C
+    slot = torch.where((slot >= 0) & (slot < El * C), slot, torch.full_like(slot, El * C))
+    if mesh.width > 1:
+        xt, top_p = _SeamF.apply(xt, mesh), _SeamF.apply(top_p, mesh)
+    y = combine(experts(dispatch(xt, slot, El, C), p, cfg), slot, top_p, torch.float32)
+    if mesh.width > 1:
+        y = _SeamG.apply(y, mesh)
+    y = y.to(x.dtype).reshape(K, B, S, d)
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], x, cfg)
+    return y, aux_loss(probs, top_e, E)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, dropless: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (K, B, S, d) -> (y (K, B, S, d), aux (K,)): the grouped sort-based
     dispatch of ``repro.models.moe.moe_apply`` on every lane, and each
-    lane's load-balancing loss."""
+    lane's load-balancing loss; on a trial mesh whose model axis divides
+    the experts (and not dropless), the expert-parallel layer."""
+    from ..distributed.sharding import ctx_mesh
+
+    mesh = ctx_mesh()
+    if mesh is not None and not dropless and cfg.n_experts % mesh.width == 0:
+        return _expert_parallel(p, x, cfg, mesh)
     K, B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     T = B * S

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import at_use, reentry
 from ..interop import tree_leaves, tree_map, tree_unflatten
 from . import attention as attn
 from . import mamba as mam
@@ -74,25 +75,46 @@ def _layer_init(gen, mixer: str, ffn: str, cfg: ModelConfig, device) -> Params:
     return p
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """One trial's parameters (no lane axis), from ``gen``."""
-    params: Params = {"embedding": embedding_init(gen, cfg, device)}
+def _kept(keep, part: str, tree: Params) -> Params:
+    """``keep(part, path, leaf)`` applied to each leaf of ``tree`` (the part's
+    leaves at ``path`` within it), as each is made."""
+    if keep is None:
+        return tree
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return keep(part, path, node)
+
+    return walk(tree, ())
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, device, keep=None) -> Params:
+    """One trial's parameters (no lane axis), from ``gen``.  ``keep(part,
+    path, leaf)`` (a trial mesh's rank) returns what is stored of each whole
+    leaf as it is made: the leaves are drawn in one order whatever is kept,
+    so every rank's blocks are those of the whole init, and one layer's
+    whole leaves are allocated at a time (a superblock's stacked leaves are
+    kept superblock by superblock: ``part`` is ``blocks``, ``path`` within
+    one superblock)."""
+    params: Params = {"embedding": _kept(keep, "embedding", embedding_init(gen, cfg, device))}
     if cfg.prefix_pattern:
-        params["prefix"] = [_layer_init(gen, m, f, cfg, device)
-                            for m, f in cfg.prefix_pattern]
+        params["prefix"] = [_kept(keep, f"prefix/{j}", _layer_init(gen, m, f, cfg, device))
+                            for j, (m, f) in enumerate(cfg.prefix_pattern)]
     # superblock by superblock into the stacked leaves: one superblock's
     # parameters are allocated beside them, not all of them twice
     blocks = None
     for b in range(cfg.n_superblocks):
-        block = {f"l{i}": _layer_init(gen, m, f, cfg, device)
-                 for i, (m, f) in enumerate(cfg.pattern)}
+        block = _kept(keep, "blocks", {f"l{i}": _layer_init(gen, m, f, cfg, device)
+                                       for i, (m, f) in enumerate(cfg.pattern)})
         if blocks is None:
             blocks = tree_map(lambda x: x.new_empty((cfg.n_superblocks,) + tuple(x.shape)),
                               block)
         tree_map(lambda dst, x: dst[b].copy_(x), blocks, block)
         del block
     params["blocks"] = blocks
-    params["final_norm"] = rmsnorm_init(cfg.d_model, dtype_of(cfg.param_dtype), device)
+    params["final_norm"] = _kept(keep, "final_norm", rmsnorm_init(
+        cfg.d_model, dtype_of(cfg.param_dtype), device))
     return params
 
 
@@ -202,20 +224,30 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
     package's) recomputes each superblock's activations in the backward
     pass (``torch.utils.checkpoint``); the values are the same bits.
 
-    ``params`` is lane-batched: every leaf has the leading lane axis K."""
+    ``params`` is lane-batched: every leaf has the leading lane axis K.
+    Under a trial mesh's sharding context it holds the rank's stored
+    blocks, each part gathered where it is used (``sharding.at_use``): the
+    embedding once, each superblock inside its checkpointed call (so the
+    recompute gathers it again and one superblock's gathered weights are
+    held at a time)."""
+    emb = at_use(params["embedding"], "embedding")
     if inputs_embeds is not None:
         x = inputs_embeds.to(dtype_of(cfg.compute_dtype))
     else:
-        x = embed_tokens(params["embedding"], tokens, cfg)
+        x = embed_tokens(emb, tokens, cfg)
     positions = torch.arange(x.shape[2], device=x.device)
     aux = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
     for i, (m, f) in enumerate(cfg.prefix_pattern):
-        x, aux = _layer_apply(params["prefix"][i], x, m, f, cfg, positions, aux)
+        x, aux = _layer_apply(at_use(params["prefix"][i], "prefix", i), x, m, f, cfg,
+                              positions, aux)
+    contexts = reentry()
 
     def superblock(x, sp):
-        block_aux = torch.zeros_like(aux)   # summed as the reference's scan sums it
-        for i, (m, f) in enumerate(cfg.pattern):
-            x, block_aux = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions, block_aux)
+        with contexts():
+            sp = at_use(sp, "blocks")
+            block_aux = torch.zeros_like(aux)   # summed as the reference's scan sums it
+            for i, (m, f) in enumerate(cfg.pattern):
+                x, block_aux = _layer_apply(sp[f"l{i}"], x, m, f, cfg, positions, block_aux)
         return x, block_aux
 
     # each stacked leaf split once along its superblock axis: the backward
@@ -228,8 +260,8 @@ def forward(params: Params, tokens: Optional[torch.Tensor], cfg: ModelConfig, *,
         aux = aux + block_aux
     if last_only:
         x = x[:, :, -1:]
-    x = apply_rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embedding"], x, cfg)
+    x = apply_rmsnorm(x, at_use(params["final_norm"], "final_norm"), cfg.norm_eps)
+    logits = unembed(emb, x, cfg)
     return logits, aux
 
 

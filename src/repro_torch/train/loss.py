@@ -1,7 +1,7 @@
 """Cross-entropy loss with optional z-loss, per lane."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -13,13 +13,17 @@ def cross_entropy(
     targets: torch.Tensor,  # (K, B, S) int
     mask: torch.Tensor,     # (K, B, S) float
     z_loss: float = 0.0,
+    denom: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Per-lane mean next-token loss (K,) and per-lane metrics; each lane's
-    sums are its own reductions (``lane_sum``)."""
+    sums are its own reductions (``lane_sum``).  ``denom`` (K,) replaces the
+    mask's sum: a trial mesh's data rank passes the whole batch's, so its
+    loss and metrics are its rows' share of the whole batch's."""
     lse = torch.logsumexp(logits, dim=-1)                                # (K, B, S)
     tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - tgt
-    denom = torch.clamp(lane_sum(mask), min=1.0)
+    if denom is None:
+        denom = torch.clamp(lane_sum(mask), min=1.0)
     loss = lane_sum(nll * mask) / denom
     metrics = {"ce_loss": loss}
     if z_loss > 0:

@@ -28,9 +28,16 @@ the ``(state, batch, hp)`` form, one object for every trial of one static
 config; ``make_eval_step(tc)`` gives a batch's metrics.  They run the
 lane-batched step on a population of one: the lane axis is a view, so the
 update lands in the caller's tensors.
+
+**One trial over a trial mesh.**  ``make_sharded_train_step(tc, mesh)`` is
+the step of ``launch/train.py --devices N``: the same math on a ``(data,
+model)`` grid of ranks, each storing its block of every leaf as the JAX
+package's ``build_sharding`` places it (``TrialLayout``: init leaf by leaf,
+checkpoints gathered and cut in the one-device format).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -39,7 +46,10 @@ import torch
 from ..configs.base import TrainConfig
 from ..interop import add_lane_axis, tree_leaves, tree_map, tree_unflatten
 from ..models import transformer as T
-from ..models.layers import dtype_of
+from ..distributed.sharding import (UsePlan, build_sharding, gather_tree, make_rules,
+                                    map_specs, shard_tree, sharded_dims, sharding_context,
+                                    tp_module_flags, tp_shard_context, tp_width_rules)
+from ..models.layers import dtype_of, lane_sum
 from ..optim.adamw import adamw_update, init_opt_state
 from ..optim.hparams import HParams, hparams_from_config, stack_hparams
 from ..optim.schedule import warmup_cosine
@@ -73,39 +83,56 @@ def static_step_key(tc: TrainConfig) -> Tuple:
     return (tc.model, tc.parallel, tc.b1, tc.eps, tc.z_loss)
 
 
-def _loss_fn(params, batch, tc: TrainConfig):
+def _loss_fn(params, batch, tc: TrainConfig, denom=None, n_data: int = 1):
+    """The loss and its metrics.  A trial mesh's data rank passes ``denom``,
+    the whole batch's mask sum, and ``n_data``, the data ranks that split
+    the rows: its loss is then its rows' share, and the ranks' shares sum
+    to the whole batch's loss (the MoE load-balancing loss averaged over
+    the ranks, as JAX's ``pmean``)."""
     cfg = tc.model
     logits, aux = T.forward(params, batch.get("tokens"), cfg,
                             inputs_embeds=batch.get("embeds"), remat=tc.parallel.remat)
-    loss, metrics = cross_entropy(logits, batch["targets"], batch["mask"], z_loss=tc.z_loss)
+    loss, metrics = cross_entropy(logits, batch["targets"], batch["mask"], z_loss=tc.z_loss,
+                                  denom=denom)
     if cfg.has_moe:
+        if n_data > 1:
+            aux = aux / n_data
         loss = loss + cfg.aux_loss_weight * aux
         metrics["aux_loss"] = aux
     metrics["loss"] = loss
     return loss, metrics
 
 
-def _value_and_grad(params, batch, tc: TrainConfig):
+def _value_and_grad(params, batch, tc: TrainConfig, **shares):
     """Per-lane metrics and per-lane gradients.  The lanes share no
     parameters, so the gradient of the summed lane losses is each lane's own
     gradient.  A leaf the loss does not read (the embedding table of a batch
-    of ``embeds``) gets a zero gradient, as under ``jax.grad``."""
+    of ``embeds``) gets a zero gradient, as under ``jax.grad``.  ``shares``
+    go to ``_loss_fn``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss, metrics = _loss_fn(tree_unflatten(params, leaves), batch, tc)
+    loss, metrics = _loss_fn(tree_unflatten(params, leaves), batch, tc, **shares)
     grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return metrics, tree_unflatten(params, list(grads))
 
 
-def make_hparam_train_step(tc: TrainConfig) -> Callable:
+def make_hparam_train_step(tc: TrainConfig, value_and_grad: Optional[Callable] = None,
+                           reduce_metrics: Optional[Callable] = None) -> Callable:
     """``(state, batch, hp, active=None) -> (state, metrics)`` over K lanes.
 
     With ``active`` (bool[K]) the update lands only on lanes that are active
     and whose loss is finite; the other lanes keep their state bit for bit.
-    Without it every lane is updated."""
+    Without it every lane is updated.
+
+    ``value_and_grad(params, microbatch) -> (metrics, grads)`` replaces the
+    per-microbatch ``_value_and_grad`` and ``reduce_metrics(metrics)`` is
+    applied to the accumulated metrics; a trial mesh's step passes both."""
     mb = tc.parallel.microbatch
     acc_dt = dtype_of(tc.parallel.grad_allreduce_dtype)
+    if value_and_grad is None:
+        def value_and_grad(params, part):
+            return _value_and_grad(params, part, tc)
 
     def train_step(state, batch, hp: HParams, active: Optional[torch.Tensor] = None):
         params = state["params"]
@@ -117,7 +144,7 @@ def make_hparam_train_step(tc: TrainConfig) -> Callable:
             grads, metrics = None, None
             for i in range(n_mb):
                 part = {k: v[:, i * mb:(i + 1) * mb] for k, v in batch.items()}
-                m, g = _value_and_grad(params, part, tc)
+                m, g = value_and_grad(params, part)
                 g = [x.to(acc_dt).float() for x in tree_leaves(g)]
                 m = {k: v.float() for k, v in m.items()}
                 if grads is None:
@@ -128,8 +155,10 @@ def make_hparam_train_step(tc: TrainConfig) -> Callable:
             grads = tree_unflatten(params, [g / n_mb for g in grads])
             metrics = {k: v / n_mb for k, v in metrics.items()}
         else:
-            metrics, grads = _value_and_grad(params, batch, tc)
+            metrics, grads = value_and_grad(params, batch)
             grads = tree_map(lambda g: g.to(acc_dt), grads)
+        if reduce_metrics is not None:
+            metrics = reduce_metrics(metrics)
 
         lr = warmup_cosine(state["opt"]["step"], peak_lr=hp.learning_rate,
                            warmup_steps=hp.warmup_steps, total_steps=hp.total_steps)
@@ -216,3 +245,169 @@ def make_eval_step(tc: TrainConfig) -> Callable:
         return {k: v[0] for k, v in metrics.items()}
 
     return eval_step
+
+
+# -- one trial over a trial mesh ---------------------------------------------------
+
+
+class TrialLayout:
+    """Where one trial's train state lives on a trial mesh (``launch/mesh.py``):
+    ``placements`` mirrors the state, per leaf the JAX package's
+    ``build_sharding(train_state_specs(tc), make_rules(("data", "model")))``
+    placement; a rank stores its block of each leaf.
+
+    What each module computes on: attention, the dense MLP and Mamba's
+    channels split over the model axis where the seams cover them at this
+    width (``tp_module_flags``), the MoE experts where the width divides them
+    (expert parallelism); every other leaf is gathered whole at use
+    (``uses``: the vocab-split embedding, attention whose kv heads do not
+    divide the width, the norms, the router, the shared experts), and every
+    leaf's ``embed`` dim over the data axis (FSDP)."""
+
+    def __init__(self, tc: TrainConfig, mesh):
+        self.tc, self.mesh = tc, mesh
+        cfg = tc.model
+        shapes = T.init_params(torch.Generator(), cfg, "meta")
+        opt = {"mu": shapes, "nu": shapes, "step": torch.empty((), device="meta")}
+        if tc.parallel.master_dtype is not None:
+            opt["master"] = shapes
+        specs = train_state_specs(tc)
+        self.placements = build_sharding({"params": shapes, "opt": opt}, specs,
+                                         make_rules(mesh.axis_names), mesh)
+        pp, ps = self.placements["params"], specs["params"]
+        computed = set(tp_width_rules(cfg, mesh.width))
+        if cfg.has_moe and cfg.n_experts % mesh.width == 0:
+            computed.add("expert")
+
+        def plans(placements, logical_specs, offset):
+            def one(placement, logical):
+                dims = sharded_dims(placement, mesh)
+                split = [logical[i] for i, a in dims if a == "model"]
+                if mesh.width > 1 and any(n in computed and n not in split for n in logical):
+                    raise ValueError(f"{logical} placed {placement}: a dim its module "
+                                     "computes split is not stored split over the model axis")
+                return UsePlan(
+                    model=tuple(i + offset for i, a in dims
+                                if a == "model" and logical[i] not in computed),
+                    data=next((i + offset for i, a in dims if a != "model"), None))
+
+            return map_specs(placements, logical_specs, one)
+
+        # the tensors at use carry the lane axis; a superblock's leaves have
+        # lost the stacked axis in its place
+        self.uses = {"embedding": plans(pp["embedding"], ps["embedding"], 1),
+                     "blocks": plans(pp["blocks"], ps["blocks"], 0),
+                     "final_norm": plans(pp["final_norm"], ps["final_norm"], 1)}
+        if "prefix" in pp:
+            self.uses["prefix"] = plans(pp["prefix"], ps["prefix"], 1)
+        self.gnorm_mask = map_specs(pp, ps, lambda placement, _: frozenset(
+            a for _, a in sharded_dims(placement, mesh)))
+
+    def _placement(self, part: str, path: tuple) -> tuple:
+        node = self.placements["params"]
+        for k in part.split("/") + list(path):
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        return node[1:] if part == "blocks" else node
+
+    def keep(self, part: str, path: tuple, leaf: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole leaf of the init (``T.init_params``'s
+        ``keep``), a copy: the whole leaf is freed."""
+        for i, a in sharded_dims(self._placement(part, path), self.mesh):
+            n = leaf.shape[i] // self.mesh.shape[a]
+            leaf = leaf.narrow(i, self.mesh.axis_index(a) * n, n)
+        return leaf.contiguous().clone()
+
+    def init_state(self, gen: torch.Generator) -> Dict[str, Any]:
+        """This rank's blocks of ``init_train_state(gen, tc)``: the same draws
+        in the same order, one whole leaf at a time."""
+        params = T.init_params(gen, self.tc.model, self.mesh.device, keep=self.keep)
+        return {"params": params, "opt": init_opt_state(params, self.tc)}
+
+    def shard(self, state) -> Dict[str, Any]:
+        """This rank's blocks of a whole state (a checkpoint's), on its device."""
+        return shard_tree(state, self.placements, self.mesh)
+
+    def gather(self, state, to_host: bool = False, keep: bool = True) -> Dict[str, Any]:
+        """The whole state from the ranks' blocks, leaf by leaf (every rank
+        calls it; ``to_host``: each whole leaf copied to host memory as it
+        is joined; a rank that does not ``keep`` it gets None leaves)."""
+        return gather_tree(state, self.placements, self.mesh, to_host=to_host, keep=keep)
+
+
+def make_sharded_train_step(tc: TrainConfig, mesh) -> Callable:
+    """``(state, batch) -> (state, metrics)`` for one trial on a trial mesh:
+    ``state`` this rank's blocks (``step.layout``: a ``TrialLayout``), the
+    update in place; ``batch`` the whole batch (every rank the same).  It is
+    ``make_train_step(tc)``'s step, microbatching, rounding and AdamW
+    included, with its per-microbatch gradient and its metrics taken on the
+    mesh:
+
+    * the data ranks take their rows of each microbatch (global microbatch
+      i's rows split over the data axis, as JAX reshapes ``(n_mb, mb, ...)``
+      and shards); the loss's denominators are the whole microbatch's mask
+      sum (every rank holds the whole batch, so it needs no collective), so
+      the ranks' losses and gradients sum to the unsharded ones: the
+      gradients are summed over the data axis in the backward pass
+      (``DataGather``), in the dtype autograd gives them, and only then
+      rounded to ``grad_allreduce_dtype``; the metrics are all-reduced;
+    * a microbatch whose rows do not divide the data axis is not split
+      (``build_pspec`` replicates the batch): every data rank runs all of it
+      and nothing is summed;
+    * the model axis as ``TrialLayout`` says, under the seams
+      (``tp_shard_context``); the global norm all-reduces each leaf's sum of
+      squares over the axes it is stored sharded on;
+    * AdamW updates each block elementwise.
+
+    ``step.raw_grads(state, batch)`` gives this rank's gradient blocks of a
+    batch as one microbatch, before their rounding."""
+    layout = TrialLayout(tc, mesh)
+    mb = tc.parallel.microbatch
+    flags = tp_module_flags(tc.model, mesh.width)
+    hp = hparams_from_config(tc)
+    nd = mesh.rows
+
+    def splits(rows: int) -> bool:
+        """Whether the data ranks split a microbatch of ``rows`` rows."""
+        return nd > 1 and rows % nd == 0
+
+    @contextlib.contextmanager
+    def on_mesh(split: bool):
+        with sharding_context(mesh, layout.uses, split), \
+                tp_shard_context(mesh, flags, gnorm_mask=layout.gnorm_mask):
+            yield
+
+    def micro(params, whole):
+        """Metrics and this rank's gradient blocks of one whole (lane-batched)
+        microbatch, summed over the data ranks, before any rounding."""
+        rows = whole["mask"].shape[1]
+        split = splits(rows)
+        first, n = (mesh.row * (rows // nd), rows // nd) if split else (0, rows)
+        part = {k: v[:, first:first + n] for k, v in whole.items()}
+        denom = torch.clamp(lane_sum(whole["mask"]), min=1.0)
+        return _value_and_grad(params, part, tc, denom=denom, n_data=nd if split else 1)
+
+    def all_reduce_metrics(metrics):
+        keys = sorted(metrics)
+        summed = mesh.axis_all_reduce(torch.stack([metrics[k].float() for k in keys]),
+                                      mesh.axis)
+        return {k: summed[j].to(metrics[k].dtype) for j, k in enumerate(keys)}
+
+    steps = {split: _single_trial(make_hparam_train_step(
+        tc, value_and_grad=micro, reduce_metrics=all_reduce_metrics if split else None))
+        for split in (False, True)}
+
+    def raw_grads(state, batch):
+        """This rank's gradient blocks of the whole ``batch`` as one
+        microbatch, as the data ranks' sum leaves them, unrounded."""
+        batch = _one_lane_batch(batch, mesh.device)
+        with on_mesh(splits(batch["mask"].shape[1])):
+            _, g = micro(add_lane_axis(state)["params"], batch)
+        return tree_map(lambda x: x[0], g)
+
+    def train_step(state, batch):
+        split = splits(mb if mb and mb > 0 else len(batch["mask"]))
+        with on_mesh(split):
+            return steps[split](state, batch, hp)
+
+    train_step.layout, train_step.raw_grads = layout, raw_grads
+    return train_step

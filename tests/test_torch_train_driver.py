@@ -292,13 +292,129 @@ def test_killed_and_resumed_run_follows_the_reference_resume(tmp_path, capsys):
 
 
 def test_driver_refuses_more_devices_and_a_missing_gpu(monkeypatch, capsys):
-    with pytest.raises(SystemExit):
-        driver.main(["--smoke", "--devices", "2", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert "item 12" in err and "ROADMAP.md" in err
+    """``--devices 2`` with ``--device cpu`` and no process group takes
+    JAX's clamp (``min(--devices, devices)``): the run goes on one rank,
+    says so, and trains as ``--devices 1``; without a GPU and without
+    ``--device cpu`` the driver raises."""
+    argv = ["--smoke", "--steps", "2", "--batch", str(B), "--seq", "16", "--log-every", "1",
+            "--device", "cpu"]
+    assert driver.main(argv + ["--devices", "2"]) == 0
+    clamped = capsys.readouterr()
+    assert "--devices 2: 1 cpu device(s) visible; the trial trains on 1" in clamped.err
+    assert driver.main(argv) == 0
+    assert _driver_lines(clamped.out)[0] == _driver_lines(capsys.readouterr().out)[0]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         driver.main(["--smoke", "--steps", "1"])
+
+
+def test_devices_above_the_ranks_there_are_train_on_those_ranks(monkeypatch, capfd):
+    """JAX's clamp on a host with 2 of 4 devices: ``--devices 4`` starts two
+    ranks, says so, and they train ``main``'s ``model`` as ``--devices 2``:
+    the losses within 1e-4 of ``--devices 1``."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), n_layers=1)
+    argv = ["--smoke", "--steps", "3", "--batch", "4", "--seq", "16", "--log-every", "1",
+            "--device", "cpu"]
+    monkeypatch.setattr(hpo, "_ranks_to_spawn", lambda device: 2)
+    assert driver.main(argv + ["--devices", "4"], model=cfg) == 0
+    clamped = capfd.readouterr()
+    assert "--devices 4: 2 cpu device(s) visible; the trial trains on 2" in clamped.err
+    assert driver.main(argv, model=cfg) == 0
+    want = _driver_lines(capfd.readouterr().out)
+    got = _driver_lines(clamped.out)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-4 + 1e-9, rtol=0)
+    assert got[1] == want[1]
+
+
+# -- --devices N: the trial mesh, on two gloo ranks ---------------------------------------
+
+MESH_ARGV = ["--smoke", "--steps", "8", "--batch", "4", "--seq", "16", "--log-every", "1",
+             "--device", "cpu"]
+CKPT = ["--ckpt-every", "4"]
+
+
+@pytest.fixture(scope="module")
+def mesh_cli(tmp_path_factory):
+    """The CLI at ``--devices 2`` on two spawned gloo ranks: an
+    uninterrupted run; a run killed by ``--fail-at 6`` (resumed here at
+    ``--devices 1``); the resume of a ``--devices 1`` run killed here
+    first; a ``--devices`` that differs from the world.  Each rank's
+    runs."""
+    import torch_mesh_ranks as R
+    from test_torch_sharded import COLLECTIVE_S, _join, _start
+
+    root = tmp_path_factory.mktemp("mesh_cli")
+    one_first = str(root / "one_first")
+    assert driver.main(MESH_ARGV + CKPT + ["--ckpt-dir", one_first, "--fail-at", "6"]) == 17
+    two_first = str(root / "two_first")
+    argvs = [MESH_ARGV + ["--devices", "2"],
+             MESH_ARGV + CKPT + ["--devices", "2", "--ckpt-dir", two_first, "--fail-at", "6"],
+             MESH_ARGV + CKPT + ["--devices", "2", "--ckpt-dir", one_first],
+             MESH_ARGV + ["--devices", "3"]]
+    runs = _join(_start(2, str(root), R.trial_cli_rank, argvs, COLLECTIVE_S), str(root), 180.0)
+    return {"runs": runs, "one_first": one_first, "two_first": two_first, "root": root}
+
+
+def test_devices_2_prints_the_driver_lines_of_devices_1(mesh_cli, capsys):
+    """``--devices 2`` over two gloo ranks: rank 0 prints the JAX driver's
+    lines, rank 1 nothing; the losses within 1e-4 of ``--devices 1``."""
+    capsys.readouterr()
+    assert driver.main(MESH_ARGV) == 0
+    want = _driver_lines(capsys.readouterr().out)
+    r0, r1 = (r[0] for r in mesh_cli["runs"])
+    assert r0["code"] == r1["code"] == 0 and r1["out"] == ""
+    got = _driver_lines(r0["out"])
+    np.testing.assert_allclose(got[0], want[0], atol=1e-4 + 1e-9, rtol=0)
+    assert got[1] == want[1]
+    np.testing.assert_allclose([got[2]["first_loss"], got[2]["final_loss"]],
+                               [want[2]["first_loss"], want[2]["final_loss"]], atol=1e-4)
+    assert got[2]["steps"] == 8
+
+
+def _resumed_reference(root, capsys):
+    """A ``--devices 1`` run killed at step 6 and resumed: its lines and its
+    final checkpoint."""
+    ck = str(root / "reference")
+    assert driver.main(MESH_ARGV + CKPT + ["--ckpt-dir", ck, "--fail-at", "6"]) == 17
+    capsys.readouterr()
+    assert driver.main(MESH_ARGV + CKPT + ["--ckpt-dir", ck]) == 0
+    return _driver_lines(capsys.readouterr().out), Checkpointer(ck).restore()[0]
+
+
+def _assert_follows(lines, ck, want_lines, want_state):
+    assert "resumed from checkpoint at step 4" in lines
+    got = _driver_lines(lines)
+    np.testing.assert_allclose(got[0], want_lines[0], atol=1e-4 + 1e-9, rtol=0)
+    np.testing.assert_allclose(got[2]["final_loss"], want_lines[2]["final_loss"], atol=1e-4)
+    state, manifest = Checkpointer(ck).restore()
+    assert manifest["step"] == 8
+    for a, b in zip(interop.tree_leaves(state), interop.tree_leaves(want_state)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), atol=1e-4, rtol=0)
+
+
+def test_a_crash_under_devices_2_resumes_at_devices_1_and_back(mesh_cli, capsys):
+    """``--fail-at 6`` exits 17 on both ranks after the step-4 checkpoint
+    (the whole state, in ``--devices 1``'s format); resumed at ``--devices
+    1`` it follows a ``--devices 1`` run killed and resumed the same way
+    (the reference's resume: batch 4 twice), within 1e-4; so does a
+    ``--devices 1`` run killed and resumed at ``--devices 2``."""
+    want_lines, want_state = _resumed_reference(mesh_cli["root"], capsys)
+    killed = [r[1] for r in mesh_cli["runs"]]
+    assert [k["code"] for k in killed] == [17, 17]
+    assert "simulated failure at step 6" in killed[0]["err"]
+    assert Checkpointer(mesh_cli["two_first"]).all_steps() == [4]
+    assert driver.main(MESH_ARGV + CKPT + ["--ckpt-dir", mesh_cli["two_first"]]) == 0
+    _assert_follows(capsys.readouterr().out, mesh_cli["two_first"], want_lines, want_state)
+    resumed = [r[2] for r in mesh_cli["runs"]]
+    assert [r["code"] for r in resumed] == [0, 0] and resumed[1]["out"] == ""
+    _assert_follows(resumed[0]["out"], mesh_cli["one_first"], want_lines, want_state)
+
+
+def test_devices_that_differ_from_the_world_are_refused(mesh_cli):
+    refused = [r[3] for r in mesh_cli["runs"]]
+    assert [r["code"] for r in refused] == [2, 2]
+    assert "--devices 3 differs from the process group's world of 2 ranks" in refused[0]["err"]
 
 
 # -- --legacy-recompile (make_trial) ---------------------------------------------------

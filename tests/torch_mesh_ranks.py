@@ -421,3 +421,126 @@ if __name__ == "__main__":
     torch.set_num_threads(1)
     patch_init(torch.load(sys.argv[1]))
     sys.exit(hpo.main(sys.argv[2:]))
+
+
+# -- the trial mesh (one trial over a (data, model) grid) --------------------------------
+
+TRIAL_SEQ, TRIAL_STEPS = 16, 3
+
+
+def trial_tc(arch, model=None, parallel=None, **train):
+    """A smoke trial's config: ``model`` / ``parallel`` override fields of
+    the smoke model and of ``ParallelConfig(remat="full")``."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **(model or {}))
+    pc = ParallelConfig(**dict({"remat": "full"}, **(parallel or {})))
+    return TrainConfig(model=cfg, parallel=pc, learning_rate=3e-3, warmup_steps=1,
+                       total_steps=8, **train)
+
+
+def trial_batches(tc, batch):
+    from repro_torch.data.pipeline import SyntheticLM
+
+    data = SyntheticLM(tc.model.vocab_size, TRIAL_SEQ, batch, seed=0)
+    return [data.make_batch(t) for t in range(TRIAL_STEPS)]
+
+
+def trial_run(step, state, batches):
+    """``step`` over ``batches``: the state and each step's metrics (floats)."""
+    metrics = []
+    for b in batches:
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics
+
+
+def trial_rank(rank, world, store, out_dir, cases, timeout_s):
+    """Each case of ``cases`` (dicts: ``name``, ``arch``, ``shape``,
+    ``batch`` and ``trial_tc``'s overrides) on a trial mesh of ``world``
+    ranks: three steps of the sharded step from the port's init of seed 0,
+    then the whole state gathered; with ``raw_grads`` the first batch's
+    gradient blocks gathered before their rounding; with ``rows`` the rows
+    of each batch the rank's loss read.  Rank 0 keeps the gathered trees;
+    every rank its blocks' shapes."""
+    _run(_trial, rank, out_dir, world, store, cases, timeout_s)
+
+
+def _trial(rank, out_dir, world, store, cases, timeout_s):
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.mesh import make_trial_mesh
+    from repro_torch.train import train_step as ts
+
+    torch.set_num_threads(1)
+    out, meshes = {}, []
+    for c in cases:
+        mesh = make_trial_mesh(world, shape=c["shape"], device="cpu",
+                               init_method=f"file://{store}", rank=rank, world_size=world,
+                               timeout_s=timeout_s)
+        meshes.append(mesh)
+        tc = trial_tc(c["arch"], c.get("model"), c.get("parallel"), **c.get("train", {}))
+        step = ts.make_sharded_train_step(tc, mesh)
+        state = step.layout.init_state(torch.Generator().manual_seed(0))
+        got = {"blocks": [tuple(t.shape) for t in tree_leaves(state)],
+               "placements": step.layout.placements}
+        batches = trial_batches(tc, c["batch"])
+        if c.get("raw_grads"):
+            got["raw_grads"] = gather_tree(step.raw_grads(state, batches[0]),
+                                           step.layout.placements["params"], mesh)
+        if c.get("rows"):
+            seen, vg = [], ts._value_and_grad
+
+            def recording(params, batch, tc, **shares):
+                seen.append(batch["tokens"][0].clone())
+                return vg(params, batch, tc, **shares)
+
+            ts._value_and_grad = recording
+        state, got["metrics"] = trial_run(step, state, batches)
+        if c.get("rows"):
+            ts._value_and_grad = vg
+            got["rows"] = seen
+        whole = step.layout.gather(state)
+        if rank == 0:
+            got["state"] = whole
+        out[c["name"]] = got
+    for mesh in meshes[::-1]:
+        mesh.destroy()
+    return out
+
+
+def trial_cli_rank(rank, world, store, out_dir, argvs, timeout_s):
+    """The port's train CLI (``launch/train.py::main``) on a gloo group of
+    ``world`` CPU ranks joined here: each argv of ``argvs`` in turn, with its
+    exit code (a refusal's too) and what it printed."""
+    _run(_trial_cli, rank, out_dir, world, store, argvs, timeout_s)
+
+
+def _trial_cli(rank, out_dir, world, store, argvs, timeout_s):
+    import contextlib
+    import datetime
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+    runs = []
+    try:
+        for argv in argvs:
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                try:
+                    code = train.main(argv)
+                except SystemExit as e:   # a refusal (argparse's error exit)
+                    code = e.code
+            runs.append({"code": code, "out": out.getvalue(), "err": err.getvalue()})
+    finally:
+        dist.destroy_process_group()
+    return runs

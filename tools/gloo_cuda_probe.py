@@ -4,7 +4,8 @@
     python3 tools/gloo_cuda_probe.py
 
 For each of ``all_gather``, ``broadcast``, ``all_reduce`` (fp32 and
-bf16), ``batch_isend_irecv`` and ``send`` / ``recv``, starts two gloo ranks on ``cuda:0`` (through a
+bf16), ``reduce_scatter`` (fp32 and bf16), ``batch_isend_irecv`` and
+``send`` / ``recv``, starts two gloo ranks on ``cuda:0`` (through a
 ``file://`` store in a temporary directory) that run that op on CUDA
 tensors and check the values they got.  A pair per op, because gloo may
 abort the process (not raise) on a device pointer.  Prints one JSON line:
@@ -13,15 +14,16 @@ the ranks' exit codes.  The population mesh
 (``repro_torch.distributed.sharding``) stages a gloo op through
 page-locked host memory where this reports that it aborts on a CUDA
 tensor: the point-to-point sends.  The two-level mesh's seams hand gloo
-their CUDA tensors in ``all_reduce``.
+their CUDA tensors in ``all_reduce``, and the trial mesh's FSDP gradient
+in ``reduce_scatter``.
 """
 import json
 import os
 import sys
 import tempfile
 
-OPS = ("all_gather", "broadcast", "all_reduce", "all_reduce_bf16", "batch_isend_irecv",
-       "send_recv")
+OPS = ("all_gather", "broadcast", "all_reduce", "all_reduce_bf16", "reduce_scatter",
+       "reduce_scatter_bf16", "batch_isend_irecv", "send_recv")
 
 
 def _rank(rank, op, store, out):
@@ -49,6 +51,11 @@ def _rank(rank, op, store, out):
         y = x.to(dt)
         dist.all_reduce(y)
         ok = torch.equal(y.cpu().float(), 2 * torch.arange(8.) + 10)
+    elif op in ("reduce_scatter", "reduce_scatter_bf16"):
+        dt = torch.bfloat16 if op == "reduce_scatter_bf16" else torch.float32
+        got = torch.empty(4, dtype=dt, device=dev)
+        dist.reduce_scatter(got, list(x.to(dt).chunk(2)))
+        ok = torch.equal(got.cpu().float(), 2 * torch.arange(8.)[4 * rank:4 * rank + 4] + 10)
     elif op == "batch_isend_irecv":
         for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
                                            dist.P2POp(dist.irecv, y, 1 - rank)]):
