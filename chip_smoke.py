@@ -75,9 +75,10 @@ Phases, each printing one JSON line:
    over one replayed rule chunk); lane ops timed against their byte
    bounds with the memory each allocates; active lane share, dispatches
    per step, seconds per result, captures and peak reserved memory
-   (the streaming, crash and ring flights at 2 layers, starcoder2-3b's of
-   30 and falcon-mamba's of 64, ``ENGINE_LAYERS``: those engines do not
-   depend on depth);
+   (the chunked, streaming, crash and ring flights at 2 layers,
+   ``ENGINE_LAYERS``, of starcoder2-3b's 30 and falcon-mamba's 64, whose
+   chunked, crash and ring flights run at 1, ``MAMBA_ENGINE_LAYERS``: those
+   engines do not depend on depth);
    then the MoE path, qwen3-moe-30b-a3b at its published widths (1 of 48
    layers, K=2, batch 2, seq 1024), through main_path and chunked_path
    (not the streaming, crash or ring phases: those engines do not depend on
@@ -241,6 +242,10 @@ FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
 MAIN = dict(arch="starcoder2-3b", n_layers=4, population=4, batch=4, seq=1024, steps=4)
 MAMBA = dict(arch="falcon-mamba-7b", n_layers=4, population=4, batch=2, seq=1024, steps=4)
 ENGINE_LAYERS = 2   # the chunked, streaming, crash and ring flights: 2 of 30 (64) layers
+# falcon-mamba's chunked, crash and ring flights, among the slowest of the
+# script, at 1 of 64 layers (to keep the script's time with the elastic
+# phase in it: those engines do not depend on depth)
+MAMBA_ENGINE_LAYERS = 1
 # the MoE path: qwen3-moe-30b-a3b at its published widths, 1 of 48 layers and
 # two lanes (one lane's parameters and moments are 12.45 GB; the AdamW
 # temporaries of the stacked experts about 16 GB)
@@ -1084,8 +1089,10 @@ def profile_step(torch, fn, top=12):
     marker kernel between them, and only the kernels that start after the
     marker are counted: the device trace can miss kernels of the first
     milliseconds after it starts, so the first call takes that loss.
-    Reports no split where the trace holds no device time after the
-    marker."""
+    Traces the device only: what it reports reads no host op, and the host
+    ops' events cost seconds to record and sort on a step of thousands of
+    kernels.  Reports no split where the trace holds no device time after
+    the marker."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1104,7 +1111,7 @@ def profile_step(torch, fn, top=12):
                 kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=0, active=1, repeat=1),
                  on_trace_ready=ready) as prof:
         fn()
@@ -2026,17 +2033,405 @@ def tp_path(torch, dev, main_ref, main_ref_s):
     return {k: sum(r[k] for r in runs) for k in g0["main"]["streaming_launches"]}, out
 
 
+# ------------------------------------------------ elastic regrid (--elastic-regrid)
+# (a) one card, no pool: starcoder2-3b at its published widths, 4 lanes,
+# batch 4, seq 1024.  Batch flights under the cohort rule of ELASTIC_BATCH
+# (boundaries 4 and 8: it keeps 2 of 4, then 1 of 2, so K goes 4 -> 2 -> 1),
+# per step at MAIN's 4 layers and chunked at ENGINE_LAYERS; a streaming flight
+# at ENGINE_LAYERS whose tail regrids as budgets end: 3 for trials 1 and 3,
+# 6 for trial 2, 12 for trial 0.  Its staggered rule (boundaries 3 and 6)
+# cuts nothing whatever the losses: a lane whose budget ends at a boundary is
+# never cut, and trial 2 ties trial 1 at 3 (learning rate 0 on one stream:
+# the same loss bits), so at most one loss before it in the rung's history
+# is lower.
+# (b) the pool over SHARDED_GLOO's two gloo ranks sharing cuda:0: 2 lanes at
+# width 1, one a rank; the cut to 1 survivor re-lays it onto one row of width
+# 2 (plan_regrid(2, 1) == (1, 2, 1)).
+ELASTIC = dict(arch="starcoder2-3b", population=4, batch=4, seq=1024)
+ELASTIC_BATCH = dict(steps=16, eta=2.0, min_iter=4, max_iter=16,
+                     lrs=(1e-3, 3e-4, 2e-3, 6e-4), streams=(0, 1, 2, 3), iters=(1, 1, 1, 1))
+ELASTIC_STREAM = dict(steps=12, eta=2.0, min_iter=3, max_iter=12,
+                      lrs=(1e-3, 0.0, 0.0, 6e-4), streams=(0, 1, 1, 3),
+                      iters=(1, 0.25, 0.5, 0.25))
+ELASTIC_HISTORY = [[2, 1], [1, 1]]
+ELASTIC_POOL = dict(SHARDED_GLOO, population=2, steps=4, eta=2.0, min_iter=2, max_iter=4,
+                    lrs=(1e-3, 3e-4), streams=(0, 1), batch_iters=(1, 1), stream_iters=(1, 0.5))
+ELASTIC_POOL_HISTORY = [[1, 2]]
+
+
+def _elastic_configs(spec, iters_key="iters"):
+    return [{"learning_rate": lr, "stream": i, "n_iterations": n, "warmup_frac": 0.1}
+            for lr, i, n in zip(spec["lrs"], spec["streams"], spec[iters_key])]
+
+
+def _elastic_trial(dev, arch, n_layers, population, batch, seq, spec, chunk, elastic,
+                   dtype=None, seed=0):
+    from repro_torch.core.proposer.early_stop import InFlightSuccessiveHalving
+    from repro_torch.launch.hpo import PopulationTrial
+
+    overrides = published_widths(arch, n_layers)
+    if dtype:
+        overrides.update(param_dtype=dtype, compute_dtype=dtype)
+    trial = PopulationTrial(arch, spec["steps"], batch, seq, seed, population=population,
+                            model_overrides=overrides, device=dev, chunk_steps=chunk,
+                            refill_idle_grace_s=0.0, elastic_regrid=elastic)
+    trial.early_stop = InFlightSuccessiveHalving(eta=spec["eta"], min_iter=spec["min_iter"],
+                                                 max_iter=spec["max_iter"])
+    return trial
+
+
+def _run_elastic(torch, trial, configs, streaming, mesh=None, pool=None):
+    """One flight of ``configs`` (batch protocol, or a closed streaming
+    feed), the kernels' plain versions refused: its scores, decisions,
+    regrids, per-segment times, losses (in the columns of its first lanes)
+    and each final lane's checksums beside the start lane it trains.  The
+    launch counters are set to 0 just before it and read just after."""
+    from repro_torch.core.resource.vectorized import QueueFeedScheduler
+
+    record = []
+    trial.record_flight = lambda losses, ps: record.append(
+        (losses.float().cpu(), [lane_checksums(torch, ps, j)
+                                for j in range(ps["diverged"].shape[0])]))
+    feed = QueueFeedScheduler(configs) if streaming else None
+    # one card: each training dispatch timed alone (the trial's hook
+    # synchronizes before and after): (lanes, steps, seconds)
+    dispatches = []
+    if mesh is None:
+        trial.dispatch_times = dispatches
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    with plain_versions_raise():
+        if mesh is not None and mesh.rank != 0:
+            trial.run_population([], mesh=mesh) if streaming else trial.run_population(
+                configs, mesh=mesh)
+        elif streaming:
+            trial.run_population([], mesh=mesh, scheduler=feed, elastic=pool)
+        else:
+            scores = trial.run_population(configs, mesh=mesh, elastic=pool)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    out = {"wall_s": t_end - t0, "t0": t0, "t_end": t_end, "launches": counters(),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "regrid_log": list(trial.regrid_log), "last_step": trial.last_flight_steps,
+           "dispatches_timed": dispatches}
+    if mesh is not None and mesh.rank != 0:
+        return out
+    if streaming:
+        n = len(configs)
+        scores = feed.ordered_scores(n)
+        out["steps"] = [feed.extras[i]["steps"] for i in range(n)]
+        out["diverged"] = [feed.extras[i]["diverged"] for i in range(n)]
+    losses, sums = record[0]
+    live = [int(c) for c in (~torch.isnan(losses[-1])).nonzero().flatten()]
+    out.update(scores=[float(x) for x in scores], truncated=trial.early_stop.n_truncated,
+               reclaimed=trial.early_stop.n_reclaimed, train_steps=trial.n_train_steps,
+               dispatches=trial.n_dispatches, regrids=trial.n_regrids,
+               lane_width_history=[list(map(int, x)) for x in trial.lane_width_history],
+               per_rung_step_time_s=trial.per_rung_step_time_s,
+               final_lanes={c: sums[j] for j, c in enumerate(live)}, losses=losses)
+    return out
+
+
+def _segments(run, cuts):
+    """Per stretch of steps between ``cuts`` (the elastic flight's regrid
+    steps): ``[first step, steps, lanes, s a step over every dispatch, s a
+    step without each (lanes, chunk)'s first dispatch]`` from the timed
+    dispatches (a first dispatch at a new shape pays set-up, a chunk's its
+    capture; the captures are reported apart)."""
+    bounds = [0] + list(cuts) + [10 ** 9]
+    out = [[lo, 0, None, 0.0, [0, 0.0]] for lo in bounds[:-1]]
+    step, seen = 0, set()
+    for k, t, dt in run["dispatches_timed"]:
+        seg = out[max(i for i, lo in enumerate(bounds[:-1]) if step >= lo)]
+        seg[1] += t
+        seg[2] = k
+        seg[3] += dt
+        if (k, t) not in seen:
+            seen.add((k, t))
+        else:
+            seg[4][0] += t
+            seg[4][1] += dt
+        step += t
+    return [[lo, n, k, total / n if n else None, warm[1] / warm[0] if warm[0] else None]
+            for lo, n, k, total, warm in out]
+
+
+def _elastic_pair(torch, dev, n_layers, chunk, streaming):
+    """The fixed-width flight of ``ELASTIC``'s trials, then the elastic
+    flight of the same trials: the gates of (a) and what they measured."""
+    from repro_torch.train import population as P
+
+    spec = ELASTIC_STREAM if streaming else ELASTIC_BATCH
+    configs = _elastic_configs(spec)
+    runs = {}
+    for elastic in (False, True):
+        P.clear_population_cache()
+        release_cublas_workspaces(torch)
+        trial = _elastic_trial(dev, n_layers=n_layers, spec=spec, chunk=chunk, elastic=elastic,
+                               **ELASTIC)
+        run = runs[elastic] = _run_elastic(torch, trial, configs, streaming)
+        # every graph of the flight: each geometry's it left (dropped at its
+        # regrid), then the last geometry's, still cached
+        run["graphs"] = [g for r in run["regrid_log"] for g in r["dropped_graphs"]] + \
+            P.graph_stats(nodes=True)
+        tc, _ = trial._setup()
+        del trial
+    P.clear_population_cache()
+    fixed, got = runs[False], runs[True]
+    name = ("streaming" if streaming else "batch") + ("_chunked" if chunk > 1 else "_per_step")
+    per_step = launches_per_step(tc.model, chunked=chunk > 1)
+    problems = []
+    if got["scores"] != fixed["scores"]:
+        problems.append(f"{name}: scores {got['scores']} differ from fixed width's "
+                        f"{fixed['scores']}")
+    for key in ("truncated", "reclaimed") + (("steps", "diverged") if streaming else ()):
+        if got[key] != fixed[key]:
+            problems.append(f"{name}: {key} {got[key]} against fixed width's {fixed[key]}")
+    if got["regrids"] != 2 or got["lane_width_history"] != ELASTIC_HISTORY:
+        problems.append(f"{name}: regrids {got['regrids']}, history "
+                        f"{got['lane_width_history']}, want 2 and {ELASTIC_HISTORY}")
+    if not all(s == s and abs(s) < 1e8 for s in got["scores"]):
+        problems.append(f"{name}: a score is not finite: {got['scores']}")
+    survivors = {c: got["final_lanes"][c] == fixed["final_lanes"][c] for c in got["final_lanes"]}
+    if not survivors or not all(survivors.values()):
+        problems.append(f"{name}: a survivor's checksums differ from fixed width's: {survivors}")
+    seen = ~torch.isnan(got["losses"])
+    if got["losses"].shape != fixed["losses"].shape or not torch.equal(
+            got["losses"][seen], fixed["losses"][seen]):
+        problems.append(f"{name}: the survivors' per-step losses differ from fixed width's")
+    # a step's launches at any K: per step the counters; chunked each
+    # graph's nodes (counted in the graph) times its replays, plus the
+    # counters' eager launches (each geometry's warm-up step; a capture
+    # counts its graph's launches once, its first replay's)
+    launches = {}
+    for label, run in (("fixed", fixed), ("elastic", got)):
+        if chunk == 1:
+            want = {k: n * run["train_steps"] for k, n in per_step.items()}
+            if {k: run["launches"][k] for k in want} != want:
+                problems.append(f"{name} {label}: launches {run['launches']}, want {want}")
+            launches[label] = run["launches"]
+            continue
+        visited = [ELASTIC["population"]] + [r["k2"] for r in run["regrid_log"]]
+        graphs = [g for g in run["graphs"] if g["kind"] == "scan"]
+        seen = launches[label] = dict(run["launches"])
+        for k in visited:
+            if not any(g["lanes"] == k and g["nodes"] for g in graphs):
+                problems.append(f"{name} {label}: no scan graph of {k} lanes with its nodes "
+                                f"kept: {[(g['lanes'], g['chunk']) for g in run['graphs']]}")
+        if len(graphs) != len(run["graphs"]) or any(g["lanes"] not in visited for g in graphs):
+            problems.append(f"{name} {label}: graphs {[(g['kind'], g['lanes']) for g in graphs]} "
+                            f"of geometries not visited, {visited}")
+        for g in graphs:
+            nodes = {k: sum(sub in node for node in g["nodes"] or ()) for k, sub in
+                     KERNEL_NAMES.items()}
+            if any(nodes[k] != n * g["chunk"] for k, n in per_step.items()):
+                problems.append(f"{name} {label}: a {g['chunk']}-step graph of "
+                                f"{g['lanes']} lanes holds {nodes}")
+            for k in per_step:
+                seen[k] += nodes[k] * (g["replays"] - 1)
+        # the reckoning: each geometry's warm-up step, then every step replayed
+        want = {k: n * (run["train_steps"] + len(visited)) for k, n in per_step.items()}
+        if {k: seen[k] for k in want} != want:
+            problems.append(f"{name} {label}: launches {seen} from the graphs' replays and "
+                            f"the counters, reckoned {want}")
+    cuts = [r["step"] for r in got["regrid_log"]]
+    lane_bytes = got["regrid_log"][0]["state_bytes"] // max(1, got["regrid_log"][0]["k2"])
+    out = {"flight": name, "n_layers": n_layers, "chunk_steps": chunk,
+           "scores": got["scores"], "fixed_scores": fixed["scores"],
+           "bit_equal": got["scores"] == fixed["scores"], "survivor_checksums_equal": survivors,
+           "truncated": got["truncated"], "regrids": got["regrids"],
+           "lane_width_history": got["lane_width_history"],
+           # [first step, steps, lanes, s a step, s a step past first uses]
+           "segments": {"elastic": _segments(got, cuts), "fixed": _segments(fixed, cuts)},
+           "per_rung_step_time_s": {"elastic": got["per_rung_step_time_s"],
+                                    "fixed": fixed["per_rung_step_time_s"]},
+           "regrid_ops": [dict({k: v for k, v in r.items() if k != "dropped_graphs"},
+                               ms=r["seconds"] * 1e3, gather_ms=r["gather_seconds"] * 1e3,
+                               moved_bytes=2 * r["state_bytes"]) for r in got["regrid_log"]],
+           "lane_state_bytes": lane_bytes,
+           # [lanes, chunk, seconds] of each graph captured
+           "capture_s": {"elastic": [[g["lanes"], g["chunk"], g["capture_s"]]
+                                     for g in got["graphs"]],
+                         "fixed": [[g["lanes"], g["chunk"], g["capture_s"]]
+                                   for g in fixed["graphs"]]},
+           "wall_s": {"elastic": got["wall_s"], "fixed": fixed["wall_s"]},
+           "peak_memory_gib": {"elastic": got["peak_memory_gib"],
+                               "fixed": fixed["peak_memory_gib"]},
+           # the most state a regrid holds at once: the K lanes it reads and
+           # the K' it writes (the K geometry's graphs are dropped after)
+           "reckoned_regrid_state_gib": max(
+               (r["k"] + r["k2"]) * lane_bytes for r in got["regrid_log"]) / 2 ** 30,
+           "dispatches": {"elastic": got["dispatches"], "fixed": fixed["dispatches"]}}
+    return out, problems, launches["elastic"]
+
+
+def _elastic_pool_rank(rank, store, out_dir):
+    """One of ``ELASTIC_POOL``'s two gloo ranks on ``cuda:0`` (spawned by
+    ``elastic_path``): the pooled batch flight per step in bf16 and in fp32,
+    then the pooled streaming flight, rank 0 leasing through a fresh
+    ``ElasticLanePool`` each; rank 1 serves.  Each rank saves what it saw to
+    ``out_dir/rank{r}.json``; a rank that raises leaves its traceback in
+    ``rank{r}.err``."""
+    import os
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    try:
+        import torch
+
+        from repro_torch.core.resource.sharded import ElasticLanePool
+        from repro_torch.distributed import sharding as S
+        from repro_torch.kernels import rmsnorm
+        from repro_torch.train import population as P
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        cfg = ELASTIC_POOL
+        dev = torch.device(cfg["device"])
+        mesh = S.population_mesh(dev, backend="gloo", init_method=f"file://{store}", rank=rank,
+                                 world_size=cfg["world"], timeout_s=cfg["collective_s"])
+        out = {"rank": rank}
+        for name, dtype, streaming in (("batch_bf16", None, False),
+                                       ("batch_fp32", "float32", False),
+                                       ("streaming_bf16", None, True)):
+            trial = _elastic_trial(dev, cfg["arch"], cfg["n_layers"], cfg["population"],
+                                   cfg["batch"], cfg["seq"], cfg, 1, True, dtype)
+            pool = ElasticLanePool(mesh=mesh) if rank == 0 else None
+            got = _run_elastic(torch, trial, _elastic_configs(
+                cfg, "stream_iters" if streaming else "batch_iters"), streaming, mesh, pool)
+            got.pop("losses", None)
+            if pool is not None:
+                got["pool_widths"] = list(pool.width_history)
+                got["pool_mesh_shape"] = pool.mesh().shape
+            got["after"] = [rmsnorm.mesh_ranks, rmsnorm.planned_lanes, S._CURRENT is mesh]
+            out[name] = got
+            del trial
+            P.clear_population_cache()
+            torch.cuda.empty_cache()
+        mesh.destroy()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def elastic_path(torch, dev):
+    """Elastic regrid (``--elastic-regrid``).  (a) One card, no pool, at
+    starcoder2-3b's published widths: the batch flight per step at ``MAIN``'s
+    depth, chunked and streaming at ``ENGINE_LAYERS``, each beside the
+    fixed-width flight of the same trials.  Gates: scores bit-equal, each
+    survivor's checksums and the survivors' per-step losses bit-equal (the
+    RMSNorm backward plans the survivors for the first K), the same cuts,
+    two regrids ``[[2, 1], [1, 1]]``, a step's launches (the chunked: the
+    nodes of every geometry's graphs).  (b) The pool over two gloo ranks on
+    the card: the per-step batch flight in bf16 and fp32 and the streaming
+    flight regrid their survivor onto one row of width 2; gates: within
+    ``TP_TOL`` of the unsharded fixed-width flight, the same decisions, the
+    regrid tiling the ranks, pool widths ``[1, 2]``, rank 0's launches a
+    step, the plan and current mesh left as found.  Reports s a step in
+    each rung segment, the regrid's ms and bytes, the new geometries'
+    capture seconds and the peak memory beside the reckoned state."""
+    from repro_torch.train import population as P
+
+    problems, flights, launches = [], [], {}
+    for n_layers, chunk, streaming in ((MAIN["n_layers"], 1, False),
+                                       (ENGINE_LAYERS, CHUNK, False),
+                                       (ENGINE_LAYERS, CHUNK, True)):
+        out, bad, seen = _elastic_pair(torch, dev, n_layers, chunk, streaming)
+        flights.append(out)
+        problems += bad
+        for k, n in seen.items():
+            launches[k] = launches.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b): the unsharded fixed-width flights here, then the pooled ranks
+    cfg = ELASTIC_POOL
+    ref = {}
+    for name, dtype, streaming in (("batch_bf16", None, False), ("batch_fp32", "float32", False),
+                                   ("streaming_bf16", None, True)):
+        P.clear_population_cache()
+        trial = _elastic_trial(dev, cfg["arch"], cfg["n_layers"], cfg["population"],
+                               cfg["batch"], cfg["seq"], cfg, 1, False, dtype)
+        ref[name] = _run_elastic(torch, trial, _elastic_configs(
+            cfg, "stream_iters" if streaming else "batch_iters"), streaming)
+        del trial
+    P.clear_population_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, wall = spawn_on_card(_elastic_pool_rank, cfg["world"], cfg["join_s"])
+    pooled = {}
+    per_step = launches_per_step(path_config(cfg["arch"], cfg["n_layers"]))
+    for name, r in ref.items():
+        g = got[0][name]
+        tol = TP_TOL["float32" if "fp32" in name else "bfloat16"]
+        diff = float(max(abs(a - b) for a, b in zip(g["scores"], r["scores"])))
+        same = {k: g[k] == r[k] for k in ("truncated", "reclaimed") + (
+            ("steps", "diverged") if name.startswith("streaming") else ())}
+        if diff > tol:
+            problems.append(f"pooled {name}: scores differ from fixed width by {diff} > {tol}")
+        if not all(same.values()):
+            problems.append(f"pooled {name}: decisions differ from fixed width: {same}")
+        if g["lane_width_history"] != ELASTIC_POOL_HISTORY or g["pool_widths"] != [1, 2]:
+            problems.append(f"pooled {name}: history {g['lane_width_history']}, pool widths "
+                            f"{g['pool_widths']}")
+        if any(cfg["world"] % w or k % (cfg["world"] // w) for k, w in g["lane_width_history"]):
+            problems.append(f"pooled {name}: a regrid does not tile the ranks")
+        if not all(s == s and abs(s) < 1e8 for s in g["scores"]):
+            problems.append(f"pooled {name}: a score is not finite: {g['scores']}")
+        want = {k: n * g["train_steps"] for k, n in launches_per_step(
+            path_config(cfg["arch"], cfg["n_layers"]) if "fp32" not in name else
+            dataclasses.replace(path_config(cfg["arch"], cfg["n_layers"]),
+                                compute_dtype="float32")).items()}
+        if {k: g["launches"][k] for k in want} != want:
+            problems.append(f"pooled {name}: rank 0's launches {g['launches']}, want {want}")
+        if any(x[name]["after"] != [1 * cfg["world"], None, True] for x in got):
+            problems.append(f"pooled {name}: a flight left the plan or the current mesh: "
+                            f"{[x[name]['after'] for x in got]}")
+        for k in per_step:
+            launches[k] = launches.get(k, 0) + g["launches"][k]
+        pooled[name] = {
+            "scores": g["scores"], "fixed_scores": r["scores"], "max_abs_diff": diff,
+            "tol": tol, "same_decisions": same, "lane_width_history": g["lane_width_history"],
+            "pool_widths": g["pool_widths"], "pool_mesh_shape": g["pool_mesh_shape"],
+            "segments_s_per_step": g["per_rung_step_time_s"],
+            "fixed_segments_s_per_step": r["per_rung_step_time_s"],
+            "regrid_by_rank": [[{k: x[k] for k in ("k", "k2", "width", "recv_bytes", "seconds",
+                                                   "state_bytes")} for x in rk[name]["regrid_log"]]
+                               for rk in got],
+            "rank0_launches": g["launches"]}
+    for k in counters():
+        launches.setdefault(k, 0)
+    out = {"phase": "elastic_path", "nvidia_smi": nvidia_smi(),
+           "a": {"arch": ELASTIC["arch"], "population": ELASTIC["population"],
+                 "batch": ELASTIC["batch"], "seq": ELASTIC["seq"], "flights": flights},
+           "b": {"arch": cfg["arch"], "n_layers": cfg["n_layers"], "ranks": cfg["world"],
+                 "backend": "gloo", "ranks_on": cfg["device"],
+                 "note": "two gloo ranks share one card: the times rank nothing",
+                 "flights": pooled, "spawn_wall_s": wall}}
+    emit(out)
+    if problems:
+        die("elastic path: " + "; ".join(problems))
+    return launches, out
+
+
 # ------------------------------------------------- the trial mesh (--devices N)
 # launch/train.py --devices N: one trial over a (data, model) grid of gloo
-# ranks sharing cuda:0, as tp_path's.  (a) starcoder2-3b whole (30 layers,
-# bf16, remat full) at (1, 2) on train_path's seed and batches, its fp32 twin
-# at ENGINE_LAYERS; (b) (2, 2) (FSDP and the data split) at ENGINE_LAYERS,
+# ranks sharing cuda:0, as tp_path's.  (a) starcoder2-3b at MAIN's depth
+# (bf16, remat full; the mesh's engine does not depend on the depth) at
+# (1, 2), its fp32 twin at ENGINE_LAYERS; (b) (2, 2) (FSDP and the data split) at ENGINE_LAYERS,
 # bf16 and fp32; (c) deepseek-v2-lite at (1, 2), 2 layers: the
 # expert-parallel MoE, 32 of 64 experts a rank, bf16 and fp32; (d) the CLI's
 # main on two ranks at the smoke config, killed and resumed at --devices 1.
 TRIAL_MESH = dict(join_s=600.0, collective_s=300.0, device="cuda:0", steps=3)
-TRIAL_JOBS = {   # name: (world, shape, arch, n_layers (None: full depth), dtype)
-    "a_bf16": (2, (1, 2), "starcoder2-3b", None, "bfloat16"),
+TRIAL_JOBS = {   # name: (world, shape, arch, n_layers, dtype)
+    "a_bf16": (2, (1, 2), "starcoder2-3b", MAIN["n_layers"], "bfloat16"),
     "a_fp32": (2, (1, 2), "starcoder2-3b", ENGINE_LAYERS, "float32"),
     "c_bf16": (2, (1, 2), "deepseek-v2-lite-16b", 2, "bfloat16"),
     "c_fp32": (2, (1, 2), "deepseek-v2-lite-16b", 2, "float32"),
@@ -2050,17 +2445,11 @@ TRIAL_FAIL_AT = 6
 
 
 def trial_job_config(name):
-    """A trial-mesh job's model: the published widths, its depth (``TRAIN``'s
-    whole model for (a)), in its dtype."""
-    from repro_torch.configs import get_config
-
+    """A trial-mesh job's model: the published widths at its depth, in its
+    dtype."""
     _, _, arch, n_layers, dtype = TRIAL_JOBS[name]
-    cfg = get_config(arch) if n_layers is None else path_config(arch, n_layers)
+    cfg = path_config(arch, n_layers)
     return dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
-
-
-def trial_job_steps(name) -> int:
-    return TRAIN["warmup"] + TRAIN["timed"] if name == "a_bf16" else TRIAL_MESH["steps"]
 
 
 def trial_reckoned(cfg, shape) -> dict:
@@ -2127,7 +2516,7 @@ def _trial_mesh_rank(rank, store, out_dir, world, names, cli):
         out = {"rank": rank}
         for name in names:
             _, shape, arch, _, dtype = TRIAL_JOBS[name]
-            n = trial_job_steps(name)
+            n = TRIAL_MESH["steps"]
             mesh = make_trial_mesh(world, shape=shape, device=dev)
             cfg = trial_job_config(name)
             tc, data, step, _ = TR.build(train_args(dev, arch, TRAIN["batch"], TRAIN["seq"], n,
@@ -2224,15 +2613,15 @@ def _cli_losses(text) -> dict:
             for ln in text.splitlines() if ln.startswith("step ")}
 
 
-def trial_mesh_path(torch, dev, train_out):
+def trial_mesh_path(torch, dev):
     """The trial mesh (``launch/train.py --devices N``): gloo ranks sharing
     the card, each storing its blocks of one trial's state, against
-    ``--devices 1`` (``make_train_step``) on the same seed and batches:
-    (a)'s bf16 losses against ``train_out``'s (``train_path``, 30 layers),
-    the other jobs' against a run here first.  Gates: each step's loss
+    ``--devices 1`` (``launch/train.py``'s ``build``) run here first on the
+    same seed and batches.  Gates: each step's loss
     within 3e-2 (bf16) / 1e-4 (fp32, TF32 off) and finite; rank 0's kernel
     launches ``train_launches_per_step`` a step, no plain version; at (1, 2)
-    a rank's state at most 60% of ``train_path``'s and its peak below it;
+    (a)'s rank state at most 60% of ``--devices 1``'s and its peak below
+    ``--devices 1``'s (the memory that run allocated above what it found);
     (a)'s model-group collectives a step the reckoned ones; the CLI killed
     at ``--fail-at`` on both ranks (17) and resumed at ``--devices 1``
     following the reference's resume (batches 0..4, then 4..7) within 1e-4.
@@ -2251,18 +2640,19 @@ def trial_mesh_path(torch, dev, train_out):
 
     ref = {}
     for name in TRIAL_JOBS:
-        if name == "a_bf16":
-            ref[name] = {"losses": train_out["losses"], "s_per_step": train_out["s_per_step"]}
-            continue
         same = [n for n in ref if TRIAL_JOBS[n][2:] == TRIAL_JOBS[name][2:]]
         if same:   # the same model on one device: one reference
             ref[name] = ref[same[0]]
             continue
-        n = trial_job_steps(name)
+        n = TRIAL_MESH["steps"]
         tc, data, step, _ = TR.build(train_args(dev, TRIAL_JOBS[name][2], TRAIN["batch"],
                                                 TRAIN["seq"], n, TRAIN["remat"]),
                                      model=trial_job_config(name))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         state = init_train_state(torch.Generator(device=dev).manual_seed(0), tc, dev)
+        state_bytes = tree_bytes(state)
         losses = []
         for t in range(n):
             if t == 1:
@@ -2272,7 +2662,9 @@ def trial_mesh_path(torch, dev, train_out):
             losses.append(m["loss"])
         torch.cuda.synchronize()
         ref[name] = {"losses": [float(x) for x in losses],
-                     "s_per_step": (time.perf_counter() - t0) / (n - 1)}
+                     "s_per_step": (time.perf_counter() - t0) / (n - 1),
+                     "state_bytes": state_bytes,
+                     "peak_memory_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
         del state, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -2312,7 +2704,7 @@ def trial_mesh_path(torch, dev, train_out):
         r0 = ranks[0]
         diff = float(np.max(np.abs(np.subtract(r0["losses"], ref[name]["losses"]))))
         cfg = trial_job_config(name)
-        want = {k: v * trial_job_steps(name)
+        want = {k: v * TRIAL_MESH["steps"]
                 for k, v in train_launches_per_step(cfg, TRAIN["remat"]).items()}
         jobs[name] = {"shape": shape, "arch": arch, "n_layers": cfg.n_layers, "dtype": dtype,
                       "losses": r0["losses"], "reference_losses": ref[name]["losses"],
@@ -2336,8 +2728,8 @@ def trial_mesh_path(torch, dev, train_out):
             problems.append(f"{name}: rank 0 launched {r0['launches']}, want {want}")
     a = jobs["a_bf16"]
     a["reckoned_model_collectives"] = trial_reckoned(trial_job_config("a_bf16"), (1, 2))
-    a["state_share_of_devices_1"] = [b / train_out["state_bytes"] for b in a["state_bytes"]]
-    a["devices_1_peak_memory_gib"] = train_out["peak_memory_gib"]
+    a["state_share_of_devices_1"] = [b / ref["a_bf16"]["state_bytes"] for b in a["state_bytes"]]
+    a["devices_1_peak_memory_gib"] = ref["a_bf16"]["peak_memory_gib"]
     seen = {k.split("/")[1]: v for k, v in a["collectives_per_step"].items()
             if k.startswith("model/")}
     if seen != a["reckoned_model_collectives"]:
@@ -2345,9 +2737,9 @@ def trial_mesh_path(torch, dev, train_out):
                         f"{a['reckoned_model_collectives']}")
     if max(a["state_share_of_devices_1"]) > 0.6:
         problems.append(f"a_bf16: a rank holds {a['state_share_of_devices_1']} of the state")
-    if max(a["peak_memory_gib"]) >= train_out["peak_memory_gib"]:
+    if max(a["peak_memory_gib"]) >= a["devices_1_peak_memory_gib"]:
         problems.append(f"a_bf16: rank peak {a['peak_memory_gib']} GiB, --devices 1 "
-                        f"{train_out['peak_memory_gib']}")
+                        f"{a['devices_1_peak_memory_gib']}")
     killed = [g["cli"] for g in got[2]]
     lines = _cli_losses(killed[0]["out"])
     after = _cli_losses(resumed.getvalue())
@@ -5108,7 +5500,8 @@ def main() -> int:
         # the chunked engine does not depend on the model's depth either: its
         # flights run at ENGINE_LAYERS at most (the main path's steady step
         # stands beside them only at the same depth)
-        depth = min(kw["n_layers"], ENGINE_LAYERS)
+        engine_layers = MAMBA_ENGINE_LAYERS if path is MAMBA else ENGINE_LAYERS
+        depth = min(kw["n_layers"], engine_layers)
         launches, out = chunked_path(
             torch, dev, **dict(kw, n_layers=depth),
             per_step_steady=out["steady_s_per_step"] if depth == kw["n_layers"] else None)
@@ -5123,12 +5516,15 @@ def main() -> int:
             # on the two paths above
             continue
         # the streaming, crash and ring engines do not depend on the model's
-        # depth: they run at ENGINE_LAYERS
+        # depth: they run at ENGINE_LAYERS, the crash and ring flights at the
+        # chunked flights' depth (the streaming flights keep 2 layers: their
+        # gate that the rung rule cuts a lane reads the losses)
         kw = dict(kw, n_layers=ENGINE_LAYERS)
         by_path[path["arch"] + "+streaming"], _ = streaming_path(torch, dev, **kw)
         gc.collect()
         torch.cuda.empty_cache()
         lap(path["arch"] + ":streaming_path")
+        kw = dict(kw, n_layers=engine_layers)
         by_path[path["arch"] + "+crash"], out = crash_path(torch, dev, **kw)
         lap(path["arch"] + ":crash_path")
         by_path[path["arch"] + "+ring"], _ = ring_path(
@@ -5150,12 +5546,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("tp_path")
+    by_path[ELASTIC["arch"] + "+elastic"], _ = elastic_path(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("elastic_path")
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")
-    by_path[TRAIN["arch"] + "+train"], train_out = train_path(torch, dev, **TRAIN)
+    by_path[TRAIN["arch"] + "+train"], _ = train_path(torch, dev, **TRAIN)
     lap("train_path")
-    by_path[TRAIN["arch"] + "+trial_mesh"], _ = trial_mesh_path(torch, dev, train_out)
+    by_path[TRAIN["arch"] + "+trial_mesh"], _ = trial_mesh_path(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     lap("trial_mesh_path")

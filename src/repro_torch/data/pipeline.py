@@ -119,26 +119,31 @@ def synth_tokens(spec: "SyntheticLM", rows_shape, step, stream_lo,
     ``rows_shape`` is the batch-rows shape (``(b,)`` for one batch,
     ``(K, b)`` for a population); ``step`` / ``stream_lo`` / ``stream_hi`` /
     ``shard`` are integers or arrays broadcastable against ``rows_shape``
-    (pass per-lane values shaped ``(K, 1)``).
+    (pass per-lane values shaped ``(K, 1)``).  The draws of every position
+    depend only on their coordinates, so they are made for all positions at
+    once; only the bigram rule runs position by position.
     """
     vocab = int(spec.vocab_size)
-    row = np.arange(rows_shape[-1], dtype=np.uint32)
-    coords = [spec.seed, stream_lo, stream_hi, step, shard, row]
+    rows_shape = tuple(rows_shape)
+    n_pos = int(spec.seq_len) + 1
+    expand = lambda w: w if isinstance(w, (int, np.integer)) else np.asarray(w)[..., None]  # noqa: E731
+    row = np.arange(rows_shape[-1], dtype=np.uint32)[:, None]
+    coords = [spec.seed, expand(stream_lo), expand(stream_hi), expand(step), expand(shard),
+              row]
 
-    def draw(kind, t):
-        return _hash_u32(rows_shape, [kind] + coords + [t])
-
-    def tok(kind, t):
-        return (draw(kind, t) % np.uint32(vocab)).astype(np.int32)
+    def draw(kind, lo, hi):
+        pos = np.arange(lo, hi, dtype=np.uint32)
+        return _hash_u32(rows_shape + (hi - lo,), [kind] + coords + [pos])
 
     mix = np.float32(spec.order_mix)
-    toks = np.empty(rows_shape + (spec.seq_len + 1,), np.int32)
-    toks[..., 0], toks[..., 1] = tok(_KIND_INIT, 0), tok(_KIND_INIT, 1)
-    for t in range(2, spec.seq_len + 1):
-        follow = _u01(draw(_KIND_FOLLOW, t)) < mix
-        toks[..., t] = np.where(
-            follow, _rule32(toks[..., t - 2], toks[..., t - 1], vocab),
-            tok(_KIND_NOISE, t))
+    toks = np.empty(rows_shape + (n_pos,), np.int32)
+    toks[..., :2] = (draw(_KIND_INIT, 0, 2) % np.uint32(vocab)).astype(np.int32)
+    follow = _u01(draw(_KIND_FOLLOW, 2, n_pos)) < mix
+    noise = (draw(_KIND_NOISE, 2, n_pos) % np.uint32(vocab)).astype(np.int32)
+    for t in range(2, n_pos):
+        toks[..., t] = np.where(follow[..., t - 2],
+                                _rule32(toks[..., t - 2], toks[..., t - 1], vocab),
+                                noise[..., t - 2])
     return toks
 
 

@@ -38,6 +38,11 @@ While a mesh lives, the RMSNorm backward plans a rank's K/rows lanes as the
 whole population's K (``kernels/rmsnorm.py::plan_for_mesh(rows)``), so a
 lane's gain gradient takes the unsharded launch's bits.
 
+**Elastic regrid** re-lays a flight's lanes onto a mesh of another width
+over the same ranks (``PopulationMesh.with_width``: one mesh a width, made
+once, its groups made by every rank in one order); it leaves the process's
+current mesh and the RMSNorm plan as they were.
+
 **The trial mesh** (``launch/mesh.py::make_trial_mesh``, ``launch/train.py
 --devices N``) is the same grid read as one trial's ``(data, model)`` axes:
 the pop group is the data axis, a row's model group the model axis.  The
@@ -75,7 +80,6 @@ from ..interop import tree_leaves, tree_map, tree_unflatten
 from ..kernels import rmsnorm
 
 DEFAULT_TIMEOUT_S = 300.0
-PART_C = "ROADMAP.md section 1, item 12(c) (elastic regrid)"
 _ALIGN = 8   # byte alignment of each leaf in a packed gather
 Rules = Dict[str, Tuple[str, ...]]
 
@@ -107,6 +111,13 @@ class PopulationMesh:
     # held by rank 0 for a whole flight: the ranks apply one flight's ops in
     # the order rank 0 sends them, so two flights may not interleave
     flight_lock: Any = dataclasses.field(default_factory=threading.RLock, repr=False)
+    # width -> the mesh of that width over this group (``with_width``),
+    # shared by every mesh made from this one
+    widths: Dict[int, Any] = dataclasses.field(default_factory=dict, repr=False)
+    # an elastic regrid's mesh: at a width that shards none of a model's
+    # modules, a row's ranks hold and compute whole lanes (``--model-parallel``
+    # refuses such a width instead)
+    replicate_rows: bool = False
 
     @property
     def key(self) -> tuple:
@@ -283,6 +294,28 @@ class PopulationMesh:
     def barrier(self) -> None:
         dist.barrier(group=self.group)
 
+    def with_width(self, width: int) -> "PopulationMesh":
+        """The mesh of ``width`` over this mesh's group and ranks (elastic
+        regrid re-lays a flight's lanes onto it), made once a width and
+        cached: a new width makes new row and model-position groups, a
+        collective every rank must make in the same order (a flight's
+        broadcast ops give it one).  The process's current mesh and the
+        RMSNorm backward's plan are left as they are; the flight that uses
+        the mesh plans for its lanes itself."""
+        w = int(width)
+        self.widths.setdefault(self.width, self)
+        got = self.widths.get(w)
+        if got is None:
+            if w < 1 or self.world_size % w:
+                raise ValueError(f"width {w} does not tile {self.world_size} ranks into "
+                                 f"lane rows")
+            model_group, pop_group = _row_groups(self.rank, self.world_size, w)
+            # ``replace`` shares the flight lock and this dict with the new mesh
+            got = dataclasses.replace(self, width=w, owns_group=False, replicate_rows=True,
+                                      model_group=model_group, pop_group=pop_group)
+            self.widths[w] = got
+        return got
+
     def destroy(self) -> None:
         """Leave the process group, if this mesh made it."""
         global _CURRENT
@@ -371,10 +404,23 @@ def population_mesh(device=None, axis: str = "pop", width: Optional[int] = None,
     devices = [str(dev)] * n
     if n > 1:
         dist.all_gather_object(devices, str(dev))
+    model_group, pop_group = _row_groups(r, n, w)
+    _CURRENT = PopulationMesh(rank=r, world_size=n, device=dev, backend=str(backend),
+                              axis=axis, timeout_s=float(timeout_s), owns_group=owns,
+                              devices=tuple(torch.device(d) for d in devices), width=w,
+                              model_group=model_group, pop_group=pop_group)
+    rmsnorm.plan_for_mesh(n // w)
+    return _CURRENT
+
+
+def _row_groups(r: int, n: int, w: int) -> tuple:
+    """Rank ``r``'s model group (its row of ``w`` ranks) and pop group (the
+    ranks at its model position) of ``n`` ranks at width ``w`` (None, None
+    at width 1).  Every rank makes every group, in one order, as
+    ``torch.distributed`` requires."""
     model_group = pop_group = None
     if w > 1:
-        rows = n // w
-        for i in range(rows):   # every rank makes every group, in one order
+        for i in range(n // w):
             g = dist.new_group(list(range(i * w, (i + 1) * w)))
             if i == r // w:
                 model_group = g
@@ -382,12 +428,7 @@ def population_mesh(device=None, axis: str = "pop", width: Optional[int] = None,
             g = dist.new_group(list(range(j, n, w)))
             if j == r % w:
                 pop_group = g
-    _CURRENT = PopulationMesh(rank=r, world_size=n, device=dev, backend=str(backend),
-                              axis=axis, timeout_s=float(timeout_s), owns_group=owns,
-                              devices=tuple(torch.device(d) for d in devices), width=w,
-                              model_group=model_group, pop_group=pop_group)
-    rmsnorm.plan_for_mesh(n // w)
-    return _CURRENT
+    return model_group, pop_group
 
 
 def population_specs(tree: Any, mesh: PopulationMesh) -> Any:

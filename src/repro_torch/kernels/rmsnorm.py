@@ -12,6 +12,7 @@ launches the kernels or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional
@@ -37,6 +38,32 @@ mesh_ranks = 1
 def plan_for_mesh(n: int) -> None:
     global mesh_ranks
     mesh_ranks = max(int(n), 1)
+
+
+# The lanes a launch's rows are planned for, whatever K and the mesh are
+# (None: K * mesh_ranks).  An elastic flight that regrids K lanes to K' < K
+# plans its survivors as the K-lane launch it started with, so their dgamma
+# bits are the fixed-width flight's.
+planned_lanes: Optional[int] = None
+
+
+@contextlib.contextmanager
+def plan_lanes(n: int):
+    """Plan every backward launch's rows for ``n`` lanes while the context
+    lasts (a flight's life), then restore the plan found."""
+    global planned_lanes
+    saved, planned_lanes = planned_lanes, max(int(n), 1)
+    try:
+        yield
+    finally:
+        planned_lanes = saved
+
+
+def lanes_for(k: int) -> int:
+    """The lanes a backward launch of ``k`` lanes plans its rows for:
+    ``planned_lanes`` (never fewer than ``k``), else ``k * mesh_ranks``."""
+    k = int(k)
+    return k * mesh_ranks if planned_lanes is None else max(planned_lanes, k)
 
 
 def reset_launches() -> None:
@@ -100,8 +127,9 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tens
 def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
                      eps: float, lanes: Optional[int] = None) -> tuple:
     """Launch the backward on the current stream: (dx, dgamma), each lane's
-    rows planned as in a launch of ``lanes`` lanes (default K times
-    ``mesh_ranks``; a lane's dgamma bits depend on it).  Its fp32 scratch, a
+    rows planned as in a launch of ``lanes`` lanes (default
+    ``planned_lanes``, else K times ``mesh_ranks``; a lane's dgamma bits
+    depend on it).  Its fp32 scratch, a
     partial dgamma row a block, comes from the torch allocator, so the
     launch can be captured in a CUDA graph.  Raises on what it does not
     take."""
@@ -113,7 +141,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     if not dy.is_contiguous():
         raise ValueError("rmsnorm_bwd: dy must be contiguous")
     K, rows, d = x.shape
-    lanes = K * mesh_ranks if lanes is None else int(lanes)
+    lanes = lanes_for(K) if lanes is None else int(lanes)
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx, torch.zeros_like(gamma)

@@ -19,7 +19,10 @@ ranks, the seams' all-reduces over a row) pair up.  On a two-level mesh
 (``train.population.TPLayout``), a lane moved across rows goes as W sends,
 shard j to shard j, and over gloo the chunk programs run eagerly on the
 card (a gloo collective cannot sit in a captured graph; ``graphed`` is then
-off).  Host decisions,
+off).  An elastic flight's ``regrid`` changes its geometry mid-flight: the
+survivors move into a population of fewer lanes, with a pool onto a mesh of
+another width over the same ranks, and every rank switches to it.  Host
+decisions,
 the Experiment, the proposer, the tracking DB, the lane scheduler and the
 fault injector all stay on rank 0; the other ranks only ever apply what it
 broadcasts.  A flight that dies on rank 0 ends on every rank (its ``end``
@@ -28,10 +31,13 @@ carries the error), so a supervised restart is the same restart everywhere.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..interop import tree_leaves
 
 # ops whose arguments stay on rank 0 (what is broadcast is only their head)
 _LOCAL_ARGS = {"restore": 1}
@@ -47,49 +53,64 @@ class LaneFlight:
     def __init__(self, trial, k: int, mesh=None, graphed: bool = False, ptb: bool = True,
                  ring_on: bool = False):
         from ..kernels import rmsnorm
-        from ..train.population import flight_lease, tp_layout
 
         self.trial = trial
-        self.mesh = mesh
-        self.k = int(k)
         self.tc, self.data = trial._setup()
+        self._stack = contextlib.ExitStack()
         if mesh is not None:
             # the RMSNorm backward plans a rank's lanes as the whole
-            # population's (a process may hold meshes of two widths)
+            # population's (a process may hold meshes of several widths),
+            # and the plan found is back when the flight closes
+            self._stack.callback(rmsnorm.plan_for_mesh, rmsnorm.mesh_ranks)
             rmsnorm.plan_for_mesh(mesh.rows)
         self.dev = trial.device if mesh is None else mesh.device
-        self.blk = self.k if mesh is None else mesh.block_size(self.k)
-        self.lo = 0 if mesh is None else mesh.row * self.blk
         self.ptb = bool(ptb)
-        # a model rank of a two-level mesh: its programs run under the seams
-        self.tp = mesh if mesh is not None and mesh.width > 1 else None
-        self.layout = tp_layout(self.tc, mesh)
-        self.graphed = bool(graphed) and (self.tp is None or self.tp.backend == "nccl")
+        self.graphed_asked = bool(graphed)
+        self.k0 = int(k)   # the population the flight started with
         self.state = None
         self.hp = None
         self.streams: list = []
         self.s_lo = self.s_hi = None
+        self.result: Any = None   # what the flight returns; the other ranks get it at its end
+        self._lease = contextlib.ExitStack()   # the geometry's captured state
+        self._stack.callback(lambda: self._lease.close())
+        self._geometry(int(k), mesh)
+        self.ring = self._make_ring() if ring_on else None
+
+    def _geometry(self, k: int, mesh) -> None:
+        """Take the geometry of ``k`` lanes on ``mesh``: the rank's block,
+        its layout on a two-level mesh and, for a graphed flight, the
+        geometry's captured state (the state its chunk graphs captured is
+        reused in place, not held twice, and by one flight at a time)."""
+        from ..train.population import flight_lease, tp_layout
+
+        self.mesh = mesh
+        self.k = int(k)
+        self.blk = self.k if mesh is None else mesh.block_size(self.k)
+        self.lo = 0 if mesh is None else mesh.row * self.blk
+        # a model rank of a two-level mesh: its programs run under the seams
+        self.tp = mesh if mesh is not None and mesh.width > 1 else None
+        self.layout = tp_layout(self.tc, mesh)
+        self.graphed = self.graphed_asked and (self.tp is None or self.tp.backend == "nccl")
         self.feed = None
         self.step_fn = None   # the per-step program, made at the first step
-        self.result: Any = None   # what the flight returns; the other ranks get it at its end
-        self._stack = contextlib.ExitStack()
         self.out = None
         if self.graphed:
-            # the state the chunk graphs captured is reused in place, not
-            # held twice, and by one flight at a time
-            self.out = self._stack.enter_context(
+            self.out = self._lease.enter_context(
                 flight_lease(self.tc, self.blk, self.data, self.ptb, self.dev, self.tp))
-        self.ring = self._make_ring() if ring_on else None
 
     # -- opening, closing and the worker side ------------------------------------
     @classmethod
     @contextlib.contextmanager
     def open(cls, trial, k: int, mesh=None, graphed: bool = False, ptb: bool = True,
-             ring_on: bool = False):
+             ring_on: bool = False, width: Optional[int] = None):
         """A flight for rank 0's driver (or the only rank's): the other ranks
         of ``mesh`` open theirs from the broadcast, and close it when this
-        context exits, with the error that ended it, if any."""
-        head = (int(k), bool(graphed), bool(ptb), bool(ring_on))
+        context exits, with the error that ended it, if any.  ``width``
+        starts the flight on ``mesh``'s mesh of that width (an elastic
+        pool's current one)."""
+        width = None if mesh is None or width is None else int(width)
+        head = (int(k), bool(graphed), bool(ptb), bool(ring_on), width)
         with contextlib.ExitStack() as stack:
             if mesh is not None:
                 # one flight at a time on a mesh (a partial batch may flush
@@ -97,6 +118,8 @@ class LaneFlight:
                 stack.enter_context(mesh.flight_lock)
                 if mesh.world_size > 1:
                     mesh.broadcast_object(("begin", head))
+                if width is not None:
+                    mesh = mesh.with_width(width)
             fl = cls(trial, k, mesh=mesh, graphed=graphed, ptb=ptb, ring_on=ring_on)
             err = None
             try:
@@ -255,17 +278,31 @@ class LaneFlight:
         return self.step_fn
 
     def _counted(self, steps: int, call):
-        """``call()`` (``steps`` population steps); on a two-level mesh the
-        model-group collectives a step issued are kept on the trial
-        (``model_axis_collectives``)."""
+        """``call()`` (``steps`` population steps, one training dispatch); on
+        a two-level mesh the model-group collectives a step issued are kept
+        on the trial (``model_axis_collectives``).  With the trial's
+        ``dispatch_times`` a list, the dispatch is timed alone (the device
+        synchronized before and after) and ``(lanes, steps, seconds)``
+        appended to it."""
+        timed = self.trial.dispatch_times is not None
+        if timed:
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+            t0 = time.perf_counter()
         if self.tp is None:
-            return call()
-        from ..train.population import count_model_axis_collectives
+            got = call()
+        else:
+            from ..train.population import count_model_axis_collectives
 
-        out = []
-        n = count_model_axis_collectives(lambda: out.append(call()), steps)
-        self.trial.model_axis_collectives = max(self.trial.model_axis_collectives, n)
-        return out[0]
+            out = []
+            n = count_model_axis_collectives(lambda: out.append(call()), steps)
+            self.trial.model_axis_collectives = max(self.trial.model_axis_collectives, n)
+            got = out[0]
+        if timed:
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+            self.trial.dispatch_times.append((self.k, int(steps), time.perf_counter() - t0))
+        return got
 
     def _steps0(self, cursors):
         if np.isscalar(cursors):
@@ -395,6 +432,48 @@ class LaneFlight:
     def _restore(self, lane, snap=None):
         self._op("restore")(self.state, lane, snap)
 
+    def regrid(self, survivors, k2: int, width: Optional[int] = None) -> None:
+        """Elastic regrid: gather the global lanes ``survivors`` (ascending,
+        padded to ``k2`` by repeating the first) into a population of ``k2``
+        lanes, with ``width`` laid out on the flight's mesh of that width,
+        and take its geometry on every rank.  The hyperparameters, streams
+        and budgets are the driver's to send again."""
+        self._call("regrid", [int(i) for i in survivors], int(k2),
+                   None if width is None else int(width))
+
+    def _regrid(self, survivors, k2, width):
+        from ..kernels import rmsnorm
+        from ..train.population import drop_flight_graphs, get_lane_op, regrid_indices
+
+        t0 = time.perf_counter()
+        if self.k == self.k0 and rmsnorm.planned_lanes is None:
+            # the survivors' RMSNorm backward plans their rows as the flight's
+            # first launch did, so their bits are the fixed-width flight's
+            self._stack.enter_context(rmsnorm.plan_lanes(self.k0))
+        mesh2 = self.mesh if width is None or self.mesh is None else self.mesh.with_width(width)
+        op = get_lane_op(self.tc, self.k, "regrid", mesh=self.mesh)
+        state, k, blk, tp, lease = self.state, self.k, self.blk, self.tp, self._lease
+        self._lease = contextlib.ExitStack()
+        self._geometry(k2, mesh2)   # the new geometry's lease, and its captured state
+        idx = regrid_indices(survivors, k2)
+        self.state = (op(state, idx, out=self.out) if mesh2 is None
+                      else op(state, idx, out=self.out, to_mesh=mesh2))
+        del state
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        gather_s = time.perf_counter() - t0
+        lease.close()
+        # the geometry left holds its captured state and graphs: free them
+        dropped = (drop_flight_graphs(self.tc, blk, self.data, self.ptb, self.dev, tp)
+                   if self.graphed_asked else [])
+        now = time.perf_counter()
+        self.trial.regrid_log.append({
+            "k": k, "k2": int(k2), "width": 1 if mesh2 is None else int(mesh2.width),
+            "recv_bytes": int(getattr(op, "recv_bytes", 0)),
+            "state_bytes": int(sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(self.state))),
+            "gather_seconds": gather_s, "seconds": now - t0, "at": now,
+            "dropped_graphs": dropped})
 
 def serve(trial, mesh, flights: Optional[int] = None):
     """A rank above 0 of ``mesh``: open, drive and close flights as rank 0
@@ -410,7 +489,8 @@ def serve(trial, mesh, flights: Optional[int] = None):
             break
         if op != "begin":
             raise RuntimeError(f"population mesh: expected a flight to begin, got {op!r}")
-        fl = LaneFlight(trial, args[0], mesh=mesh, graphed=args[1], ptb=args[2],
+        flight_mesh = mesh if args[4] is None else mesh.with_width(args[4])
+        fl = LaneFlight(trial, args[0], mesh=flight_mesh, graphed=args[1], ptb=args[2],
                         ring_on=args[3])
         try:
             while True:

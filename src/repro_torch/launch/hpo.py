@@ -89,8 +89,20 @@ width-W tensor-parallel program over its row (attention heads, MLP ``ff``
 and Mamba channels split as the width rules say, the all-reduces at the
 model's seams); the JSON gains ``model_parallel`` and
 ``model_axis_collectives`` (the model-group collectives a step issues) and
-the engine ``+tp{W}``.  ``--elastic-regrid`` comes with a later part of
-ROADMAP.md item 12 and is refused naming it.
+the engine ``+tp{W}``.
+
+With ``--elastic-regrid`` (and ``--vectorize K --inflight-stop``) a flight
+regrids at the rung boundaries where its survivors fit fewer lanes: their
+whole state is gathered into a smaller population (``regrid`` lane op), K
+shrinks to the next power of two, and the retired lanes' scores are kept.
+Under ``--shard-population`` the ranks are leased through an
+``ElasticLanePool``: the survivors move onto fewer, wider lane rows of the
+same ranks (``plan_regrid``: no row idle), each row a tensor-parallel
+program where the width shards a module.  Streaming flights regrid once
+the feed is closed and at most half the lanes are live.  A regrid changes
+layout, never math: the scores are the fixed-width flight's (bit for bit
+without a pool).  The JSON gains ``regrids`` and ``lane_width_history``
+(``[lanes, width]`` after each regrid) and the engine ``+elastic``.
 """
 from __future__ import annotations
 
@@ -226,6 +238,12 @@ class PopulationTrial:
     restores).  ``data_ring`` feeds chunked flights from a prefetch ring of
     ``ring_windows`` chunk-windows filled on a host thread from
     ``host_dataset`` (default: the synthetic stream's host adapter).
+
+    ``elastic_regrid`` (or an ``elastic`` pool handed to
+    ``run_population``) makes flights regrid their rung survivors onto
+    fewer lanes; ``n_regrids``, ``lane_width_history`` and, per rank,
+    ``regrid_log`` (lanes, width, bytes received, seconds, the graphs of
+    the geometry left and, on rank 0, the step of each regrid) record them.
     """
 
     DIVERGED_SCORE = -1e9
@@ -236,7 +254,8 @@ class PopulationTrial:
                  model_overrides=None, device=None, chunk_steps: int = 1,
                  device_rules: bool = False, refill_idle_grace_s: float = 0.25,
                  lifecycle=None, snapshot_every: int = 0, snapshots=None,
-                 data_ring: bool = False, ring_windows: int = 2):
+                 data_ring: bool = False, ring_windows: int = 2,
+                 elastic_regrid: bool = False):
         self.device = resolve_device(device)
         self.arch = arch
         self.steps = int(steps)
@@ -252,6 +271,8 @@ class PopulationTrial:
         self.device_rules = bool(device_rules)
         self.record_flight = None   # callable(losses, pstate) at each flight's end
         self.record_lane_op = None  # callable(op, pstate, lanes, donors) after a lane op
+        # a list: each training dispatch timed alone, (lanes, steps, seconds)
+        self.dispatch_times = None
         # [[boundary_step, steps, s_per_step], ...] between rung boundaries
         self.per_rung_step_time_s: list = []
         self.model_axis_collectives = 0   # model-group collectives a step (two-level mesh)
@@ -295,6 +316,12 @@ class PopulationTrial:
         self.ring_overlap_frac = 1.0    # share of the fill hidden behind the chunks
         self.n_ring_fills = 0
         self.n_ring_invalidations = 0
+        # --elastic-regrid: flights regrid their survivors onto fewer lanes
+        # (with a pool, onto wider lane rows) at rung boundaries
+        self.elastic_regrid = bool(elastic_regrid)
+        self.n_regrids = 0
+        self.lane_width_history: list = []   # [lanes, width] after each regrid
+        self.regrid_log: list = []   # this rank's regrids: lanes, bytes, seconds
         self._flight_epoch = 0
         self._event_seq = 0         # streaming event passes, all flights
         self._hist_cap = 0          # staggered rule history capacity (power of two)
@@ -412,7 +439,7 @@ class PopulationTrial:
                 return self.DIVERGED_SCORE
         return -loss
 
-    def run_population(self, configs, mesh=None, scheduler=None) -> list:
+    def run_population(self, configs, mesh=None, scheduler=None, elastic=None) -> list:
         """Batch protocol: K trials in one lane-batched program.  Partial
         batches are padded to the fixed population size with 0-budget lanes
         (they freeze at once) reading distinct negative sentinel streams.
@@ -431,17 +458,28 @@ class PopulationTrial:
         rank 0's host decisions and scores are the unsharded engine's.
 
         With ``scheduler`` the call is the streaming protocol instead
-        (``configs`` must be empty; see ``_run_streaming``)."""
+        (``configs`` must be empty; see ``_run_streaming``).
+
+        ``elastic`` (an ``ElasticLanePool``, on rank 0; ``mesh`` defaults to
+        its mesh) regrids the flight's rung survivors onto the pool's lane
+        rows (see ``_regrid_at``); ``elastic_regrid`` without a pool shrinks
+        K to the next power of two."""
         from ..train.population import pad_population
         from .flight import LaneFlight, serve
 
+        if mesh is None and elastic is not None:
+            mesh = elastic.base
         if mesh is not None and mesh.rank != 0:
             return serve(self, mesh, flights=1)
+        elastic_on = self.elastic_regrid or elastic is not None
+        if elastic_on and self.device_rules:
+            raise ValueError("--elastic-regrid and --device-rules are mutually exclusive: "
+                             "in-chunk rule state is K-shaped, a regrid changes K mid-flight")
         if scheduler is not None:
             if configs:
                 raise ValueError(
                     "streaming mode: seed proposals through the scheduler, not configs")
-            return self._run_streaming(scheduler, mesh)
+            return self._run_streaming(scheduler, mesh, elastic)
         budgets = np.array([float(self._n_steps(c)) for c in configs])
         streams = [self._stream_of(c, i) for i, c in enumerate(configs)]
         hps = [self._hparams(c, int(n)) for c, n in zip(configs, budgets)]
@@ -451,18 +489,20 @@ class PopulationTrial:
         streams += [-(i + 1) for i in range(len(streams), k)]
         budgets = np.concatenate([budgets, np.zeros(k - len(budgets))])
         spec = self._device_rule_spec()
-        ring_on = self.data_ring and self.chunk_steps > 1 and spec is None
+        # the ring's lane axis is K-shaped, so an elastic flight has none
+        ring_on = self.data_ring and self.chunk_steps > 1 and spec is None and not elastic_on
         if ring_on and not self.per_trial_streams:
             raise ValueError("--data-ring fills per-lane slabs; drop --shared-stream")
         with LaneFlight.open(self, k, mesh, graphed=self._graphed(spec is not None),
-                             ptb=self.per_trial_streams, ring_on=ring_on) as fl:
+                             ptb=self.per_trial_streams, ring_on=ring_on,
+                             width=None if elastic is None else elastic.width) as fl:
             fl.init_state(streams, per_lane=self.per_trial_init)
             fl.set_hp(hps)
             fl.set_streams(streams)
             if spec is not None:
                 scores = self._flight_device_rules(fl, budgets, spec)
             else:
-                scores = self._flight(fl, budgets, streams)
+                scores = self._flight(fl, budgets, streams, hps, elastic_on, elastic)
             fl.result = [float(x) for x in scores[: len(configs)]]
         return fl.result
 
@@ -500,9 +540,16 @@ class PopulationTrial:
             self.record_flight(torch.cat(losses) if losses else None, fl.state)
         return scores
 
-    def _flight(self, fl, budgets, streams):
-        """One batch flight from its first step to its scores (numpy (K,))."""
+    def _flight(self, fl, budgets, streams, hps, elastic_on=False, pool=None):
+        """One batch flight from its first step to its scores (numpy (K,));
+        with ``elastic_on`` it regrids at rung boundaries (``_regrid_at``),
+        and its scores are still those of the K lanes it started with."""
         k = fl.k
+        k0 = k
+        # lane -> the lane of the flight's start it trains (-1: a pad), and
+        # the scores of the lanes a regrid retired
+        orig = list(range(k))
+        final = np.full(k0, self.DIVERGED_SCORE, np.float64)
         chunk = self.chunk_steps
         ring = fl.ring is not None
         hook = self.early_stop
@@ -530,7 +577,8 @@ class PopulationTrial:
             self._count_active(acc, metrics, k, t)
             if losses is not None:
                 # cloned: a graph's metrics are overwritten by its next replay
-                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+                losses.append(self._start_lanes(metrics["loss"].detach().reshape(-1, k),
+                                                orig, k0))
             self.n_dispatches += 1
             self.n_train_steps += t
             s += t
@@ -548,12 +596,90 @@ class PopulationTrial:
                     # step; written in place, as a captured graph reads it
                     budgets = new_budgets
                     fl.set_budgets(budgets)
+                if elastic_on:
+                    got = self._regrid_at(fl, s, budgets, streams, hps, orig, final, pool)
+                    if got is not None:
+                        budgets, streams, hps, orig = got
+                        k = fl.k
+                        # the regrid's seconds are its own (regrid_log), not the
+                        # next segment's
+                        seg_t0 = time.perf_counter()
         scores = self._finish_flight(fl, acc, losses, s)
         if s > seg_s0:  # the tail past the last rung boundary (scores synced)
             self.per_rung_step_time_s.append(
                 [int(s), int(s - seg_s0),
                  round((time.perf_counter() - seg_t0) / (s - seg_s0), 6)])
-        return scores
+        if not elastic_on:
+            return scores
+        for j, o in enumerate(orig):
+            if o >= 0:
+                final[o] = scores[j]
+        return final
+
+    @staticmethod
+    def _start_lanes(loss, orig, k0):
+        """A dispatch's ``(steps, K)`` losses in the columns of the lanes the
+        flight started with (NaN where no lane trains that one any more)."""
+        if loss.shape[1] == k0 and orig == list(range(k0)):
+            return loss.clone()
+        out = torch.full((loss.shape[0], k0), float("nan"), dtype=loss.dtype,
+                         device=loss.device)
+        cols = [j for j, o in enumerate(orig) if o >= 0]
+        out[:, [orig[j] for j in cols]] = loss[:, cols]
+        return out
+
+    def _regrid_target(self, fl, n_survivors: int, pool):
+        """``(lanes, width)`` after a regrid of ``n_survivors`` live lanes,
+        or None when it would not shrink the flight: with a pool its plan
+        (``plan_regrid``: fewer lanes or wider rows), without one the next
+        power of two (padded to the mesh's rows; the width stays)."""
+        from ..train.population import pad_population
+
+        k = fl.k
+        if pool is not None:
+            _, width, k2 = pool.plan(n_survivors)
+            return (k2, width) if k2 != k or width != pool.width else None
+        k2 = pad_population(pow2_ceil(n_survivors), fl.mesh)
+        return (k2, None) if k2 < k else None
+
+    def _regrid_at(self, fl, s, budgets, streams, hps, orig, final, pool):
+        """The regrid step of an elastic batch flight at rung boundary
+        ``s``: where the survivors (lanes whose budget runs past ``s``, in
+        lane order) fit fewer lanes, harvest the retired lanes' scores into
+        ``final``, re-lease the pool, gather the survivors (padded with 0-step
+        copies of the first, reading sentinel streams ``-(K0 + j + 1)``)
+        and restack their budgets, streams and hyperparameters.  Returns the
+        new ``(budgets, streams, hps, orig)``, or None without a regrid."""
+        k = fl.k
+        survivors = [i for i in range(k) if budgets[i] > s]
+        if not 0 < len(survivors) < k:
+            return None
+        plan = self._regrid_target(fl, len(survivors), pool)
+        if plan is None:
+            return None
+        k2, width = plan
+        # the retired lanes' budgets froze them: their scores are final
+        cur = fl.scores(self.DIVERGED_SCORE)
+        live = set(survivors)
+        for i in range(k):
+            if i not in live and orig[i] >= 0:
+                final[orig[i]] = cur[i]
+        if pool is not None:
+            pool.regrid(len(survivors))
+        fl.regrid(survivors, k2, width)
+        self.regrid_log[-1]["step"] = int(s)
+        pad = k2 - len(survivors)
+        budgets = np.array([budgets[i] for i in survivors] + [0.0] * pad)
+        streams = [streams[i] for i in survivors] + [-(fl.k0 + j + 1) for j in range(pad)]
+        hps = [hps[i] for i in survivors] + [self._hparams({}, 0) for _ in range(pad)]
+        orig = [orig[i] for i in survivors] + [-1] * pad
+        fl.set_hp(hps)
+        fl.set_budgets(budgets)
+        fl.set_streams(streams)
+        self.n_dispatches += 1
+        self.n_regrids += 1
+        self.lane_width_history.append([int(k2), 1 if fl.mesh is None else int(fl.mesh.width)])
+        return budgets, streams, hps, orig
 
     def _flight_device_rules(self, fl, budgets, spec):
         """A batch flight with the cohort rung rule carried in the chunks
@@ -587,7 +713,7 @@ class PopulationTrial:
         return self._finish_flight(fl, acc, losses, s)
 
     # -- the streaming protocol ---------------------------------------------------
-    def _run_streaming(self, scheduler, mesh=None) -> list:
+    def _run_streaming(self, scheduler, mesh=None, elastic=None) -> list:
         """A lane-refill flight: Algorithm 1's busy-resource rule inside one
         population.
 
@@ -631,8 +757,13 @@ class PopulationTrial:
         On the card a flight whose dispatches are chunk programs holds the
         geometry's captured state (``flight_lease``) from its first init to
         its return: every lane op writes into that state, and every training
-        dispatch replays a graph."""
-        from ..train.population import pad_population
+        dispatch replays a graph.
+
+        An elastic flight (``elastic_regrid``, or the pool ``elastic``)
+        regrids its tail: once the feed is closed, nothing is parked and at
+        most half the lanes are live, the live lanes (in lane order) move
+        into a smaller population, with a pool onto its wider lane rows, and
+        the lane table is restacked."""
         from .flight import LaneFlight
 
         if not self.per_trial_streams:
@@ -640,18 +771,29 @@ class PopulationTrial:
                 "lane refill requires per-trial data streams: a refilled lane "
                 "must replay its own stream from its own step 0 (drop "
                 "--shared-stream)")
-        k = pad_population(max(self.population, 1), mesh)
+        elastic_on = self.elastic_regrid or elastic is not None
+        if elastic_on and self.lifecycle is not None:
+            raise ValueError("--elastic-regrid is incompatible with streaming PBT: keep/clone "
+                             "directives pin members to lanes a regrid reindexes")
+        # the flight starts on the pool's current width: its rows are the
+        # ranks over that width (its mesh is made inside the flight's open)
+        rows = 1 if mesh is None else (
+            mesh.rows if elastic is None else mesh.world_size // elastic.width)
+        k = -(-max(self.population, 1) // rows) * rows
         spec = self._device_rule_spec()
         device_pbt = bool(self.device_rules and self.lifecycle is not None
                           and getattr(self.lifecycle, "device_rule_on", False))
         # a ring feeds the training chunks; a rule chunk makes its own batches
-        ring_on = self.data_ring and self.chunk_steps > 1 and not (spec is not None or device_pbt)
+        ring_on = (self.data_ring and self.chunk_steps > 1
+                   and not (spec is not None or device_pbt or elastic_on))
         with LaneFlight.open(self, k, mesh, graphed=self._graphed(spec is not None or device_pbt),
-                             ptb=True, ring_on=ring_on) as fl:
-            fl.result = self._stream(fl, scheduler, spec, device_pbt)
+                             ptb=True, ring_on=ring_on,
+                             width=None if elastic is None else elastic.width) as fl:
+            fl.result = self._stream(fl, scheduler, spec, device_pbt, elastic_on, elastic)
         return fl.result
 
-    def _stream(self, fl, scheduler, device_spec, device_pbt) -> list:
+    def _stream(self, fl, scheduler, device_spec, device_pbt, elastic_on=False,
+                pool=None) -> list:
         """The body of ``_run_streaming`` on the flight ``fl``
         (``launch.flight.LaneFlight``)."""
         from ..core import faultinject
@@ -691,6 +833,7 @@ class PopulationTrial:
         resumed_at = np.zeros(k, np.int64)   # lane-local step a restore resumed from
         streams = [-(i + 1) for i in range(k)]     # idle = sentinel stream
         hps = [self._hparams({}, 0) for _ in range(k)]
+        k0, cols = k, list(range(k))   # lane -> the flight's first lane (a regrid moves it)
         fl.init_state(streams, per_lane=True)
         fl.set_hp(hps)
         fl.set_streams(streams)
@@ -1005,6 +1148,48 @@ class PopulationTrial:
                         virgin = False
                 live = [i for i in range(k) if handles[i] is not None]
                 force_parked = False
+            # elastic regrid of the tail: the feed is closed, nothing is
+            # parked and the retirements left at most half the lanes live;
+            # lane order is kept, so the staggered rule's history appends,
+            # and with them every later cut, are the fixed-width flight's
+            plan = None
+            if (elastic_on and live and not parked and getattr(scheduler, "closed", False)
+                    and len(live) <= k // 2):
+                plan = self._regrid_target(fl, len(live), pool)
+            if plan is not None:
+                k2, width = plan
+                if pool is not None:
+                    pool.regrid(len(live))
+                fl.regrid(live, k2, width)
+                self.regrid_log[-1]["step"] = int(s)
+                pad = k2 - len(live)
+
+                def restack(seq, fill):
+                    return [seq[i] for i in live] + [fill(j) for j in range(pad)]
+
+                def restack_array(arr):
+                    out = np.zeros(k2, arr.dtype)
+                    out[: len(live)] = arr[live]
+                    return out
+
+                handles = restack(handles, lambda j: None)
+                used = restack(used, lambda j: True)
+                lineage = restack(lineage, lambda j: None)
+                lane_round = restack(lane_round, lambda j: 0)
+                hps = restack(hps, lambda j: self._hparams({}, 0))
+                streams = restack(streams, lambda j: -(len(live) + j + 1))
+                starts, base_data, applied0, lane_applied, budgets, resumed_at = (
+                    restack_array(a) for a in (starts, base_data, applied0, lane_applied,
+                                               budgets, resumed_at))
+                cols = restack(cols, lambda j: -1)
+                k = k2
+                live = list(range(len(live)))
+                virgin = False
+                php_dirty = True
+                self.n_dispatches += 1
+                self.n_regrids += 1
+                self.lane_width_history.append(
+                    [int(k2), 1 if fl.mesh is None else int(fl.mesh.width)])
             if php_dirty:
                 fl.set_hp(hps)
                 fl.set_streams(streams)
@@ -1100,7 +1285,8 @@ class PopulationTrial:
                 metrics = fl.step_cursors(cursors)
             self._count_active(acc, metrics, k, t)
             if losses is not None:
-                losses.append(metrics["loss"].detach().reshape(-1, k).clone())
+                losses.append(self._start_lanes(metrics["loss"].detach().reshape(-1, k),
+                                                cols, k0))
             self.n_dispatches += 1
             self.n_train_steps += t
             s += t
@@ -1225,17 +1411,6 @@ SPACE = [
     {"name": "grad_clip", "type": "choice", "range": [0.5, 1.0, 2.0]},
 ]
 
-# flags of the JAX CLI whose engines come with a later part of the port
-_ITEM = "ROADMAP.md section 1, item {}"
-_LATER_FLAGS = (
-    ("elastic_regrid", "--elastic-regrid", _ITEM.format("12(c) (elastic regrid)")),
-)
-
-
-def _later(args, name: str) -> bool:
-    return bool(getattr(args, name))
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1351,7 +1526,13 @@ def main(argv=None) -> int:
                         "each lane a width-W tensor-parallel program over its row "
                         "(heads, ff and Mamba channels split; 1 = width 1)")
     p.add_argument("--elastic-regrid", action="store_true",
-                   help="not ported yet: refused with the ROADMAP.md item that brings it")
+                   help="with --vectorize K and a rung rule (--inflight-stop): at rung "
+                        "boundaries, gather the surviving lanes into a smaller population "
+                        "(K shrinks to the next power of two) so later rungs do not step "
+                        "frozen lanes; under --shard-population the survivors move onto "
+                        "fewer, wider lane rows of the same ranks (an ElasticLanePool); "
+                        "streaming flights (--lane-refill) shrink the same way once the "
+                        "feed is closed.  The scores are the fixed-width run's")
     args = p.parse_args(argv)
 
     from ..core.tracking.database import TrackingDB
@@ -1383,10 +1564,16 @@ def main(argv=None) -> int:
         if args.elastic_regrid:
             p.error("--model-parallel is incompatible with --elastic-regrid: elastic "
                     "flights lease their own lane widths (the regrid is the width change)")
-    for name, flag, item in _LATER_FLAGS:
-        if _later(args, name):
-            p.error(f"{flag} is not ported to the PyTorch package yet; it comes "
-                    f"with {item}")
+    if args.elastic_regrid:
+        if args.vectorize <= 0:
+            p.error("--elastic-regrid acts on the population engines; it requires "
+                    "--vectorize K")
+        if args.device_rules:
+            p.error("--elastic-regrid is incompatible with --device-rules: in-scan rule "
+                    "state is K-shaped, a regrid changes K mid-flight")
+        if args.pbt_streaming:
+            p.error("--elastic-regrid is incompatible with --pbt-streaming: keep/clone "
+                    "directives pin members to lanes a regrid reindexes")
     try:
         model_config(args.arch)
     except KeyError as e:
@@ -1447,6 +1634,9 @@ def main(argv=None) -> int:
             p.error("--data-ring is incompatible with --device-rules: the "
                     "rule-carrying scan synthesizes its own batches (in-scan "
                     "cursors ride the rule state)")
+        if args.elastic_regrid:
+            p.error("--data-ring is incompatible with --elastic-regrid: the ring's lane "
+                    "axis is K-shaped, a regrid changes K mid-flight")
         if args.ring_windows < 2:
             p.error("--ring-windows must be >= 2 (one window training, one "
                     "filling)")
@@ -1522,6 +1712,8 @@ def main(argv=None) -> int:
         exp_cfg["n_parallel"] = args.vectorize
         if args.lane_refill:
             exp_cfg["lane_refill"] = True
+        if args.elastic_regrid and args.shard_population:
+            exp_cfg["elastic_regrid"] = True
         if args.model_parallel > 1:
             exp_cfg["model_parallel"] = args.model_parallel
         trial = PopulationTrial(args.arch, args.steps, args.batch, args.seq, args.seed,
@@ -1529,7 +1721,7 @@ def main(argv=None) -> int:
                                 device_rules=args.device_rules,
                                 snapshot_every=args.snapshot_every, snapshots=snap_store,
                                 data_ring=args.data_ring, ring_windows=args.ring_windows,
-                                **trial_kw)
+                                elastic_regrid=args.elastic_regrid, **trial_kw)
     elif args.legacy_recompile:
         trial = make_trial(args.arch, args.steps, args.batch, args.seq, args.seed,
                            device=args.device)
@@ -1550,7 +1742,7 @@ def main(argv=None) -> int:
         "arch", "steps", "batch", "seq", "seed", "vectorize", "shard_population", "chunk_steps",
         "per_trial_init", "shared_stream", "lane_refill", "inflight_stop",
         "snapshot_every", "snapshot_dir", "legacy_recompile", "pbt_streaming",
-        "pbt_async", "device_rules",
+        "pbt_async", "device_rules", "elastic_regrid",
         "data_ring", "ring_windows", "fused_rmsnorm", "fused_attention", "fused_ssm",
         "device", "max_flight_restarts", "model_parallel")}
     t0 = time.time()
@@ -1588,12 +1780,16 @@ def main(argv=None) -> int:
                   + ("+refill" if args.lane_refill else "")
                   + ("+chunked" if args.chunk_steps > 1 else "")
                   + ("+ring" if args.data_ring else "")
-                  + ("+devrules" if args.device_rules else ""),
+                  + ("+devrules" if args.device_rules else "")
+                  + ("+elastic" if args.elastic_regrid else ""),
         "vectorize": args.vectorize,
         "device": str(resolve_device(args.device)),
     }
     if args.device_rules:
         out["device_rules"] = True
+    if args.elastic_regrid:
+        out["regrids"] = trial.n_regrids
+        out["lane_width_history"] = trial.lane_width_history
     if args.vectorize > 0:
         trained = int(trial.n_train_steps)
         out["chunk_steps"] = args.chunk_steps

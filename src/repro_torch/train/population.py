@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from ..configs.base import TrainConfig
-from ..interop import tree_leaves, tree_map
+from ..interop import tree_leaves, tree_map, tree_unflatten
 from ..optim.hparams import FIELDS, HParams
 from . import train_step as ts
 
@@ -147,7 +147,9 @@ def init_population_state_from_keys(gens, tc: TrainConfig, device,
 # * ``clone``  (``make_lane_clone``)  — copy donor lanes into the masked lanes;
 # * ``splice`` (``make_lane_splice``) — re-initialise one lane;
 # * ``snapshot`` (``make_lane_snapshot``) — copy one lane to the host (a read);
-# * ``restore`` (``make_lane_restore``) — write a snapshot into one lane.
+# * ``restore`` (``make_lane_restore``) — write a snapshot into one lane;
+# * ``regrid`` (``make_lane_regrid``) — gather the survivors into a new,
+#   smaller state (elastic regrid; the one op that does not write in place).
 
 
 def _lanes_of(mask) -> list:
@@ -411,28 +413,93 @@ def make_lane_restore(tc: TrainConfig) -> Callable:
     return restore
 
 
+def make_lane_regrid(tc: TrainConfig) -> Callable:
+    """``(pstate, survivors, out=None) -> pstate'``: the lanes ``survivors``
+    (ascending; padded by the caller, ``regrid_indices``) gathered into a
+    compact population of ``len(survivors)`` lanes.
+
+    At a rung boundary the cut lanes are dead weight: the regrid takes the
+    survivors' whole state (parameters, AdamW moments, step counter,
+    divergence latch and ``last_loss``) with an ``index_select`` on the lane
+    axis of every leaf, so lane j of the result is lane ``survivors[j]``
+    bit for bit.  It reads its input and never changes or aliases it (the
+    lane count differs, so nothing is reused in place); with ``out`` (a
+    population state of the new geometry, e.g. the state its chunk graphs
+    captured) it writes into ``out``'s tensors instead of new ones."""
+
+    def regrid(pstate: PopState, survivors, out: Optional[PopState] = None) -> PopState:
+        dev = pstate["diverged"].device
+        idx = torch.as_tensor([int(i) for i in survivors], dtype=torch.long, device=dev)
+        if out is None:
+            return tree_map(lambda x: x.index_select(0, idx), pstate)
+        _check_apart(pstate, out)
+        tree_map(lambda dst, x: torch.index_select(x, 0, idx, out=dst), out, pstate)
+        return out
+
+    return regrid
+
+
+def _check_apart(src: PopState, out: PopState) -> None:
+    """Raise if ``out`` shares a tensor's storage with ``src``."""
+    mine = {t.untyped_storage().data_ptr() for t in tree_leaves(src)}
+    if any(t.untyped_storage().data_ptr() in mine for t in tree_leaves(out)):
+        raise ValueError("regrid: out shares storage with the state it reads")
+
+
+def regrid_indices(survivors: Sequence[int], pad_to: Optional[int] = None) -> list:
+    """``survivors`` padded to ``pad_to`` lanes by repeating the first
+    survivor (the JAX package's padding: a pad lane is a copy the caller
+    freezes with a 0-step budget)."""
+    idx = [int(i) for i in survivors]
+    k2 = max(int(pad_to) if pad_to else len(idx), 1)
+    return (idx + [idx[0] if idx else 0] * k2)[:k2]
+
+
+def plan_regrid(n_devices: int, n_survivors: int) -> Tuple[int, int, int]:
+    """``(rows, width, lanes)`` for S survivors over N ranks (the JAX
+    package's arithmetic): ``rows`` is the largest divisor of N that lays
+    the survivors out contiguously (``ceil(S / rows)`` lanes a row, padding
+    at the tail) with **no lane row idle**; ``width = N / rows`` ranks serve
+    each row and ``lanes = rows * ceil(S / rows)`` is the padded population
+    (pad lanes carry a 0-step budget)."""
+    n = max(1, int(n_devices))
+    s = max(1, int(n_survivors))
+    for rows in sorted((d for d in range(1, n + 1) if n % d == 0), reverse=True):
+        per = -(-s // rows)
+        if rows <= s and (rows - 1) * per < s:
+            return rows, n // rows, rows * per
+    return 1, n, s  # unreachable: rows=1 always satisfies the invariant
+
+
+def regrid_population_state(pstate: PopState, survivors, tc: TrainConfig,
+                            pad_to: Optional[int] = None,
+                            out: Optional[PopState] = None) -> PopState:
+    """Gather ``survivors`` of a whole population state into a compact
+    population of ``pad_to`` lanes (default: one a survivor), padded by
+    repeating the first survivor (the pads' 0-step budgets are the caller's
+    to set).  A regrid changes layout, never math.  ``out`` receives the
+    result in place.  A flight on a mesh regrids through the sharded twin
+    (``get_lane_op(..., "regrid", mesh=)``)."""
+    return make_lane_regrid(tc)(pstate, regrid_indices(survivors, pad_to), out=out)
+
+
 _LANE_OPS: Dict[str, Callable] = {
     "init": make_lane_init,
     "clone": make_lane_clone,
     "splice": make_lane_splice,
     "snapshot": make_lane_snapshot,
     "restore": make_lane_restore,
-}
-_LATER_LANE_OPS = {
-    "regrid": "ROADMAP.md section 1, item 12(c) (elastic regrid)",
+    "regrid": make_lane_regrid,
 }
 
 
 def get_lane_op(tc: TrainConfig, population: int, kind: str, mesh=None) -> Callable:
     """The lane op ``kind`` (``init`` / ``clone`` / ``splice`` / ``snapshot`` /
-    ``restore``) for a population of ``population`` lanes; with ``mesh`` its
-    sharded twin (``make_sharded_lane_*``), which every rank calls with
-    global lane ids.  The ops are eager in-place writes (or, for a snapshot,
-    reads), so there is nothing to compile or cache; regrid comes with a
-    later item of the port and raises."""
-    if kind in _LATER_LANE_OPS:
-        raise NotImplementedError(
-            f"lane op {kind!r} is not ported yet; it comes with {_LATER_LANE_OPS[kind]}")
+    ``restore`` / ``regrid``) for a population of ``population`` lanes; with
+    ``mesh`` its sharded twin (``make_sharded_lane_*``), which every rank
+    calls with global lane ids.  The ops are eager in-place writes (or, for
+    a snapshot, reads; a regrid writes a new state), so there is nothing to
+    compile or cache."""
     if kind not in _LANE_OPS:
         raise KeyError(f"unknown lane op {kind!r}; available: {sorted(_LANE_OPS)}")
     if mesh is not None:
@@ -800,6 +867,7 @@ class _Captured:
     capture_s: float
     pool_bytes: int
     nodes: Optional[list] = None   # with KEEP_GRAPH_NODES: each node's DOT label head
+    replays: int = 0
 
 
 def _dot_nodes(graph) -> list:
@@ -971,6 +1039,7 @@ class _FlightGraphs:
             got = self.graphs.get(key) or self.capture(
                 key, lambda: fn(self.state, *self.inputs))
             got.graph.replay()
+            got.replays += 1
             return self.state, got.outputs[1]
 
     def run_rules(self, fn: Callable, mode: str, update: Callable, chunk: int, pstate, hp,
@@ -990,6 +1059,7 @@ class _FlightGraphs:
                 self.warm_up_rule(update, static)
                 got = self.capture(key, lambda: fn(self.state, *self.inputs, static))
             got.graph.replay()
+            got.replays += 1
             (_, rules_out), metrics = got.outputs
             return (self.state, rules_out), metrics
 
@@ -1008,6 +1078,7 @@ class _FlightGraphs:
             got = self.graphs.get(key) or self.capture(
                 key, lambda: fn(self.state, self.inputs[0], ring, self.ring_slot))
             got.graph.replay()
+            got.replays += 1
             return self.state, got.outputs[1]
 
 
@@ -1034,12 +1105,24 @@ def _geometry(tc: TrainConfig, population: int, per_trial_batch: bool, data) -> 
             data.spec_key)
 
 
+def _graphs_key(tc: TrainConfig, population: int, per_trial_batch: bool, data, device,
+                tp=None) -> Tuple:
+    """The key of a geometry's graphs on ``device``: ``tp`` (a two-level
+    mesh) keys a model rank's shards apart from a whole lane's, and the
+    lanes the RMSNorm backward plans a launch of ``population`` lanes for
+    (``rmsnorm.lanes_for``) key the plan a graph baked in at its capture
+    (an elastic flight's survivors keep the plan of its first K)."""
+    from ..kernels import rmsnorm
+
+    return _geometry(tc, population, per_trial_batch, data) + (
+        _device_key(device), ("rmsnorm_bwd_lanes", rmsnorm.lanes_for(population))) + (
+        () if tp is None else tp.key)
+
+
 def _flight_graphs(tc: TrainConfig, population: int, per_trial_batch: bool, data,
                    device, tp=None) -> _FlightGraphs:
-    """The graphs of a geometry on ``device``; ``tp`` (a two-level mesh)
-    keys a model rank's shards apart from a whole lane's."""
-    key = _geometry(tc, population, per_trial_batch, data) + (_device_key(device),) + (
-        () if tp is None else tp.key)
+    """The graphs of a geometry on ``device`` (keyed by ``_graphs_key``)."""
+    key = _graphs_key(tc, population, per_trial_batch, data, device, tp)
     with _POP_CACHE_LOCK:
         fg = _GRAPHS.get(key)
         if fg is None:
@@ -1281,20 +1364,38 @@ def flight_lease(tc: TrainConfig, population: int, data, per_trial_batch: bool, 
         yield fg.state
 
 
+def drop_flight_graphs(tc: TrainConfig, population: int, data, per_trial_batch: bool, device,
+                       tp=None) -> list:
+    """Forget this geometry's captured state, its graphs and its ring
+    tensors (an elastic flight leaving the geometry for a smaller one: the
+    state is freed once nothing else holds it).  Returns the dropped
+    graphs' ``graph_stats`` with their nodes."""
+    key = _graphs_key(tc, population, per_trial_batch, data, device, tp)
+    with _POP_CACHE_LOCK:
+        fg = _GRAPHS.pop(key, None)
+    return [] if fg is None else _stats(fg, nodes=True)
+
+
+def _stats(fg: _FlightGraphs, nodes: bool) -> list:
+    lanes = None if fg.state is None else int(fg.state["diverged"].shape[0])
+    return [dict({"kind": kind, "mode": mode or None, "chunk": c,
+                  "shape": {n: list(sh) for n, sh in shapes} or None, "lanes": lanes,
+                  "capture_s": g.capture_s, "pool_bytes": g.pool_bytes},
+                 **({"nodes": g.nodes, "replays": g.replays} if nodes else {}))
+            for (kind, mode, c, shapes), g in sorted(fg.graphs.items())]
+
+
 def graph_stats(nodes: bool = False) -> list:
     """Per captured chunk graph: its kind (``scan``, ``rulescan`` or
-    ``ringscan``), rule mode, chunk size and rule (or ring) shapes, its
-    capture seconds and the bytes its capture added to the geometry's memory
-    pool; with ``nodes``, also the head of each of its nodes' DOT labels
-    (None unless ``KEEP_GRAPH_NODES`` was set when it was captured)."""
+    ``ringscan``), rule mode, chunk size and rule (or ring) shapes, the
+    lanes of its geometry (a rank's block), its capture seconds and the
+    bytes its capture added to the geometry's memory pool (what stays as
+    it was captured); with ``nodes``, also what it ran: the head of each of
+    its nodes' DOT labels (None unless ``KEEP_GRAPH_NODES`` was set when it
+    was captured) and its replays so far."""
     with _POP_CACHE_LOCK:
         groups = list(_GRAPHS.values())
-    return [dict({"kind": kind, "mode": mode or None, "chunk": c,
-                  "shape": {n: list(sh) for n, sh in shapes} or None,
-                  "capture_s": g.capture_s, "pool_bytes": g.pool_bytes},
-                 **({"nodes": g.nodes} if nodes else {}))
-            for fg in groups
-            for (kind, mode, c, shapes), g in sorted(fg.graphs.items())]
+    return [st for fg in groups for st in _stats(fg, nodes)]
 
 
 def clear_population_cache() -> None:
@@ -1327,8 +1428,9 @@ def clear_population_cache() -> None:
 # position's shard of the leaves the width rules shard (``TPLayout``), its
 # steps run under the seams (``_tp_body``), and a lane crosses rows as W
 # point-to-point sends, shard j to shard j.  A snapshot gathers a lane's W
-# shards to the whole host layout, so it restores onto any width.  Regrid
-# comes with a later part of the port and raises.
+# shards to the whole host layout, so it restores onto any width.  A regrid
+# re-lays the survivors onto a mesh of another width over the same ranks:
+# each rank receives the pieces of the lanes and shards it will own.
 
 _RULE_LANE_KEYS: Dict[str, frozenset] = {
     "cohort": frozenset({"budgets", "base", "local0"}),
@@ -1341,11 +1443,14 @@ def _state_logical_specs(tc: TrainConfig) -> Dict[str, Any]:
     return {"inner": ts.train_state_specs(tc), "diverged": (), "last_loss": ()}
 
 
-def _tp_rules_or_raise(tc: TrainConfig, width: int):
+def _tp_rules_or_raise(tc: TrainConfig, width: int, replicate: bool = False):
+    """The width rules; a width that shards nothing raises, unless the mesh
+    may ``replicate`` its rows (an elastic regrid's: every rank of a row
+    then holds and computes whole lanes, with no seam armed)."""
     from ..distributed.sharding import tp_width_rules
 
     rules = tp_width_rules(tc.model, width)
-    if not rules:
+    if not rules and not replicate:
         m = tc.model
         raise ValueError(
             f"model-parallel width {width} shards nothing of {m.name} (heads={m.n_heads}, "
@@ -1362,7 +1467,7 @@ def _tp_body(fn: Callable, tc: TrainConfig, mesh) -> Callable:
 
     flags = tp_module_flags(tc.model, mesh.width)
     mask = tp_gnorm_mask(ts.train_state_specs(tc)["params"],
-                         _tp_rules_or_raise(tc, mesh.width))
+                         _tp_rules_or_raise(tc, mesh.width, mesh.replicate_rows))
 
     def wrapped(*args):
         with tp_shard_context(mesh, flags, gnorm_mask=mask):
@@ -1375,12 +1480,13 @@ class TPLayout:
     """Where a population state's leaves split over a two-level mesh's lane
     row: ``dims`` mirrors the state, holding per leaf the axis (the lane
     axis counted) that ``tp_width_rules`` shards, or None (replicated);
-    ``index`` is the model position whose shard this rank holds."""
+    ``index`` is the model position whose shard this rank holds.  With
+    ``replicate`` a width that shards nothing holds every leaf whole."""
 
-    def __init__(self, tc: TrainConfig, width: int, index: int):
+    def __init__(self, tc: TrainConfig, width: int, index: int, replicate: bool = False):
         from ..distributed.sharding import map_specs
 
-        rules = _tp_rules_or_raise(tc, int(width))
+        rules = _tp_rules_or_raise(tc, int(width), replicate)
         specs = _state_logical_specs(tc)
         self.width, self.index = int(width), int(index)
         self.dims = map_specs(specs, specs, lambda _, logical: next(
@@ -1421,7 +1527,7 @@ def tp_layout(tc: TrainConfig, mesh) -> Optional[TPLayout]:
     """This rank's ``TPLayout`` on a two-level mesh, None at width 1."""
     if mesh is None or mesh.width == 1:
         return None
-    return TPLayout(tc, mesh.width, mesh.model_rank)
+    return TPLayout(tc, mesh.width, mesh.model_rank, mesh.replicate_rows)
 
 
 def pad_population(k: int, mesh=None) -> int:
@@ -1810,12 +1916,164 @@ def make_sharded_lane_restore(tc: TrainConfig, mesh) -> Callable:
     return sharded
 
 
+def _shard_dims(tc: TrainConfig, width: int) -> Optional[PopState]:
+    """Per leaf of a population state, the axis (the lane axis counted) its
+    shards split at ``width`` (``TPLayout.dims``), None at width 1."""
+    return None if width == 1 else TPLayout(tc, width, 0, replicate=True).dims
+
+
+def _regrid_plan(tc: TrainConfig, mesh, mesh2, pstate: PopState, idx: Sequence[int]):
+    """Every transfer of a sharded regrid, in one order on every rank:
+    ``(new lane, sender rank, receiver rank, pieces)``, a piece per leaf
+    (``tree_leaves`` order) being None (nothing of that leaf) or
+    ``(dim, lo, hi, src_lo, dst_lo)``: the leaf's lane view along ``dim``
+    (None: the whole view), positions ``[lo, hi)`` of the whole lane, at
+    ``src_lo`` in the sender's shard and ``dst_lo`` in the receiver's.
+    Also the new block's leaf shapes.  A leaf a width shards splits into
+    equal intervals along its axis; one replicated on both sides is sent by
+    one old shard only."""
+    leaves = tree_leaves(pstate)
+    w1, w2 = mesh.width, mesh2.width
+    d1 = _shard_dims(tc, w1)
+    d2 = _shard_dims(tc, w2)
+    d1 = [None] * len(leaves) if d1 is None else tree_leaves(d1)
+    d2 = [None] * len(leaves) if d2 is None else tree_leaves(d2)
+    blk1 = leaves[0].shape[0]
+    blk2 = mesh2.block_size(len(idx))
+    metas, shapes = [], []
+    for leaf, a, b in zip(leaves, d1, d2):
+        if a is not None and b is not None and a != b:
+            raise ValueError(f"regrid: a leaf splits along axis {a} at width {w1} and "
+                             f"{b} at width {w2}")
+        dim = a if a is not None else b
+        whole = None if dim is None else leaf.shape[dim] * (w1 if a is not None else 1)
+        metas.append((a, b, dim, whole))
+        shape = list(leaf.shape)
+        shape[0] = blk2
+        if dim is not None:
+            shape[dim] = whole // w2 if b is not None else whole
+        shapes.append(tuple(shape))
+    plan = []
+    for j, src in enumerate(idx):
+        r1, r2 = int(src) // blk1, j // blk2
+        for j2 in range(w2):
+            keep = (j2 * w1) // w2   # the old shard a replicated leaf comes from
+            for j1 in range(w1):
+                pieces = []
+                for a, b, dim, whole in metas:
+                    if dim is None:
+                        pieces.append((None, 0, 0, 0, 0) if j1 == keep else None)
+                        continue
+                    if a is None and j1 != keep:
+                        pieces.append(None)
+                        continue
+                    lo1 = j1 * whole // w1 if a is not None else 0
+                    hi1 = (j1 + 1) * whole // w1 if a is not None else whole
+                    lo2 = j2 * whole // w2 if b is not None else 0
+                    hi2 = (j2 + 1) * whole // w2 if b is not None else whole
+                    lo, hi = max(lo1, lo2), min(hi1, hi2)
+                    pieces.append((dim - 1, lo, hi, lo - lo1, lo - lo2) if lo < hi else None)
+                if any(p is not None for p in pieces):
+                    plan.append((j, r1 * w1 + j1, r2 * w2 + j2, pieces))
+    return plan, shapes
+
+
+def _piece(view: torch.Tensor, piece, side: int) -> torch.Tensor:
+    """The part of a lane view a piece names, on its sender (``side`` 3) or
+    receiver (``side`` 4) side."""
+    dim, lo, hi = piece[:3]
+    return view if dim is None else view.narrow(dim, piece[side], hi - lo)
+
+
+def _piece_bytes(pieces, views) -> list:
+    """``(offset, nbytes)`` of each present piece in a transfer's buffer
+    (64-byte aligned, as a lane's byte buffer), and the buffer's size last."""
+    out, off = [], 0
+    for p, v in zip(pieces, views):
+        if p is None:
+            out.append(None)
+            continue
+        n = _piece(v, p, 4).numel() * v.element_size()
+        out.append((off, n))
+        off += -(-n // _LaneSlots._ALIGN) * _LaneSlots._ALIGN
+    return out + [off]
+
+
+def make_sharded_lane_regrid(tc: TrainConfig, mesh) -> Callable:
+    """``(pstate, survivors, out=None, to_mesh=None) -> pstate'`` over this
+    rank's block: the global lanes ``survivors`` (padded, ascending) gathered
+    into a population of ``len(survivors)`` lanes laid out on ``to_mesh``
+    (default ``mesh``), a mesh of another width over the same ranks
+    (``PopulationMesh.with_width``).
+
+    Each rank receives the lanes its new row owns, and of each its model
+    position's shard at the new width (``TPLayout``): a survivor crosses
+    rows, and a leaf split at both widths crosses model positions, as the
+    pieces that the new shard overlaps of the old ones.  Pieces held on the
+    rank are copied; the others are sent point to point, one buffer per
+    (lane, sender, receiver), all posted at once (``exchange``), so nothing
+    is gathered whole and the new state is each lane's bytes.  The input is
+    only read; ``out`` (the new geometry's captured state) receives the
+    result in place.  Returns the new block; the bytes this rank received
+    are kept in ``recv_bytes`` on the op."""
+
+    def regrid(pstate: PopState, survivors, out: Optional[PopState] = None, to_mesh=None):
+        mesh2 = mesh if to_mesh is None else to_mesh
+        idx = [int(i) for i in survivors]
+        plan, shapes = _regrid_plan(tc, mesh, mesh2, pstate, idx)
+        leaves = tree_leaves(pstate)
+        dev = leaves[0].device
+        if out is None:
+            out = tree_unflatten(pstate, [torch.empty(sh, dtype=t.dtype, device=dev)
+                                          for sh, t in zip(shapes, leaves)])
+        else:
+            _check_apart(pstate, out)
+        dst = tree_leaves(out)
+        if [tuple(t.shape) for t in dst] != shapes:
+            raise ValueError("regrid: out is not a state of the new geometry")
+        blk1, blk2 = leaves[0].shape[0], dst[0].shape[0]
+        me = mesh.rank
+        sends, recvs, landing = [], [], []
+        for j, sender, receiver, pieces in plan:
+            src_views = [t[idx[j] % blk1] for t in leaves]
+            dst_views = [t[j % blk2] for t in dst]
+            if sender == me and receiver == me:
+                for p, a, b in zip(pieces, src_views, dst_views):
+                    if p is not None:
+                        _piece(b, p, 4).copy_(_piece(a, p, 3))
+            elif sender == me:
+                *spans, size = _piece_bytes(pieces, dst_views)
+                buf = torch.zeros(size, dtype=torch.uint8, device=dev)
+                for p, sp, a in zip(pieces, spans, src_views):
+                    if p is not None:
+                        buf[sp[0]:sp[0] + sp[1]].copy_(
+                            _piece(a, p, 3).contiguous().reshape(-1).view(torch.uint8))
+                sends.append((buf, receiver))
+            elif receiver == me:
+                *spans, size = _piece_bytes(pieces, dst_views)
+                buf = torch.empty(size, dtype=torch.uint8, device=dev)
+                recvs.append((buf, sender))
+                landing.append((buf, pieces, spans, dst_views))
+        mesh.exchange(sends, recvs)
+        for buf, pieces, spans, views in landing:
+            for p, sp, v in zip(pieces, spans, views):
+                if p is not None:
+                    part = _piece(v, p, 4)
+                    part.copy_(buf[sp[0]:sp[0] + sp[1]].view(v.dtype).view(part.shape))
+        regrid.recv_bytes = sum(buf.numel() for buf, _ in recvs)
+        return out
+
+    regrid.recv_bytes = 0
+    return regrid
+
+
 _SHARDED_LANE_OPS: Dict[str, Callable] = {
     "init": make_sharded_lane_init,
     "clone": make_sharded_lane_clone,
     "splice": make_sharded_lane_splice,
     "snapshot": make_sharded_lane_snapshot,
     "restore": make_sharded_lane_restore,
+    "regrid": make_sharded_lane_regrid,
 }
 
 

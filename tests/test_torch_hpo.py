@@ -132,15 +132,17 @@ def test_population_trial_raises_without_cuda_unless_cpu_is_asked(monkeypatch):
     (["--snapshot-every", "2"], "requires --lane-refill"),             # as the JAX CLI
     (["--data-ring"], "--chunk-steps T > 1"),                          # as the JAX CLI
     (["--fused-ssm"], "no SSM mixer"),   # ported: refused only on an arch without one
-    (["--shard-population", "--elastic-regrid"], "item 12"),
+    (["--elastic-regrid", "--device-rules", "--inflight-stop", "--proposer", "asha"],
+     "incompatible with --device-rules"),   # as the JAX CLI
     (["--model-parallel", "2"], "--shard-population"),   # as the JAX CLI
     (["--legacy-recompile", "--fused-rmsnorm"], "predates the kernel bank"),  # as the JAX CLI
 ])
 def test_later_slice_flags_are_refused_with_their_roadmap_item(capsys, argv, item):
     """Flags of later slices exit naming their ROADMAP.md item; ``--fused-ssm``
     on the default arch (starcoder2-3b) exits naming the missing SSM mixer,
-    and misuses of the streaming, crash-safety, ring, model-parallel and
-    legacy-recompile flags exit with the JAX CLI's words."""
+    and misuses of the streaming, crash-safety, ring, model-parallel,
+    elastic-regrid and legacy-recompile flags exit with the JAX CLI's
+    words."""
     with pytest.raises(SystemExit):
         hpo.main(BASE + ["--vectorize", "2", "--device", "cpu"] + argv)
     err = capsys.readouterr().err

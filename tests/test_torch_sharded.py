@@ -25,8 +25,8 @@ Held here:
 * ``pad_population`` and ``_check_rows`` against JAX's;
 * ``ShardedPopulationResourceManager``'s slots and flush;
 * that a rank dying mid-flight makes rank 0 raise, the refusals of a
-  two-level mesh whose width does not tile the ranks, and of elastic
-  regrid.
+  two-level mesh whose width does not tile the ranks, and that elastic
+  regrid's manager builds its pool and its lane op has a sharded twin.
 """
 import os
 import time
@@ -476,8 +476,9 @@ def test_a_dying_rank_makes_rank_0_raise(tmp_path):
 def test_two_level_mesh_and_regrid_are_refused_naming_their_part(what):
     """A two-level mesh whose width does not tile the ranks (a world of one
     at width 2; a manager asked for width 2 on a width-1 mesh) is refused
-    as JAX's ``population_mesh`` refuses it; part (c) (elastic regrid, the
-    regrid lane op) raises naming its ROADMAP.md item."""
+    as JAX's ``population_mesh`` refuses it; part (c) is ported: the
+    manager asked for elastic regrid builds its ``ElasticLanePool`` over its
+    mesh, and the regrid lane op on a mesh is the sharded twin."""
     if what in ("width", "rm-model-parallel"):
         with pytest.raises(ValueError, match="width"):
             if what == "width":
@@ -486,10 +487,13 @@ def test_two_level_mesh_and_regrid_are_refused_naming_their_part(what):
                 ShardedPopulationResourceManager(n_parallel=2, mesh=_fake_mesh(2),
                                                  model_parallel=2)
         return
-    with pytest.raises(NotImplementedError) as exc:
-        if what == "rm-elastic":
-            ShardedPopulationResourceManager(n_parallel=2, mesh=_fake_mesh(2),
-                                             elastic_regrid=True)
-        else:
-            P.get_lane_op(_tc(), 2, "regrid", mesh=_fake_mesh(2))
-    assert "item 12(c)" in str(exc.value) and "ROADMAP.md" in str(exc.value)
+    if what == "rm-elastic":
+        from repro_torch.core.resource.sharded import ElasticLanePool
+
+        rm = ShardedPopulationResourceManager(n_parallel=2, mesh=_fake_mesh(2),
+                                              elastic_regrid=True)
+        assert isinstance(rm.elastic, ElasticLanePool)
+        assert rm.elastic.base is rm.mesh and rm.elastic.width_history == [1]
+    else:
+        op = P.get_lane_op(_tc(), 2, "regrid", mesh=_fake_mesh(2))
+        assert op.__qualname__.startswith("make_sharded_lane_regrid")

@@ -544,3 +544,96 @@ def _trial_cli(rank, out_dir, world, store, argvs, timeout_s):
     finally:
         dist.destroy_process_group()
     return runs
+
+
+# -- elastic regrid (--elastic-regrid) -----------------------------------------------
+
+# (cell name, chunk_steps): the elastic cells of the JAX package's
+# tests/test_elastic_regrid.py, vmapped and pooled alike
+ELASTIC_CELLS = [("elastic-perstep", 1), ("elastic-chunked", 8)]
+REPLICATED_ARCH = "qwen3-moe-30b-a3b"
+
+
+def elastic_trial(chunk, arch=ARCH):
+    t = trial(chunk, False, False, arch)
+    t.elastic_regrid = True
+    return t
+
+
+def _elastic_record(t, pool):
+    return {"n_truncated": t.early_stop.n_truncated, "n_reclaimed": t.early_stop.n_reclaimed,
+            "train_steps": t.n_train_steps, "regrids": t.n_regrids,
+            "lane_width_history": [list(x) for x in t.lane_width_history],
+            "pool_widths": None if pool is None else list(pool.width_history),
+            "regrid_log": list(t.regrid_log)}
+
+
+def elastic_batch_cell(cfgs, chunk, mesh=None, pool=None, arch=ARCH):
+    """The elastic batch protocol (the JAX harness's
+    ``run_elastic_batch_cell``): the cohort rung rule with a regrid at each
+    boundary where the survivors fit fewer lanes; with ``pool`` (rank 0 of
+    ``mesh``) onto the pool's wider lane rows.  A rank above 0 serves."""
+    t = elastic_trial(chunk, arch)
+    if mesh is not None and mesh.rank != 0:
+        t.run_population(list(cfgs), mesh=mesh)
+        return {"regrid_log": list(t.regrid_log)}
+    scores = t.run_population(list(cfgs), mesh=mesh, elastic=pool)
+    return dict(_elastic_record(t, pool), scores=scores)
+
+
+def elastic_streaming_cell(cfgs, chunk, mesh=None, pool=None, arch=ARCH):
+    """The elastic streaming protocol (``run_elastic_streaming_cell``): a
+    lane-refill flight whose tail regrids once the feed is closed and at
+    most half the lanes are live."""
+    from repro_torch.core.resource.vectorized import QueueFeedScheduler
+
+    t = elastic_trial(chunk, arch)
+    if mesh is not None and mesh.rank != 0:
+        t.run_population([], mesh=mesh)
+        return {"regrid_log": list(t.regrid_log)}
+    feed = QueueFeedScheduler(list(cfgs))
+    t.run_population([], mesh=mesh, scheduler=feed, elastic=pool)
+    n = len(cfgs)
+    return dict(_elastic_record(t, pool), scores=feed.ordered_scores(n),
+                steps=[feed.extras[i]["steps"] for i in range(n)],
+                diverged=[feed.extras[i]["diverged"] for i in range(n)])
+
+
+def elastic_rank(rank, world, store, out_dir, timeout_s):
+    """Every elastic cell in both protocols on ``world`` ranks, each flight
+    with a fresh ``ElasticLanePool`` on rank 0; after each, the pool's mesh
+    shape, and this rank's RMSNorm plan and current mesh (which a flight of
+    another width must leave as it found them)."""
+    _run(_elastic, rank, out_dir, world, store, timeout_s)
+
+
+def _elastic(rank, out_dir, world, store, timeout_s):
+    from repro_torch.core.resource.sharded import ElasticLanePool
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import rmsnorm
+
+    mesh = _join(rank, world, store, timeout_s)
+    try:
+        cfgs = ladder(6)
+        out = {"batch": {}, "streaming": {}, "after": []}
+        for name, chunk in ELASTIC_CELLS:
+            for protocol, cell in (("batch", elastic_batch_cell),
+                                   ("streaming", elastic_streaming_cell)):
+                pool = ElasticLanePool(mesh=mesh) if rank == 0 else None
+                got = cell(cfgs, chunk, mesh, pool)
+                if pool is not None:
+                    got["pool_mesh_shape"] = pool.mesh().shape
+                    got["pool_lease_ids"] = list(pool._lease_ids)
+                    got["pool_total"] = pool.manager.n_total()
+                out[protocol][name + "-pooled"] = got
+                out["after"].append([rmsnorm.mesh_ranks, rmsnorm.planned_lanes,
+                                     sharding._CURRENT is mesh])
+        # qwen3-moe's smoke model shards nothing at width 4 (kv 2, experts
+        # replicated): one trial of 8 steps, alone, survives the rung at 2
+        # onto one row of 4 ranks, which replicate its lane
+        pool = ElasticLanePool(mesh=mesh) if rank == 0 else None
+        out["batch"]["replicated-pooled"] = elastic_batch_cell(
+            cfgs[2:3], 1, mesh, pool, arch=REPLICATED_ARCH)
+        return out
+    finally:
+        mesh.destroy()
