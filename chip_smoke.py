@@ -199,6 +199,18 @@ Phases, each printing one JSON line:
    step's call (``decode_shape``, 8 rows).  Each row's launches count every
    path, the serve paths (``+serve``) too.
 
+dryrun_path (after train_path) — the dry run (``launch/dryrun.py``): two
+CLI cells (starcoder2-3b ``train_4k`` and ``decode_32k`` on the (16, 16)
+mesh), started at the top of ``main`` in processes at the lowest priority,
+gated ``ok``; and train_path's step walked on the card
+(``launch/op_cost.py``) against ``lower_cell``'s reckoning of the same cell
+on the meta device: dot FLOPs, op bytes and every kernel's record equal,
+the arguments the state and batch, the reckoned peak within 15% of
+``max_memory_allocated``, the roofline's binding term below the measured
+step, ``roofline.CARD_MEMORY_BYTES`` within 0.1% of ``total_memory``;
+trial_mesh_path's (1, 2) spawn also decodes on the mesh against the
+unsharded ``decode_step`` (``trial_decode``).
+
 The ``total`` line holds the wall seconds of each phase.  Every captured
 chunk graph keeps its nodes (``population.KEEP_GRAPH_NODES``): the launch
 gates of replayed chunks count our kernels among them, not in a profiler
@@ -224,9 +236,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 EPS = 1e-6
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_OPS = {"bfloat16": 989e12,    # dense tensor-core bf16
-            "float32": 67e12}      # fp32 outside the tensor cores
+# the card's HBM rate and peak operation rates (H100 SXM: 3.35e12 B/s, dense
+# tensor-core bf16 989e12, fp32 outside the tensor cores 67e12), taken by
+# main() from repro_torch.launch.roofline once the checkout's src is on the path
+HBM_BYTES_PER_S = 0.0
+PEAK_OPS: dict = {}
 TOL = {"rmsnorm": {"float32": 1e-5, "bfloat16": 3e-2},
        # dx and dgamma; x/gain dtype pairs at bf16's, which one of them has
        "rmsnorm_bwd": {"float32": 5e-5, "bfloat16": 3e-2, "bfloat16/float32": 3e-2,
@@ -2480,6 +2494,71 @@ def trial_reckoned(cfg, shape) -> dict:
             "all_gather": {"calls": 1, "bytes": embed}}
 
 
+TRIAL_DECODE = dict(arch="starcoder2-3b", n_layers=MAIN["n_layers"], batch=4, prompt=2,
+                    new=2, max_seq=4)   # (1, 2): each rank holds 2 of the 4 positions
+# the largest logit difference against unsharded, over the largest |logit|
+# (at least 1): the bf16 residual stream's rounding moves a logit by a few
+# hundredths whatever the split (the fp32 twin holds the math to 1e-5), so
+# the bf16 gate scales with the logits
+TRIAL_DECODE_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
+
+
+def trial_decode(torch, dev, mesh, dtype):
+    """``decode_step`` on ``mesh`` (``train/serve_step.py::ServeLayout``:
+    the cache split along its positions over the model axis, the attention
+    joined over it) against the unsharded ``decode_step`` on this rank, from
+    the same weights (published widths at ``TRIAL_DECODE``'s depth, in
+    ``dtype``, the serve loop's fp32 cache) and prompt, fed a token a step,
+    then greedy: the largest logit difference and whether the tokens are
+    equal."""
+    import numpy as np
+
+    from repro_torch.interop import add_lane_axis
+    from repro_torch.models import transformer as T
+    from repro_torch.train.serve_step import ServeLayout
+
+    d = TRIAL_DECODE
+    cfg = dataclasses.replace(path_config(d["arch"], d["n_layers"]), param_dtype=dtype,
+                              compute_dtype=dtype)
+    B, P, S = d["batch"], d["prompt"], d["max_seq"]
+    whole = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P)),
+                             dtype=torch.int32, device=dev)
+
+    def run(decode):
+        tok, logits, tokens = prompt[:, :1], [], []
+        for pos in range(P + d["new"] - 1):
+            step = decode(tok, pos)
+            logits.append(step)
+            nxt = torch.argmax(step[:, -1], dim=-1)[:, None].to(torch.int32)
+            tok = prompt[:, pos + 1:pos + 2] if pos + 1 < P else nxt
+            tokens.append(tok)
+        torch.cuda.synchronize()
+        return logits, torch.cat(tokens, 1)
+
+    cache = T.init_cache(cfg, 1, B, S, torch.float32, dev)
+    with torch.no_grad():
+        want, want_tok = run(lambda t, pos: T.decode_step(add_lane_axis(whole), cache, t[None],
+                                                          pos, cfg)[0][0])
+    layout = ServeLayout(cfg, mesh)
+    params = layout.shard_params(whole)
+    del whole, cache
+    rows = layout.rows(B, S)
+    scache = layout.init_cache(B, S, torch.float32)
+    t0 = time.perf_counter()
+    got, got_tok = run(lambda t, pos: layout.decode(params, scache, t[rows], pos, B, S))
+    pairs = [(a.float(), b[rows].float()) for a, b in zip(got, want)]
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(1.0, max(float(b.abs().max()) for _, b in pairs))
+    return {"dtype": dtype, "n_layers": cfg.n_layers, "steps": len(got),
+            "rows": [rows.start, rows.stop], "max_abs_diff": diff, "logit_scale": scale,
+            "tol": TRIAL_DECODE_TOL[dtype],
+            "within_tol": diff <= TRIAL_DECODE_TOL[dtype] * (scale if dtype == "bfloat16"
+                                                              else 1.0),
+            "tokens_equal": bool(torch.equal(got_tok, want_tok[rows])),
+            "sharded_s_per_step": (time.perf_counter() - t0) / len(got)}
+
+
 def _trial_mesh_rank(rank, store, out_dir, world, names, cli):
     """One of the trial mesh's gloo ranks on ``cuda:0`` (spawned by
     ``trial_mesh_path``): each job of ``names`` through ``launch/train.py``'s
@@ -2549,6 +2628,13 @@ def _trial_mesh_rank(rank, store, out_dir, world, names, cli):
             del state, batches, step
             gc.collect()
             torch.cuda.empty_cache()
+        if world == 2:   # the sharded decode at (1, 2), bf16 and its fp32 twin
+            mesh = make_trial_mesh(world, shape=(1, 2), device=dev)
+            with plain_versions_raise():
+                out["decode"] = [trial_decode(torch, dev, mesh, dt)
+                                 for dt in ("bfloat16", "float32")]
+            gc.collect()
+            torch.cuda.empty_cache()
         if cli:
             got_out, got_err = io.StringIO(), io.StringIO()
             with plain_versions_raise(), contextlib.redirect_stdout(got_out), \
@@ -2574,18 +2660,34 @@ def spawn_on_card(target, world, join_s, *args):
     ``join_s``: each rank's saved ``rank{r}.json`` (None where a rank saved
     none) and the wall seconds; dies if a rank hung, raised (leaving
     ``rank{r}.err``) or exited non-zero."""
+    return join_on_card(start_on_card(target, world, *args), join_s)
+
+
+def start_on_card(target, world, *args):
+    """Start ``spawn_on_card``'s ranks; ``join_on_card`` joins them."""
     import os
     import tempfile
 
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=target, args=(r, os.path.join(tmp, "store"), tmp) + args)
-                 for r in range(world)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
+    tmp = tempfile.mkdtemp()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, os.path.join(tmp, "store"), tmp) + args)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    return target, procs, tmp, t0
+
+
+def join_on_card(started, join_s):
+    """Join ``start_on_card``'s ranks as ``spawn_on_card`` does."""
+    import os
+    import shutil
+
+    target, procs, tmp, t0 = started
+    world = len(procs)
+    try:
         end = time.monotonic() + join_s
         for p in procs:
             p.join(max(0.0, end - time.monotonic()))
@@ -2604,6 +2706,8 @@ def spawn_on_card(target, world, join_s, *args):
         for r in range(world):
             path = os.path.join(tmp, f"rank{r}.json")
             got.append(json.load(open(path)) if os.path.exists(path) else None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return got, wall
 
 
@@ -2624,9 +2728,13 @@ def trial_mesh_path(torch, dev):
     ``--devices 1``'s (the memory that run allocated above what it found);
     (a)'s model-group collectives a step the reckoned ones; the CLI killed
     at ``--fail-at`` on both ranks (17) and resumed at ``--devices 1``
-    following the reference's resume (batches 0..4, then 4..7) within 1e-4.
-    Reports s a step, each rank's state bytes, peak memory and collectives
-    a step.  Returns rank 0's launches."""
+    following the reference's resume (batches 0..4, then 4..7) within 1e-4;
+    on the two ranks, the sharded decode (``trial_decode``: starcoder2-3b at
+    ``TRIAL_DECODE``'s depth, its cache's positions split over the model
+    axis) against the unsharded ``decode_step`` from the same weights and
+    prompt: the tokens equal at temperature 0 and the logits within 3e-2 of
+    their largest magnitude (bf16) / 1e-5 (fp32).  Reports s a step, each rank's state bytes, peak
+    memory and collectives a step.  Returns rank 0's launches."""
     import contextlib
     import io
     import tempfile
@@ -2689,11 +2797,13 @@ def trial_mesh_path(torch, dev):
 
     got, wall = {}, {}
     with tempfile.TemporaryDirectory() as ck:
-        for world in (4, 2):
-            names = [n for n, j in TRIAL_JOBS.items() if j[0] == world]
-            got[world], wall[world] = spawn_on_card(
-                _trial_mesh_rank, world, TRIAL_MESH["join_s"], world, names,
-                ck if world == 2 else None)
+        # both worlds at once: their ranks share the card, and the phase's
+        # wall is one spawn's
+        started = {world: start_on_card(_trial_mesh_rank, world, world,
+                                        [n for n, j in TRIAL_JOBS.items() if j[0] == world],
+                                        ck if world == 2 else None) for world in (4, 2)}
+        for world, st in started.items():
+            got[world], wall[world] = join_on_card(st, TRIAL_MESH["join_s"])
         resumed = io.StringIO()
         with plain_versions_raise(), contextlib.redirect_stdout(resumed):
             code = TR.main([*TRIAL_CLI, "--devices", "1", "--ckpt-dir", ck])
@@ -2759,8 +2869,14 @@ def trial_mesh_path(torch, dev):
     if any(killed[0]["launches"][k] != cli_want[k] for k in ("rmsnorm", "rmsnorm_bwd",
                                                                "flash_attention_fp32")):
         problems.append(f"cli: rank 0 launched {killed[0]['launches']}, want {cli_want}")
+    decode = [g["decode"] for g in got[2]]
+    for r, runs in enumerate(decode):
+        for run in runs:
+            if not (run["tokens_equal"] and run["within_tol"]):
+                problems.append(f"decode rank {r}: {run}")
     out = {"phase": "trial_mesh_path", "backend": "gloo", "ranks_on": TRIAL_MESH["device"],
-           "nvidia_smi": nvidia_smi(), "jobs": jobs, "cli": cli, "spawn_wall_s": wall}
+           "nvidia_smi": nvidia_smi(), "jobs": jobs, "cli": cli, "decode": decode,
+           "spawn_wall_s": wall}
     emit(out)
     if problems:
         die("trial mesh path: " + "; ".join(problems))
@@ -3105,10 +3221,9 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
                      "fp32": fa.launches_fp32 - fa_before[1]}
     parts = timed_parts(torch, fns)
     pairs = S * (S + 1) // 2
-    flops = 2 * K * B * H * pairs * (D + Dv)
+    flops, nb = fa.cost(((K * B, S, H, D), (K * B, S, H, D), (K * B, S, H, Dv)),
+                        (q_full.dtype,) * 3)
     padded = 2 * K * B * H * pairs * (2 * 256)    # the 256-wide instance pads both widths
-    nb = ((2 * q_full.numel() + v.numel() + out.numel()) * q_full.element_size()
-          + lse.numel() * 4)
     b_ms, b_by = bound_ms(nb, flops, "bfloat16")
     flash_ms = parts["flash_fwd"]["device_ms"] or parts["flash_fwd"]["event_ms"]
     layer_ms = {n: p_.get("device_ms") or p_["event_ms"] for n, p_ in parts.items()}
@@ -4288,6 +4403,9 @@ def train_path(torch, dev, arch, batch, seq, remat, warmup, timed, seed=0):
         launches = {k: v - before[k] for k, v in counters().items()}
         peak = torch.cuda.max_memory_allocated()
         prof = profile_step(torch, lambda: step(state, batches[-1]))
+        # one untimed step under the op-cost walk, held against the dry run's
+        # reckoning of the same cell on the meta device (dryrun_path)
+        walked = walk_step(torch, step, state, batches[-1])
     losses = [float(x) for x in losses]
     out = {"phase": "train_path", "arch": arch, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype, "remat": remat,
@@ -4298,7 +4416,9 @@ def train_path(torch, dev, arch, batch, seq, remat, warmup, timed, seed=0):
            "peak_memory_gib": peak / 2 ** 30, "losses": losses,
            "launches": launches, "launches_per_step": per_step,
            "profile_launches": prof.pop("launches"), "profile": prof,
-           "card": card_memory(torch)}
+           "card": card_memory(torch), "batch_bytes": tree_bytes(batches[-1]),
+           "peak_memory_bytes": peak}
+    out_walk = walked
     del state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4313,7 +4433,147 @@ def train_path(torch, dev, arch, batch, seq, remat, warmup, timed, seed=0):
         problems.append(f"the profiled step launched {out['profile_launches']}, want {per_step}")
     if problems:
         die(f"train path {arch}: " + "; ".join(problems))
-    return launches, out
+    return launches, dict(out, walk=out_walk)
+
+
+# -------------------------------------------------------------- the dry run
+DRYRUN_CELLS = (("starcoder2-3b", "train_4k"), ("starcoder2-3b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 900
+PEAK_TOL = 0.15          # the reckoned peak against max_memory_allocated
+CARD_MEMORY_TOL = 1e-3   # roofline.CARD_MEMORY_BYTES against total_memory
+
+
+def walk_step(torch, step, state, batch) -> dict:
+    """One step under ``launch/op_cost.py``'s walk on the card: its aten
+    ops' dot FLOPs and bytes, each hand-written kernel's record, and the
+    memory the walk tracked."""
+    from repro_torch.launch.op_cost import walk
+
+    _, totals, mem = walk(step, state, batch)
+    torch.cuda.synchronize()
+    return {"dot_flops": totals.dot_flops, "op_bytes": totals.op_bytes,
+            "kernels": totals.kernels, "n_ops": totals.n_ops, "memory": mem.to_json()}
+
+
+def start_dryrun_cells():
+    """``python -m repro_torch.launch.dryrun`` of each of ``DRYRUN_CELLS`` on
+    the single-pod mesh, each in its own process on the host's CPU (the meta
+    device), started now and read by ``dryrun_path``: (process, out dir)."""
+    import os
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="dryrun_torch_")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    # at the lowest priority: the card's phases' host work goes first
+    procs = [subprocess.Popen(["nice", "-n", "19", sys.executable, "-m",
+                               "repro_torch.launch.dryrun", "--arch", a, "--shape", sh,
+                               "--out", out], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a, sh in DRYRUN_CELLS]
+    return procs, out
+
+
+def dryrun_path(torch, dev, started, train_out):
+    """The dry run (``launch/dryrun.py``).  (a) The processes
+    ``start_dryrun_cells`` started: each cell's record, gated on ``status ==
+    "ok"``; its roofline terms, a rank's argument and temporary bytes and
+    ``fits``.  (b) ``train_path``'s cell (starcoder2-3b whole, batch 4, seq
+    1024, remat full, bf16) reckoned by ``lower_cell`` at the mesh (1, 1) on
+    the meta device, against ``train_path``'s step walked on the card: dot
+    FLOPs, each kernel's FLOPs and bytes and the aten ops' bytes equal as
+    integers; the reckoned arguments ``train_path``'s state and batch
+    bytes; the reckoned peak (arguments and temporaries) within
+    ``PEAK_TOL`` of ``max_memory_allocated``; the roofline's binding term at
+    or below the measured s a step; and ``roofline.CARD_MEMORY_BYTES``
+    within ``CARD_MEMORY_TOL`` of the card's ``total_memory``."""
+    import shutil
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+
+    problems = []
+    procs, out_dir = started
+    cells = {}
+    for (arch, shape), p in zip(DRYRUN_CELLS, procs):
+        try:
+            text, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+            problems.append(f"(a) {arch} {shape}: not done in {DRYRUN_TIMEOUT_S} s")
+        path = dryrun.cell_path(arch, shape, False, out_dir)
+        try:
+            with open(path) as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            rec = {"status": "missing", "output": text[-3000:]}
+        cell = {"status": rec.get("status"), "exit_code": p.returncode}
+        if rec.get("status") == "ok":
+            rl, mem = rec["roofline"], rec["memory_analysis"]
+            cell.update(
+                trace_s=rec["trace_s"],
+                roofline={k: rl[k] for k in ("compute_s", "memory_s", "collective_s",
+                                             "bottleneck", "roofline_fraction",
+                                             "useful_ratio")},
+                argument_bytes=mem["argument_size_in_bytes"],
+                temp_bytes=mem["temp_size_in_bytes"], fits=rec["fits"],
+                link_bytes_per_s=rec["link_bytes_per_s"])
+        else:
+            cell["record"] = rec
+            problems.append(f"(a) {arch} {shape}: status {rec.get('status')}")
+        cells[f"{arch}:{shape}"] = cell
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(TRAIN["arch"], shape=ShapeConfig(
+        "train_path", TRAIN["seq"], TRAIN["batch"], "train"), mesh_shape=(1, 1))
+    meta_s = time.perf_counter() - t0
+    oc, mem, rl = rec["op_cost"], rec["memory_analysis"], rec["roofline"]
+    card = train_out["walk"]
+    reckoned_args = mem["argument_size_in_bytes"]
+    reckoned_peak = reckoned_args + mem["temp_size_in_bytes"]
+    measured_peak = train_out["peak_memory_bytes"]
+    binding = max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    grounding = {
+        "meta_trace_s": meta_s,
+        "dot_flops": {"meta": oc["dot_flops"], "card": card["dot_flops"]},
+        "op_bytes": {"meta": oc["op_bytes"], "card": card["op_bytes"]},
+        "kernels": {"meta": oc["kernels"], "card": card["kernels"]},
+        "n_ops": {"meta": oc["n_ops"], "card": card["n_ops"]},
+        "argument_bytes": {"reckoned": reckoned_args,
+                           "state_and_batch": train_out["state_bytes"]
+                           + train_out["batch_bytes"]},
+        "peak_bytes": {"reckoned": reckoned_peak, "measured": measured_peak,
+                       "ratio": reckoned_peak / measured_peak,
+                       "temp_bytes": mem["temp_size_in_bytes"]},
+        "card_walk_memory": card["memory"],
+        "roofline": {k: rl[k] for k in ("compute_s", "memory_s", "collective_s",
+                                        "bottleneck", "roofline_fraction", "useful_ratio",
+                                        "flops_dev", "bytes_dev")},
+        "binding_s": binding, "measured_s_per_step": train_out["s_per_step"],
+        "card_memory": {"constant": roofline.CARD_MEMORY_BYTES, "total_memory": total_memory},
+    }
+    for key in ("dot_flops", "op_bytes", "kernels"):
+        if grounding[key]["meta"] != grounding[key]["card"]:
+            problems.append(f"(b) {key}: meta {grounding[key]['meta']}, card "
+                            f"{grounding[key]['card']}")
+    if reckoned_args != grounding["argument_bytes"]["state_and_batch"]:
+        problems.append(f"(b) argument bytes {grounding['argument_bytes']}")
+    if abs(reckoned_peak / measured_peak - 1.0) > PEAK_TOL:
+        problems.append(f"(b) peak {grounding['peak_bytes']} off by more than {PEAK_TOL}")
+    if binding > train_out["s_per_step"]:
+        problems.append(f"(b) the binding term {binding} s above the measured "
+                        f"{train_out['s_per_step']} s a step")
+    if abs(roofline.CARD_MEMORY_BYTES / total_memory - 1.0) > CARD_MEMORY_TOL:
+        problems.append(f"(b) CARD_MEMORY_BYTES {roofline.CARD_MEMORY_BYTES}, the card's "
+                        f"total_memory {total_memory}")
+    out = {"phase": "dryrun_path", "cells": cells, "grounding": grounding,
+           "nvidia_smi": nvidia_smi()}
+    emit(out)
+    if problems:
+        die("dryrun path: " + "; ".join(problems))
+    return out
 
 
 def train_run(torch, dev, tc, batches, seed=0, state=None):
@@ -5113,8 +5373,8 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         sets = rms_inputs(shape, n_sets(x_bytes))
         x, g, _ = sets[0]
         w = (1.0 + g.float()).to(dt)
-        nb = 2 * x_bytes + g.numel() * g.element_size()
-        b_ms, b_by = bound_ms(nb, 4 * x.numel(), "float32")
+        n_ops, nb = rn.cost((x.shape, g.shape), (x.dtype, g.dtype))
+        b_ms, b_by = bound_ms(nb, n_ops, "float32")
         out = {
             "ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
             "device_ms": graph_device_ms(torch, lambda a, b, _: rn.rmsnorm_cuda(a, b, EPS), sets),
@@ -5138,8 +5398,9 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         x_bytes = K * R * d * 2
         sets = rms_inputs(shape, n_sets(2 * x_bytes))
         x, g, dy = sets[0]
-        nb = 3 * x_bytes + 2 * g.numel() * g.element_size()   # x, dy, dx; gamma, dgamma
-        b_ms, b_by = bound_ms(nb, 10 * x.numel(), "float32")
+        # x, dy, dx; gamma, dgamma
+        n_ops, nb = rn.cost((x.shape, g.shape), (x.dtype, g.dtype), backward=True)
+        b_ms, b_by = bound_ms(nb, n_ops, "float32")
         xs = [x[k].detach().clone().requires_grad_(True) for k in range(K)]
         ws = [(1.0 + g[k].float()).to(dt).requires_grad_(True) for k in range(K)]
         ys = [F.rms_norm(xs[k], (d,), weight=ws[k], eps=EPS) for k in range(K)]
@@ -5171,7 +5432,8 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         K, R, d = shape
         x, g, _ = rms_inputs(shape, 1)[0]
         w = (1.0 + g.float()).to(dt)
-        b_ms, b_by = bound_ms(2 * x.numel() * 2 + g.numel() * 2, 4 * x.numel(), "float32")
+        n_ops, nb = rn.cost((x.shape, g.shape), (x.dtype, g.dtype))
+        b_ms, b_by = bound_ms(nb, n_ops, "float32")
         return {"ms": event_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS)),
                 "device_ms": graph_device_ms(torch, lambda: rn.rmsnorm_cuda(x, g, EPS), [()]),
                 "plain_ms": event_ms(torch, lambda: rn.rmsnorm_plain(x, g, EPS)),
@@ -5237,10 +5499,9 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         q = torch.randn(qs, generator=gen, device=dev).to(dtype)
         k = torch.randn(kvs, generator=gen, device=dev).to(dtype)
         v = torch.randn(kvs[:3] + (Dv,), generator=gen, device=dev).to(dtype)
-        pairs = S * (S + 1) // 2 if causal else S * S   # unmasked (q, k) pairs per head
-        n_ops = 2 * B * H * pairs * (D + Dv)
-        nb = (q.numel() + k.numel() + v.numel() + v.numel() * H // kvs[2]) \
-            * q.element_size() + B * H * S * 4         # q, k, v, out (H heads of Dv), lse
+        # q, k, v, out (H heads of Dv), lse; each unmasked (q, k) pair of each head
+        n_ops, nb = fa.cost((q.shape, k.shape, v.shape), (q.dtype, k.dtype, v.dtype),
+                            causal=causal)
         dname = str(dtype).split(".")[-1]
         b_ms, b_by = bound_ms(nb, n_ops, dname)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -5331,11 +5592,10 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_X
     updates = R * L * Dm * SSM_N                      # state updates, one exponential each
-    hs_bytes = R * -(-L // SSM_CHUNK) * Dm * SSM_N * 4
-    nb = (3 * x.numel() * x.element_size() + 2 * Bc.numel() * Bc.element_size()
-          + A.numel() * 4 + Dk.numel() * 4 + R * Dm * SSM_N * 4 + hs_bytes)
-    # x, dt, y; B, C; A, D; h_last; the chunk states the main path's call writes
-    n_ops = 6 * updates   # exp argument, exp, two FMAs, the skip per (row, t, channel, state)
+    # x, dt, y; B, C; A, D; h_last; the chunk states the main path's call writes;
+    # exp argument, exp, two FMAs, the skip per (row, t, channel, state)
+    n_ops, nb = ss.cost((x.shape, Bc.shape, A.shape, Dk.shape), (x.dtype, Bc.dtype),
+                        chunk=SSM_CHUNK, chunk_states=True)
     bounds = {"bytes": nb / HBM_BYTES_PER_S * 1e3, "fp32": n_ops / PEAK_OPS["float32"] * 1e3,
               "sfu": updates / (PEAK_OPS["float32"] / SFU_PER_FP32_FLOPS) * 1e3}
     binding = max(bounds, key=bounds.get)
@@ -5368,11 +5628,10 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_TP_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_TP_X
     updates = R * L * Dm * SSM_N
-    nb = (3 * x.numel() * x.element_size() + 2 * Bc.numel() * Bc.element_size()
-          + A.numel() * 4 + Dk.numel() * 4 + R * Dm * SSM_N * 4
-          + R * -(-L // SSM_CHUNK) * Dm * SSM_N * 4)
+    n_ops, nb = ss.cost((x.shape, Bc.shape, A.shape, Dk.shape), (x.dtype, Bc.dtype),
+                        chunk=SSM_CHUNK, chunk_states=True)
     tp_bounds = {"bytes": nb / HBM_BYTES_PER_S * 1e3,
-                 "fp32": 6 * updates / PEAK_OPS["float32"] * 1e3,
+                 "fp32": n_ops / PEAK_OPS["float32"] * 1e3,
                  "sfu": updates / (PEAK_OPS["float32"] / SFU_PER_FP32_FLOPS) * 1e3}
     tp_binding = max(tp_bounds, key=tp_bounds.get)
     rows[-1]["tp_shape"] = {
@@ -5443,6 +5702,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         die("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    global HBM_BYTES_PER_S, PEAK_OPS
+    from repro_torch.launch import roofline
+
+    HBM_BYTES_PER_S, PEAK_OPS = roofline.HBM_BYTES_PER_S, dict(roofline.PEAK_OPS)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5479,6 +5742,8 @@ def main() -> int:
                               ("rmsnorm_ptxas", "rmsnorm.cu"),
                               ("synth_tokens_ptxas", "synth_tokens.cu"))}})
 
+    # the dry run's cells run on the host's CPU beside the card's phases
+    dryrun_started = start_dryrun_cells()
     errs = check_kernels(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5553,8 +5818,11 @@ def main() -> int:
     fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
                         for arch in CARD_VS_CPU)
     lap("card_vs_cpu")
-    by_path[TRAIN["arch"] + "+train"], _ = train_path(torch, dev, **TRAIN)
+    by_path[TRAIN["arch"] + "+train"], train_out = train_path(torch, dev, **TRAIN)
     lap("train_path")
+    dryrun_path(torch, dev, dryrun_started, train_out)
+    del train_out
+    lap("dryrun_path")
     by_path[TRAIN["arch"] + "+trial_mesh"], _ = trial_mesh_path(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()

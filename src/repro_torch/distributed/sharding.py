@@ -61,6 +61,16 @@ no twin: each of its call sites is a layout hint to GSPMD, and the port's
 explicit gathers and seams are the layout.  ``sharding_context`` /
 ``ctx_mesh`` carry the mesh to the code that reads it (``moe_apply``'s
 expert-parallel path, the step), as JAX's ``_CTX`` does.
+
+**A grid of named axes** (``grid_mesh``; ``launch/mesh.py::
+make_production_mesh``'s ``(16, 16)`` ``("data", "model")`` and ``(2, 16,
+16)`` ``("pod", "data", "model")`` grids): rank r sits at the row-major
+coordinates of r; a mesh axis, or a tuple of them (a placement's
+``("pod", "data")``, a long cache's ``("data", "model")``), joins the ranks
+that differ only on those axes, and every such group is made once, by
+every rank, in one order.  A tuple's index is row-major over its axes, so
+its blocks are in rank order.  ``model`` is the last axis and its group a
+row of consecutive ranks, as ``PopulationMesh(width=m)``'s.
 """
 from __future__ import annotations
 
@@ -68,6 +78,8 @@ import contextlib
 import contextvars
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -118,6 +130,12 @@ class PopulationMesh:
     # modules, a row's ranks hold and compute whole lanes (``--model-parallel``
     # refuses such a width instead)
     replicate_rows: bool = False
+    # a grid of named axes (``grid_mesh``): ((name, size), ...), ``model``
+    # last; None: the two axes ``(axis, "model")``
+    grid: Optional[tuple] = None
+    # a tuple of axes -> the group of the ranks that differ only on them
+    # (a grid's axes and tuples other than the model and data axes)
+    axis_groups: Dict[tuple, Any] = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def key(self) -> tuple:
@@ -241,54 +259,86 @@ class PopulationMesh:
         gradient norm's collective; counted in ``tp_collectives`` and
         ``mesh_collectives``)."""
         dist.all_reduce(t, group=self.model_group)
-        _count("model", "all_reduce", t.numel() * t.element_size())
+        nb = t.numel() * t.element_size()
+        _count("model", "all_reduce", nb, self.width, nb)
         return t
 
     # -- the trial mesh's axes (``axis`` the data axis, then ``model``) --------
     @property
     def axis_names(self) -> tuple:
+        if self.grid is not None:
+            return tuple(n for n, _ in self.grid)
         return (self.axis, "model")
+
+    @property
+    def data_axes(self) -> tuple:
+        """The axes the data ranks span (all but ``model``)."""
+        return tuple(a for a in self.axis_names if a != "model")
 
     @property
     def shape(self) -> Dict[str, int]:
         """Each axis's size, as a JAX mesh's ``shape``."""
+        if self.grid is not None:
+            return dict(self.grid)
         return {self.axis: self.rows, "model": self.width}
 
-    def axis_index(self, axis: str) -> int:
-        return self.model_rank if axis == "model" else self.row
+    def coords(self) -> Dict[str, int]:
+        """This rank's index on each axis (row-major over the grid)."""
+        out, r = {}, self.rank
+        for name, size in reversed(list(self.shape.items())):
+            out[name], r = r % size, r // size
+        return out
 
-    def _axis_group(self, axis: str):
-        if axis == "model":
+    def axis_index(self, axis) -> int:
+        """This rank's index along ``axis``; a tuple's is row-major over its
+        axes."""
+        c, shape, idx = self.coords(), self.shape, 0
+        for a in _as_axes(axis):
+            idx = idx * shape[a] + c[a]
+        return idx
+
+    def _axis_group(self, axis):
+        axes = _as_axes(axis)
+        if axes == ("model",):
             return self.model_group
-        return self.pop_group if self.width > 1 else self.group
+        if axes == self.data_axes:
+            return self.pop_group if self.width > 1 else self.group
+        if set(axes) == set(self.axis_names):
+            return self.group
+        return self.axis_groups[axes]
 
-    def axis_all_gather(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    def axis_all_gather(self, t: torch.Tensor, dim: int, axis) -> torch.Tensor:
         """Every rank's ``t`` along ``axis``, joined along ``dim`` in axis
         order, bit for bit: the bytes are gathered (gloo gathers bytes of
         every dtype), then read back (counted in ``mesh_collectives``)."""
-        n = self.shape[axis]
+        n = axis_size(self, axis)
         raw = t.contiguous().view(torch.uint8)
         parts = [torch.empty_like(raw) for _ in range(n)]
         dist.all_gather(parts, raw, group=self._axis_group(axis))
-        _count(axis, "all_gather", raw.numel() * n)
+        _count(axis, "all_gather", raw.numel() * n, n, raw.numel())
         return torch.cat(parts, dim).view(t.dtype)
 
-    def axis_all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum ``t`` over ``axis``, in place (counted in ``mesh_collectives``;
-        the model axis's through ``model_all_reduce``)."""
-        if axis == "model":
+    def axis_all_reduce(self, t: torch.Tensor, axis, op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` over ``axis`` in place, by ``op`` (``"sum"`` or
+        ``"max"``; counted in ``mesh_collectives``; the model axis's sum
+        through ``model_all_reduce``)."""
+        if _as_axes(axis) == ("model",) and op == "sum":
             return self.model_all_reduce(t)
-        dist.all_reduce(t, group=self._axis_group(axis))
-        _count(axis, "all_reduce", t.numel() * t.element_size())
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self._axis_group(axis))
+        nb = t.numel() * t.element_size()
+        _count(axis, "all_reduce", nb, axis_size(self, axis), nb)
         return t
 
-    def axis_reduce_scatter(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+    def axis_reduce_scatter(self, t: torch.Tensor, dim: int, axis) -> torch.Tensor:
         """This rank's block along ``dim`` of ``t`` summed over ``axis``
         (counted in ``mesh_collectives``)."""
-        parts = [p.contiguous() for p in t.chunk(self.shape[axis], dim)]
+        n = axis_size(self, axis)
+        parts = [p.contiguous() for p in t.chunk(n, dim)]
         out = torch.empty_like(parts[0])
         dist.reduce_scatter(out, parts, group=self._axis_group(axis))
-        _count(axis, "reduce_scatter", t.numel() * t.element_size())
+        nb = t.numel() * t.element_size()
+        _count(axis, "reduce_scatter", nb, n, nb)
         return out
 
     def barrier(self) -> None:
@@ -431,6 +481,57 @@ def _row_groups(r: int, n: int, w: int) -> tuple:
     return model_group, pop_group
 
 
+def grid_mesh(names: Sequence[str], sizes: Sequence[int], device,
+              timeout_s: float = DEFAULT_TIMEOUT_S) -> PopulationMesh:
+    """This rank's place on a grid of named axes (``names``, ``model``
+    last, of ``sizes``) over the process group already initialised, whose
+    world must be the grid's size.  Every rank makes, in one order, the
+    group of every proper subset of the axes: for each subset, one group
+    for each setting of the other axes' coordinates, its ranks in
+    row-major order."""
+    names, sizes = tuple(names), tuple(int(x) for x in sizes)
+    if names[-1] != "model":
+        raise ValueError(f"a grid's last axis is 'model', got {names}")
+    if not dist.is_initialized():
+        raise RuntimeError(f"a grid mesh {dict(zip(names, sizes))} needs an initialised "
+                           "process group")
+    n, r = math.prod(sizes), dist.get_rank()
+    if dist.get_world_size() != n:
+        raise ValueError(f"a grid {dict(zip(names, sizes))} of {n} ranks over a process "
+                         f"group of {dist.get_world_size()} ranks")
+    coords = list(itertools.product(*(range(x) for x in sizes)))   # rank -> coordinates
+    groups: Dict[tuple, Any] = {}
+    for k in range(1, len(names)):
+        for axes in itertools.combinations(range(len(names)), k):
+            rest = [i for i in range(len(names)) if i not in axes]
+            for fixed in itertools.product(*(range(sizes[i]) for i in rest)):
+                ranks = [q for q, c in enumerate(coords)
+                         if all(c[i] == f for i, f in zip(rest, fixed))]
+                g = dist.new_group(ranks)
+                if r in ranks:
+                    groups[tuple(names[i] for i in axes)] = g
+    dev = torch.device(device)
+    data = names[:-1]
+    mesh = PopulationMesh(rank=r, world_size=n, device=dev, backend=str(dist.get_backend()),
+                          axis=data[0] if len(data) == 1 else data,
+                          timeout_s=float(timeout_s), devices=(dev,) * n, width=sizes[-1],
+                          model_group=groups[("model",)], pop_group=groups[data],
+                          grid=tuple(zip(names, sizes)))
+    mesh.axis_groups.update(groups)
+    return mesh
+
+
+def _as_axes(axis) -> tuple:
+    """A mesh axis, or a tuple of them, as a tuple of names."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def axis_size(mesh, axis) -> int:
+    """The ranks of ``mesh`` (anything with ``.shape``, axis -> size) along
+    ``axis``, a name or a tuple of names."""
+    return math.prod(mesh.shape[a] for a in _as_axes(axis))
+
+
 def population_specs(tree: Any, mesh: PopulationMesh) -> Any:
     """Per leaf of ``tree``, where it lives on ``mesh``: ``"pop"`` (its
     leading axis is blocked over the ranks) or ``"rep"`` (every rank holds
@@ -458,7 +559,11 @@ def map_specs(shapes: Any, specs: Any, fn):
 
 
 def _is_spec_leaf(x: Any) -> bool:
-    return isinstance(x, tuple) and all(i is None or isinstance(i, str) for i in x)
+    """A tuple of logical names, or a placement: per dim None, an axis name
+    or a tuple of axis names."""
+    return isinstance(x, tuple) and all(
+        i is None or isinstance(i, str)
+        or (isinstance(i, tuple) and i and all(isinstance(j, str) for j in i)) for i in x)
 
 
 # -- the trial mesh: logical-axis rules and placements ------------------------------------
@@ -522,9 +627,10 @@ def build_sharding(tree_shapes: Any, tree_specs: Any, rules: Rules, mesh) -> Any
 
 
 def sharded_dims(placement: tuple, mesh) -> list:
-    """(dim, axis) of each dim a placement splits over an axis of more than
-    one rank of ``mesh``."""
-    return [(i, a) for i, a in enumerate(placement) if a is not None and mesh.shape[a] > 1]
+    """(dim, axis) of each dim a placement splits over an axis (or a tuple
+    of axes) of more than one rank of ``mesh``."""
+    return [(i, a) for i, a in enumerate(placement)
+            if a is not None and axis_size(mesh, a) > 1]
 
 
 def shard_tree(tree: Any, placements: Any, mesh: PopulationMesh) -> Any:
@@ -532,7 +638,7 @@ def shard_tree(tree: Any, placements: Any, mesh: PopulationMesh) -> Any:
     device and freed of the rest."""
     def one(x, placement):
         for i, a in sharded_dims(placement, mesh):
-            n = x.shape[i] // mesh.shape[a]
+            n = x.shape[i] // axis_size(mesh, a)
             x = x.narrow(i, mesh.axis_index(a) * n, n)
         return x.to(mesh.device, copy=True).contiguous()
 
@@ -556,12 +662,22 @@ def gather_tree(tree: Any, placements: Any, mesh: PopulationMesh, to_host: bool 
 
 
 _MESH_COUNTS: Dict[Tuple[str, str], list] = {}   # (axis, op) -> [calls, bytes]
+# called with each collective as it is made: (axis, op, group size, operand
+# bytes); the op-cost walk (``launch/op_cost.py``) listens while it is active
+collective_listeners: list = []
 
 
-def _count(axis: str, op: str, nbytes: int) -> None:
-    c = _MESH_COUNTS.setdefault((axis, op), [0, 0])
+def _count(axis, op: str, nbytes: int, n: int, operand: int) -> None:
+    """One collective over ``axis`` (a name, or a tuple of names joined by
+    ``+``) of ``n`` ranks: ``nbytes`` for ``mesh_collectives``, and the
+    listeners told its group size and ``operand`` bytes (an all-gather's
+    input, a reduce-scatter's and an all-reduce's whole tensor)."""
+    name = "+".join(_as_axes(axis))
+    c = _MESH_COUNTS.setdefault((name, op), [0, 0])
     c[0] += 1
     c[1] += int(nbytes)
+    for fn in collective_listeners:
+        fn(name, op, int(n), int(operand))
 
 
 def mesh_collectives() -> Dict[str, Dict[str, int]]:
@@ -627,26 +743,42 @@ class UsePlan:
     model: Tuple[int, ...] = ()
     data: Optional[int] = None
 
-    def apply(self, x: torch.Tensor, mesh: PopulationMesh, split: bool) -> torch.Tensor:
+    def apply(self, x: torch.Tensor, mesh: PopulationMesh, split: bool,
+              reduce: bool = True) -> torch.Tensor:
         for d in self.model:
             x = ModelGather.apply(x, mesh, d)
-        if self.data is not None or (split and mesh.rows > 1):
+        if self.data is not None or (split and reduce and mesh.rows > 1):
             x = DataGather.apply(x, mesh, self.data, split)
         return x
 
 
-_CTX: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+@dataclasses.dataclass(frozen=True)
+class _Ctx:
+    mesh: PopulationMesh
+    uses: Any
+    split: bool
+    reduce: bool
+    caches: Any
+
+
+_CTX: contextvars.ContextVar[Optional[_Ctx]] = contextvars.ContextVar(
     "sharding_ctx", default=None)
 
 
 @contextlib.contextmanager
-def sharding_context(mesh: PopulationMesh, uses: Any = None, split: bool = False):
+def sharding_context(mesh: PopulationMesh, uses: Any = None, split: bool = False,
+                     reduce: bool = True, caches: Optional[Dict[str, tuple]] = None):
     """Run a trial's step on ``mesh``: ``uses`` (a tree of
     ``UsePlan`` by part of the parameter tree: ``embedding``, ``prefix``,
     ``blocks`` (one superblock), ``final_norm``) tells ``at_use`` how to
     gather each stored leaf; ``split`` whether the data ranks train on
-    their own rows of the batch."""
-    tok = _CTX.set((mesh, uses, bool(split)))
+    their own rows of the batch; ``reduce`` False leaves a leaf stored
+    whole over the data axis with this rank's partial gradient (ZeRO-1:
+    the step reduce-scatters the sum once); ``caches`` (decode) the
+    placement of each kind of layer cache (``"gqa"``, ``"mla"``: per dim,
+    as ``build_pspec`` gives it, without the lane axis), which the decode
+    attention reads (``cache_placement``)."""
+    tok = _CTX.set(_Ctx(mesh, uses, bool(split), bool(reduce), caches))
     try:
         yield
     finally:
@@ -656,7 +788,16 @@ def sharding_context(mesh: PopulationMesh, uses: Any = None, split: bool = False
 def ctx_mesh() -> Optional[PopulationMesh]:
     """The active sharding context's mesh (None outside a context)."""
     ctx = _CTX.get()
-    return ctx[0] if ctx is not None else None
+    return ctx.mesh if ctx is not None else None
+
+
+def cache_placement(kind: str) -> Optional[tuple]:
+    """The active decode context's placement of a ``kind`` layer cache
+    (None outside one)."""
+    ctx = _CTX.get()
+    if ctx is None or ctx.caches is None:
+        return None
+    return ctx.caches.get(kind)
 
 
 def at_use(tree: Any, *part) -> Any:
@@ -664,13 +805,13 @@ def at_use(tree: Any, *part) -> Any:
     modules compute on it, gathered by the context's ``UsePlan``s; the tree
     itself outside a trial's sharding context."""
     ctx = _CTX.get()
-    if ctx is None or ctx[1] is None:
+    if ctx is None or ctx.uses is None:
         return tree
-    mesh, uses, split = ctx
-    plans = uses
+    plans = ctx.uses
     for k in part:
         plans = plans[k]
-    return tree_map(lambda x, plan: plan.apply(x, mesh, split), tree, plans)
+    return tree_map(lambda x, plan: plan.apply(x, ctx.mesh, ctx.split, ctx.reduce), tree,
+                    plans)
 
 
 def reentry():
@@ -840,12 +981,12 @@ def tp_gnorm_sumsq(leaf_sumsqs: Sequence[torch.Tensor], tree: Any) -> Optional[t
         return None
     total, groups = None, {}
     for sq, m in zip(leaf_sumsqs, mask):
-        axes = (("model",) if m else ()) if isinstance(m, bool) else tuple(sorted(m))
+        axes = (("model",) if m else ()) if isinstance(m, bool) else tuple(sorted(m, key=str))
         if axes:
             groups[axes] = sq if axes not in groups else groups[axes] + sq
         else:
             total = sq if total is None else total + sq
-    for axes in sorted(groups):
+    for axes in sorted(groups, key=str):
         part = groups[axes]
         for a in axes:
             part = ctx["mesh"].axis_all_reduce(part, a)

@@ -15,15 +15,22 @@ CUDA-core kernel (``csrc/flash_attention.cu``).  ``launches_sm90`` and
 ``launches_fp32`` count each; ``launches`` is their sum.  The backward
 pass is the plain blocked flash backward ``ref._blocked_bwd`` fed the
 kernel's ``lse``, as in the JAX package's ``_make_flash``.
+
+A tensor on the meta device (the dry run) gets empty ``out`` and ``lse``,
+and the kernel's work (``cost``) goes to the op-cost walk
+(``kernels/walk.py``), as a launch on the card reports it while a walk is
+active.
 """
 from __future__ import annotations
 
+import math
 import threading
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from . import build, ref
+from . import build, ref, walk
 
 NEG_INF = ref.NEG_INF
 BWD_BLOCK = 512  # block_q = block_kv of the plain backward (JAX default)
@@ -71,6 +78,36 @@ def flash_fwd_plain(q, k, v, *, causal: bool, window: Optional[int],
     out = out / l.permute(0, 3, 1, 2)[..., None]
     lse = torch.where(live, m + torch.log(l), NEG_INF)
     return out.reshape(B, Sq, H, Dv).to(q.dtype), lse.reshape(B, H, Sq)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
+    """The (q, k) pairs a head attends to: query i sees keys j < sk with
+    j <= i when causal and j > i - window under a window."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(sq, dtype=np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(shapes, dtypes, causal: bool = True, window: Optional[int] = None) -> tuple:
+    """(operations, HBM bytes) of one launch at q ``shapes[0]`` (B, Sq, H,
+    D), k ``shapes[1]`` (B, Sk, Hkv, D) and v ``shapes[2]`` (B, Sk, Hkv, Dv)
+    in ``dtypes``: two products of D + Dv multiply-adds over each visible
+    (q, k) pair of each head; q, k and v read once, the output (H heads of
+    Dv) and the fp32 lse written once."""
+    (B, Sq, H, D), (_, Sk, _, _), (_, _, _, Dv) = shapes
+    qd, kd, vd = dtypes
+    ops = 2 * B * H * visible_pairs(Sq, Sk, causal, window) * (D + Dv)
+    nbytes = (math.prod(shapes[0]) * qd.itemsize + math.prod(shapes[1]) * kd.itemsize
+              + math.prod(shapes[2]) * vd.itemsize + B * Sq * H * Dv * qd.itemsize
+              + B * H * Sq * 4)
+    return ops, nbytes
+
+
+def _record(q, k, v, causal, window) -> None:
+    if walk.active():
+        walk.record("flash_attention", *cost((q.shape, k.shape, v.shape),
+                                             (q.dtype, k.dtype, v.dtype), causal, window))
 
 
 def _check(q, k, v, window, softcap):
@@ -126,6 +163,23 @@ def flash_fwd_cuda(q, k, v, *, causal: bool, window: Optional[int],
             launches_sm90 += 1
         else:
             launches_fp32 += 1
+    _record(q, k, v, causal, window)
+    return out, lse
+
+
+def flash_fwd_meta(q, k, v, *, causal: bool, window: Optional[int],
+                   softcap: Optional[float], scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on the meta device: empty ``out`` and ``lse`` and the
+    kernel's cost recorded."""
+    _check(q, k, v, window, softcap)
+    if not (q.is_meta and k.is_meta and v.is_meta):
+        raise ValueError("flash_attention: q, k, v must lie on the meta device")
+    B, Sq, H, _ = q.shape
+    Dv = v.shape[3]
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _record(q, k, v, causal, window)
     return out, lse
 
 
@@ -135,6 +189,8 @@ def flash_fwd(q, k, v, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
         return flash_fwd_plain(q, k, v, **kw)
     if q.is_cuda:
         return flash_fwd_cuda(q, k, v, **kw)
+    if q.is_meta:
+        return flash_fwd_meta(q, k, v, **kw)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 

@@ -56,11 +56,13 @@ def ssm_scan(x, dt, A, Bc, Cc, D, h0=None, chunk: int = 128):
     Bc, Cc (K, B, L, N); A (K, Dm, N) and D (K, Dm) fp32, one per lane;
     optional h0 (K, B, Dm, N) fp32.  Returns (y (K, B, L, Dm) in x's dtype,
     h_last (K, B, Dm, N) fp32).  A CUDA tensor goes to the kernel (autograd
-    function with the chunked backward), a CPU tensor to the plain version."""
+    function with the chunked backward; on the meta device the same function,
+its forward recording the kernel's cost), a CPU tensor to the plain
+version."""
     K, B = x.shape[:2]
     args = (_rows(x), _rows(dt), A.contiguous(), _rows(Bc), _rows(Cc), D.contiguous(),
             _rows(h0))
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         y, h = SSMScan.apply(*args, int(chunk))
     else:
         y, h = ssm_scan_fwd(*args, chunk=chunk)

@@ -8,18 +8,23 @@ computes the VJP that the JAX package takes of the reference norm, in
 closed form: dx and dgamma in one pass over x and dy, dgamma summed over a
 lane's rows without atomics, so its bits repeat from run to run and from
 lane to lane.  A CPU tensor takes the plain versions; a CUDA tensor
-launches the kernels or raises.
+launches the kernels or raises.  A tensor on the meta device (the dry run,
+``launch/dryrun.py``) gets empty outputs of the kernels' shapes and dtypes,
+and the kernel's work (``cost``) goes to the op-cost walk
+(``kernels/walk.py``), as a launch on the card reports it while a walk is
+active.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 import threading
 from typing import Optional
 
 import torch
 
-from . import build, ref
+from . import build, ref, walk
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
@@ -93,14 +98,33 @@ def rmsnorm_bwd_plain(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     return dx.to(x.dtype), dgamma.to(gamma.dtype)
 
 
-def _check(x: torch.Tensor, gamma: torch.Tensor, name: str) -> None:
+def cost(shapes, dtypes, backward: bool = False) -> tuple:
+    """(operations, HBM bytes) of one launch at x ``shapes[0]`` (K, rows, d)
+    and gain ``shapes[1]`` (K, d) in ``dtypes``: the forward reads x and the
+    gain and writes the output, 4 operations an element (square, sum,
+    scale, gain); the backward reads x, dy and the gain and writes dx and
+    dgamma, 10 an element.  Each byte is counted once."""
+    (xs, gs), (xd, gd) = shapes, dtypes
+    n = math.prod(xs)
+    xb, gb = n * xd.itemsize, math.prod(gs) * gd.itemsize
+    return (10 * n, 3 * xb + 2 * gb) if backward else (4 * n, 2 * xb + gb)
+
+
+def _record(x: torch.Tensor, gamma: torch.Tensor, backward: bool = False) -> None:
+    if walk.active():
+        walk.record("rmsnorm_bwd" if backward else "rmsnorm",
+                    *cost((x.shape, gamma.shape), (x.dtype, gamma.dtype), backward))
+
+
+def _check(x: torch.Tensor, gamma: torch.Tensor, name: str, device: str = "cuda") -> None:
     if x.dim() != 3 or gamma.dim() != 2 or gamma.shape != (x.shape[0], x.shape[2]):
         raise ValueError(f"{name}: want x (K, rows, d), gamma (K, d); got "
                          f"{tuple(x.shape)}, {tuple(gamma.shape)}")
     if x.dtype not in _SUPPORTED or gamma.dtype not in _SUPPORTED:
         raise TypeError(f"{name}: dtypes {x.dtype}, {gamma.dtype} not in {_SUPPORTED}")
-    if not (x.is_cuda and gamma.device == x.device):
-        raise ValueError(f"{name}: x and gamma must lie on the same CUDA device")
+    if not (x.device.type == device and gamma.device == x.device):
+        raise ValueError(f"{name}: x and gamma must lie on the same "
+                         f"{'CUDA' if device == 'cuda' else device} device")
     if not (x.is_contiguous() and gamma.is_contiguous()):
         raise ValueError(f"{name}: x and gamma must be contiguous")
 
@@ -121,6 +145,16 @@ def rmsnorm_cuda(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tens
     build.check(err, "rmsnorm_fwd")
     with _count_lock:
         launches += 1
+    _record(x, gamma)
+    return out
+
+
+def rmsnorm_meta(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward on the meta device: the kernel's output, empty, and its
+    cost recorded."""
+    _check(x, gamma, "rmsnorm", "meta")
+    out = torch.empty_like(x)
+    _record(x, gamma)
     return out
 
 
@@ -159,6 +193,20 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
     build.check(err, "rmsnorm_bwd")
     with _count_lock:
         launches_bwd += 1
+    _record(x, gamma, backward=True)
+    return dx, dgamma
+
+
+def rmsnorm_bwd_meta(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                     eps: float) -> tuple:
+    """The backward on the meta device: (dx, dgamma), empty, and its cost
+    recorded.  The kernel's fp32 scratch (a partial dgamma row a block of
+    rows) takes a block count that only the built library gives; it is not
+    allocated here."""
+    _check(x, gamma, "rmsnorm_bwd", "meta")
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    _record(x, gamma, backward=True)
     return dx, dgamma
 
 
@@ -167,6 +215,8 @@ def rmsnorm_fwd(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tenso
         return rmsnorm_plain(x, gamma, eps)
     if x.is_cuda:
         return rmsnorm_cuda(x, gamma, eps)
+    if x.is_meta:
+        return rmsnorm_meta(x, gamma, eps)
     raise ValueError(f"rmsnorm: no kernel for device {x.device}")
 
 
@@ -178,6 +228,8 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: flo
         return rmsnorm_bwd_plain(x, gamma, dy, eps)
     if x.is_cuda:
         return rmsnorm_bwd_cuda(x, gamma, dy, eps)
+    if x.is_meta:
+        return rmsnorm_bwd_meta(x, gamma, dy, eps)
     raise ValueError(f"rmsnorm: no kernel for device {x.device}")
 
 

@@ -15,16 +15,22 @@ entering each chunk, and the backward walks the chunks in reverse,
 rebuilding one chunk's graph at a time from its entering state and passing
 the state's gradient to the chunk before.  Autograd through the whole
 sequence would hold every chunk's ``(R, chunk, Dm, N)`` fp32 tensors at once.
+
+A tensor on the meta device (the dry run) gets empty outputs of the
+kernel's shapes, and the kernel's work (``cost``) goes to the op-cost walk
+(``kernels/walk.py``), as a launch on the card reports it while a walk is
+active; the backward runs its plain chunks there as on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Optional
 
 import torch
 
-from . import build, ref
+from . import build, ref, walk
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 MAX_STATE = 64
@@ -36,6 +42,33 @@ def reset_launches() -> None:
     global launches
     with _count_lock:
         launches = 0
+
+
+def cost(shapes, dtypes, chunk: int = 128, chunk_states: bool = False) -> tuple:
+    """(operations, HBM bytes) of one launch at x ``shapes[0]`` (R, L, Dm),
+    Bc ``shapes[1]`` (R, L, N), A ``shapes[2]`` (K, Dm, N), D ``shapes[3]``
+    (K, Dm) and h0 ``shapes[4]`` (R, Dm, N, or None) in ``dtypes`` (x's and
+    Bc's; A, D, h0 and the states are fp32): 6 operations a state update
+    (the exponential's argument, the exponential, two FMAs, the skip); x,
+    dt, Bc, Cc, A, D and h0 read once, y, h_last and the chunk states
+    written once."""
+    xs, bs, As, Ds = shapes[:4]
+    h0 = shapes[4] if len(shapes) > 4 else None
+    xd, bd = dtypes[:2]
+    R, L, Dm = xs
+    N = As[2]
+    state = R * Dm * N * 4
+    nbytes = (3 * math.prod(xs) * xd.itemsize + 2 * math.prod(bs) * bd.itemsize
+              + math.prod(As) * 4 + math.prod(Ds) * 4 + state
+              + (state if h0 is not None else 0)
+              + (R * -(-L // chunk) * Dm * N * 4 if chunk_states else 0))
+    return 6 * R * L * Dm * N, nbytes
+
+
+def _record(x, Bc, A, D, h0, chunk, chunk_states) -> None:
+    if walk.active():
+        shapes = (x.shape, Bc.shape, A.shape, D.shape, None if h0 is None else h0.shape)
+        walk.record("ssm_scan", *cost(shapes, (x.dtype, Bc.dtype), chunk, chunk_states))
 
 
 def _check(x, dt, A, Bc, Cc, D, h0):
@@ -98,6 +131,25 @@ def ssm_scan_cuda(x, dt, A, Bc, Cc, D, h0=None, chunk: int = 128,
     build.check(err, "ssm_scan_fwd")
     with _count_lock:
         launches += 1
+    _record(x, Bc, A, D, h0, chunk, chunk_states)
+    return (y, h_last) + ((hs,) if chunk_states else ())
+
+
+def ssm_scan_meta(x, dt, A, Bc, Cc, D, h0=None, chunk: int = 128,
+                  chunk_states: bool = False):
+    """The scan on the meta device: the kernel's outputs, empty, and its
+    cost recorded."""
+    _check(x, dt, A, Bc, Cc, D, h0)
+    ts = (x, dt, A, Bc, Cc, D) + (() if h0 is None else (h0,))
+    if not all(t.is_meta for t in ts):
+        raise ValueError("ssm_scan: every input must lie on the meta device")
+    R, L, Dm = x.shape
+    N = A.shape[2]
+    y = torch.empty_like(x)
+    h_last = torch.empty((R, Dm, N), dtype=torch.float32, device=x.device)
+    hs = (torch.empty((R, -(-L // chunk), Dm, N), dtype=torch.float32, device=x.device)
+          if chunk_states else None)
+    _record(x, Bc, A, D, h0, chunk, chunk_states)
     return (y, h_last) + ((hs,) if chunk_states else ())
 
 
@@ -122,6 +174,8 @@ def ssm_scan_fwd(x, dt, A, Bc, Cc, D, h0=None, chunk: int = 128,
         return ssm_scan_plain(x, dt, A, Bc, Cc, D, h0, chunk, chunk_states)
     if x.is_cuda:
         return ssm_scan_cuda(x, dt, A, Bc, Cc, D, h0, chunk, chunk_states)
+    if x.is_meta:
+        return ssm_scan_meta(x, dt, A, Bc, Cc, D, h0, chunk, chunk_states)
     raise ValueError(f"ssm_scan: no kernel for device {x.device}")
 
 

@@ -7,8 +7,12 @@ r % m)``, which is ``PopulationMesh(width=m)``'s grid read with the axis
 names ``("data", "model")``: its model group is a data row's m ranks, its
 pop group the ranks at one model position (the data axis).
 
-``make_production_mesh`` (256 or 512 chips, for the JAX package's
-``dryrun.py``) has no twin yet: it comes with ROADMAP.md section 1, item 13.5.
+``make_production_mesh`` is the twin of the JAX package's: the ``(16, 16)``
+``("data", "model")`` grid of 256 ranks, or the ``(2, 16, 16)`` ``("pod",
+"data", "model")`` grid of 512, over the process group already initialised
+(``distributed.sharding.grid_mesh``).  It serves the dry run
+(``launch/dryrun.py``), which initialises a fake process group of that
+world at rank 0 and places each leaf on the meta device.
 """
 from __future__ import annotations
 
@@ -28,6 +32,31 @@ def trial_mesh_shape(n_devices: int) -> Tuple[int, int]:
     while n % d:
         d -= 1
     return d, n // d
+
+
+PRODUCTION = {False: (("data", "model"), (16, 16)),
+              True: (("pod", "data", "model"), (2, 16, 16))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta"):
+    """This rank's place on the production mesh: ``(data=16, model=16)``, or
+    ``(pod=2, data=16, model=16)`` with ``multi_pod``, over the process
+    group already initialised, whose world must be 256 or 512; ``device``
+    the rank's (the dry run's: ``meta``)."""
+    import torch.distributed as dist
+
+    from ..distributed.sharding import grid_mesh
+
+    names, shape = PRODUCTION[bool(multi_pod)]
+    n = 1
+    for s in shape:
+        n *= s
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < n:
+        raise RuntimeError(
+            f"production mesh {shape} needs {n} ranks, found {world}; "
+            "run under launch/dryrun.py, which makes a fake process group of 512 ranks")
+    return grid_mesh(names, shape, device)
 
 
 def make_trial_mesh(n_devices: int, shape: Optional[Tuple[int, int]] = None, device=None,

@@ -106,21 +106,25 @@ def mamba_cache_specs(cfg: ModelConfig) -> Specs:
 
 def mamba_decode(p: Params, x: torch.Tensor, cache: Params, cfg: ModelConfig):
     """Single-token step, x (K, B, 1, d) -> (out (K, B, 1, d), cache): the conv
-    window and ``h`` advanced in place, the same tree returned."""
-    uz = einsum("kbsd,kdci->kbsci", x, p["in_proj"])
+    window and ``h`` advanced in place, the same tree returned.  On a mesh
+    whose seams cover Mamba (``mamba_apply``'s), the step runs on the row's
+    share of the channels, its cache's too: ``x_proj``'s and ``out_proj``'s
+    partial sums closed by ``tp_reduce``."""
+    uz = einsum("kbsd,kdci->kbsci", tp_enter(x, "mamba"), p["in_proj"])
     u, z = uz[:, :, 0, 0], uz[:, :, 0, 1]                              # (K, B, di)
     ct = torch.promote_types(u.dtype, cache["conv"].dtype)
     window = torch.cat([cache["conv"].to(ct), u[:, :, None].to(ct)], dim=2)  # (K, B, Kc, di)
     u_conv = F.silu(torch.einsum("kbci,kci->kbi", window, p["conv_w"].to(ct))
                     + p["conv_b"].to(ct)[:, None])
-    dt_raw, Bc, Cc = _split_xproj(torch.einsum("kbi,kij->kbj", u_conv, p["x_proj"].to(ct)),
-                                  cfg)
+    dt_raw, Bc, Cc = _split_xproj(tp_reduce(torch.einsum("kbi,kij->kbj", u_conv,
+                                                         p["x_proj"].to(ct)), "mamba"), cfg)
     dt = F.softplus(torch.einsum("kbr,kri->kbi", dt_raw, p["dt_proj"].to(ct))
                     + p["dt_bias"].to(ct)[:, None])
     A = -torch.exp(p["A_log"].float())
     y, h = ops.ssm_decode_step(u_conv, dt, A, Bc, Cc, p["D"].float(), cache["h"])
     y = y * F.silu(z)
-    out = torch.einsum("kbi,kid->kbd", y, p["out_proj"].to(y.dtype))[:, :, None]
+    out = tp_reduce(torch.einsum("kbi,kid->kbd", y, p["out_proj"].to(y.dtype)),
+                    "mamba")[:, :, None]
     cache["conv"].copy_(window[:, :, 1:])
     cache["h"].copy_(h)
     return out, cache

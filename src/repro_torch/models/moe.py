@@ -10,10 +10,11 @@ experts replicated) and one device.
 
 **Expert parallelism** (a trial mesh, ``launch/train.py --devices N``): the
 twin of the JAX package's ``_moe_shard_map``, taken on its condition
-(``moe_apply``: a sharding context whose model axis divides the experts,
-and not dropless).  The activations enter whole over the model axis; each
-model rank routes its data rows' tokens in one dispatch group whose
-capacity comes from those local tokens, computes only its ``E / width``
+(``moe_apply``: a sharding context whose model axis divides the experts;
+decode's dropless layer too, every expert a slot for each assignment).
+The activations enter whole over the model axis; each model rank routes
+its data rows' tokens in one dispatch group whose capacity comes from
+those local tokens, computes only its ``E / width``
 experts (an assignment to another rank's expert goes to the dump row) and
 combines them in fp32; one all-reduce of that fp32 ``y`` over the model
 axis joins the experts.  Backward, the dispatched tokens' and the routing
@@ -187,8 +188,8 @@ def aux_loss(probs: torch.Tensor, top_e: torch.Tensor, E: int) -> torch.Tensor:
     return E * lane_sum(f / flat.shape[1] * mean_p)
 
 
-def _expert_parallel(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _expert_parallel(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh,
+                     dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The expert-parallel layer on a trial mesh's rank (module docstring):
     ``p["wi"]`` / ``p["wo"]`` hold the rank's ``E / width`` experts."""
     from ..distributed.sharding import _SeamF, _SeamG
@@ -197,7 +198,7 @@ def _expert_parallel(p: Params, x: torch.Tensor, cfg: ModelConfig, mesh
     E, k = cfg.n_experts, cfg.moe_top_k
     El = E // mesh.width
     T = B * S
-    C = capacity(cfg, T)
+    C = capacity(cfg, T, dropless)
     xt = x.reshape(K, 1, T, d)
     probs, top_p, top_e = route(p["router"], xt, k)
     slot = dispatch_slots(top_e, E, C) - mesh.model_rank * El * C
@@ -218,12 +219,12 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, dropless: bool = 
     """x (K, B, S, d) -> (y (K, B, S, d), aux (K,)): the grouped sort-based
     dispatch of ``repro.models.moe.moe_apply`` on every lane, and each
     lane's load-balancing loss; on a trial mesh whose model axis divides
-    the experts (and not dropless), the expert-parallel layer."""
+    the experts, the expert-parallel layer."""
     from ..distributed.sharding import ctx_mesh
 
     mesh = ctx_mesh()
-    if mesh is not None and not dropless and cfg.n_experts % mesh.width == 0:
-        return _expert_parallel(p, x, cfg, mesh)
+    if mesh is not None and cfg.n_experts % mesh.width == 0:
+        return _expert_parallel(p, x, cfg, mesh, dropless)
     K, B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     T = B * S

@@ -345,14 +345,20 @@ def decode_step(params: Params, cache: Params, tokens: torch.Tensor, pos: int,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
     """One serving step: tokens (K, B, 1) at position ``pos`` -> (logits fp32
     (K, B, 1, V), cache): every layer's cache row ``pos`` written in place,
-    the same tree returned."""
-    x = embed_tokens(params["embedding"], tokens, cfg)
+    the same tree returned.  Under a mesh's decode context
+    (``train/serve_step.py::ServeLayout``) ``params`` and ``cache`` hold the
+    rank's blocks and ``tokens`` its data rows: each part of the parameters
+    is gathered where it is used (``sharding.at_use``), as ``forward``
+    gathers it, and the mixers attend over the cache's blocks."""
+    emb = at_use(params["embedding"], "embedding")
+    x = embed_tokens(emb, tokens, cfg)
     for i, (m, f) in enumerate(cfg.prefix_pattern):
-        x = _layer_decode(params["prefix"][i], x, cache["prefix"][i], pos, m, f, cfg)
+        x = _layer_decode(at_use(params["prefix"][i], "prefix", i), x, cache["prefix"][i],
+                          pos, m, f, cfg)
     for j in range(cfg.n_superblocks):
-        sp = tree_map(lambda a: a[:, j], params["blocks"])
+        sp = at_use(tree_map(lambda a: a[:, j], params["blocks"]), "blocks")
         sc = tree_map(lambda a: a[:, j], cache["blocks"])
         for i, (m, f) in enumerate(cfg.pattern):
             x = _layer_decode(sp[f"l{i}"], x, sc[f"l{i}"], pos, m, f, cfg)
-    x = apply_rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embedding"], x, cfg), cache
+    x = apply_rmsnorm(x, at_use(params["final_norm"], "final_norm"), cfg.norm_eps)
+    return unembed(emb, x, cfg), cache

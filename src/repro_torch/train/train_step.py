@@ -46,9 +46,10 @@ import torch
 from ..configs.base import TrainConfig
 from ..interop import add_lane_axis, tree_leaves, tree_map, tree_unflatten
 from ..models import transformer as T
-from ..distributed.sharding import (UsePlan, build_sharding, gather_tree, make_rules,
-                                    map_specs, shard_tree, sharded_dims, sharding_context,
-                                    tp_module_flags, tp_shard_context, tp_width_rules)
+from ..distributed.sharding import (UsePlan, axis_size, build_sharding, gather_tree,
+                                    make_rules, map_specs, shard_tree, sharded_dims,
+                                    sharding_context, tp_module_flags, tp_shard_context,
+                                    tp_width_rules)
 from ..models.layers import dtype_of, lane_sum
 from ..optim.adamw import adamw_update, init_opt_state
 from ..optim.hparams import HParams, hparams_from_config, stack_hparams
@@ -250,78 +251,147 @@ def make_eval_step(tc: TrainConfig) -> Callable:
 # -- one trial over a trial mesh ---------------------------------------------------
 
 
+def use_plans(cfg, mesh, placements: Any, specs: Any) -> Dict[str, Any]:
+    """How each stored leaf of a parameter tree placed by ``placements``
+    becomes what its module computes on, by part (``sharding.at_use``):
+    attention, the dense MLP and Mamba's channels stay split over the model
+    axis where the seams cover them at this width (``tp_module_flags``), the
+    MoE experts where the width divides them (expert parallelism); every
+    other dim a placement splits is gathered (the vocab-split embedding,
+    attention whose kv heads do not divide the width, the norms, the
+    router, the shared experts), the data dim over the data axes."""
+    computed = set(tp_width_rules(cfg, mesh.width))
+    if cfg.has_moe and cfg.n_experts % mesh.width == 0:
+        computed.add("expert")
+    data_axes = tuple(mesh.data_axes)
+
+    def plans(part_placements, logical_specs, offset):
+        def one(placement, logical):
+            dims = sharded_dims(placement, mesh)
+            split = [logical[i] for i, a in dims if a == "model"]
+            if mesh.width > 1 and any(n in computed and n not in split for n in logical):
+                raise ValueError(f"{logical} placed {placement}: a dim its module "
+                                 "computes split is not stored split over the model axis")
+            data = [i for i, a in dims if a != "model"]
+            for i in data:
+                if (a := placement[i]) not in (data_axes, data_axes[0] if len(data_axes) == 1
+                                               else None):
+                    raise ValueError(f"{logical} placed {placement}: a data dim over {a}, "
+                                     f"not the data axes {data_axes}")
+            return UsePlan(
+                model=tuple(i + offset for i, a in dims
+                            if a == "model" and logical[i] not in computed),
+                data=data[0] + offset if data else None)
+
+        return map_specs(part_placements, logical_specs, one)
+
+    # the tensors at use carry the lane axis; a superblock's leaves have lost
+    # the stacked axis in its place
+    uses = {"embedding": plans(placements["embedding"], specs["embedding"], 1),
+            "blocks": plans(placements["blocks"], specs["blocks"], 0),
+            "final_norm": plans(placements["final_norm"], specs["final_norm"], 1)}
+    if "prefix" in placements:
+        uses["prefix"] = plans(placements["prefix"], specs["prefix"], 1)
+    return uses
+
+
+def init_placement(placements: Any, part: str, path: tuple) -> tuple:
+    """The placement of the leaf ``T.init_params`` makes at ``part`` /
+    ``path`` (a superblock's: without the stacked axis)."""
+    node = placements
+    for k in part.split("/") + list(path):
+        node = node[int(k)] if isinstance(node, list) else node[k]
+    return node[1:] if part == "blocks" else node
+
+
+def block_of(leaf: torch.Tensor, placement: tuple, mesh) -> torch.Tensor:
+    """This rank's block of a whole ``leaf`` placed by ``placement``, a
+    copy."""
+    for i, a in sharded_dims(placement, mesh):
+        n = leaf.shape[i] // axis_size(mesh, a)
+        leaf = leaf.narrow(i, mesh.axis_index(a) * n, n)
+    return leaf.contiguous().clone()
+
+
+def _zip_map(fn, tree: Any, *placements: Any) -> Any:
+    """``fn(leaf, *its placements)`` over a (nested dict / list) tree of
+    tensors, walked with placement trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], *(p[k] for p in placements)) for k in tree}
+    if isinstance(tree, list):
+        return [_zip_map(fn, t, *(p[i] for p in placements)) for i, t in enumerate(tree)]
+    return fn(tree, *placements)
+
+
+def _axes_mask(placements: Any, mesh) -> Any:
+    """Per leaf, the frozenset of the axes its placement splits it over (the
+    global norm all-reduces its sum of squares over them)."""
+    return map_specs(placements, placements, lambda placement, _: frozenset(
+        a for _, a in sharded_dims(placement, mesh)))
+
+
 class TrialLayout:
     """Where one trial's train state lives on a trial mesh (``launch/mesh.py``):
     ``placements`` mirrors the state, per leaf the JAX package's
-    ``build_sharding(train_state_specs(tc), make_rules(("data", "model")))``
-    placement; a rank stores its block of each leaf.
+    ``build_sharding(train_state_specs(tc), make_rules(mesh axes))``
+    placement; a rank stores its block of each leaf.  With
+    ``parallel.zero_stage == "zero1"`` (the JAX dry run's ``--set
+    zero_stage=zero1``) the parameters are placed by ``dict(rules,
+    embed=())``: split over the model axis as before, whole over the data
+    axes; the optimizer state stays data-split.
 
-    What each module computes on: attention, the dense MLP and Mamba's
-    channels split over the model axis where the seams cover them at this
-    width (``tp_module_flags``), the MoE experts where the width divides them
-    (expert parallelism); every other leaf is gathered whole at use
-    (``uses``: the vocab-split embedding, attention whose kv heads do not
-    divide the width, the norms, the router, the shared experts), and every
-    leaf's ``embed`` dim over the data axis (FSDP)."""
+    What each module computes on: ``use_plans``; every leaf's ``embed`` dim
+    over the data axes (FSDP), or, under ZeRO-1, the parameters whole."""
 
     def __init__(self, tc: TrainConfig, mesh):
         self.tc, self.mesh = tc, mesh
         cfg = tc.model
+        self.zero1 = tc.parallel.zero_stage == "zero1"
         shapes = T.init_params(torch.Generator(), cfg, "meta")
         opt = {"mu": shapes, "nu": shapes, "step": torch.empty((), device="meta")}
         if tc.parallel.master_dtype is not None:
             opt["master"] = shapes
         specs = train_state_specs(tc)
-        self.placements = build_sharding({"params": shapes, "opt": opt}, specs,
-                                         make_rules(mesh.axis_names), mesh)
+        rules = make_rules(mesh.axis_names)
+        self.placements = build_sharding({"params": shapes, "opt": opt}, specs, rules, mesh)
+        if self.zero1:
+            self.placements["params"] = build_sharding(shapes, specs["params"],
+                                                       dict(rules, embed=()), mesh)
         pp, ps = self.placements["params"], specs["params"]
-        computed = set(tp_width_rules(cfg, mesh.width))
-        if cfg.has_moe and cfg.n_experts % mesh.width == 0:
-            computed.add("expert")
-
-        def plans(placements, logical_specs, offset):
-            def one(placement, logical):
-                dims = sharded_dims(placement, mesh)
-                split = [logical[i] for i, a in dims if a == "model"]
-                if mesh.width > 1 and any(n in computed and n not in split for n in logical):
-                    raise ValueError(f"{logical} placed {placement}: a dim its module "
-                                     "computes split is not stored split over the model axis")
-                return UsePlan(
-                    model=tuple(i + offset for i, a in dims
-                                if a == "model" and logical[i] not in computed),
-                    data=next((i + offset for i, a in dims if a != "model"), None))
-
-            return map_specs(placements, logical_specs, one)
-
-        # the tensors at use carry the lane axis; a superblock's leaves have
-        # lost the stacked axis in its place
-        self.uses = {"embedding": plans(pp["embedding"], ps["embedding"], 1),
-                     "blocks": plans(pp["blocks"], ps["blocks"], 0),
-                     "final_norm": plans(pp["final_norm"], ps["final_norm"], 1)}
-        if "prefix" in pp:
-            self.uses["prefix"] = plans(pp["prefix"], ps["prefix"], 1)
-        self.gnorm_mask = map_specs(pp, ps, lambda placement, _: frozenset(
-            a for _, a in sharded_dims(placement, mesh)))
+        self.uses = use_plans(cfg, mesh, pp, ps)
+        # the gradients the norm reads are stored as the moments are
+        self.gnorm_mask = _axes_mask(self.placements["opt"]["mu"], mesh)
 
     def _placement(self, part: str, path: tuple) -> tuple:
-        node = self.placements["params"]
-        for k in part.split("/") + list(path):
-            node = node[int(k)] if isinstance(node, list) else node[k]
-        return node[1:] if part == "blocks" else node
+        return init_placement(self.placements["params"], part, path)
 
     def keep(self, part: str, path: tuple, leaf: torch.Tensor) -> torch.Tensor:
         """This rank's block of a whole leaf of the init (``T.init_params``'s
         ``keep``), a copy: the whole leaf is freed."""
-        for i, a in sharded_dims(self._placement(part, path), self.mesh):
-            n = leaf.shape[i] // self.mesh.shape[a]
-            leaf = leaf.narrow(i, self.mesh.axis_index(a) * n, n)
-        return leaf.contiguous().clone()
+        return block_of(leaf, self._placement(part, path), self.mesh)
+
+    def opt_blocks(self, params, lanes: bool = False) -> Any:
+        """Views of this rank's parameter blocks as the optimizer state
+        stores them (``lanes``: the leaves carry a lane axis first): under
+        ZeRO-1 each leaf's block over the data axes of the rank's parameter
+        (whole over them); else the blocks themselves."""
+        if not self.zero1:
+            return params
+
+        def one(x, p_place, o_place):
+            for i, (a, b) in enumerate(zip(p_place, o_place)):
+                if a is None and b is not None and axis_size(self.mesh, b) > 1:
+                    n = x.shape[i + lanes] // axis_size(self.mesh, b)
+                    x = x.narrow(i + lanes, self.mesh.axis_index(b) * n, n)
+            return x
+
+        return _zip_map(one, params, self.placements["params"], self.placements["opt"]["mu"])
 
     def init_state(self, gen: torch.Generator) -> Dict[str, Any]:
         """This rank's blocks of ``init_train_state(gen, tc)``: the same draws
         in the same order, one whole leaf at a time."""
         params = T.init_params(gen, self.tc.model, self.mesh.device, keep=self.keep)
-        return {"params": params, "opt": init_opt_state(params, self.tc)}
+        return {"params": params, "opt": init_opt_state(self.opt_blocks(params), self.tc)}
 
     def shard(self, state) -> Dict[str, Any]:
         """This rank's blocks of a whole state (a checkpoint's), on its device."""
@@ -358,6 +428,16 @@ def make_sharded_train_step(tc: TrainConfig, mesh) -> Callable:
       squares over the axes it is stored sharded on;
     * AdamW updates each block elementwise.
 
+    Under ZeRO-1 (``TrialLayout``: the parameters whole over the data axes)
+    each data rank keeps its partial gradient through the microbatches
+    (summed in fp32 where there are several); the sum is reduce-scattered
+    over the data axes once a step, to the blocks the moments hold (an
+    all-reduce for a leaf the moments hold whole), and only then rounded to
+    ``grad_allreduce_dtype``; AdamW updates the rank's block of each
+    parameter, and the blocks are all-gathered once into the whole
+    parameters.  With one microbatch that is the FSDP step's arithmetic;
+    with several, the rounding comes after the sum over microbatches.
+
     ``step.raw_grads(state, batch)`` gives this rank's gradient blocks of a
     batch as one microbatch, before their rounding."""
     layout = TrialLayout(tc, mesh)
@@ -371,8 +451,8 @@ def make_sharded_train_step(tc: TrainConfig, mesh) -> Callable:
         return nd > 1 and rows % nd == 0
 
     @contextlib.contextmanager
-    def on_mesh(split: bool):
-        with sharding_context(mesh, layout.uses, split), \
+    def on_mesh(split: bool, reduce: bool = True):
+        with sharding_context(mesh, layout.uses, split, reduce=reduce), \
                 tp_shard_context(mesh, flags, gnorm_mask=layout.gnorm_mask):
             yield
 
@@ -404,8 +484,71 @@ def make_sharded_train_step(tc: TrainConfig, mesh) -> Callable:
             _, g = micro(add_lane_axis(state)["params"], batch)
         return tree_map(lambda x: x[0], g)
 
+    acc_dt = dtype_of(tc.parallel.grad_allreduce_dtype)
+    placed = _zip_map(lambda _, a, b: (a, b), layout.placements["params"],
+                      layout.placements["params"], layout.placements["opt"]["mu"])
+
+    def to_block(g, pair, split: bool):
+        """This rank's block of its partial gradient ``g`` (lane axis first)
+        as the moments hold it, summed over the data ranks that split the
+        rows."""
+        p_place, o_place = pair
+        dims = [i for i, (a, b) in enumerate(zip(p_place, o_place))
+                if a is None and b is not None and axis_size(mesh, b) > 1]
+        if not split:
+            for i in dims:
+                n = g.shape[i + 1] // axis_size(mesh, o_place[i])
+                g = g.narrow(i + 1, mesh.axis_index(o_place[i]) * n, n)
+            return g.contiguous()
+        if dims:
+            return mesh.axis_reduce_scatter(g, dims[0] + 1, o_place[dims[0]])
+        return mesh.axis_all_reduce(g.contiguous().clone(), mesh.axis)
+
+    def zero1_step(state, batch):
+        lanes = add_lane_axis(state)
+        params, opt = lanes["params"], lanes["opt"]
+        whole = _one_lane_batch(batch, mesh.device)
+        rows = mb if mb and mb > 0 else whole["mask"].shape[1]
+        n_mb = whole["mask"].shape[1] // rows
+        split = splits(rows)
+        grads, metrics = None, None
+        with on_mesh(split, reduce=False):
+            for i in range(n_mb):
+                part = {k: v[:, i * rows:(i + 1) * rows] for k, v in whole.items()}
+                m, g = micro(params, part)
+                g = tree_leaves(g)
+                if n_mb > 1:
+                    g = [x.float() for x in g]
+                    m = {k: v.float() for k, v in m.items()}
+                grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+                metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
+            grads = _zip_map(lambda g, pair: to_block(g, pair, split),
+                             tree_unflatten(params, grads), placed)
+            grads = tree_map(lambda x: x.to(acc_dt).float() / n_mb if n_mb > 1
+                             else x.to(acc_dt), grads)
+            metrics = {k: v / n_mb for k, v in metrics.items()} if n_mb > 1 else metrics
+            if split:
+                metrics = all_reduce_metrics(metrics)
+            dev_hp = stack_hparams([hp], mesh.device)
+            lr = warmup_cosine(opt["step"], peak_lr=dev_hp.learning_rate,
+                               warmup_steps=dev_hp.warmup_steps, total_steps=dev_hp.total_steps)
+            blocks = layout.opt_blocks(params, lanes=True)
+            om = adamw_update(grads, blocks, opt, lr, tc, dev_hp)
+
+        def join(p, block, pair):
+            p_place, o_place = pair
+            for i, (a, b) in enumerate(zip(p_place, o_place)):
+                if a is None and b is not None and axis_size(mesh, b) > 1:
+                    p.copy_(mesh.axis_all_gather(block, i + 1, b))
+            return p
+
+        _zip_map(join, params, blocks, placed)
+        return state, {k: v[0] for k, v in dict(metrics, **om, lr=lr).items()}
+
     def train_step(state, batch):
         split = splits(mb if mb and mb > 0 else len(batch["mask"]))
+        if layout.zero1:
+            return zero1_step(state, batch)
         with on_mesh(split):
             return steps[split](state, batch, hp)
 

@@ -22,6 +22,11 @@ here:
   ``--devices 1`` with ``moe_apply`` run on each shard's rows and the
   load-balancing loss averaged over the shards (JAX's ``pmean``);
 * a data rank reads the global batch's rows, not ``make_batch(shard=)``'s;
+* ZeRO-1 (``zero_stage="zero1"``: the parameters whole over the data axis,
+  the gradients reduce-scattered and the parameters all-gathered once a
+  step) against ``--devices 1`` within the same 1e-4; with microbatches it
+  rounds the gradient once, after their sum, as ``--devices 1`` does for
+  the whole batch as one microbatch, which is its oracle there;
 * the gradient before its rounding against the unsharded one within 1e-6,
   and the rounded gradients equal on at least 99.9% of elements.
 """
@@ -63,14 +68,19 @@ WORLDS = {
         _case("mb-clip-21", "starcoder2-3b", (2, 1), parallel={"microbatch": 2},
               train={"grad_clip": 0.05}),
         _case("odd-batch-21", "starcoder2-3b", (2, 1), batch=3),
-        _case("deepseek-21", "deepseek-v2-lite-16b", (2, 1))],
+        _case("deepseek-21", "deepseek-v2-lite-16b", (2, 1)),
+        _case("zero1-21", "starcoder2-3b", (2, 1), parallel={"zero_stage": "zero1"}),
+        _case("zero1-mb-21", "starcoder2-3b", (2, 1),
+              parallel={"zero_stage": "zero1", "microbatch": 2},
+              oracle_parallel={"microbatch": 0})],
     3: [_case("sc2-13", "starcoder2-3b", (1, 3))],
     4: [_case("sc2-22", "starcoder2-3b", (2, 2)),
         _case("granite-22", "granite-34b", (2, 2)),
         _case("mamba-22", "falcon-mamba-7b", (2, 2)),
         _case("qwen3-22", "qwen3-moe-30b-a3b", (2, 2)),
         _case("jamba-22", "jamba-1.5-large-398b", (2, 2)),
-        _case("deepseek-22", "deepseek-v2-lite-16b", (2, 2), raw_grads=True)],
+        _case("deepseek-22", "deepseek-v2-lite-16b", (2, 2), raw_grads=True),
+        _case("zero1-22", "starcoder2-3b", (2, 2), parallel={"zero_stage": "zero1"})],
 }
 CASES = {c["name"]: (w, c) for w, cs in WORLDS.items() for c in cs}
 JOIN_S = 240.0
@@ -109,8 +119,8 @@ def _reference(case, monkeypatch):
     """``--devices 1`` on the case's trial: the state after three steps and
     each step's metrics (the MoE per data shard where the case splits rows
     over more than one data rank)."""
-    tc = R.trial_tc(case["arch"], case.get("model"), case.get("parallel"),
-                    **case.get("train", {}))
+    tc = R.trial_tc(case["arch"], case.get("model"),
+                    case.get("oracle_parallel", case.get("parallel")), **case.get("train", {}))
     n_data = case["shape"][0]
     rows = tc.parallel.microbatch or case["batch"]
     if tc.model.has_moe and n_data > 1 and rows % n_data == 0:

@@ -637,3 +637,96 @@ def _elastic(rank, out_dir, world, store, timeout_s):
         return out
     finally:
         mesh.destroy()
+
+
+# -- prefill and decode on a trial mesh (train/serve_step.py::ServeLayout) -------------
+
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_MAX_SEQ = 4, 5, 3, 16
+
+
+def decode_rank(rank, world, store, out_dir, cases, inputs_path, timeout_s):
+    """Each case of ``cases`` (dicts: ``name``, ``arch``, ``shape``, ``long``)
+    on a trial mesh of ``world`` ranks, from the whole smoke parameters and
+    prompt in ``inputs_path`` (by arch): this rank's rows of the prefill's
+    last logits, then the prompt fed a token a step and greedy tokens after
+    it, each step's logits of its rows; its blocks of the final cache, its
+    rows and the collectives by axis."""
+    _run(_decode, rank, out_dir, world, store, cases, inputs_path, timeout_s)
+
+
+def _decode(rank, out_dir, world, store, cases, inputs_path, timeout_s):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_trial_mesh
+    from repro_torch.train.serve_step import ServeLayout
+
+    torch.set_num_threads(1)
+    inputs = torch.load(inputs_path)
+    out, meshes = {}, []
+    for c in cases:
+        mesh = make_trial_mesh(world, shape=c["shape"], device="cpu",
+                               init_method=f"file://{store}", rank=rank, world_size=world,
+                               timeout_s=timeout_s)
+        meshes.append(mesh)
+        cfg = get_smoke_config(c["arch"])
+        layout = ServeLayout(cfg, mesh, shard_cache_seq=c.get("long", False))
+        params = layout.shard_params(inputs[c["arch"]]["params"])
+        prompt = inputs[c["arch"]]["prompt"]
+        rows = layout.rows(DECODE_BATCH, DECODE_MAX_SEQ)
+        before = S.mesh_collectives()
+        got = {"rows": (rows.start, rows.stop),
+               "prefill": layout.prefill(params, prompt[layout.rows(DECODE_BATCH)]),
+               "prefill_rows": layout.rows(DECODE_BATCH)}
+        cache = layout.init_cache(DECODE_BATCH, DECODE_MAX_SEQ, torch.float32)
+        tok, logits, tokens = prompt[rows, :1], [], []
+        for pos in range(DECODE_PROMPT + DECODE_NEW - 1):
+            step = layout.decode(params, cache, tok, pos, DECODE_BATCH, DECODE_MAX_SEQ)
+            logits.append(step)
+            nxt = torch.argmax(step[:, -1], dim=-1)[:, None].to(prompt.dtype)
+            tok = prompt[rows, pos + 1:pos + 2] if pos + 1 < DECODE_PROMPT else nxt
+            tokens.append(tok)
+        got.update(decode=logits, tokens=tokens, cache=cache,
+                   cache_placements=layout.cache_placements(DECODE_BATCH, DECODE_MAX_SEQ),
+                   collectives={k: v["calls"] - before.get(k, {"calls": 0})["calls"]
+                                for k, v in S.mesh_collectives().items()})
+        out[c["name"]] = got
+    for mesh in meshes[::-1]:
+        mesh.destroy()
+    return out
+
+
+# -- the dry run's collectives against a real step's ---------------------------------
+
+
+def collective_rank(rank, world, store, out_dir, arch, shape, seq, batch, timeout_s):
+    """One step of the dry run's train cell (``launch/dryrun.py::lower_cell``
+    at ``shape``, the smoke config of ``arch``, ``seq`` x ``batch``) on a
+    trial mesh of gloo ranks: the collectives it made, by ``axis/op``."""
+    _run(_collectives, rank, out_dir, world, store, arch, shape, seq, batch, timeout_s)
+
+
+def _collectives(rank, out_dir, world, store, arch, shape, seq, batch, timeout_s):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config, memory_policy
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_trial_mesh
+    from repro_torch.launch.op_stats import CollectiveLog
+    from repro_torch.train import train_step as ts
+
+    torch.set_num_threads(1)
+    mesh = make_trial_mesh(world, shape=shape, device="cpu", init_method=f"file://{store}",
+                           rank=rank, world_size=world, timeout_s=timeout_s)
+    cfg = get_smoke_config(arch)
+    pc = dataclasses.replace(memory_policy(arch, ShapeConfig("t", seq, batch, "train")),
+                             mesh_shape=tuple(shape), mesh_axes=("data", "model"))
+    step = ts.make_sharded_train_step(TrainConfig(model=cfg, parallel=pc), mesh)
+    state = step.layout.init_state(torch.Generator().manual_seed(0))
+    b = SyntheticLM(cfg.vocab_size, seq, batch, seed=0).make_batch(0)
+    b = {k: torch.as_tensor(np.asarray(v, np.float32 if k == "mask" else np.int32))
+         for k, v in b.items()}
+    with CollectiveLog() as log:
+        step(state, b)
+    mesh.destroy()
+    return log.stats().by_axis
