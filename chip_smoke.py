@@ -24,9 +24,13 @@ Phases, each printing one JSON line:
    initial A and dt over 1,024 steps, N of 4, 12, 16 and 64, ragged L, Dm and
    chunk, unaligned rows, an initial state, per-lane A with 2 and 3 rows a
    lane; TF32 off), with the flash kernel each case went through (bf16: the
-   tensor-core kernel, fp32: the CUDA-core kernel); the plain flash backward
-   fed the tensor-core kernel's (out, lse) against the same backward fed the
-   plain forward's, at the main shape; the scan's chunked backward
+   tensor-core kernel, fp32: the CUDA-core kernel); the flash backward
+   kernels (bf16 on the tensor cores, fp32 on the CUDA cores) against the
+   plain backward fed the same (out, lse) from the forward kernel, at the
+   main paths' and the width-local shapes, at head width 256 with a softcap
+   and a window and over ragged Sq != Sk with fully masked rows, and their
+   bits equal run to run, row to row and in a batch's halves against the
+   whole launch; the scan's chunked backward
    against autograd through its plain version; the RMSNorm backward kernel
    (dx and dgamma) against its closed-form plain version at the four main
    paths' shapes in bf16, in fp32, at d = 100 (the scalar kernels in bf16)
@@ -97,7 +101,7 @@ Phases, each printing one JSON line:
    its first MLA layer's input recorded: the step under the profiler, the
    layer's parts (q and latent projections with kv_norm and RoPE; the
    wk_b / wv_b decompression; the flash forward at q/k width 192, v width
-   128; the plain flash backward; wo) each under the profiler, the flash
+   128; the flash backward kernel; wo) each under the profiler, the flash
    forward against its bound, peak memory, and the same determinism gate;
 4a. sharded_path — the population mesh (``--shard-population``): at world
    1 over NCCL, made in process, starcoder2-3b as in main_path, three
@@ -249,7 +253,8 @@ TOL = {"rmsnorm": {"float32": 1e-5, "bfloat16": 3e-2},
        "ssm_scan": {"float32": 1e-4, "bfloat16": 3e-2}}   # on y; h_last always 1e-4
 SSM_STATE_TOL = 1e-4
 SSM_BWD_TOL = 5e-4
-FLASH_BWD_TOL = 3e-2   # bf16 gradients of the plain backward fed either forward
+FLASH_BWD_TOL = 3e-2        # the bf16 backward kernel against the plain backward
+FLASH_BWD_FP32_TOL = 5e-5   # the fp32 backward kernel against the plain backward
 
 # the main paths, each at its published widths with depth cut: starcoder2-3b
 # to 4 of 30 layers, falcon-mamba-7b to 4 of 64
@@ -358,6 +363,39 @@ SSM_X, SSM_N, SSM_K = (8, 1024, 8192), 16, 4      # x, dt (K*B, L, d_inner); A (
 FLASH_TP_Q, FLASH_TP_KV = (16, 1024, 12, 128), (16, 1024, 1, 128)
 FLASH_MLA_TP_Q = (2, 1024, 8, 192)
 SSM_TP_X = (8, 1024, 4096)
+FLASH_BWD_FP32_SHAPE = ((4, 512, 24, 128), (4, 512, 2, 128))   # starcoder2's heads, 4 x 512
+# the flash backward's cases against its plain version: (case, dtype, q, k, v
+# width or None for k's, keywords): the main paths' and the width-local
+# shapes, gemma2's softcap with a window at head width 256, ragged Sq != Sk
+# with fully masked rows, and fp32 at smaller shapes
+FLASH_BWD_CASES = (
+    ("main", "bfloat16", FLASH_Q, FLASH_KV, None, {}),
+    ("moe-main", "bfloat16", FLASH_MOE_Q, FLASH_MOE_KV, None, {}),
+    ("mla-main", "bfloat16", FLASH_MLA_Q, FLASH_MLA_Q, FLASH_MLA_DV, {}),
+    ("hubert-main", "bfloat16", FLASH_HUBERT_Q, FLASH_HUBERT_Q, None, dict(causal=False)),
+    ("tp2-12x1", "bfloat16", FLASH_TP_Q, FLASH_TP_KV, None, {}),
+    ("d256-window-softcap", "bfloat16", (2, 300, 8, 256), (2, 300, 4, 256), None,
+     dict(window=96, softcap=50.0)),
+    ("ragged-sq200-sk130-masked-rows", "bfloat16", (2, 200, 4, 64), (2, 130, 2, 64), None,
+     dict(window=32)),
+    # each width class below its instance's widths (the guarded instances)
+    ("d16-window-softcap-ragged-200", "bfloat16", (2, 200, 4, 16), (2, 200, 2, 16), None,
+     dict(window=64, softcap=30.0)),
+    ("d176-dv112", "bfloat16", (2, 150, 4, 176), (2, 150, 2, 176), 112, {}),
+    ("d48-dv240-sq130-sk77", "bfloat16", (1, 130, 2, 48), (1, 77, 1, 48), 240,
+     dict(causal=False)),
+    ("main-g12-b4", "float32", *FLASH_BWD_FP32_SHAPE, None, {}),
+    ("mla-d192-dv128-ragged-300", "float32", (2, 300, 4, 192), (2, 300, 4, 192), 128, {}),
+    ("hubert-d80", "float32", (2, 300, 16, 80), (2, 300, 16, 80), None, dict(causal=False)),
+    ("d256-window-softcap-sk200", "float32", (1, 300, 4, 256), (1, 200, 2, 256), None,
+     dict(window=96, softcap=50.0)),
+    ("tp2-12x1", "float32", (2, 512, 12, 128), (2, 512, 1, 128), None, {}),
+    ("ragged-sq200-sk130-masked-rows", "float32", (2, 200, 4, 64), (2, 130, 2, 64), None,
+     dict(window=32)),
+)
+FLASH_BWD_OTHER_SHAPES = {("moe-main", "bfloat16"): "moe", ("mla-main", "bfloat16"): "mla",
+                          ("hubert-main", "bfloat16"): "hubert", ("tp2-12x1", "bfloat16"): "tp",
+                          ("main-g12-b4", "float32"): "fp32"}
 SSM_CHUNK = 128                                    # the chunk states SSMScan.forward keeps
 SFU_PER_FP32_FLOPS = 16   # an SM's 128 FP32 lanes (256 flop a clock) against 16 exponentials
 CHUNK, CHUNK_FLIGHT_STEPS = 4, 8                   # the chunked paths: two chunks of 4 a flight
@@ -397,11 +435,15 @@ PBT_SPACE = [
 # our kernels by the substring of their device name (the fp32 flash kernel's
 # name is not a substring of the tensor-core one's, nor the RMSNorm
 # forward's of the backward's; the backward's dgamma sum is a second kernel,
-# rmsnorm_dgamma_kernel, of the same launch)
+# rmsnorm_dgamma_kernel, of the same launch; a flash backward launch runs
+# three kernels, fa_bwd_delta_kernel, fa_bwd_dkdv_*_kernel and the dQ
+# kernel counted here)
 KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "rmsnorm_bwd": "rmsnorm_bwd_kernel",
                 "flash_attention_sm90": "flash_fwd_sm90_kernel",
-                "flash_attention_fp32": "flash_fwd_kernel", "ssm_scan": "ssm_scan_kernel",
-                "synth_tokens": "synth_tokens_kernel"}
+                "flash_attention_fp32": "flash_fwd_kernel",
+                "flash_attention_bwd_bf16": "fa_bwd_dq_bf16_kernel",
+                "flash_attention_bwd_fp32": "fa_bwd_dq_fp32_kernel",
+                "ssm_scan": "ssm_scan_kernel", "synth_tokens": "synth_tokens_kernel"}
 INT_OF_SIZE = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
 
 
@@ -428,6 +470,14 @@ PTXAS_INSTANCES = {  # source: (its kernel's instances in the mangled names, lab
     "flash_attention.cu": (r"flash_fwd_kernel(?:ILi(\d+)ELi(\d+)ELi\d+E)?",
                            lambda m: f"rows_{m[1]}_vchunks_{m[2]}" if m[1] else m[0]),
     "synth_tokens.cu": (r"(synth_tokens_kernel)", lambda m: m[1]),
+    # the backward's kernels: dkdv / dq <DK, DV[, exact]> (bf16; exact: at
+    # exactly those widths) or <DP> (fp32), delta and sum_heads <dtype>
+    "flash_attention_bwd.cu": (
+        r"fa_bwd_(\w+?)_kernelI((?:L[ib]\d+E)+|13__nv_bfloat16|f)E",
+        lambda m: "{}<{}>".format(m[1], ",".join(
+            n if t == "i" else ("exact" if n == "1" else "any")
+            for t, n in re.findall(r"L([ib])(\d+)E", m[2]))
+            if m[2].startswith("L") else ("bf16" if m[2] != "f" else "fp32"))),
     # <G, S>: G states a thread, S threads a channel
     "ssm_scan.cu": (r"ssm_scan_kernelI(13__nv_bfloat16|f)((?:Li\d+E)+)",
                     lambda m: "{}<{}>".format("bf16" if m[1] != "f" else "fp32",
@@ -609,38 +659,93 @@ def flash_masked_rows_case(torch, dev, gen, dtype):
                 kernel_launches={counter[len("launches_"):]: through}, ok=ok)
 
 
-def flash_backward_case(torch, dev, gen):
-    """The plain blocked backward (the one training runs) fed the tensor-core
-    kernel's (out, lse) against the same backward fed the plain forward's, at
-    the main shape; dq, dk, dv compared in bf16."""
+def flash_bwd_inputs(torch, dev, gen, qs, kvs, dv, dtype, **kw):
+    """q, k, v, the dtype's forward kernel's (out, lse), dout, and the
+    keyword arguments (causal unless given; scale 1/sqrt of the q/k width)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
 
-    B, S, H, D = FLASH_Q
-    Hkv = FLASH_KV[2]
-    q = torch.randn(FLASH_Q, generator=gen, device=dev).bfloat16()
-    k = torch.randn(FLASH_KV, generator=gen, device=dev).bfloat16()
-    v = torch.randn(FLASH_KV, generator=gen, device=dev).bfloat16()
-    dout = torch.randn(FLASH_Q, generator=gen, device=dev).bfloat16()
-    kw = dict(causal=True, window=None, softcap=None, scale=D ** -0.5)
-    before = fa.launches_sm90
-    grads = []
-    for fwd in (fa.flash_fwd_cuda, fa.flash_fwd_plain):
-        out, lse = fwd(q, k, v, **kw)
-        grads.append(ref._blocked_bwd(q, k, v, out, lse.reshape(B, Hkv, H // Hkv, S), dout,
-                                      q_offset=0, block_q=fa.BWD_BLOCK, block_kv=fa.BWD_BLOCK,
-                                      causal_skip=True, **kw))
-        del out, lse
-    torch.cuda.synchronize()
-    through = fa.launches_sm90 - before
-    errs = {n: float((a.float() - b.float()).abs().max())
-            for n, a, b in zip(("dq", "dk", "dv"), *grads)}
-    ok = through == 1 and all(
-        bool(torch.allclose(a.float(), b.float(), atol=FLASH_BWD_TOL, rtol=FLASH_BWD_TOL))
-        for a, b in zip(*grads))
-    return dict(kernel="flash_attention", case="main-backward-from-kernel-lse", dtype="bfloat16",
-                max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, tol=FLASH_BWD_TOL,
-                kernel_launches={"sm90": through}, ok=ok)
+    q = torch.randn(qs, generator=gen, device=dev).to(dtype)
+    k = torch.randn(kvs, generator=gen, device=dev).to(dtype)
+    v = torch.randn(kvs[:3] + (dv or kvs[3],), generator=gen, device=dev).to(dtype)
+    dout = torch.randn(qs[:3] + (v.shape[3],), generator=gen, device=dev).to(dtype)
+    kw = dict(dict(causal=True, window=None, softcap=None), **kw, scale=qs[-1] ** -0.5)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    return (q, k, v, out, lse, dout), kw
+
+
+def flash_bwd_cases(torch, dev, gen):
+    """The backward kernels against ``flash_bwd_plain`` fed the same (out,
+    lse) from the dtype's forward kernel: bf16 at ``FLASH_BWD_TOL``, fp32 at
+    ``FLASH_BWD_FP32_TOL``, each case one launch of the dtype's backward
+    and none of the other's.  Returns the cases and each one's error by
+    ``(case, dtype)``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cases, errs = [], {}
+    for case, dname, qs, kvs, dv, kw in FLASH_BWD_CASES:
+        dtype = getattr(torch, dname)
+        ins, kw = flash_bwd_inputs(torch, dev, gen, qs, kvs, dv, dtype, **kw)
+        before = (fa.launches_bwd_bf16, fa.launches_bwd_fp32)
+        got = fa.flash_bwd_cuda(*ins, **kw)
+        through = {"bf16": fa.launches_bwd_bf16 - before[0],
+                   "fp32": fa.launches_bwd_fp32 - before[1]}
+        want = fa.flash_bwd_plain(*ins, **kw)
+        torch.cuda.synchronize()
+        tol = FLASH_BWD_TOL if dtype == torch.bfloat16 else FLASH_BWD_FP32_TOL
+        by = {n: float((a.float() - b.float()).abs().max())
+              for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        close = all(bool(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol))
+                    for a, b in zip(got, want))
+        # the gate's own measure: |a - b| / (tol + tol |b|), at most 1 where it holds
+        ratio = max(float(((a.float() - b.float()).abs() / (tol + tol * b.float().abs())).max())
+                    for a, b in zip(got, want))
+        want_through = {"bf16": 1, "fp32": 0} if dtype == torch.bfloat16 else \
+            {"bf16": 0, "fp32": 1}
+        errs[case, dname] = max(by.values())
+        cases.append(dict(kernel="flash_attention_bwd", case=case, dtype=dname,
+                          shape={"q": list(qs), "k": list(kvs), "v": list(ins[2].shape)},
+                          **{k: kw[k] for k in ("causal", "window", "softcap")},
+                          max_abs_err=max(by.values()), max_abs_err_by_grad=by, tol=tol,
+                          worst_share_of_gate=ratio,
+                          kernel_launches=through, ok=close and through == want_through))
+        del ins, got, want
+    return cases, errs
+
+
+def flash_bwd_bits_cases(torch, dev, gen):
+    """The backward's bits depend on a row's own data only (no atomics, no
+    split that follows the batch's extent): run twice, the same bits; one
+    row repeated in four batch rows, the same bits in each; a batch's two
+    halves launched apart, the whole launch's bits.  bf16 at the main
+    shape's per-lane rows, fp32 at a smaller one."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = []
+    for dtype, (qs, kvs) in ((torch.bfloat16, (FLASH_Q, FLASH_KV)),
+                             (torch.float32, FLASH_BWD_FP32_SHAPE)):
+        dname = str(dtype).split(".")[-1]
+        one, kw = flash_bwd_inputs(torch, dev, gen, (1,) + qs[1:], (1,) + kvs[1:], None, dtype)
+        lanes = [t.expand((4,) + tuple(t.shape[1:])).contiguous() for t in one]
+        first, again = fa.flash_bwd_cuda(*lanes, **kw), fa.flash_bwd_cuda(*lanes, **kw)
+        torch.cuda.synchronize()
+        runs = all(torch.equal(a, b) for a, b in zip(first, again))
+        rows = all(torch.equal(g[i], g[0]) for g in first for i in range(1, 4))
+        cases.append(dict(kernel="flash_attention_bwd", case="bits-2-runs-4-identical-rows",
+                          dtype=dname, shape=[4, *qs[1:]], runs_bit_equal=runs,
+                          rows_bit_equal=rows, ok=runs and rows))
+        del one, lanes, first, again
+        ins, kw = flash_bwd_inputs(torch, dev, gen, qs, kvs, None, dtype)
+        whole = fa.flash_bwd_cuda(*ins, **kw)
+        h = qs[0] // 2
+        parts = [fa.flash_bwd_cuda(*(t[a:b].contiguous() for t in ins), **kw)
+                 for a, b in ((0, h), (h, None))]
+        torch.cuda.synchronize()
+        equal = all(torch.equal(w, torch.cat([p[i] for p in parts]))
+                    for i, w in enumerate(whole))
+        cases.append(dict(kernel="flash_attention_bwd", case=f"bits-{qs[0]}-rows-vs-halves",
+                          dtype=dname, shape=list(qs), halves_bit_equal=equal, ok=equal))
+        del ins, whole, parts
+    return cases
 
 
 def synth_cases(torch, dev):
@@ -897,7 +1002,12 @@ def check_kernels(torch, dev):
     errs["synth_tokens"] = max(c["max_abs_err"] for c in cases if c["kernel"] == "synth_tokens")
     cases.extend(flash_masked_rows_case(torch, dev, gen, dt)
                  for dt in (torch.bfloat16, torch.float32))
-    cases.append(flash_backward_case(torch, dev, gen))
+    bwd_cases, bwd_errs = flash_bwd_cases(torch, dev, gen)
+    cases.extend(bwd_cases)
+    errs["flash_attention_bwd"] = bwd_errs["main", "bfloat16"]
+    for (case, dname), key in FLASH_BWD_OTHER_SHAPES.items():
+        errs[f"flash_attention_bwd@{key}"] = bwd_errs[case, dname]
+    cases.extend(flash_bwd_bits_cases(torch, dev, gen))
     cases.append(ssm_backward_case(torch, dev, gen))
     cases.extend(rmsnorm_bwd_bits_cases(torch, dev, gen))
     emit({"phase": "kernels", "cases": cases})
@@ -928,7 +1038,9 @@ def counters() -> dict:
 
     return {"rmsnorm": rn.launches, "rmsnorm_bwd": rn.launches_bwd,
             "flash_attention_sm90": fa.launches_sm90,
-            "flash_attention_fp32": fa.launches_fp32, "ssm_scan": ss.launches,
+            "flash_attention_fp32": fa.launches_fp32,
+            "flash_attention_bwd_bf16": fa.launches_bwd_bf16,
+            "flash_attention_bwd_fp32": fa.launches_bwd_fp32, "ssm_scan": ss.launches,
             "synth_tokens": sk.launches}
 
 
@@ -948,10 +1060,10 @@ def rms_widths(cfg) -> dict:
 
 def launches_per_step(cfg, chunked: bool = False) -> dict:
     """Kernel launches one population step of ``cfg`` makes: the RMSNorms of
-    ``rms_widths``, each forward with its backward; one flash launch per
-    attention layer (MLA's too), of the tensor-core kernel in bf16 and of
-    the CUDA-core kernel in fp32; one scan per Mamba layer; one token
-    synthesis in a chunk (the per-step path feeds host batches)."""
+    ``rms_widths``, each forward with its backward; one flash forward and
+    one flash backward per attention layer (MLA's too), on the tensor cores
+    in bf16 and on the CUDA cores in fp32; one scan per Mamba layer; one
+    token synthesis in a chunk (the per-step path feeds host batches)."""
     layers = list(cfg.prefix_pattern) + list(cfg.pattern) * cfg.n_superblocks
     rms = sum(rms_widths(cfg).values())
     attn = sum(m.startswith("attn") for m, _ in layers)
@@ -959,6 +1071,8 @@ def launches_per_step(cfg, chunked: bool = False) -> dict:
     return {"rmsnorm": rms, "rmsnorm_bwd": rms,
             "flash_attention_sm90": attn if bf16 else 0,
             "flash_attention_fp32": 0 if bf16 else attn,
+            "flash_attention_bwd_bf16": attn if bf16 else 0,
+            "flash_attention_bwd_fp32": 0 if bf16 else attn,
             "ssm_scan": sum(m == "mamba" for m, _ in layers),
             "synth_tokens": int(chunked)}
 
@@ -1085,6 +1199,7 @@ def steady_state_step(torch, dev, tc, batch, seq, population, warmup=1, timed=3)
 
 KERNEL_GROUPS = (  # (group, substrings of the device kernel's name)
     ("flash_attention_fwd (ours)", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
+    ("flash_attention_bwd (ours)", ("fa_bwd_",)),
     ("rmsnorm (ours)", ("rmsnorm_kernel",)),
     ("rmsnorm_bwd (ours)", ("rmsnorm_bwd_kernel", "rmsnorm_dgamma_kernel")),
     ("ssm_scan (ours)", ("ssm_scan_kernel",)),
@@ -2717,6 +2832,11 @@ def _cli_losses(text) -> dict:
             for ln in text.splitlines() if ln.startswith("step ")}
 
 
+# the kernels whose launches a trial-mesh rank must make a step
+TRIAL_GATED = ("rmsnorm", "rmsnorm_bwd", "flash_attention_sm90", "flash_attention_fp32",
+               "flash_attention_bwd_bf16", "flash_attention_bwd_fp32")
+
+
 def trial_mesh_path(torch, dev):
     """The trial mesh (``launch/train.py --devices N``): gloo ranks sharing
     the card, each storing its blocks of one trial's state, against
@@ -2831,10 +2951,7 @@ def trial_mesh_path(torch, dev):
             problems.append(f"{name}: losses {diff} from --devices 1 > {TRIAL_TOL[dtype]}")
         if any(r["losses"] != r0["losses"] for r in ranks[1:]):
             problems.append(f"{name}: the ranks report other losses")
-        if {k: r0["launches"][k] for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention_sm90",
-                                            "flash_attention_fp32")} != \
-                {k: want[k] for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention_sm90",
-                                      "flash_attention_fp32")}:
+        if {k: r0["launches"][k] for k in TRIAL_GATED} != {k: want[k] for k in TRIAL_GATED}:
             problems.append(f"{name}: rank 0 launched {r0['launches']}, want {want}")
     a = jobs["a_bf16"]
     a["reckoned_model_collectives"] = trial_reckoned(trial_job_config("a_bf16"), (1, 2))
@@ -2867,7 +2984,8 @@ def trial_mesh_path(torch, dev):
     cli_want = {k: v * TRIAL_FAIL_AT for k, v in train_launches_per_step(
         tc.model, args.remat).items()}
     if any(killed[0]["launches"][k] != cli_want[k] for k in ("rmsnorm", "rmsnorm_bwd",
-                                                               "flash_attention_fp32")):
+                                                               "flash_attention_fp32",
+                                                               "flash_attention_bwd_fp32")):
         problems.append(f"cli: rank 0 launched {killed[0]['launches']}, want {cli_want}")
     decode = [g["decode"] for g in got[2]]
     for r, runs in enumerate(decode):
@@ -3098,11 +3216,12 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
     """The ``mla`` line: one eager population step at the MLA cell, the input
     of its first MLA layer recorded; the step under the profiler; the
     layer's parts, each forward and backward (the flash forward and the
-    plain flash backward apart) under the profiler on that input: the q and
+    flash backward apart) under the profiler on that input: the q and
     latent projections with ``kv_norm`` and RoPE, the ``wk_b`` / ``wv_b``
     decompression with the q/k concatenation, the flash forward at q/k
-    width 192 and v width 128, the plain flash backward, ``wo``; the flash
-    forward against its bound and its padded 256-wide instance's work; peak
+    width 192 and v width 128, the flash backward kernel, ``wo``; the flash
+    forward against its bound and its padded 256-wide instance's work, the
+    backward against its bound; peak
     memory against the reckoning.  Then the determinism gate: the layer's
     forward and backward run twice on the same input give raw-bit-equal y
     and gradients, and the same input and parameters in lane 0 and lane 1
@@ -3110,7 +3229,6 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.interop import tree_map
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     from repro_torch.launch.hpo import PopulationTrial
     from repro_torch.models import attention as A
     from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
@@ -3185,7 +3303,6 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
     g_out = rand(out.shape)
     g_y = rand(x.shape)
     attn_out = out.reshape((K, B) + out.shape[1:])
-    lse_g = lse.reshape(K * B, H, 1, S)   # kv heads = q heads in MLA
 
     def q_latent_rope_fb():
         p_ = {n: leaf(params[n]) for n in ("wq", "wkv_a", "kv_norm")}
@@ -3203,31 +3320,34 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
         return fa.flash_fwd_cuda(q_full, k_full, v, causal=True, window=None, softcap=None,
                                  scale=scale)
 
-    def flash_bwd():   # as FlashAttention.backward calls it
-        return ref._blocked_bwd(q_full, k_full, v, out, lse_g, g_out, causal=True,
-                                window=None, softcap=None, scale=scale, q_offset=0,
-                                block_q=fa.BWD_BLOCK, block_kv=fa.BWD_BLOCK, causal_skip=True)
+    def flash_bwd():   # as FlashAttention.backward calls it on the card
+        return fa.flash_bwd_cuda(q_full, k_full, v, out, lse, g_out, causal=True,
+                                 window=None, softcap=None, scale=scale)
 
     def wo_fb():
         oo, wo = leaf(attn_out), leaf(params["wo"])
         return torch.autograd.grad(torch.einsum("kbshe,khed->kbsd", oo, wo), (oo, wo), g_y)
 
     fns = (("q_latent_rope", q_latent_rope_fb), ("decompress", decompress_fb),
-           ("flash_fwd", flash_fwd), ("flash_bwd_plain", flash_bwd), ("wo", wo_fb))
-    fa_before = (fa.launches_sm90, fa.launches_fp32)   # the profiler resets the counters
+           ("flash_fwd", flash_fwd), ("flash_bwd", flash_bwd), ("wo", wo_fb))
+    fa_before = counters()   # the profiler resets the counters
     flash_fwd()
+    flash_bwd()
     torch.cuda.synchronize()
-    flash_through = {"sm90": fa.launches_sm90 - fa_before[0],
-                     "fp32": fa.launches_fp32 - fa_before[1]}
+    flash_through = {k[len("flash_attention_"):]: v - fa_before[k]
+                     for k, v in counters().items() if k.startswith("flash_attention")}
     parts = timed_parts(torch, fns)
     pairs = S * (S + 1) // 2
-    flops, nb = fa.cost(((K * B, S, H, D), (K * B, S, H, D), (K * B, S, H, Dv)),
-                        (q_full.dtype,) * 3)
+    shapes = ((K * B, S, H, D), (K * B, S, H, D), (K * B, S, H, Dv))
+    flops, nb = fa.cost(shapes, (q_full.dtype,) * 3)
     padded = 2 * K * B * H * pairs * (2 * 256)    # the 256-wide instance pads both widths
     b_ms, b_by = bound_ms(nb, flops, "bfloat16")
     flash_ms = parts["flash_fwd"]["device_ms"] or parts["flash_fwd"]["event_ms"]
+    bwd_flops, bwd_nb = fa.cost(shapes, (q_full.dtype,) * 3, backward=True)
+    bwd_b_ms, bwd_b_by = bound_ms(bwd_nb, bwd_flops, "bfloat16")
+    bwd_ms = parts["flash_bwd"]["device_ms"] or parts["flash_bwd"]["event_ms"]
     layer_ms = {n: p_.get("device_ms") or p_["event_ms"] for n, p_ in parts.items()}
-    del qkc, q_full, k_full, v, out, lse, lse_g, g_qkc, g_full, g_out, g_y, attn_out
+    del qkc, q_full, k_full, v, out, lse, g_qkc, g_full, g_out, g_y, attn_out
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3259,6 +3379,8 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
                       "useful_share_of_arithmetic": flops / padded, "bytes": nb,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "share_of_bound": b_ms / flash_ms, "kernel_launches": flash_through},
+        "flash_bwd": {"flops": bwd_flops, "bytes": bwd_nb, "bound_ms": bwd_b_ms,
+                      "bound_by": bwd_b_by, "share_of_bound": bwd_b_ms / bwd_ms},
         "step_profile": step_prof,
         "peak_memory_gib": peak / 2 ** 30, "peak_memory_gb": peak / 1e9,
         "reckoned_peak_gb": DEEPSEEK_RECKONED_PEAK_GB,
@@ -3267,8 +3389,8 @@ def mla_path(torch, dev, arch, n_layers, population, batch, seq, seed=0, **_):
     }
     emit(res)
     problems = []   # the parts' times are observations; the gate is the bits
-    if flash_through != {"sm90": 1, "fp32": 0}:
-        problems.append(f"the bf16 flash forward went through {flash_through}")
+    if flash_through != {"sm90": 1, "fp32": 0, "bwd_bf16": 1, "bwd_fp32": 0}:
+        problems.append(f"the bf16 flash forward and backward went through {flash_through}")
     if not rerun_equal:
         problems.append("the MLA layer's forward and backward differ run to run")
     if not lanes_equal:
@@ -4339,19 +4461,21 @@ def train_args(dev, arch, batch, seq, steps, remat="none", extra=()):
 
 
 class plain_versions_raise:
-    """While open, the plain versions of the RMSNorm and flash forward
-    kernels (and of the RMSNorm backward) raise: a step on the card must run
-    the kernels only."""
+    """While open, the plain versions of the RMSNorm and flash kernels,
+    forward and backward, raise: a step on the card must run the kernels
+    only."""
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ref
         from repro_torch.kernels import rmsnorm as rn
 
         def refuse(*_, **__):
             raise RuntimeError("a plain version ran on the card's path")
 
         self.saved = [(m, n, getattr(m, n)) for m, n in (
-            (rn, "rmsnorm_plain"), (rn, "rmsnorm_bwd_plain"), (fa, "flash_fwd_plain"))]
+            (rn, "rmsnorm_plain"), (rn, "rmsnorm_bwd_plain"), (fa, "flash_fwd_plain"),
+            (fa, "flash_bwd_plain"), (ref, "_blocked_bwd"))]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
         return self
@@ -4959,7 +5083,8 @@ def decode_vs_forward(torch, dev, cfg, params, tokens, tol=None):
         errs = [float((dec_last - fwd_last).abs().max())]
     fwd = {k: mid[k] - before[k] for k in mid}
     dec = {k: after[k] - mid[k] for k in mid}
-    want_fwd = dict(launches_per_step(cfg), rmsnorm_bwd=0)
+    want_fwd = dict(launches_per_step(cfg), rmsnorm_bwd=0, flash_attention_bwd_bf16=0,
+                    flash_attention_bwd_fp32=0)
     want_dec = {k: n * P for k, n in decode_launches_per_step(cfg).items()}
     agree = int((fwd_last.argmax(-1) == dec_last.argmax(-1)).sum())
     out = {"prompt": P, "rows": B, "dtype": cfg.param_dtype,
@@ -5335,12 +5460,46 @@ def sm_clock_max_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+def flash_bwd_timing(torch, dev, gen, qs, kvs, dv=None, causal=True, dtype=None):
+    """The dtype's (bf16 unless given) flash backward kernel, its plain
+    version and the backward of SDPA (``enable_gqa``) through autograd at q
+    ``qs``, k ``kvs``, v as k or ``dv`` wide, fed the forward kernel's (out,
+    lse): CUDA-event ms a launch, the bound from ``cost(backward=True)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = dtype or torch.bfloat16
+    ins, kw = flash_bwd_inputs(torch, dev, gen, qs, kvs, dv, dtype, causal=causal)
+    q, k, v, _, _, dout = ins
+    n_ops, nb = fa.cost((q.shape, k.shape, v.shape), (q.dtype,) * 3, causal=causal,
+                        backward=True)
+    dname = str(dtype).split(".")[-1]
+    b_ms, b_by = bound_ms(nb, n_ops, dname)
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+    g = dout.transpose(1, 2)
+    ms = event_ms(torch, lambda: fa.flash_bwd_cuda(*ins, **kw))
+    out = {
+        "ms": ms,
+        "plain_ms": event_ms(torch, lambda: fa.flash_bwd_plain(*ins, **kw), n=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+        "library_ms": event_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, g, retain_graph=True), n=10),
+        "shape": {"q": list(qs), "k": list(kvs), "v": list(v.shape), "causal": causal,
+                  "dtype": dname},
+    }
+    del ins, q, k, v, dout, leaves, lib_out, g
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
     """One row per kernel for the ``kernels`` line.  ``by_path`` holds each
     main path's launch counts; a row's ``launches`` is their sum (the flash
     row's: the tensor-core kernel's, with both kernels' counts beside it).
-    ``fp32_launches``: the CUDA-core flash kernel's launches in the
-    card-against-CPU phase; ``chunk_launches``: the synthesis kernel's
+    ``fp32_launches``: the CUDA-core flash kernels' launches (forward and
+    backward) in the card-against-CPU phase; ``chunk_launches``: the synthesis kernel's
     launches in one replayed chunk's graph, by chunked path."""
     import torch.nn.functional as F
 
@@ -5538,7 +5697,7 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         # every backend may take it)
         "fp32_kernel": {
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "launches_card_vs_cpu": fp32_launches,
+            "launches_card_vs_cpu": fp32_launches["flash_attention_fp32"],
             "max_abs_err": errs["flash_attention@fp32_main"],
             "ms": fp32_ms,
             "plain_ms": event_ms(torch, lambda: fa.flash_fwd_plain(q32, k32, v32, **kw), n=3,
@@ -5588,6 +5747,38 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         device_share_of_bound=ragged["bound_ms"] / ragged["device_ms"],
         max_abs_err=errs["flash_attention@mla_ragged"])
     del q, k, v, qt, kt, vt
+
+    def bwd_at(*shapes, **kw_):
+        return flash_bwd_timing(torch, dev, gen, *shapes, **kw_)
+
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # not a TPU kernel: the JAX package's custom VJP of the Pallas forward
+        # runs the blocked backward in plain jnp
+        "replaces": "src/repro/kernels/flash_attention.py:188", "tpu_kernel": False,
+        "products": "mma.sync.m16n8k16 (bf16), fmaf (fp32)",
+        **counts("flash_attention_bwd_bf16"),
+        "launches_by_kernel": {kern: sum(p[f"flash_attention_bwd_{kern}"]
+                                         for p in by_path.values())
+                               for kern in ("bf16", "fp32")},
+        "max_abs_err": errs["flash_attention_bwd"], **bwd_at(FLASH_Q, FLASH_KV),
+        "moe_shape": dict(bwd_at(FLASH_MOE_Q, FLASH_MOE_KV),
+                          max_abs_err=errs["flash_attention_bwd@moe"]),
+        "mla_shape": dict(bwd_at(FLASH_MLA_Q, FLASH_MLA_Q, dv=FLASH_MLA_DV),
+                          max_abs_err=errs["flash_attention_bwd@mla"]),
+        "hubert_shape": dict(bwd_at(FLASH_HUBERT_Q, FLASH_HUBERT_Q, causal=False),
+                             max_abs_err=errs["flash_attention_bwd@hubert"]),
+        "tp_shape": dict(bwd_at(FLASH_TP_Q, FLASH_TP_KV),
+                         max_abs_err=errs["flash_attention_bwd@tp"],
+                         launches_tp_path_rank0=by_path.get(TP["arch"] + "+tp", {}).get(
+                             "flash_attention_bwd_bf16", 0)),
+        # the fp32 backward (CUDA cores), the fp32 twins' kernel, at
+        # starcoder2's heads over 4 rows of 512; SDPA's in fp32, TF32 off
+        "fp32_kernel": dict(bwd_at(*FLASH_BWD_FP32_SHAPE, dtype=torch.float32),
+                            max_abs_err=errs["flash_attention_bwd@fp32"],
+                            launches_card_vs_cpu=fp32_launches["flash_attention_bwd_fp32"]),
+    })
 
     x, dtt, A, Bc, Cc, Dk, _ = ssm_inputs(torch, dev, gen, SSM_X, SSM_N, SSM_K, dt)
     R, L, Dm = SSM_X
@@ -5738,6 +5929,7 @@ def main() -> int:
           **{key: ptxas_summary(build.ptxas_report.get(src, ""), src)
              for key, src in (("flash_sm90_ptxas", "flash_attention_sm90.cu"),
                               ("flash_fp32_ptxas", "flash_attention.cu"),
+                              ("flash_bwd_ptxas", "flash_attention_bwd.cu"),
                               ("ssm_scan_ptxas", "ssm_scan.cu"),
                               ("rmsnorm_ptxas", "rmsnorm.cu"),
                               ("synth_tokens_ptxas", "synth_tokens.cu"))}})
@@ -5815,8 +6007,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("elastic_path")
-    fp32_launches = sum(card_vs_cpu(torch, dev, arch)["flash_attention_fp32"]
-                        for arch in CARD_VS_CPU)
+    card = [card_vs_cpu(torch, dev, arch) for arch in CARD_VS_CPU]
+    fp32_launches = {k: sum(c[k] for c in card)
+                     for k in ("flash_attention_fp32", "flash_attention_bwd_fp32")}
     lap("card_vs_cpu")
     by_path[TRAIN["arch"] + "+train"], train_out = train_path(torch, dev, **TRAIN)
     lap("train_path")

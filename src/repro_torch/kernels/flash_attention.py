@@ -1,5 +1,5 @@
-"""Flash attention forward: the CUDA kernels, their plain version and the
-autograd function.
+"""Flash attention: the CUDA kernels, their plain versions and the autograd
+function.
 
 Replaces ``repro/kernels/flash_attention.py::_flash_fwd_pallas`` (body
 ``_flash_kernel``).  Semantics of the Pallas kernel: grouped-query heads (q
@@ -9,17 +9,23 @@ an fp32 online softmax, and an fp32 ``lse (B, H, Sq)`` that is ``NEG_INF`` on
 fully masked rows.  The output has q's dtype.
 
 A CPU tensor takes the plain version; a CUDA tensor launches a kernel or
-raises.  The kernel goes by dtype: bf16 runs the tensor-core kernel
+raises.  The forward goes by dtype: bf16 runs the tensor-core kernel
 (``csrc/flash_attention_sm90.cu``: wgmma, TMA-fed K/V ring), fp32 the exact
 CUDA-core kernel (``csrc/flash_attention.cu``).  ``launches_sm90`` and
-``launches_fp32`` count each; ``launches`` is their sum.  The backward
-pass is the plain blocked flash backward ``ref._blocked_bwd`` fed the
-kernel's ``lse``, as in the JAX package's ``_make_flash``.
+``launches_fp32`` count each; ``launches`` is their sum.
 
-A tensor on the meta device (the dry run) gets empty ``out`` and ``lse``,
-and the kernel's work (``cost``) goes to the op-cost walk
-(``kernels/walk.py``), as a launch on the card reports it while a walk is
-active.
+The backward is the VJP the JAX package computes in plain jnp
+(``_make_flash.bwd``: the blocked backward fed the forward's ``lse``).  On
+the card it is hand-written too (``csrc/flash_attention_bwd.cu``: a row-sum
+pre-pass, then a dK/dV kernel a q head, under grouped heads the sum of a
+group's partials in head order, and a dQ kernel; no atomics), bf16 on the
+tensor cores and fp32 in exact FMAs, counted by ``launches_bwd_bf16`` and
+``launches_bwd_fp32``; on the CPU its plain version ``flash_bwd_plain`` runs
+(``ref._blocked_bwd``).
+
+A tensor on the meta device (the dry run) gets empty outputs, and the
+kernel's work (``cost``) goes to the op-cost walk (``kernels/walk.py``), as a
+launch on the card reports it while a walk is active.
 """
 from __future__ import annotations
 
@@ -40,12 +46,15 @@ _count_lock = threading.Lock()
 launches_sm90 = 0   # bf16, tensor-core kernel
 launches_fp32 = 0   # fp32, CUDA-core kernel
 launches = 0        # launches_sm90 + launches_fp32
+launches_bwd_bf16 = 0   # backward, bf16, tensor cores
+launches_bwd_fp32 = 0   # backward, fp32, CUDA cores
 
 
 def reset_launches() -> None:
-    global launches, launches_sm90, launches_fp32
+    global launches, launches_sm90, launches_fp32, launches_bwd_bf16, launches_bwd_fp32
     with _count_lock:
         launches = launches_sm90 = launches_fp32 = 0
+        launches_bwd_bf16 = launches_bwd_fp32 = 0
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool, window: Optional[int],
@@ -89,25 +98,31 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: Optional[int]) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def cost(shapes, dtypes, causal: bool = True, window: Optional[int] = None) -> tuple:
+def cost(shapes, dtypes, causal: bool = True, window: Optional[int] = None,
+         backward: bool = False) -> tuple:
     """(operations, HBM bytes) of one launch at q ``shapes[0]`` (B, Sq, H,
     D), k ``shapes[1]`` (B, Sk, Hkv, D) and v ``shapes[2]`` (B, Sk, Hkv, Dv)
-    in ``dtypes``: two products of D + Dv multiply-adds over each visible
-    (q, k) pair of each head; q, k and v read once, the output (H heads of
-    Dv) and the fp32 lse written once."""
+    in ``dtypes``.  The forward: two products of D + Dv multiply-adds over
+    each visible (q, k) pair of each head; q, k and v read once, the output
+    (H heads of Dv) and the fp32 lse written once.  The backward: five
+    products (S, dP, dV, dK, dQ), 3 D + 2 Dv multiply-adds a pair; q, k, v,
+    out, dout and lse read once, dq, dk and dv written once."""
     (B, Sq, H, D), (_, Sk, _, _), (_, _, _, Dv) = shapes
     qd, kd, vd = dtypes
-    ops = 2 * B * H * visible_pairs(Sq, Sk, causal, window) * (D + Dv)
-    nbytes = (math.prod(shapes[0]) * qd.itemsize + math.prod(shapes[1]) * kd.itemsize
-              + math.prod(shapes[2]) * vd.itemsize + B * Sq * H * Dv * qd.itemsize
-              + B * H * Sq * 4)
-    return ops, nbytes
+    pairs = B * H * visible_pairs(Sq, Sk, causal, window)
+    qkv = (math.prod(shapes[0]) * qd.itemsize + math.prod(shapes[1]) * kd.itemsize
+           + math.prod(shapes[2]) * vd.itemsize)
+    o_bytes, lse_bytes = B * Sq * H * Dv * qd.itemsize, B * H * Sq * 4
+    if backward:
+        return 2 * pairs * (3 * D + 2 * Dv), 2 * qkv + 2 * o_bytes + lse_bytes
+    return 2 * pairs * (D + Dv), qkv + o_bytes + lse_bytes
 
 
-def _record(q, k, v, causal, window) -> None:
+def _record(q, k, v, causal, window, backward: bool = False) -> None:
     if walk.active():
-        walk.record("flash_attention", *cost((q.shape, k.shape, v.shape),
-                                             (q.dtype, k.dtype, v.dtype), causal, window))
+        walk.record("flash_attention_bwd" if backward else "flash_attention",
+                    *cost((q.shape, k.shape, v.shape), (q.dtype, k.dtype, v.dtype),
+                          causal, window, backward))
 
 
 def _check(q, k, v, window, softcap):
@@ -194,9 +209,113 @@ def flash_fwd(q, k, v, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
+# -- backward -------------------------------------------------------------------------
+def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool, window: Optional[int],
+                    softcap: Optional[float], scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The blocked flash backward (JAX's ``_make_flash.bwd``) in the kernel's
+    signature: ``lse`` (B, H, Sq); (dq, dk, dv) in the inputs' dtypes."""
+    B, Sq, H, _ = q.shape
+    Hkv = k.shape[2]
+    return ref._blocked_bwd(
+        q, k, v, out, lse.reshape(B, Hkv, H // Hkv, Sq), dout,
+        causal=causal, window=window, softcap=softcap, scale=scale,
+        q_offset=0, block_q=BWD_BLOCK, block_kv=BWD_BLOCK, causal_skip=True)
+
+
+def _check_bwd(q, k, v, out, lse, dout, window, softcap) -> None:
+    _check(q, k, v, window, softcap)
+    B, Sq, H, _ = q.shape
+    want = (B, Sq, H, v.shape[3])
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != want or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention backward: {name} {tuple(t.shape)} "
+                             f"{t.dtype}, want {want} {q.dtype}")
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: lse {tuple(lse.shape)} {lse.dtype}, "
+                         f"want {(B, H, Sq)} float32")
+
+
+def _empty_grads(q, k, v):
+    """dq, dk, dv and the launch's fp32 scratch: the row sums (B, H, Sq) and,
+    under grouped heads, each q head's partial dk and dv (B, Sk, H, D / Dv),
+    which the kernel sums over the group in head order."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    parts = ((torch.empty((B, Sk, H, D), **f32), torch.empty((B, Sk, H, Dv), **f32))
+             if H != Hkv else (None, None))
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty((B, H, Sq), **f32)) + parts
+
+
+def flash_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool, window: Optional[int],
+                   softcap: Optional[float], scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dtype's backward on the current stream (bf16: tensor cores,
+    fp32: CUDA cores): the row-sum pre-pass, the dK/dV kernel and the dQ
+    kernel; raises on what it does not take."""
+    global launches_bwd_bf16, launches_bwd_fp32
+    _check_bwd(q, k, v, out, lse, dout, window, softcap)
+    ts = (q, k, v, out, lse, dout)
+    if not (q.is_cuda and all(t.device == q.device for t in ts)):
+        raise ValueError("flash_attention backward: q, k, v, out, lse, dout must lie on "
+                         "one CUDA device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_attention backward: q, k, v, out, lse, dout must be "
+                         "contiguous")
+    dq, dk, dv, delta, part_k, part_v = _empty_grads(q, k, v)
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attn_bwd_bf16" if bf16 else "flash_attn_bwd"
+    err = getattr(build.library(), name)(
+        *(0 if t is None else t.data_ptr()
+          for t in (q, k, v, out, dout, lse, delta, part_k, part_v, dq, dk, dv)),
+        B, Sq, Sk, H, Hkv, D, Dv, float(scale), int(bool(causal)), int(window or 0),
+        float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
+    with _count_lock:
+        if bf16:
+            launches_bwd_bf16 += 1
+        else:
+            launches_bwd_fp32 += 1
+    _record(q, k, v, causal, window, backward=True)
+    return dq, dk, dv
+
+
+def flash_bwd_meta(q, k, v, out, lse, dout, *, causal: bool, window: Optional[int],
+                   softcap: Optional[float], scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward on the meta device: the buffers the card's launch takes
+    (the grads, the row sums and any partials), empty, and the kernel's cost
+    recorded."""
+    _check_bwd(q, k, v, out, lse, dout, window, softcap)
+    if not all(t.is_meta for t in (q, k, v, out, lse, dout)):
+        raise ValueError("flash_attention backward: inputs must lie on the meta device")
+    dq, dk, dv = _empty_grads(q, k, v)[:3]
+    _record(q, k, v, causal, window, backward=True)
+    return dq, dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, dout, **kw
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        _check_bwd(q, k, v, out, lse, dout, kw["window"], kw["softcap"])
+        return flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    if q.is_cuda:
+        return flash_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    if q.is_meta:
+        return flash_bwd_meta(q, k, v, out, lse, dout, **kw)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
 class FlashAttention(torch.autograd.Function):
     """Forward: the kernel (plain version on the CPU), saving ``lse``.
-    Backward: the plain blocked flash backward from (q, k, v, out, lse)."""
+    Backward: the backward kernel (plain blocked backward on the CPU) from
+    (q, k, v, out, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
@@ -210,12 +329,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, softcap, scale = ctx.cfg
-        B, Sq, H, _ = q.shape
-        Hkv = k.shape[2]
-        dq, dk, dv = ref._blocked_bwd(
-            q, k, v, out, lse.reshape(B, Hkv, H // Hkv, Sq), dout,
-            causal=causal, window=window, softcap=softcap, scale=scale,
-            q_offset=0, block_q=BWD_BLOCK, block_kv=BWD_BLOCK, causal_skip=True)
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(), causal=causal,
+                               window=window, softcap=softcap, scale=scale)
         return dq, dk, dv, None, None, None, None
 
 

@@ -20,8 +20,9 @@ lowered and compiled over the 8 virtual CPU devices, read by
   batch); at (8, 1) the FLOPs equal JAX's within 2% once the two terms
   that differ by design are taken out by name: the flash forward kernel
   counts the causal half of the scores where JAX's reference attention
-  computes them all, and the flash backward recomputes the scores from
-  ``lse`` where JAX's autodiff keeps them (one product a layer and pass).
+  computes them all, and the flash backward kernel (its causal half too)
+  recomputes the scores from ``lse`` where JAX's autodiff keeps them (one
+  product a layer and pass).
   At (2, 4) JAX's ``Auto`` partitioner also splits the tokens over the
   model axis, a layout the port does not take (its model ranks split the
   weights), so the FLOPs are compared at (8, 1), where the two agree;
@@ -259,11 +260,11 @@ def test_state_bytes_match_jax_s_arguments(shape):
 
 
 def test_flops_match_jax_s_less_the_terms_that_differ_by_design():
-    """At (8, 1): the port's dot FLOPs plus its flash kernel's, with the
-    scores' causal half restored and the backward's recompute of the scores
-    taken out, within 2% of JAX's ``analyse_hlo`` FLOPs (the RMSNorm
-    kernels' elementwise operations are not counted, as JAX counts no
-    elementwise FLOPs)."""
+    """At (8, 1): the port's dot FLOPs plus its flash kernels' (forward and
+    backward), with the scores' causal half restored in both and the
+    backward's recompute of the scores taken out, within 2% of JAX's
+    ``analyse_hlo`` FLOPs (the RMSNorm kernels' elementwise operations are
+    not counted, as JAX counts no elementwise FLOPs)."""
     _, jax_flops, _ = _jax_compiled((8, 1))
     got = _port_cell((8, 1))
     oc = got["op_cost"]
@@ -272,11 +273,14 @@ def test_flops_match_jax_s_less_the_terms_that_differ_by_design():
     H, D = cfg.n_heads, cfg.resolved_head_dim
     layers = cfg.n_layers
     flash = oc["kernels"]["flash_attention"]
+    bwd = oc["kernels"]["flash_attention_bwd"]
     assert flash["launches"] == 2 * layers     # forward and remat recompute
+    assert bwd["launches"] == layers
     full = 2 * rows * H * S * S * (D + D)       # one forward's scores and mix, every pair
+    full_bwd = 2 * rows * H * S * S * (3 * D + 2 * D)   # the backward's five products
     recompute = 2 * rows * H * S * S * D        # the backward's scores from lse
     port = oc["dot_flops"] + flash["flops"] + (flash["launches"] * full - flash["flops"]) \
-        - layers * recompute
+        + bwd["flops"] + (bwd["launches"] * full_bwd - bwd["flops"]) - layers * recompute
     assert abs(port - jax_flops) <= 0.02 * jax_flops, (port, jax_flops)
 
 

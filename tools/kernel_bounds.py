@@ -52,10 +52,17 @@ def main() -> int:
                                     False)):
         ops, nb = fa.cost((q, k, k[:3] + (dv,)), (BF16,) * 3, causal=causal)
         rows.append((name, "flash_attention.cost", ops, nb, *bound(ops, nb, "bfloat16")))
+        ops, nb = fa.cost((q, k, k[:3] + (dv,)), (BF16,) * 3, causal=causal, backward=True)
+        rows.append((name + " backward", "flash_attention.cost(backward=True)", ops, nb,
+                     *bound(ops, nb, "bfloat16")))
     ops, nb = fa.cost(((16, 1024, 24, 128), (16, 1024, 2, 128), (16, 1024, 2, 128)),
                       (BF16,) * 3)
     rows.append(("flash starcoder2 fp32 (2 x the bf16 bytes)", "flash_attention.cost", ops,
                  2 * nb, *bound(ops, 2 * nb, "float32")))
+    shapes = ((4, 512, 24, 128), (4, 512, 2, 128), (4, 512, 2, 128))
+    ops, nb = fa.cost(shapes, (F32,) * 3, backward=True)
+    rows.append(("flash backward fp32 (4, 512, 24, 128)", "flash_attention.cost(backward=True)",
+                 ops, nb, *bound(ops, nb, "float32")))
     x, n, k = (8, 1024, 8192), 16, 4
     ops, nb = ss.cost((x, x[:2] + (n,), (k, x[2], n), (k, x[2])), (BF16, BF16), chunk=128,
                       chunk_states=True)
@@ -64,7 +71,7 @@ def main() -> int:
     rows.append(("ssm_scan falcon-mamba (the SFU binds: its ms)", "ssm_scan.cost", ops, nb,
                  max(b_ms, sfu_ms), "operations (SFU)" if sfu_ms > b_ms else by))
     for name, fn, ops, nb, ms, by in rows:
-        print(f"{name:48s} {fn:30s} ops {ops:>16,d} bytes {nb:>14,d} bound {ms:.4f} ms ({by})")
+        print(f"{name:48s} {fn:36s} ops {ops:>16,d} bytes {nb:>14,d} bound {ms:.4f} ms ({by})")
     return 0
 
 
