@@ -378,7 +378,14 @@ FLASH_BWD_CASES = (
      dict(window=96, softcap=50.0)),
     ("ragged-sq200-sk130-masked-rows", "bfloat16", (2, 200, 4, 64), (2, 130, 2, 64), None,
      dict(window=32)),
-    # each width class below its instance's widths (the guarded instances)
+    # the wgmma instances under every mask, ragged Sq != Sk and dead rows
+    ("d128-window-softcap-sq200-sk130-masked-rows", "bfloat16", (2, 200, 4, 128),
+     (2, 130, 2, 128), None, dict(window=32, softcap=30.0)),
+    ("mla-d192-dv128-window-softcap-sq300-sk250", "bfloat16", (2, 300, 8, 192), (2, 250, 2, 192),
+     128, dict(window=64, softcap=30.0)),
+    # each width class below its instance's widths (the guarded and the
+    # zero-filled instances)
+    ("d64-dv128-g12", "bfloat16", (1, 130, 12, 64), (1, 130, 1, 64), 128, {}),
     ("d16-window-softcap-ragged-200", "bfloat16", (2, 200, 4, 16), (2, 200, 2, 16), None,
      dict(window=64, softcap=30.0)),
     ("d176-dv112", "bfloat16", (2, 150, 4, 176), (2, 150, 2, 176), 112, {}),
@@ -436,12 +443,14 @@ PBT_SPACE = [
 # name is not a substring of the tensor-core one's, nor the RMSNorm
 # forward's of the backward's; the backward's dgamma sum is a second kernel,
 # rmsnorm_dgamma_kernel, of the same launch; a flash backward launch runs
-# three kernels, fa_bwd_delta_kernel, fa_bwd_dkdv_*_kernel and the dQ
-# kernel counted here)
+# the dQ kernel counted here (fa_bwd_dq_bf16_sm90_kernel at the wgmma
+# instances, fa_bwd_dq_bf16_kernel at the mma.sync ones), fa_bwd_dkdv_*_kernel,
+# fa_bwd_sum_heads_kernel where it writes partials and, outside the wgmma
+# instances, the fa_bwd_delta_kernel pre-pass)
 KERNEL_NAMES = {"rmsnorm": "rmsnorm_kernel", "rmsnorm_bwd": "rmsnorm_bwd_kernel",
                 "flash_attention_sm90": "flash_fwd_sm90_kernel",
                 "flash_attention_fp32": "flash_fwd_kernel",
-                "flash_attention_bwd_bf16": "fa_bwd_dq_bf16_kernel",
+                "flash_attention_bwd_bf16": "fa_bwd_dq_bf16_",
                 "flash_attention_bwd_fp32": "fa_bwd_dq_fp32_kernel",
                 "ssm_scan": "ssm_scan_kernel", "synth_tokens": "synth_tokens_kernel"}
 INT_OF_SIZE = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
@@ -717,24 +726,29 @@ def flash_bwd_bits_cases(torch, dev, gen):
     split that follows the batch's extent): run twice, the same bits; one
     row repeated in four batch rows, the same bits in each; a batch's two
     halves launched apart, the whole launch's bits.  bf16 at the main
-    shape's per-lane rows, fp32 at a smaller one."""
+    shape's per-lane rows (the wgmma 128-wide instance, its grouped heads
+    in runs with partials) and at the MLA shape (the 192 / 128 instance),
+    fp32 at a smaller one."""
     from repro_torch.kernels import flash_attention as fa
 
     cases = []
-    for dtype, (qs, kvs) in ((torch.bfloat16, (FLASH_Q, FLASH_KV)),
-                             (torch.float32, FLASH_BWD_FP32_SHAPE)):
+    for dtype, (qs, kvs), dv, tag in (
+            (torch.bfloat16, (FLASH_Q, FLASH_KV), None, ""),
+            (torch.bfloat16, (FLASH_MLA_Q, FLASH_MLA_Q), FLASH_MLA_DV, "-mla"),
+            (torch.float32, FLASH_BWD_FP32_SHAPE, None, "")):
         dname = str(dtype).split(".")[-1]
-        one, kw = flash_bwd_inputs(torch, dev, gen, (1,) + qs[1:], (1,) + kvs[1:], None, dtype)
+        one, kw = flash_bwd_inputs(torch, dev, gen, (1,) + qs[1:], (1,) + kvs[1:], dv, dtype)
         lanes = [t.expand((4,) + tuple(t.shape[1:])).contiguous() for t in one]
         first, again = fa.flash_bwd_cuda(*lanes, **kw), fa.flash_bwd_cuda(*lanes, **kw)
         torch.cuda.synchronize()
         runs = all(torch.equal(a, b) for a, b in zip(first, again))
         rows = all(torch.equal(g[i], g[0]) for g in first for i in range(1, 4))
-        cases.append(dict(kernel="flash_attention_bwd", case="bits-2-runs-4-identical-rows",
+        cases.append(dict(kernel="flash_attention_bwd",
+                          case=f"bits-2-runs-4-identical-rows{tag}",
                           dtype=dname, shape=[4, *qs[1:]], runs_bit_equal=runs,
                           rows_bit_equal=rows, ok=runs and rows))
         del one, lanes, first, again
-        ins, kw = flash_bwd_inputs(torch, dev, gen, qs, kvs, None, dtype)
+        ins, kw = flash_bwd_inputs(torch, dev, gen, qs, kvs, dv, dtype)
         whole = fa.flash_bwd_cuda(*ins, **kw)
         h = qs[0] // 2
         parts = [fa.flash_bwd_cuda(*(t[a:b].contiguous() for t in ins), **kw)
@@ -742,7 +756,7 @@ def flash_bwd_bits_cases(torch, dev, gen):
         torch.cuda.synchronize()
         equal = all(torch.equal(w, torch.cat([p[i] for p in parts]))
                     for i, w in enumerate(whole))
-        cases.append(dict(kernel="flash_attention_bwd", case=f"bits-{qs[0]}-rows-vs-halves",
+        cases.append(dict(kernel="flash_attention_bwd", case=f"bits-{qs[0]}-rows-vs-halves{tag}",
                           dtype=dname, shape=list(qs), halves_bit_equal=equal, ok=equal))
         del ins, whole, parts
     return cases
@@ -5460,11 +5474,57 @@ def sm_clock_max_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+FLASH_BWD_PARTS = (("delta", "fa_bwd_delta_"), ("dkdv", "fa_bwd_dkdv_"),
+                   ("sum", "fa_bwd_sum_heads_"), ("dq", "fa_bwd_dq_"))
+
+
+def kernel_split_ms(torch, fn, n=10) -> dict:
+    """Device ms a call of ``fn`` (one flash backward launch) in each of its
+    CUDA kernels, by part (``FLASH_BWD_PARTS``), from ``torch.profiler`` as
+    ``profile_step`` reads it: the trace holds ``n`` calls, a marker kernel
+    and ``n`` more, and only the kernels after the marker count (the trace
+    can miss its first milliseconds).  None where the trace holds no device
+    time after the marker."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    split = dict.fromkeys((part for part, _ in FLASH_BWD_PARTS), 0.0)
+
+    def ready(prof):
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+        marks = [e.time_range.start for e in evs if "spin_kernel" in e.name]
+        for e in evs:
+            if marks and e.time_range.start > marks[-1]:
+                for part, sub in FLASH_BWD_PARTS:
+                    if sub in e.name:
+                        split[part] += e.time_range.elapsed_us() / 1e3 / n
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=0, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        torch.cuda._sleep(int(1e8))   # ~50 ms the trace may miss
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)   # the marker: counting starts after it
+        torch.cuda.synchronize()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    split["total"] = sum(split.values())
+    return split if split["total"] > 0 else None
+
+
 def flash_bwd_timing(torch, dev, gen, qs, kvs, dv=None, causal=True, dtype=None):
     """The dtype's (bf16 unless given) flash backward kernel, its plain
     version and the backward of SDPA (``enable_gqa``) through autograd at q
     ``qs``, k ``kvs``, v as k or ``dv`` wide, fed the forward kernel's (out,
-    lse): CUDA-event ms a launch, the bound from ``cost(backward=True)``."""
+    lse): CUDA-event ms a launch, the bound from ``cost(backward=True)``,
+    the plan (``bwd_plan``) and each of the launch's CUDA kernels' device ms
+    under the profiler (``split_device_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -5472,6 +5532,7 @@ def flash_bwd_timing(torch, dev, gen, qs, kvs, dv=None, causal=True, dtype=None)
     dtype = dtype or torch.bfloat16
     ins, kw = flash_bwd_inputs(torch, dev, gen, qs, kvs, dv, dtype, causal=causal)
     q, k, v, _, _, dout = ins
+    plan = fa._plan_of(q, v, causal, None)
     n_ops, nb = fa.cost((q.shape, k.shape, v.shape), (q.dtype,) * 3, causal=causal,
                         backward=True)
     dname = str(dtype).split(".")[-1]
@@ -5486,6 +5547,10 @@ def flash_bwd_timing(torch, dev, gen, qs, kvs, dv=None, causal=True, dtype=None)
         "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
         "library_ms": event_ms(torch, lambda: torch.autograd.grad(
             lib_out, leaves, g, retain_graph=True), n=10),
+        "split_device_ms": kernel_split_ms(torch, lambda: fa.flash_bwd_cuda(*ins, **kw)),
+        "plan": {"kernels": plan.kernels, "instance": list(plan.instance),
+                 "splits": plan.splits, "kv_rows": plan.kv_rows, "q_step": plan.q_step,
+                 "q_rows": plan.q_rows, "kv_step": plan.kv_step},
         "shape": {"q": list(qs), "k": list(kvs), "v": list(v.shape), "causal": causal,
                   "dtype": dname},
     }
@@ -5757,7 +5822,8 @@ def time_kernels(torch, dev, errs, by_path, fp32_launches, chunk_launches):
         # not a TPU kernel: the JAX package's custom VJP of the Pallas forward
         # runs the blocked backward in plain jnp
         "replaces": "src/repro/kernels/flash_attention.py:188", "tpu_kernel": False,
-        "products": "mma.sync.m16n8k16 (bf16), fmaf (fp32)",
+        "products": "wgmma + TMA (bf16 at D, Dv <= 128 past 64 and at D <= 192, Dv <= "
+                    "128), mma.sync.m16n8k16 (bf16 at other widths), fmaf (fp32)",
         **counts("flash_attention_bwd_bf16"),
         "launches_by_kernel": {kern: sum(p[f"flash_attention_bwd_{kern}"]
                                          for p in by_path.values())

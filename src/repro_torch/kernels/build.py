@@ -51,11 +51,11 @@ SIGNATURES = {
     "flash_attn_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _F, _P],
     "flash_attn_fwd_sm90": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _F, _P],
     # q, k, v, out, dout, lse, delta, part_k, part_v (fp32 scratch; the
-    # partials null where H == Hkv), dq, dk, dv, B, Sq, Sk, H, Hkv, D, Dv,
-    # scale, causal, window, softcap, stream: the backward, fp32 on the CUDA
-    # cores, bf16 on the tensor cores
-    "flash_attn_bwd": [_P] * 12 + [_I] * 7 + [_F, _I, _I, _F, _P],
-    "flash_attn_bwd_bf16": [_P] * 12 + [_I] * 7 + [_F, _I, _I, _F, _P],
+    # partials null where splits is 1), dq, dk, dv, B, Sq, Sk, H, Hkv, D, Dv,
+    # splits (flash_attention.bwd_plan), scale, causal, window, softcap,
+    # stream: the backward, fp32 on the CUDA cores, bf16 on the tensor cores
+    "flash_attn_bwd": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _F, _P],
+    "flash_attn_bwd_bf16": [_P] * 12 + [_I] * 8 + [_F, _I, _I, _F, _P],
     # x, dt, A, B, C, D, h0, y, h_last, hs, R, L, Dm, N, K, chunk, is_bf16, stream
     "ssm_scan_fwd": [_P] * 10 + [_I] * 7 + [_P],
     # N, is_bf16, out: resident blocks an SM, threads a block (the instance N picks)

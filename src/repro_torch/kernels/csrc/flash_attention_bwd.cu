@@ -1,5 +1,6 @@
 // Flash attention backward on Hopper (sm_90a): bf16 on the tensor cores
-// (mma.sync), fp32 in exact FMAs on the CUDA cores.
+// (wgmma + TMA at the main paths' widths, mma.sync at the others), fp32 in
+// exact FMAs on the CUDA cores.
 //
 // Replaces no TPU kernel: it is the VJP of repro/kernels/flash_attention.py::
 // _flash_fwd_pallas, which the JAX package computes in plain jnp
@@ -23,34 +24,58 @@
 // caller's stream, no atomics.  Every output element is written once by one
 // block, each block's sums run in a fixed order, and a block reads only its
 // own batch row, so a lane's bits depend on its own rows alone, whatever the
-// batch's extent or the card's SM count.
-//  - fa_bwd_delta_kernel: delta = rowsum(dO * O) in fp32, (B, H, Sq); one warp
-//    a row, each lane summing its columns in order, then a fixed butterfly.
-//  - dK / dV: one block per (q head, batch row, 64-row kv tile), heavy causal
-//    tiles first.  K and V stay in shared memory; the block walks the q tiles
-//    that see its kv tile (the causal diagonal and the window bound the
-//    walk), Q and dO double-buffered with cp.async.  Each warp
-//    owns 16 kv rows: S^T = K Q^T and dP^T = V dO^T in fp32 accumulators, P =
-//    exp(S - lse) masked, dS = P (dP - delta) (1 - tanh^2) scale; then dV +=
-//    P^T dO and dK += dS^T Q, with P and dS rounded to bf16 for those products
-//    (as the forward rounds P for P V) and the sums in fp32 registers, written
-//    once at the end.  At a 256-wide instance two warps share the 16 rows,
-//    each holding half of dK's and dV's columns (both compute S and dP).
-//    Under grouped-query heads (g > 1) each q head's block writes its fp32
-//    partial dK and dV, and fa_bwd_sum_heads_kernel sums the g partials of a
-//    kv head in head order: a block per q head fills the card where a block
-//    per kv head (2 kv heads x 4 rows x 16 tiles at starcoder2's one-trial
-//    shape) would leave SMs idle and walk g times as many q tiles in turn.
-//  - dQ: one block per (q head, batch row, 64-row q tile), heavy causal tiles
-//    first; Q and dO stay in shared memory, K and V tiles double-buffered;
-//    each warp owns 16 q rows and accumulates dQ += dS K over its kv tiles.
-//  - Each bf16 kernel has an instance at exactly its widths (64, 128, 192 /
-//    128, 256), without width guards, so the products' loops are straight
-//    code; the masks are computed only on tiles that meet an edge.
-//  - Products: mma.sync.m16n8k16 (bf16 in, fp32 accumulate), operands from
-//    padded shared memory by ldmatrix (transposed where the product wants
-//    the stored rows as its k), the A operand of P^T dO and dS^T Q (and dS K)
-//    straight from the accumulators' registers.
+// batch's extent or the card's SM count.  The form recomputes S and dP in
+// the dQ kernel: 7 products where the bound counts 5.
+//  - delta = rowsum(dO * O) in fp32, (B, H, Sq): at the wgmma instances the
+//    dQ kernel forms it from its resident dO and O tiles and runs first; at
+//    the others fa_bwd_delta_kernel, a pre-pass, one warp a row, each lane
+//    summing its columns in order, then a fixed butterfly.
+//  - bf16 at D, Dv <= 128 (past 64) and at D <= 192, Dv <= 128: the wgmma
+//    kernels (fa_bwd_dq_bf16_sm90_kernel, fa_bwd_dkdv_bf16_sm90_kernel), on
+//    the forward kernel's machinery (sm90.cuh): a producer warpgroup feeding
+//    a TMA ring of 3 stages (2 in the 192-wide dQ kernel, which also holds
+//    O) with mbarriers (setmaxnreg 24), two consumer
+//    warpgroups of 64 rows (setmaxnreg 240), every product a wgmma on
+//    128-byte-swizzled tiles.  Narrower widths arrive zero-filled by TMA and
+//    their stores are masked.  In each step the two recomputed products
+//    are two commit groups: P is formed (one FFMA and ex2.approx.ftz a
+//    score) while the second runs, and the products that take P and dS as
+//    their A operand are m64n128 where the width allows; the dK / dV kernel
+//    issues dV's product before dS is formed.  (Orderings that carried the
+//    products that take P and dS into the next step, or had the two
+//    warpgroups take turns, ran no faster; some made ptxas serialize the
+//    wgmmas, C7515.)
+//    - dK / dV: K and V of a 128-row kv tile stay in shared memory; the block
+//      walks the q tiles of a run of the kv head's q heads (64-row steps, 32
+//      at 192 / 128, where fp32 dK and dV take 160 registers a thread), so
+//      grouped heads sum in registers and not through per-head partials: a
+//      kv head's g q heads split into ``splits`` runs, a block each (the
+//      plan, kernels/flash_attention.py::bwd_plan, is a function of the head
+//      counts and Sk alone, never of B), and only with splits > 1 does a run
+//      write an fp32 partial, summed in run order by fa_bwd_sum_heads_kernel.
+//    - dQ: the forward's shape, a 128-row q tile resident (at 128 wide its Q
+//      and dO as register A fragments), K and V tiles of 64 rows streamed.
+//  - bf16 at the other widths (64, 256 or D > 192 or Dv > 128), the
+//    mma.sync.m16n8k16 kernels, chosen by width alone:
+//    - dK / dV: one block per (q head, batch row, 64-row kv tile), heavy
+//      causal tiles first.  K and V stay in shared memory; the block walks the
+//      q tiles that see its kv tile, Q and dO double-buffered with cp.async.
+//      Each warp owns 16 kv rows: S^T = K Q^T and dP^T = V dO^T in fp32
+//      accumulators, P = exp(S - lse) masked, dS = P (dP - delta) (1 -
+//      tanh^2) scale; then dV += P^T dO and dK += dS^T Q, with P and dS
+//      rounded to bf16 for those products (as the forward rounds P for P V)
+//      and the sums in fp32 registers, written once at the end.  At a
+//      256-wide instance two warps share the 16 rows, each holding half of
+//      dK's and dV's columns.  Under grouped-query heads each q head's block
+//      writes its fp32 partial dK and dV, and fa_bwd_sum_heads_kernel sums
+//      the g partials of a kv head in head order.
+//    - dQ: one block per (q head, batch row, 64-row q tile), heavy causal
+//      tiles first; Q and dO stay in shared memory, K and V tiles
+//      double-buffered; each warp owns 16 q rows and accumulates dQ += dS K.
+//    - Each has an instance at exactly its widths (64, 256), without width
+//      guards; operands from padded shared memory by ldmatrix (transposed
+//      where the product wants the stored rows as its k), the A operand of
+//      P^T dO and dS^T Q (and dS K) straight from the accumulators.
 //  - fp32: the same three kernels' shape in SIMT form on 32-row tiles, 256
 //    threads, every product one fmaf a term in a fixed order (no TF32): a
 //    thread forms 4 scores and 4 dP terms of the tile, then 8 threads a row
@@ -60,6 +85,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -74,10 +100,6 @@ constexpr int FR = 32;    // fp32: rows of a block's own tile and of each step's
 constexpr int FT = 256;   // fp32: threads a block (32 rows x 8 column lanes)
 
 // --------------------------------------------------------------- PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared; ``bytes`` 0 zero-fills the destination
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -112,11 +134,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The A fragment (16 rows x 16 k) of k step ``kq`` from accumulators whose
@@ -179,6 +196,32 @@ __device__ __forceinline__ float p_and_ds(float s, float dp, float lse, float de
   }
   const float p = ok ? (EXP2 ? exp2f(x * LOG2E - lse) : expf(x - lse)) : 0.f;
   ds = p * (dp - delta) * fac;
+  return p;
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: results below 2^-126 flush to 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P of one raw score s = q.k for the wgmma kernels (``lse2`` the row's lse
+// times log2 e, +inf on dead rows; ``scale2`` the scale times log2 e) and,
+// in ``pf``, P times the derivative of the scaled and capped score, so that
+// dS = pf (dP - delta): P is formed before dP has arrived.
+__device__ __forceinline__ float p_and_factor(float s, float lse2, float scale, float scale2,
+                                              float softcap, bool ok, float& pf) {
+  float p, fac = scale;
+  if (softcap > 0.f) {
+    const float t = tanhf(s * scale / softcap);
+    fac = scale * (1.f - t * t);
+    p = exp2_ftz(softcap * t * LOG2E - lse2);
+  } else {
+    p = exp2_ftz(fmaf(s, scale2, -lse2));
+  }
+  p = ok ? p : 0.f;
+  pf = p * fac;
   return p;
 }
 
@@ -604,6 +647,500 @@ __global__ void __launch_bounds__(128) fa_bwd_dq_bf16_kernel(
   }
 }
 
+// ----------------------------------------------- bf16, wgmma + TMA (sm_90a)
+// The instances at the main paths' widths: <128, 128> (any D, Dv <= 128 past
+// 64, zero-filled by TMA past D / Dv) and <192, 128> (D <= 192, Dv <= 128).
+constexpr int W_NCONS = 256;              // two consumer warpgroups
+constexpr int W_NT = W_NCONS + 128;       // and one producer warpgroup
+constexpr int W_PRODUCER_REGS = 24;       // setmaxnreg: 128 x 24 + 256 x 240 = 64,512
+constexpr int W_CONSUMER_REGS = 240;
+constexpr int W_BKV = 128;                // kv rows of a dK / dV block, 64 a warpgroup
+constexpr int W_BQ = 128;                 // q rows of a dQ block, 64 a warpgroup
+template <int DK, int DV>
+struct WCfg {
+  static constexpr int PK = DK / PANEL_COLS, PV = DV / PANEL_COLS;  // 64-column panels
+  static constexpr int BQ = DK + DV <= 256 ? 64 : 32;  // q rows a step of the dK / dV block
+  static constexpr int BK = 64;                         // kv rows a step of the dQ block
+  // the dQ block's Q and dO as A fragments in registers (S and dP read only
+  // K and V from shared memory); at 192 / 128 the registers are dQ's
+  static constexpr bool QO_REGS = DK <= 128;
+  static constexpr int KV_STAGES = 3, Q_STAGES = DK <= 128 ? 3 : 2;    // ring depths
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * (KV_STAGES > Q_STAGES ? KV_STAGES : Q_STAGES));
+  // dK / dV block: K and V resident; Q, dO, lse and delta of a step in the ring
+  static constexpr int K_BYTES = W_BKV * DK * 2, V_BYTES = W_BKV * DV * 2;
+  static constexpr int QT_BYTES = BQ * DK * 2, OT_BYTES = BQ * DV * 2;
+  static constexpr int KV_STAGE = QT_BYTES + OT_BYTES;  // TMA bytes a step
+  static constexpr int SMEM_KV =
+      1024 + K_BYTES + V_BYTES + KV_STAGES * KV_STAGE + KV_STAGES * 2 * BQ * 4 + BAR_BYTES;
+  // dQ block: Q, dO and O resident; K and V of a step in the ring
+  static constexpr int Q_BYTES = W_BQ * DK * 2, O_BYTES = W_BQ * DV * 2;
+  static constexpr int KT_BYTES = BK * DK * 2, VT_BYTES = BK * DV * 2;
+  static constexpr int Q_STAGE = KT_BYTES + VT_BYTES;
+  static constexpr int SMEM_Q = 1024 + Q_BYTES + 2 * O_BYTES + Q_STAGES * Q_STAGE + BAR_BYTES;
+};
+
+// One block per (kv head and run of its group's q heads, batch row, 128-row
+// kv tile), heavy causal tiles first: ``splits`` runs of g / splits q heads
+// each.  The producer's first thread loads K and V once and streams each
+// step's Q and dO tiles (the run's heads in order, each head's q tiles in
+// order) by TMA; its second warp
+// writes the step's lse (times log2 e; +inf on dead and padded rows) and
+// delta into the stage.  Each consumer warpgroup owns 64 kv rows: S^T = K
+// Q^T and dP^T = V dO^T (SS), P and dS in the fp32 accumulators, then dV +=
+// P^T dO and dK += dS^T Q (RS: P and dS rounded to bf16 as the A operand,
+// dO and Q N-major).  dK and dV stay in fp32 registers over the whole walk
+// and are written once: in bf16, or with splits > 1 as the run's fp32
+// partial (B, Sk, Hkv, splits, dim), which fa_bwd_sum_heads_kernel sums in
+// run order.
+template <int DK, int DV>
+__global__ void __launch_bounds__(W_NT, 1) fa_bwd_dkdv_bf16_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ part_k,
+    float* __restrict__ part_v, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+    int H, int Hkv, int D, int Dv, int splits, float scale, int causal, int window,
+    float softcap) {
+  using C = WCfg<DK, DV>;
+  constexpr int BQ = C::BQ, ST = C::KV_STAGES;
+  constexpr int NS = BQ / 2;   // S^T and dP^T registers a thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;   // [PK][W_BKV][64], swizzled
+  const uint32_t sV = sK + C::K_BYTES;           // [PV][W_BKV][64]
+  const uint32_t sRing = sV + C::V_BYTES;        // a stage: Q [PK][BQ][64], dO [PV][BQ][64]
+  const uint32_t sLD = sRing + ST * C::KV_STAGE;  // a stage: lse log2 e [BQ], delta [BQ]
+  const uint32_t bar_kv = sLD + ST * 2 * BQ * 4;
+  auto bar_full = [&](int s) { return bar_kv + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_kv + 8u * (1 + ST + s); };
+  float* const fLD = reinterpret_cast<float*>(smem_raw + (sLD - raw));
+
+  const int g = H / Hkv, per = g / splits;
+  const int hk = blockIdx.x / splits, run = blockIdx.x % splits, h0 = hk * g + run * per;
+  const int b = blockIdx.y, k0 = blockIdx.z * W_BKV;
+  const int nq = (Sq + BQ - 1) / BQ;
+  int qlo = 0, qhi = nq;   // q tiles that see this kv tile
+  if (causal) qlo = min(nq, k0 / BQ);
+  if (window > 0) qhi = min(nq, (k0 + W_BKV - 2 + window) / BQ + 1);
+  const int nqt = max(qhi - qlo, 0);
+  const int n = per * nqt;
+  // step i: the run's head i / nqt, its q tile qlo + i % nqt
+  auto head_of = [&](int i) { return h0 + i / nqt; };
+  auto q0_of = [&](int i) { return (qlo + i % nqt) * BQ; };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full(s), 1 + 32);   // the TMA thread and the lse / delta warp
+      mbar_init(bar_empty(s), W_NCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= W_NCONS / 32) {  // ------------------------- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == W_NCONS) {
+      mbar_expect_tx(bar_kv, C::K_BYTES + C::V_BYTES);
+      for (int p = 0; p < C::PK; ++p)
+        tma_load_4d(sK + p * W_BKV * 128, &tm_k, bar_kv, p * PANEL_COLS, hk, k0, b);
+      for (int p = 0; p < C::PV; ++p)
+        tma_load_4d(sV + p * W_BKV * 128, &tm_v, bar_kv, p * PANEL_COLS, hk, k0, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST, h = head_of(i), q0 = q0_of(i);
+        if (i >= ST) mbar_wait(bar_empty(s), (i / ST - 1) & 1);
+        const uint32_t sQ = sRing + s * C::KV_STAGE, sO = sQ + C::QT_BYTES;
+        mbar_expect_tx(bar_full(s), C::KV_STAGE);
+        for (int p = 0; p < C::PK; ++p)
+          tma_load_4d(sQ + p * BQ * 128, &tm_q, bar_full(s), p * PANEL_COLS, h, q0, b);
+        for (int p = 0; p < C::PV; ++p)
+          tma_load_4d(sO + p * BQ * 128, &tm_do, bar_full(s), p * PANEL_COLS, h, q0, b);
+      }
+    } else if (warp == W_NCONS / 32 + 1) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST, h = head_of(i), q0 = q0_of(i);
+        if (i >= ST) mbar_wait(bar_empty(s), (i / ST - 1) & 1);
+        const long long at = (static_cast<long long>(b) * H + h) * Sq;
+        float* L = fLD + s * 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const int qp = q0 + r;
+          const float ls = qp < Sq ? lse[at + qp] : NEG_INF;
+          L[r] = ls > NEG_INF / 2 ? ls * LOG2E : INFINITY;
+          L[BQ + r] = qp < Sq ? delta[at + qp] : 0.f;
+        }
+        mbar_arrive(bar_full(s));
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int kw = k0 + 64 * wg;                     // this warpgroup's first kv row
+  const int r0 = kw + 16 * (t / 32) + lane / 4;    // this thread's kv rows: r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);                   // its first column in each 8-column block
+  const float scale2 = scale * LOG2E;
+
+  float ak[32 * C::PK], av[32 * C::PV];   // panel p's accumulator j at 32 p + j
+#pragma unroll
+  for (int i = 0; i < 32 * C::PK; ++i) ak[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32 * C::PV; ++i) av[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST, q0 = q0_of(i);
+    const uint32_t sQ = sRing + s * C::KV_STAGE, sO = sQ + C::QT_BYTES;
+    mbar_wait(bar_full(s), (i / ST) & 1);
+    if (kw >= Sk || (causal && q0 + BQ - 1 < kw) || (window > 0 && q0 >= kw + 63 + window)) {
+      mbar_arrive(bar_empty(s));   // no visible pair in this warpgroup's rows
+      continue;
+    }
+    // S^T = K Q^T over DK / 16 steps of k16, then dP^T = V dO^T over DV / 16,
+    // two groups
+    float st[NS], dpt[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) st[j] = dpt[j] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<BQ>(st, smem_desc(sK + (kk / 4) * W_BKV * 128 + wg * 64 * 128 + off, 16, 1024),
+                   smem_desc(sQ + (kk / 4) * BQ * 128 + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<BQ>(dpt, smem_desc(sV + (kk / 4) * W_BKV * 128 + wg * 64 * 128 + off, 16, 1024),
+                   smem_desc(sO + (kk / 4) * BQ * 128 + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+
+    // P^T from S^T while dP^T runs: element j is kv row r0 + 8 ((j >> 1) &
+    // 1), q column q0 + 8 (j / 4) + c0 + (j & 1); P rounded to bf16 as the A
+    // fragments of dV's product, P times the softmax's scale factor (and the
+    // softcap's derivative) kept in st for dS
+    wgmma_wait<1>();
+    fence_regs(st);
+    const float* L = fLD + s * 2 * BQ;
+    uint32_t pa[NS / 2], da[NS / 2];
+    auto form_p = [&](auto edge) {   // the masks only where the tile meets an edge
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        const int qi = 8 * (j / 4) + c0, kp = r0 + 8 * ((j >> 1) & 1);
+        const float2 l2 = *reinterpret_cast<const float2*>(L + qi);
+        float f0, f1;
+        const float p0 = p_and_factor(
+            st[j], l2.x, scale, scale2, softcap,
+            !decltype(edge)::value || visible(q0 + qi, kp, Sq, Sk, causal, window), f0);
+        const float p1 = p_and_factor(
+            st[j + 1], l2.y, scale, scale2, softcap,
+            !decltype(edge)::value || visible(q0 + qi + 1, kp, Sq, Sk, causal, window), f1);
+        pa[j / 2] = pack_bf16(p0, p1);
+        st[j] = f0;
+        st[j + 1] = f1;
+      }
+    };
+    if (inside(q0, BQ, kw, 64, Sq, Sk, causal, window)) form_p(std::false_type{});
+    else form_p(std::true_type{});
+
+    // dV += P^T dO over the step's BQ q rows while dS^T is formed
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+      wgmma_rs_wide<C::PV>(av, a, sO + kk * 16 * 128, BQ * 128);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // dP^T is in
+    fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < NS; j += 2) {
+      const float2 dl = *reinterpret_cast<const float2*>(L + BQ + 8 * (j / 4) + c0);
+      da[j / 2] = pack_bf16(st[j] * (dpt[j] - dl.x), st[j + 1] * (dpt[j + 1] - dl.y));
+    }
+
+    // dK += dS^T Q over the step's BQ q rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t d[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+      wgmma_rs_wide<C::PK>(ak, d, sQ + kk * 16 * 128, BQ * 128);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pa);
+    fence_regs(da);
+    fence_regs(av);
+    fence_regs(ak);
+    mbar_arrive(bar_empty(s));
+  }
+
+  // each of the thread's rows and columns written once
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int kp = r0 + 8 * e;
+    if (kp >= Sk) continue;
+    const long long row = (static_cast<long long>(b) * Sk + kp) * Hkv + hk;
+    const long long prow = row * splits + run;
+#pragma unroll
+    for (int p = 0; p < C::PK; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = p * PANEL_COLS + 8 * j + c0;
+        if (c >= D) continue;
+        if (splits > 1)
+          *reinterpret_cast<float2*>(part_k + prow * D + c) =
+              make_float2(ak[32 * p + 4 * j + 2 * e], ak[32 * p + 4 * j + 2 * e + 1]);
+        else
+          *reinterpret_cast<uint32_t*>(dk + row * D + c) =
+              pack_bf16(ak[32 * p + 4 * j + 2 * e], ak[32 * p + 4 * j + 2 * e + 1]);
+      }
+#pragma unroll
+    for (int p = 0; p < C::PV; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = p * PANEL_COLS + 8 * j + c0;
+        if (c >= Dv) continue;
+        if (splits > 1)
+          *reinterpret_cast<float2*>(part_v + prow * Dv + c) =
+              make_float2(av[32 * p + 4 * j + 2 * e], av[32 * p + 4 * j + 2 * e + 1]);
+        else
+          *reinterpret_cast<uint32_t*>(dv + row * Dv + c) =
+              pack_bf16(av[32 * p + 4 * j + 2 * e], av[32 * p + 4 * j + 2 * e + 1]);
+      }
+  }
+}
+
+// One block per (q head, batch row, 128-row q tile), heavy causal tiles
+// first: the forward kernel's shape plus one product.  The producer's first
+// thread loads Q, dO and O once and streams K and V tiles of BK rows by TMA;
+// each consumer warpgroup owns 64 q rows: it forms their delta (written for
+// the dK / dV kernel) and keeps their lse and delta in registers, then S = Q
+// K^T and dP = dO V^T (at 128 wide RS, Q and dO as register A fragments;
+// SS at 192), dS in the fp32 accumulators, dQ += dS K (RS: dS rounded to
+// bf16, K N-major), dQ in fp32 registers until one bf16 store.
+template <int DK, int DV>
+__global__ void __launch_bounds__(W_NT, 1) fa_bwd_dq_bf16_sm90_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_out, const float* __restrict__ lse,
+    float* __restrict__ delta, bf16* __restrict__ dq,
+    int Sq, int Sk, int H, int Hkv, int D, float scale, int causal, int window,
+    float softcap) {
+  using C = WCfg<DK, DV>;
+  constexpr int BK = C::BK, ST = C::Q_STAGES;
+  constexpr int NS = BK / 2;   // S and dP registers a thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;   // [PK][W_BQ][64], swizzled
+  const uint32_t sO = sQ + C::Q_BYTES;           // dO [PV][W_BQ][64]
+  const uint32_t sOut = sO + C::O_BYTES;         // O [PV][W_BQ][64], for delta
+  const uint32_t sRing = sOut + C::O_BYTES;      // a stage: K [PK][BK][64], V [PV][BK][64]
+  const uint32_t bar_q = sRing + ST * C::Q_STAGE;
+  auto bar_full = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8u * (1 + ST + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * W_BQ;  // heavy causal tiles first
+  const int hk = h / (H / Hkv);
+  const int nk = (Sk + BK - 1) / BK;
+  int lo = 0, hi = nk;   // kv tiles this q tile sees
+  if (causal) hi = min(nk, (q0 + W_BQ - 1) / BK + 1);
+  if (window > 0) lo = max(0, (q0 - window + 1) / BK);
+  const int n = max(hi - lo, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full(s), 1);
+      mbar_init(bar_empty(s), W_NCONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= W_NCONS / 32) {  // ------------------------- producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS));
+    if (threadIdx.x == W_NCONS) {
+      mbar_expect_tx(bar_q, C::Q_BYTES + 2 * C::O_BYTES);
+      for (int p = 0; p < C::PK; ++p)
+        tma_load_4d(sQ + p * W_BQ * 128, &tm_q, bar_q, p * PANEL_COLS, h, q0, b);
+      for (int p = 0; p < C::PV; ++p) {
+        tma_load_4d(sO + p * W_BQ * 128, &tm_do, bar_q, p * PANEL_COLS, h, q0, b);
+        tma_load_4d(sOut + p * W_BQ * 128, &tm_out, bar_q, p * PANEL_COLS, h, q0, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST, kv0 = (lo + i) * BK;
+        if (i >= ST) mbar_wait(bar_empty(s), (i / ST - 1) & 1);
+        const uint32_t sKt = sRing + s * C::Q_STAGE, sVt = sKt + C::KT_BYTES;
+        mbar_expect_tx(bar_full(s), C::Q_STAGE);
+        for (int p = 0; p < C::PK; ++p)
+          tma_load_4d(sKt + p * BK * 128, &tm_k, bar_full(s), p * PANEL_COLS, hk, kv0, b);
+        for (int p = 0; p < C::PV; ++p)
+          tma_load_4d(sVt + p * BK * 128, &tm_v, bar_full(s), p * PANEL_COLS, hk, kv0, b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS));
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int qw = q0 + 64 * wg;                     // this warpgroup's first q row
+  const int r0 = qw + 16 * (t / 32) + lane / 4;    // this thread's q rows: r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);
+  const float scale2 = scale * LOG2E;
+  int lo_w = lo, hi_w = hi;                        // kv tiles this warpgroup needs
+  if (causal) hi_w = min(hi, (qw + 63) / BK + 1);
+  if (window > 0) lo_w = max(lo, (qw - window + 1) / BK);
+  float lse2[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qp = r0 + 8 * e;
+    const float ls = qp < Sq ? lse[(static_cast<long long>(b) * H + h) * Sq + qp] : NEG_INF;
+    lse2[e] = ls > NEG_INF / 2 ? ls * LOG2E : INFINITY;
+  }
+
+  float acc[32 * C::PK];   // panel p's accumulator j at 32 p + j
+#pragma unroll
+  for (int i = 0; i < 32 * C::PK; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  // delta = rowsum(dO * O) of this thread's rows, the quad's four threads
+  // each summing every fourth 16-byte piece of the row in order, then a
+  // fixed butterfly; written for the dK / dV kernel, which runs after
+  const uint8_t* tile_do = smem_raw + (sO - raw);
+  const uint8_t* tile_o = smem_raw + (sOut - raw);
+  float del[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = 64 * wg + 16 * (t / 32) + lane / 4 + 8 * e, qp = q0 + row;
+    float sum = 0.f;
+#pragma unroll
+    for (int ch = lane % 4; ch < DV / 8; ch += 4) {
+      const uint32_t off = (ch / 8) * W_BQ * 128 + row * 128 + (((ch % 8) ^ (row & 7)) << 4);
+      const uint4 x = *reinterpret_cast<const uint4*>(tile_do + off);
+      const uint4 y = *reinterpret_cast<const uint4*>(tile_o + off);
+      const bf16* xv = reinterpret_cast<const bf16*>(&x);
+      const bf16* yv = reinterpret_cast<const bf16*>(&y);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum = fmaf(to_float(xv[i]), to_float(yv[i]), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    del[e] = sum;
+    if (lane % 4 == 0 && qp < Sq) delta[(static_cast<long long>(b) * H + h) * Sq + qp] = sum;
+  }
+  // Q and dO of this warpgroup's rows as A fragments, where they are kept in
+  // registers (QO_REGS)
+  uint32_t qf[C::QO_REGS ? DK / 16 : 1][4], of[C::QO_REGS ? DV / 16 : 1][4];
+  if constexpr (C::QO_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) ldsm_a_swizzled(qf[kk], sQ, W_BQ * 128, 64 * wg, kk);
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) ldsm_a_swizzled(of[kk], sO, W_BQ * 128, 64 * wg, kk);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % ST, kt = lo + i, kv0 = kt * BK;
+    const uint32_t sKt = sRing + s * C::Q_STAGE, sVt = sKt + C::KT_BYTES;
+    mbar_wait(bar_full(s), (i / ST) & 1);
+    if (qw >= Sq || kt < lo_w || kt >= hi_w) {   // no visible pair in this warpgroup's rows
+      mbar_arrive(bar_empty(s));
+      continue;
+    }
+    // S = Q K^T over DK / 16 steps of k16, then dP = dO V^T over DV / 16, two
+    // groups
+    float sc[NS], dp[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) sc[j] = dp[j] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t db = smem_desc(sKt + (kk / 4) * BK * 128 + off, 16, 1024);
+      if constexpr (C::QO_REGS) wgmma_rs_n64_kmajor(sc, qf[kk], db);
+      else
+        wgmma_ss<BK>(sc, smem_desc(sQ + (kk / 4) * W_BQ * 128 + wg * 64 * 128 + off, 16, 1024),
+                     db, kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t db = smem_desc(sVt + (kk / 4) * BK * 128 + off, 16, 1024);
+      if constexpr (C::QO_REGS) wgmma_rs_n64_kmajor(dp, of[kk], db);
+      else
+        wgmma_ss<BK>(dp, smem_desc(sO + (kk / 4) * W_BQ * 128 + wg * 64 * 128 + off, 16, 1024),
+                     db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // S is in
+
+    // P times its factor from S while dP runs: element j is q row r0 + 8
+    // ((j >> 1) & 1), kv column kv0 + 8 (j / 4) + c0 + (j & 1)
+    fence_regs(sc);
+    auto form_p = [&](auto edge) {   // the masks only where the tile meets an edge
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        const int e = (j >> 1) & 1, qp = r0 + 8 * e, kp = kv0 + 8 * (j / 4) + c0;
+        p_and_factor(sc[j], lse2[e], scale, scale2, softcap,
+                     !decltype(edge)::value || visible(qp, kp, Sq, Sk, causal, window), sc[j]);
+        p_and_factor(sc[j + 1], lse2[e], scale, scale2, softcap,
+                     !decltype(edge)::value || visible(qp, kp + 1, Sq, Sk, causal, window),
+                     sc[j + 1]);
+      }
+    };
+    if (inside(qw, 64, kv0, BK, Sq, Sk, causal, window)) form_p(std::false_type{});
+    else form_p(std::true_type{});
+    // dS, rounded to bf16 as A fragments
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[NS / 2];
+#pragma unroll
+    for (int j = 0; j < NS; j += 2) {
+      const int e = (j >> 1) & 1;
+      da[j / 2] = pack_bf16(sc[j] * (dp[j] - del[e]), sc[j + 1] * (dp[j + 1] - del[e]));
+    }
+
+    // dQ += dS K over the tile's BK kv rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3]};
+      wgmma_rs_wide<C::PK>(acc, a, sKt + kk * 16 * 128, BK * 128);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(da);
+    fence_regs(acc);
+    mbar_arrive(bar_empty(s));
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qp = r0 + 8 * e;
+    if (qp >= Sq) continue;
+    const long long row = (static_cast<long long>(b) * Sq + qp) * H + h;
+#pragma unroll
+    for (int p = 0; p < C::PK; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = p * PANEL_COLS + 8 * j + c0;
+        if (c < D)
+          *reinterpret_cast<uint32_t*>(dq + row * D + c) =
+              pack_bf16(acc[32 * p + 4 * j + 2 * e], acc[32 * p + 4 * j + 2 * e + 1]);
+      }
+  }
+}
+
 // ------------------------------------------------------------ fp32, CUDA cores
 // Shared floats of the fp32 kernels: the block's own tile and one step's
 // tile of the other side (q/k rows at D + 1, v/dO rows at Dv + 1), and two
@@ -803,6 +1340,7 @@ struct Args {
   float scale;
   int causal, window;
   float softcap;
+  int splits;   // partial slots a kv head (1: none)
   cudaStream_t stream;
 };
 
@@ -819,17 +1357,17 @@ cudaError_t launch_delta(const Args& a) {
   return cudaGetLastError();
 }
 
-// Under grouped heads, dK and dV from the q heads' partials.
+// dK and dV from the partials: g a kv head (g == 1: none), summed in order.
 template <typename T>
-cudaError_t launch_sum_heads(const Args& a) {
-  if (a.H == a.Hkv) return cudaSuccess;
+cudaError_t launch_sum_heads(const Args& a, int g) {
+  if (g == 1) return cudaSuccess;
   const long long rows = static_cast<long long>(a.B) * a.Sk * a.Hkv;
   for (int i = 0; i < 2; ++i) {   // dK, then dV
     const int dim = i ? a.Dv : a.D;
     const long long blocks = (rows * (dim / 4) + 255) / 256;
     fa_bwd_sum_heads_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, a.stream>>>(
         static_cast<const float*>(i ? a.part_v : a.part_k), static_cast<T*>(i ? a.dv : a.dk),
-        rows, a.H / a.Hkv, dim);
+        rows, g, dim);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -856,7 +1394,7 @@ cudaError_t launch_bf16(const Args& a) {
           static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.D, a.Dv,
           a.scale, a.causal, a.window, a.softcap);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_sum_heads<bf16>(a);
+  if (err == cudaSuccess) err = launch_sum_heads<bf16>(a, a.H / a.Hkv);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<DK, DV, EXACT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_Q);
@@ -872,6 +1410,53 @@ cudaError_t launch_bf16(const Args& a) {
 template <int DK, int DV>
 cudaError_t pick_bf16(const Args& a) {
   return a.D == DK && a.Dv == DV ? launch_bf16<DK, DV, true>(a) : launch_bf16<DK, DV, false>(a);
+}
+
+// The dQ kernel first (it also forms delta), then the dK / dV kernel and,
+// with splits > 1, the runs' sum.
+template <int DK, int DV>
+cudaError_t launch_sm90(const Args& a) {
+  using C = WCfg<DK, DV>;
+  const EncodeTiled enc = encoder();
+  if (!enc) return cudaErrorNotSupported;
+  const auto* lse = static_cast<const float*>(a.lse);
+  auto* delta = static_cast<float*>(a.delta);
+  // the dQ block's boxes: Q, dO and O of the block, K and V a step
+  CUtensorMap mq, mk, mv, mo, mout;
+  if (!make_map(enc, &mq, a.q, a.D, a.H, a.Sq, a.B, W_BQ) ||
+      !make_map(enc, &mk, a.k, a.D, a.Hkv, a.Sk, a.B, C::BK) ||
+      !make_map(enc, &mv, a.v, a.Dv, a.Hkv, a.Sk, a.B, C::BK) ||
+      !make_map(enc, &mo, a.dout, a.Dv, a.H, a.Sq, a.B, W_BQ) ||
+      !make_map(enc, &mout, a.out, a.Dv, a.H, a.Sq, a.B, W_BQ))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(fa_bwd_dq_bf16_sm90_kernel<DK, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_Q);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dq_bf16_sm90_kernel<DK, DV>
+      <<<dim3(a.H, a.B, (a.Sq + W_BQ - 1) / W_BQ), W_NT, C::SMEM_Q, a.stream>>>(
+          mq, mk, mv, mo, mout, lse, delta, static_cast<bf16*>(a.dq), a.Sq, a.Sk, a.H, a.Hkv,
+          a.D, a.scale, a.causal, a.window, a.softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the dK / dV block's boxes: Q and dO a step, K and V of the block
+  if (!make_map(enc, &mq, a.q, a.D, a.H, a.Sq, a.B, C::BQ) ||
+      !make_map(enc, &mk, a.k, a.D, a.Hkv, a.Sk, a.B, W_BKV) ||
+      !make_map(enc, &mv, a.v, a.Dv, a.Hkv, a.Sk, a.B, W_BKV) ||
+      !make_map(enc, &mo, a.dout, a.Dv, a.H, a.Sq, a.B, C::BQ))
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(fa_bwd_dkdv_bf16_sm90_kernel<DK, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_KV);
+  if (err != cudaSuccess) return err;
+  const bool parts = a.splits > 1;
+  fa_bwd_dkdv_bf16_sm90_kernel<DK, DV>
+      <<<dim3(a.Hkv * a.splits, a.B, (a.Sk + W_BKV - 1) / W_BKV), W_NT, C::SMEM_KV, a.stream>>>(
+          mq, mk, mv, mo, lse, delta, parts ? static_cast<float*>(a.part_k) : nullptr,
+          parts ? static_cast<float*>(a.part_v) : nullptr, static_cast<bf16*>(a.dk),
+          static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.D, a.Dv, a.splits, a.scale,
+          a.causal, a.window, a.softcap);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = launch_sum_heads<bf16>(a, a.splits);
+  return err;
 }
 
 template <int DP>
@@ -893,7 +1478,7 @@ cudaError_t launch_fp32(const Args& a) {
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.Sq, a.Sk, a.H, a.Hkv, a.D, a.Dv,
       a.scale, a.causal, a.window, a.softcap);
   err = cudaGetLastError();
-  if (err == cudaSuccess) err = launch_sum_heads<float>(a);
+  if (err == cudaSuccess) err = launch_sum_heads<float>(a, a.H / a.Hkv);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(fa_bwd_dq_fp32_kernel<DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -904,10 +1489,13 @@ cudaError_t launch_fp32(const Args& a) {
   return cudaGetLastError();
 }
 
-cudaError_t validate(const Args& a, int align) {
+// ``grouped``: the partial slots a kv head the instance takes, when it takes
+// a fixed number (g: one a q head; 0: any divisor of g).
+cudaError_t validate(const Args& a, int align, int grouped) {
   if (a.D % 16 || a.Dv % 16 || a.D <= 0 || a.Dv <= 0 || a.D > 256 || a.Dv > 256 ||
-      a.Hkv <= 0 || a.H % a.Hkv || a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 ||
-      (a.H != a.Hkv && !(a.part_k && a.part_v)))
+      a.Hkv <= 0 || a.H % a.Hkv || a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.splits <= 0 ||
+      (a.H / a.Hkv) % a.splits || (grouped && a.splits != grouped) ||
+      (a.splits > 1 && !(a.part_k && a.part_v)))
     return cudaErrorInvalidValue;
   for (const void* p : {static_cast<const void*>(a.part_k), static_cast<const void*>(a.part_v)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
@@ -919,36 +1507,55 @@ cudaError_t validate(const Args& a, int align) {
   return cudaSuccess;
 }
 
+// The bf16 instance of D and Dv, chosen by width alone: wgmma at the main
+// paths' widths, the mma.sync instances at the others.
+enum class Bf16Instance { MMA64, SM90_128, SM90_192, MMA256 };
+
+Bf16Instance bf16_instance(int D, int Dv) {
+  return D <= 64 && Dv <= 64     ? Bf16Instance::MMA64
+         : D <= 128 && Dv <= 128 ? Bf16Instance::SM90_128
+         : D <= 192 && Dv <= 128 ? Bf16Instance::SM90_192
+                                 : Bf16Instance::MMA256;
+}
+
 }  // namespace
 
 // q, k, v, out, dout, lse, delta (scratch, fp32 (B, H, Sq)), part_k and part_v
-// (scratch, fp32 (B, Sk, H, D) and (B, Sk, H, Dv); null where H == Hkv), dq,
-// dk, dv, B, Sq, Sk, H, Hkv, D, Dv, scale, causal, window (0: none), softcap
-// (0: none), stream
+// (scratch, fp32 (B, Sk, Hkv, splits, D) and (..., Dv); null where splits is
+// 1), dq, dk, dv, B, Sq, Sk, H, Hkv, D, Dv, splits (the partial slots a kv
+// head: at the wgmma instances any divisor of H / Hkv, otherwise H / Hkv),
+// scale, causal, window (0: none), softcap (0: none), stream
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* out,
                                    const void* dout, const void* lse, void* delta, void* part_k,
                                    void* part_v, void* dq, void* dk, void* dv, int B, int Sq,
-                                   int Sk, int H, int Hkv, int D, int Dv, float scale, int causal,
-                                   int window, float softcap, void* stream) {
+                                   int Sk, int H, int Hkv, int D, int Dv, int splits,
+                                   float scale, int causal, int window, float softcap,
+                                   void* stream) {
   const Args a{q, k, v, out, dout, lse, delta, part_k, part_v, dq, dk, dv, B, Sq, Sk, H, Hkv,
-               D, Dv, scale, causal, window, softcap, static_cast<cudaStream_t>(stream)};
-  cudaError_t err = validate(a, 16);
+               D, Dv, scale, causal, window, softcap, splits,
+               static_cast<cudaStream_t>(stream)};
+  const Bf16Instance inst = bf16_instance(D, Dv);
+  const bool sm90 = inst == Bf16Instance::SM90_128 || inst == Bf16Instance::SM90_192;
+  cudaError_t err = validate(a, 16, sm90 || Hkv <= 0 ? 0 : H / Hkv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = D <= 64 && Dv <= 64     ? pick_bf16<64, 64>(a)
-        : D <= 128 && Dv <= 128 ? pick_bf16<128, 128>(a)
-        : D <= 192 && Dv <= 128 ? pick_bf16<192, 128>(a)
-                                : pick_bf16<256, 256>(a);
+  switch (inst) {
+    case Bf16Instance::MMA64: err = pick_bf16<64, 64>(a); break;
+    case Bf16Instance::SM90_128: err = launch_sm90<128, 128>(a); break;
+    case Bf16Instance::SM90_192: err = launch_sm90<192, 128>(a); break;
+    default: err = pick_bf16<256, 256>(a);
+  }
   return static_cast<int>(err);
 }
 
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* out,
                               const void* dout, const void* lse, void* delta, void* part_k,
                               void* part_v, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                              int H, int Hkv, int D, int Dv, float scale, int causal, int window,
-                              float softcap, void* stream) {
+                              int H, int Hkv, int D, int Dv, int splits, float scale, int causal,
+                              int window, float softcap, void* stream) {
   const Args a{q, k, v, out, dout, lse, delta, part_k, part_v, dq, dk, dv, B, Sq, Sk, H, Hkv,
-               D, Dv, scale, causal, window, softcap, static_cast<cudaStream_t>(stream)};
-  cudaError_t err = validate(a, 4);
+               D, Dv, scale, causal, window, softcap, splits,
+               static_cast<cudaStream_t>(stream)};
+  cudaError_t err = validate(a, 4, Hkv <= 0 ? 0 : H / Hkv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int dp = D > Dv ? D : Dv;
   err = dp <= 64 ? launch_fp32<64>(a) : dp <= 128 ? launch_fp32<128>(a) : launch_fp32<256>(a);

@@ -16,12 +16,14 @@ CUDA-core kernel (``csrc/flash_attention.cu``).  ``launches_sm90`` and
 
 The backward is the VJP the JAX package computes in plain jnp
 (``_make_flash.bwd``: the blocked backward fed the forward's ``lse``).  On
-the card it is hand-written too (``csrc/flash_attention_bwd.cu``: a row-sum
-pre-pass, then a dK/dV kernel a q head, under grouped heads the sum of a
-group's partials in head order, and a dQ kernel; no atomics), bf16 on the
-tensor cores and fp32 in exact FMAs, counted by ``launches_bwd_bf16`` and
-``launches_bwd_fp32``; on the CPU its plain version ``flash_bwd_plain`` runs
-(``ref._blocked_bwd``).
+the card it is hand-written too (``csrc/flash_attention_bwd.cu``: a dK/dV
+kernel and a dQ kernel, the row sums of dO O formed by the dQ kernel or a
+pre-pass; no atomics), bf16 on the tensor cores (wgmma + TMA at the main
+paths' widths, mma.sync at the others) and
+fp32 in exact FMAs, counted by ``launches_bwd_bf16`` and
+``launches_bwd_fp32``; ``bwd_plan`` names its tiles, how a kv head's group
+of q heads splits over blocks and the fp32 scratch that takes.  On the CPU
+its plain version ``flash_bwd_plain`` runs (``ref._blocked_bwd``).
 
 A tensor on the meta device (the dry run) gets empty outputs, and the
 kernel's work (``cost``) goes to the op-cost walk (``kernels/walk.py``), as a
@@ -29,6 +31,7 @@ launch on the card reports it while a walk is active.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 from typing import Optional, Tuple
@@ -40,6 +43,11 @@ from . import build, ref, walk
 
 NEG_INF = ref.NEG_INF
 BWD_BLOCK = 512  # block_q = block_kv of the plain backward (JAX default)
+# the dK/dV blocks a batch row that the wgmma backward's split of a kv head's
+# group aims at (a quarter of the card's 132 SMs): more runs fill the card at
+# small batches, and each run past the first adds an fp32 partial's round
+# trip at large ones
+SPLIT_BLOCKS = 32
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
 # kernel launches in this process (plain-version calls excluded)
@@ -236,17 +244,81 @@ def _check_bwd(q, k, v, out, lse, dout, window, softcap) -> None:
                          f"want {(B, H, Sq)} float32")
 
 
-def _empty_grads(q, k, v):
-    """dq, dk, dv and the launch's fp32 scratch: the row sums (B, H, Sq) and,
-    under grouped heads, each q head's partial dk and dv (B, Sk, H, D / Dv),
-    which the kernel sums over the group in head order."""
-    B, Sq, H, D = q.shape
-    _, Sk, Hkv, Dv = v.shape
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How a backward launch tiles its work: which kernels (``wgmma``,
+    ``mma.sync`` or ``fp32``) at which instance (the widths D and Dv run
+    at), the kv rows of a dK/dV block and the q rows of each of its steps,
+    the q rows of a dQ block and the kv rows of each of its steps, and
+    ``splits``: the runs a kv head's q heads split into, a dK/dV block each,
+    each run (where there are several) writing an fp32 partial that the
+    launch sums in run order."""
+    kernels: str
+    instance: Tuple[int, int]
+    kv_rows: int
+    q_step: int
+    q_rows: int
+    kv_step: int
+    splits: int
+    heads: Tuple[int, int]      # (H, Hkv)
+    lengths: Tuple[int, int]    # (Sq, Sk)
+    widths: Tuple[int, int]     # (D, Dv)
+
+    def scratch(self, B: int) -> list:
+        """The launch's fp32 scratch at batch ``B``: the row sums (B, H,
+        Sq), then with splits > 1 the partial dk and dv (B, Sk, Hkv *
+        splits, D / Dv)."""
+        (H, Hkv), (Sq, Sk), (D, Dv) = self.heads, self.lengths, self.widths
+        out = [(B, H, Sq)]
+        if self.splits > 1:
+            out += [(B, Sk, Hkv * self.splits, D), (B, Sk, Hkv * self.splits, Dv)]
+        return out
+
+
+def bwd_plan(H: int, Hkv: int, Sq: int, Sk: int, D: int, Dv: int, causal: bool,
+             window: Optional[int], dtype: torch.dtype) -> BwdPlan:
+    """The backward's plan (``csrc/flash_attention_bwd.cu`` follows it): a
+    function of the heads, lengths, widths, masks and dtype, never of the
+    batch's extent, so a lane's bits are its own rows' alone.  bf16 at D,
+    Dv <= 128 past 64 and at D <= 192, Dv <= 128 runs the wgmma kernels: a
+    kv head's g q heads split into the fewest runs (a divisor of g) that give
+    ``SPLIT_BLOCKS`` dK/dV blocks a batch row.  The other bf16 widths run
+    the mma.sync kernels and fp32 the CUDA-core ones, both with a partial a
+    q head under grouped heads.  ``causal`` and ``window`` shape no choice
+    today."""
+    del causal, window
+    g = H // Hkv
+    common = dict(heads=(H, Hkv), lengths=(Sq, Sk), widths=(D, Dv))
+    per_head = g if g > 1 else 1
+    if dtype == torch.float32:
+        dp = 64 if max(D, Dv) <= 64 else 128 if max(D, Dv) <= 128 else 256
+        return BwdPlan("fp32", (dp, dp), 32, 32, 32, 32, per_head, **common)
+    if D <= 64 and Dv <= 64 or D > 192 or Dv > 128:
+        dk, dv = (64, 64) if D <= 64 and Dv <= 64 else (256, 256)
+        return BwdPlan("mma.sync", (dk, dv), 64, 64 if dk + dv <= 128 else 32, 64,
+                       64 if dk <= 128 else 32, per_head, **common)
+    dk = 128 if D <= 128 else 192
+    kv_rows = 128
+    per_row = Hkv * -(-Sk // kv_rows)
+    splits = next((s for s in range(1, g + 1) if g % s == 0 and per_row * s >= SPLIT_BLOCKS), g)
+    return BwdPlan("wgmma", (dk, 128), kv_rows, 64 if dk + 128 <= 256 else 32, 128, 64,
+                   splits, **common)
+
+
+def _empty_grads(q, k, v, plan: BwdPlan):
+    """dq, dk, dv and the launch's fp32 scratch (``plan.scratch``): the row
+    sums (B, H, Sq) and the partial dk and dv, or None where the plan writes
+    none."""
     f32 = dict(dtype=torch.float32, device=q.device)
-    parts = ((torch.empty((B, Sk, H, D), **f32), torch.empty((B, Sk, H, Dv), **f32))
-             if H != Hkv else (None, None))
-    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
-            torch.empty((B, H, Sq), **f32)) + parts
+    scratch = [torch.empty(s, **f32) for s in plan.scratch(q.shape[0])]
+    parts = tuple(scratch[1:]) or (None, None)
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), scratch[0]) + parts
+
+
+def _plan_of(q, v, causal, window) -> BwdPlan:
+    _, Sq, H, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    return bwd_plan(H, Hkv, Sq, Sk, D, Dv, causal, window, q.dtype)
 
 
 def flash_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool, window: Optional[int],
@@ -264,7 +336,8 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool, window: Optional[in
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention backward: q, k, v, out, lse, dout must be "
                          "contiguous")
-    dq, dk, dv, delta, part_k, part_v = _empty_grads(q, k, v)
+    plan = _plan_of(q, v, causal, window)
+    dq, dk, dv, delta, part_k, part_v = _empty_grads(q, k, v, plan)
     B, Sq, H, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     if dq.numel() == 0 or dk.numel() == 0:
@@ -274,7 +347,7 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool, window: Optional[in
     err = getattr(build.library(), name)(
         *(0 if t is None else t.data_ptr()
           for t in (q, k, v, out, dout, lse, delta, part_k, part_v, dq, dk, dv)),
-        B, Sq, Sk, H, Hkv, D, Dv, float(scale), int(bool(causal)), int(window or 0),
+        B, Sq, Sk, H, Hkv, D, Dv, plan.splits, float(scale), int(bool(causal)), int(window or 0),
         float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     with _count_lock:
@@ -290,12 +363,12 @@ def flash_bwd_meta(q, k, v, out, lse, dout, *, causal: bool, window: Optional[in
                    softcap: Optional[float], scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward on the meta device: the buffers the card's launch takes
-    (the grads, the row sums and any partials), empty, and the kernel's cost
+    (the grads and the plan's scratch), empty, and the kernel's cost
     recorded."""
     _check_bwd(q, k, v, out, lse, dout, window, softcap)
     if not all(t.is_meta for t in (q, k, v, out, lse, dout)):
         raise ValueError("flash_attention backward: inputs must lie on the meta device")
-    dq, dk, dv = _empty_grads(q, k, v)[:3]
+    dq, dk, dv = _empty_grads(q, k, v, _plan_of(q, v, causal, window))[:3]
     _record(q, k, v, causal, window, backward=True)
     return dq, dk, dv
 

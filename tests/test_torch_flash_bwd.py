@@ -3,19 +3,25 @@
 On the CPU: the plain backward (``flash_bwd_plain``, the version a CPU tensor
 takes) against ``jax.vjp`` through the JAX package's flash attention in
 interpret mode, fp32 at 5e-5; a PyTorch model of the bf16 backward kernels'
-arithmetic (``csrc/flash_attention_bwd.cu``: their tiles, P and dS rounded to
-bf16 before the products that take them) against JAX's VJP on the same bf16
-inputs at 3e-2; the cost the kernel reports; the meta and CPU wrappers,
-which launch nothing.  On an NVIDIA GPU (marker ``cuda``): each dtype's
-backward kernel against the plain version fed the same (out, lse), its bits
-run to run, lane to lane and whatever the batch beside a row, graph capture,
-and training through it with the plain backward refused.
+arithmetic (``csrc/flash_attention_bwd.cu``: the tiles of ``bwd_plan``, P
+and dS rounded to bf16 before the products that take them, grouped heads
+summed in fp32 by run) against JAX's VJP on the same bf16 inputs at 3e-2;
+the plan (independent of the batch, its scratch under a quarter of a
+partial a q head at the main shape, the meta wrapper allocating exactly
+it); the cost the kernel reports; the meta and CPU wrappers, which launch
+nothing.  On an NVIDIA GPU (marker ``cuda``): each dtype's backward kernel
+against the plain version fed the same (out, lse), its bits run to run,
+lane to lane and whatever the batch beside a row (at each wgmma instance
+too), graph capture, and training through it with the plain backward
+refused.
 
 JAX is imported inside the parity tests so that the card-only cases also run
 where JAX is not installed:
 ``python -m pytest tests/test_torch_flash_bwd.py -m cuda``.
 """
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -78,28 +84,23 @@ def test_flash_bwd_plain_matches_jax_vjp(B, Sq, H, Hkv, D, causal, window, softc
         np.testing.assert_allclose(g.numpy(), w, atol=5e-5, rtol=5e-5)
 
 
-def _bf16_instance(D, Dv):
-    """(q rows a step of the dK/dV block, kv rows a step of the dQ block) of
-    the instance ``csrc/flash_attention_bwd.cu`` picks for D and Dv."""
-    dk, dv = ((64, 64) if D <= 64 and Dv <= 64 else (128, 128) if D <= 128 and Dv <= 128
-              else (192, 128) if D <= 192 and Dv <= 128 else (256, 256))
-    return (64 if dk + dv <= 128 else 32), (64 if dk <= 128 else 32)
-
-
 def _bf16_bwd_model(q, k, v, out, lse, dout, *, causal, window, softcap, scale):
     """The bf16 backward kernels' arithmetic in PyTorch: delta = rowsum(dO O)
     in fp32; fp32 S and dP from bf16 operands; the scale on the fp32 scores,
     the softcap's tanh and its derivative, P = exp2(S log2 e - lse log2 e)
     masked (0 on rows whose lse is NEG_INF); dS = P (dP - delta) (1 - tanh^2)
-    scale.  Each q head's partial dK and dV summed in fp32 over q tiles of
-    the instance's step in order, from P and dS rounded to bf16, and the
-    partials of a kv head's group summed in head order; dQ summed over kv
-    tiles of the dQ block's step from dS rounded to bf16.  Returns (dq, dk,
-    dv) in bf16."""
+    scale (at the wgmma instances (P (1 - tanh^2) scale) (dP - delta), the
+    factor taken before dP arrives).  dK and dV from P and dS rounded to
+    bf16, summed in fp32 over a
+    run of a kv head's q heads in head order, each head's q tiles of the
+    plan's step in order (one q head a run at the mma.sync instances), and
+    the runs' sums added in run order; dQ summed over kv tiles of the dQ block's step from dS
+    rounded to bf16.  Returns (dq, dk, dv) in bf16."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, Dv = v.shape
     g = H // Hkv
-    bq, bk = _bf16_instance(D, Dv)
+    plan = fa.bwd_plan(H, Hkv, Sq, Sk, D, Dv, causal, window, torch.bfloat16)
+    bq, bk, per = plan.q_step, plan.kv_step, g // plan.splits
     log2e = 1.0 / math.log(2.0)
     qf = q.float().reshape(B, Sq, Hkv, g, D)
     do = dout.float().reshape(B, Sq, Hkv, g, Dv)
@@ -120,16 +121,20 @@ def _bf16_bwd_model(q, k, v, out, lse, dout, *, causal, window, softcap, scale):
         mask &= k_pos > q_pos - window
     p = torch.where(mask, torch.exp2(x * log2e - lse2[..., None]), 0.0)
     dp = torch.einsum("bqngd,bknd->bngqk", do, vf)
-    ds = p * (dp - delta[..., None]) * fac
+    if plan.kernels == "wgmma":   # P and its factor are formed before dP arrives
+        ds = (p * fac) * (dp - delta[..., None])
+    else:
+        ds = p * (dp - delta[..., None]) * fac
     pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
     dk = dv = 0.0
-    for j in range(g):     # each q head's partial, then the partials in head order
+    for r in range(plan.splits):   # each run's sum, then the runs in order
         pk = torch.zeros((B, Sk, Hkv, D))
         pv = torch.zeros((B, Sk, Hkv, Dv))
-        for q0 in range(0, Sq, bq):
-            sl = slice(q0, q0 + bq)
-            pv = pv + torch.einsum("bnqk,bqnd->bknd", pb[:, :, j, sl], do[:, sl, :, j])
-            pk = pk + torch.einsum("bnqk,bqnd->bknd", dsb[:, :, j, sl], qf[:, sl, :, j])
+        for j in range(r * per, (r + 1) * per):
+            for q0 in range(0, Sq, bq):
+                sl = slice(q0, q0 + bq)
+                pv = pv + torch.einsum("bnqk,bqnd->bknd", pb[:, :, j, sl], do[:, sl, :, j])
+                pk = pk + torch.einsum("bnqk,bqnd->bknd", dsb[:, :, j, sl], qf[:, sl, :, j])
         dk, dv = dk + pk, dv + pv
     dq = torch.zeros((B, Sq, Hkv, g, D))
     for k0 in range(0, Sk, bk):
@@ -161,6 +166,96 @@ def test_bf16_bwd_rounding_model_matches_jax_vjp(B, Sq, H, Hkv, D, causal, windo
         w = torch.from_numpy(w)
         record_property(f"max_abs_err_{name}", float((g.float() - w).abs().max()))
         torch.testing.assert_close(g.float(), w, atol=3e-2, rtol=3e-2)
+
+
+def _smoke_bwd_cases():
+    """``chip_smoke.py``'s ``FLASH_BWD_CASES`` (the script imports nothing
+    at load time but the standard library)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FLASH_BWD_CASES
+
+
+def test_bwd_plan_is_the_same_at_every_batch():
+    """At each of ``chip_smoke.py``'s backward cases the plan (kernels,
+    instance, tiles, the split of a kv head's q heads) the wrapper takes for
+    its tensors is the same at B = 1, 2, 4 and 16; only the scratch's batch
+    dimension follows B."""
+    for case, dname, qs, kvs, dv, kw in _smoke_bwd_cases():
+        causal, window = kw.get("causal", True), kw.get("window")
+        plans = []
+        for B in (1, 2, 4, 16):
+            q = torch.empty((B,) + tuple(qs[1:]), device="meta", dtype=getattr(torch, dname))
+            v = torch.empty((B,) + tuple(kvs[1:3]) + (dv or kvs[3],), device="meta")
+            plan = fa._plan_of(q, v, causal, window)
+            assert [s[0] for s in plan.scratch(B)] == [B] * len(plan.scratch(B)), case
+            assert [s[1:] for s in plan.scratch(B)] == [s[1:] for s in plan.scratch(1)], case
+            plans.append(plan)
+        assert all(p == plans[0] for p in plans), case
+        want = ("fp32" if dname == "float32" else "wgmma"
+                if 64 < max(qs[3], dv or kvs[3]) and qs[3] <= 192 and (dv or kvs[3]) <= 128
+                else "mma.sync")
+        assert plans[0].kernels == want, case
+
+
+def test_bwd_plan_scratch_at_the_main_shape():
+    """At starcoder2's main shape, q (16, 1024, 24, 128) over 2 kv heads,
+    the wgmma backward splits each kv head's 12 q heads into 2 runs of 6 (32
+    dK/dV blocks a batch row), and its fp32 partials take 67,108,864 B, a
+    sixth of the 402,653,184 B of a partial a q head (the layout the
+    mma.sync instances keep)."""
+    plan = fa.bwd_plan(24, 2, 1024, 1024, 128, 128, True, None, torch.bfloat16)
+    assert (plan.kernels, plan.instance, plan.splits) == ("wgmma", (128, 128), 2)
+    assert (plan.kv_rows, plan.q_step, plan.q_rows, plan.kv_step) == (128, 64, 128, 64)
+    per_head = 16 * 1024 * 24 * (128 + 128) * 4
+    assert per_head == 402_653_184
+    parts = sum(4 * math.prod(s) for s in plan.scratch(16)[1:])
+    assert parts == 67_108_864 and parts <= per_head / 4
+    assert 2 * -(-1024 // plan.kv_rows) * plan.splits == fa.SPLIT_BLOCKS
+    # a partial a q head at the mma.sync instances, none without grouped heads
+    mma = fa.bwd_plan(24, 2, 1024, 1024, 64, 64, True, None, torch.bfloat16)
+    assert mma.splits == 12 and mma.scratch(16)[1] == (16, 1024, 24, 64)
+    mla = fa.bwd_plan(16, 16, 1024, 1024, 192, 128, True, None, torch.bfloat16)
+    assert (mla.instance, mla.q_step, mla.scratch(4)) == ((192, 128), 32, [(4, 16, 1024)])
+
+
+@pytest.mark.parametrize("shapes,dtype", [
+    (((16, 1024, 24, 128), (16, 1024, 2, 128), (16, 1024, 2, 128)), torch.bfloat16),
+    (((4, 1024, 32, 128), (4, 1024, 4, 128), (4, 1024, 4, 128)), torch.bfloat16),
+    (((4, 1024, 16, 192), (4, 1024, 16, 192), (4, 1024, 16, 128)), torch.bfloat16),
+    (((2, 300, 8, 256), (2, 300, 4, 256), (2, 300, 4, 256)), torch.bfloat16),
+    (((4, 512, 24, 128), (4, 512, 2, 128), (4, 512, 2, 128)), torch.float32),
+], ids=["main", "moe", "mla", "mma-d256", "fp32"])
+def test_meta_backward_allocates_the_plans_scratch(shapes, dtype):
+    """``flash_bwd_meta`` allocates dq, dk, dv and exactly the plan's
+    scratch, as the card's launch does (the dry run's temporaries)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Empties(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.__name__.startswith("empty"):
+                self.shapes.append((tuple(out.shape), out.dtype))
+            return out
+
+    q, k, v = (torch.empty(s, device="meta", dtype=dtype) for s in shapes)
+    B, Sq, H, D = shapes[0]
+    out, dout = (torch.empty((B, Sq, H, shapes[2][3]), device="meta", dtype=dtype)
+                 for _ in range(2))
+    lse = torch.empty((B, H, Sq), device="meta")
+    with Empties() as seen:
+        fa.flash_bwd_meta(q, k, v, out, lse, dout, causal=True, window=None, softcap=None,
+                          scale=0.1)
+    plan = fa.bwd_plan(H, shapes[1][2], Sq, shapes[1][1], D, shapes[2][3], True, None, dtype)
+    want = [(tuple(t.shape), dtype) for t in (q, k, v)] + \
+        [(s, torch.float32) for s in plan.scratch(B)]
+    assert sorted(seen.shapes, key=str) == sorted(want, key=str)
 
 
 def test_bwd_cost_is_the_five_products_over_the_visible_pairs():
@@ -288,6 +383,10 @@ def _inputs(dev, B, Sq, H, Hkv, D, Sk, Dv, dtype, causal, window, softcap, seed=
     (1, 200, 4, 2, 64, True, 32, None, 130, torch.bfloat16, None),       # dead rows
     (1, 130, 2, 1, 48, False, None, None, 77, torch.bfloat16, 240),
     (1, 150, 4, 2, 176, True, None, None, None, torch.bfloat16, 112),   # <192, 128> at 176
+    (2, 1024, 32, 4, 128, True, None, None, None, torch.bfloat16, None),  # one run of 8 heads
+    (1, 200, 4, 2, 128, True, 32, 30.0, 130, torch.bfloat16, None),     # wgmma, dead rows
+    (1, 300, 8, 2, 192, True, 64, 30.0, 250, torch.bfloat16, 128),      # <192, 128>, masks
+    (1, 130, 12, 1, 64, True, None, None, None, torch.bfloat16, 128),   # zero-filled D 64
     (2, 256, 6, 2, 128, True, None, None, None, torch.float32, None),
     (1, 200, 4, 2, 16, True, 64, 30.0, None, torch.float32, None),
     (1, 300, 4, 2, 256, True, 96, 50.0, 200, torch.float32, None),
@@ -334,6 +433,47 @@ def test_flash_bwd_bits_runs_lanes_and_halves(cuda, dtype):
     torch.cuda.synchronize()
     for i, w in enumerate(whole):
         assert torch.equal(w, torch.cat([p[i] for p in parts]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,causal,window,Dv", [
+    (4, 384, 24, 2, 128, True, None, None),    # <128, 128>, runs of 2 heads with partials
+    (4, 1024, 32, 4, 128, True, None, None),   # <128, 128>, one run of 8 heads
+    (4, 300, 16, 16, 192, True, 64, 128),      # <192, 128>, MLA's widths
+    (4, 300, 16, 16, 80, False, None, None),   # <128, 128> zero-filled, hubert's
+], ids=["d128-runs", "d128-one-run", "mla-d192-dv128", "hubert-d80"])
+def test_flash_bwd_wgmma_instances_bits_and_graph(cuda, B, Sq, H, Hkv, D, causal, window, Dv):
+    """Each wgmma instance (``bwd_plan``'s ``kernels == "wgmma"``) gives the
+    same bits over two runs, in four identical batch rows, in a batch's
+    halves launched apart, and replayed from a CUDA graph."""
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    assert fa._plan_of(torch.empty(B, Sq, H, D, **meta), torch.empty(B, Sq, Hkv, Dv or D, **meta),
+                       causal, window).kernels == "wgmma"
+    one, kw = _inputs(cuda, 1, Sq, H, Hkv, D, None, Dv, torch.bfloat16, causal, window, None)
+    lanes = [t.expand(B, *t.shape[1:]).contiguous() for t in one]
+    first, again = fa.flash_bwd_cuda(*lanes, **kw), fa.flash_bwd_cuda(*lanes, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(g[i], g[0]) for g in first for i in range(1, B))
+    ins, kw = _inputs(cuda, B, Sq, H, Hkv, D, None, Dv, torch.bfloat16, causal, window, None,
+                      seed=1)
+    whole = fa.flash_bwd_cuda(*ins, **kw)
+    parts = [fa.flash_bwd_cuda(*(t[a:b].contiguous() for t in ins), **kw)
+             for a, b in ((0, B // 2), (B // 2, B))]
+    torch.cuda.synchronize()
+    for i, w in enumerate(whole):
+        assert torch.equal(w, torch.cat([p[i] for p in parts]))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fa.flash_bwd_cuda(*ins, **kw)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = fa.flash_bwd_cuda(*ins, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(whole, captured))
 
 
 @pytest.mark.cuda

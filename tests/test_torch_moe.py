@@ -15,6 +15,7 @@ run twice and in either lane.
 """
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -39,6 +40,7 @@ except ModuleNotFoundError:
 from repro_torch import interop
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ParallelConfig, TrainConfig
+from repro_torch.core.experiment import Experiment
 from repro_torch.launch import hpo
 from repro_torch.models import moe as M
 from repro_torch.optim.hparams import hparams_from_dict, stack_hparams
@@ -335,17 +337,42 @@ def test_cli_matches_jax_cli(monkeypatch, capsys):
     np.testing.assert_allclose(got["best_score"], want["best_score"], atol=1e-4, rtol=1e-4)
 
 
-def test_cli_chunked_equals_per_step_bitwise(capsys):
-    """Inside the port ``--chunk-steps 4`` and ``1`` give the same best score
-    bit for bit on qwen3-moe, with fewer dispatches chunked."""
-    argv = BASE[:3] + ["4"] + BASE[4:] + ["--device", "cpu"]
-    per_step = _run(hpo.main, argv + ["--chunk-steps", "1"], capsys)
-    chunked = _run(hpo.main, argv + ["--chunk-steps", "4"], capsys)
+# every sample of the run in one flight: the vectorized manager flushes a
+# partial population when a slot comes back with jobs buffered, so with
+# fewer lanes than samples the flights' fill follows the timing of the
+# flight worker's reports (the JAX package's manager does the same)
+ONE_FLIGHT = BASE[:3] + ["4"] + BASE[4:-1] + ["4", "--device", "cpu"]
+
+
+def _chunked_against_per_step(capsys):
+    per_step = _run(hpo.main, ONE_FLIGHT + ["--chunk-steps", "1"], capsys)
+    chunked = _run(hpo.main, ONE_FLIGHT + ["--chunk-steps", "4"], capsys)
     assert chunked["engine"] == "vmapped+chunked"
     assert chunked["best_score"] == per_step["best_score"]
     assert chunked["best_config"] == per_step["best_config"]
     assert chunked["trained_steps"] == per_step["trained_steps"]
     assert chunked["device_dispatches"] < per_step["device_dispatches"]
+
+
+def test_cli_chunked_equals_per_step_bitwise(capsys):
+    """Inside the port ``--chunk-steps 4`` and ``1`` give the same best score
+    bit for bit on qwen3-moe, with fewer dispatches chunked (4 samples on 4
+    lanes: one flight each, whatever the host's load)."""
+    _chunked_against_per_step(capsys)
+
+
+def test_cli_chunked_equals_per_step_when_jobs_report_late(monkeypatch, capsys):
+    """The same comparison with every flight's odd jobs reported 0.3 s late,
+    as a loaded host may order them: the one flight's fill does not move."""
+    report = Experiment._on_job_done
+
+    def late(self, job):
+        if job.job_id % 2:
+            time.sleep(0.3)
+        report(self, job)
+
+    monkeypatch.setattr(Experiment, "_on_job_done", late)
+    _chunked_against_per_step(capsys)
 
 
 # -------------------------------------------------------------------- on the card
